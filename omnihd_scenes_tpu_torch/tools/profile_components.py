@@ -1,0 +1,188 @@
+"""Per-stage latency profile of the serving path on one GPU.
+
+    python -m omnihd_scenes_tpu_torch.tools.profile_components \
+        [--batch 4] [--requests 3] [--out profiles/profile_components.txt]
+
+Builds ``Predictor`` at the serving configuration (bf16, channels_last,
+seeded random weights) and serves one warm-up and ``--requests`` timed
+requests of fresh inputs through :func:`staged_call`, which runs the ops
+of ``Predictor.__call__`` in the same order with a CUDA event between
+stages (a CPU test holds it equal to ``Predictor``).  Then one more
+request runs under ``torch.profiler``: its wall time, device kernel
+time, busy share (kernel time / wall), peak allocated memory and the
+device kernels that took the most time.
+
+The report is printed and written to ``--out``; a relative path is taken
+from the root of the checkout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from omnihd_scenes_tpu_torch.config import serving_config
+from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample
+from omnihd_scenes_tpu_torch.models.anchor_head import (
+    anchor_head_decode_candidates)
+from omnihd_scenes_tpu_torch.models.lss import _nhwc
+from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, sample_fields
+from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
+from omnihd_scenes_tpu_torch.serve.predictor import Predictor, _as_tensor
+from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                     random_state_dict)
+
+CHECKOUT = Path(__file__).resolve().parents[2]
+N_TOP_KERNELS = 25
+
+
+@torch.inference_mode()
+def staged_call(predictor: Predictor, request, mark):
+    """``predictor(*request)`` with ``mark(stage_name)`` called after each
+    stage; the serving configuration only (DepthNet, concat fusion)."""
+    m, dev = predictor.model, predictor.device
+    lss = m.cfg.lss
+    if not m.lss.use_depthnet:
+        raise NotImplementedError('staged_call follows the DepthNet path')
+    points, points_mask, imgs, rots, trans = request
+    points = _as_tensor(points, dev, torch.float32)
+    points_mask = _as_tensor(points_mask, dev, torch.bool)
+    imgs = _as_tensor(imgs, dev, predictor.dtype)
+    rots = _as_tensor(rots, dev, torch.float32)
+    trans = _as_tensor(trans, dev, torch.float32)
+    mark('inputs to the device')
+
+    pts_bev = m.pillar_encoder(points, points_mask)
+    mark('radar: dense pillars')
+    pts_bev = m.second_fpn(m.second(pts_bev))
+    mark('radar: SECOND + FPN')
+
+    b, n = imgs.shape[:2]
+    flat = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)
+    feat = m.resnet(flat.to(m.fuse.conv.weight.dtype))
+    mark('camera: ResNet50')
+    feat = m.fpnc(feat)
+    mark('camera: FPNC')
+    ctx, depth, _ = m.lss.depthnet(feat)
+    mark('camera: DepthNet + ASPP')
+    ctx, depth = _nhwc(ctx, b, n), _nhwc(depth, b, n)
+    mark('LSS: NHWC copies')
+    nx, ny, nz = lss.bev_nx
+    g = _Geom(lss.final_dim, depth.shape[2:4], lss.camera_depth_range,
+              lss.pc_range[:3], (lss.grid,) * 3, (nx, ny, nz))
+    solve_x = (lss.cam_solve_x + (True,) * n)[:n]
+    fields = sample_fields(rots, trans, g, solve_x)
+    mark('LSS: index fields')
+    vox = lss_sample(ctx, depth, *fields, solve_x=solve_x, ny=ny, nx=nx)
+    mark('LSS: lss_sample kernel')
+    cam_bev = m.lss.bev_encoder(
+        vox.reshape(b, ny, nx, nz * lss.camC).permute(0, 3, 1, 2))
+    mark('LSS: BEV encoder')
+
+    fused = m.fuse(torch.cat([cam_bev, pts_bev], dim=1))
+    if m.se is not None:
+        fused = m.se(fused)
+    heads = m.head(fused)
+    mark('fusion + SE + head')
+    dc = predictor.decode_cfg
+    boxes, scores = anchor_head_decode_candidates(
+        *(t.permute(0, 2, 3, 1).float() for t in heads), predictor.anchors,
+        dc)
+    mark('decode: top-k + boxes')
+    out = multiclass_nms_rotated(boxes, scores, dc.score_thr, dc.nms_thr,
+                                 dc.max_num)
+    mark('decode: rotated IoU + NMS')
+    return out
+
+
+def stage_ms(predictor, request):
+    """{stage: device ms} of one request, by CUDA events."""
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    mark('start')
+    staged_call(predictor, request, mark)
+    torch.cuda.synchronize()
+    return {name: prev.elapsed_time(event)
+            for (_, prev), (name, event) in zip(marks, marks[1:])}
+
+
+def kernel_profile(predictor, request):
+    """Wall ms, device kernel ms and the top kernels of one request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predictor(*request)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if 'CUDA' in str(e.device_type)]
+    attr = ('self_device_time_total'
+            if hasattr(kernels[0], 'self_device_time_total')
+            else 'self_cuda_time_total')
+    kernels.sort(key=lambda e: getattr(e, attr), reverse=True)
+    return wall, [(getattr(e, attr) / 1e3, e.count, e.key) for e in kernels]
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--batch', type=int, default=4)
+    parser.add_argument('--requests', type=int, default=3)
+    parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--out', default='profiles/profile_components.txt')
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_components needs a CUDA device')
+
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = serving_config()
+    predictor = Predictor(cfg, random_state_dict(cfg, args.seed),
+                          device='cuda', dtype=torch.bfloat16)
+    rng = np.random.RandomState(args.seed)
+    requests = [random_request(rng, cfg, args.batch)
+                for _ in range(args.requests + 2)]
+
+    runs = [stage_ms(predictor, r) for r in requests[:args.requests + 1]][1:]
+    lines = [card, f'stage | mean ms | per request (b{args.batch} bf16, '
+             f'{args.requests} requests after a warm-up, CUDA events)']
+    for name in runs[0]:
+        ms = [r[name] for r in runs]
+        lines.append(f'{name} | {np.mean(ms):.3f} | '
+                     + ', '.join(f'{x:.3f}' for x in ms))
+    lines.append(f'sum of stages | '
+                 f'{np.mean([sum(r.values()) for r in runs]):.3f}')
+
+    torch.cuda.reset_peak_memory_stats()
+    wall, kernels = kernel_profile(predictor, requests[-1])
+    busy = sum(ms for ms, _, _ in kernels)
+    lines += ['', f'profiled request: wall {wall:.2f} ms, device kernels '
+              f'{busy:.2f} ms, busy share {busy / wall:.3f}, peak allocated '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+              'device ms | launches | kernel']
+    lines += [f'{ms:9.3f} | {count:5d} | {key[:100]}'
+              for ms, count, key in kernels[:N_TOP_KERNELS]]
+    report = '\n'.join(lines)
+    print(report)
+    out = CHECKOUT / args.out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(report + '\n')
+
+
+if __name__ == '__main__':
+    main()

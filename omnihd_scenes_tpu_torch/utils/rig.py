@@ -1,0 +1,51 @@
+"""Synthetic surround camera rig (counterpart of
+``omnihd_scenes_tpu/utils/rig.py``): the geometry ``bench.py`` and the
+smoke test feed the LSS view transform.
+
+Six pinhole cameras at the OmniHD-Scenes headings {0, +-55, +-125, 180}
+deg, each 1.5 m out from the origin along its heading and 1.6 m up,
+looking outward, with f = 0.8 * W and the principal point at the image
+centre.  ``tests/test_torch_port_config.py`` holds it equal to the JAX
+package's rig.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+
+OMNIHD_CAMERA_YAWS = (0.0, 55.0, -55.0, 180.0, 125.0, -125.0)
+
+# Camera axes (x right, y down, z forward) in ego axes (x forward, y left,
+# z up).
+_CAM_BASE = np.array([[0.0, 0.0, 1.0],
+                      [-1.0, 0.0, 0.0],
+                      [0.0, -1.0, 0.0]])
+
+
+def _yaw_mat(yaw_rad: float) -> np.ndarray:
+    c, s = np.cos(yaw_rad), np.sin(yaw_rad)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def ring_rig_img2lidar(img_hw: Tuple[int, int] = (544, 960),
+                       yaws_deg: Sequence[float] = OMNIHD_CAMERA_YAWS,
+                       focal_frac: float = 0.8,
+                       cam_height: float = 1.6,
+                       cam_radius: float = 1.5):
+    """(rots (N, 3, 3), trans (N, 3)) float32 in the LSS convention
+    ``p_ego = rots @ (u*d, v*d, d) + trans`` (intrinsic inverse folded
+    into the rotation)."""
+    h, w = img_hw
+    k = np.array([[focal_frac * w, 0.0, w / 2.0],
+                  [0.0, focal_frac * w, h / 2.0],
+                  [0.0, 0.0, 1.0]])
+    k_inv = np.linalg.inv(k)
+    rots, trans = [], []
+    for yaw in yaws_deg:
+        rot = _yaw_mat(np.deg2rad(yaw)) @ _CAM_BASE       # cam->ego
+        rots.append(rot @ k_inv)
+        trans.append(_yaw_mat(np.deg2rad(yaw)) @ np.array(
+            [cam_radius, 0.0, cam_height]))
+    return (np.asarray(rots, np.float32), np.asarray(trans, np.float32))

@@ -1,0 +1,135 @@
+"""The port's configs (and the host-side helpers they use) equal the JAX
+package's, and the port imports neither JAX nor the JAX package."""
+
+import dataclasses
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from omnihd_scenes_tpu.models.anchor_head import DecodeCfg as JaxDecodeCfg
+from omnihd_scenes_tpu.models.bevfusion import (
+    BEVFusionConfig as JaxBEVFusionConfig)
+from omnihd_scenes_tpu.models.detectors import (
+    PointPillarsConfig as JaxPointPillarsConfig)
+from omnihd_scenes_tpu.models.lss import LSSConfig as JaxLSSConfig
+from omnihd_scenes_tpu.train.torch_import import (
+    resnet_name_map as jax_resnet_name_map)
+from omnihd_scenes_tpu.utils.rig import (
+    ring_rig_img2lidar as jax_ring_rig_img2lidar)
+from omnihd_scenes_tpu_torch import config as port
+from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
+from omnihd_scenes_tpu_torch.weights import resnet_name_map
+from tests.test_torch_port_weights import JAX_MINI_CFG, PORT_MINI_CFG
+
+PACKAGE = pathlib.Path(__file__).resolve().parents[1] / \
+    'omnihd_scenes_tpu_torch'
+
+PAIRS = [(JaxLSSConfig, port.LSSConfig),
+         (JaxPointPillarsConfig, port.PointPillarsConfig),
+         (JaxBEVFusionConfig, port.BEVFusionConfig)]
+
+
+@pytest.mark.parametrize('jax_cls,port_cls', PAIRS,
+                         ids=[p.__name__ for _, p in PAIRS])
+def test_dataclass_fields_and_defaults(jax_cls, port_cls):
+    jf = [(f.name, f.type) for f in dataclasses.fields(jax_cls)]
+    pf = [(f.name, f.type) for f in dataclasses.fields(port_cls)]
+    assert pf == jf
+    assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
+
+
+def test_decode_cfg_fields_and_defaults():
+    assert port.DecodeCfg._fields == JaxDecodeCfg._fields
+    assert tuple(port.DecodeCfg()) == tuple(JaxDecodeCfg())
+
+
+@pytest.mark.parametrize('which', ['default', 'mini'])
+def test_derived_properties(which):
+    jcfg, pcfg = ((JaxBEVFusionConfig(), port.BEVFusionConfig())
+                  if which == 'default' else (JAX_MINI_CFG, PORT_MINI_CFG))
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+    for name in ('feat_hw', 'depth_bins', 'bev_nx'):
+        assert getattr(pcfg.lss, name) == getattr(jcfg.lss, name), name
+    for name in ('head_hw', 'num_anchors'):
+        assert getattr(pcfg.pillars, name) == getattr(jcfg.pillars, name)
+    assert pcfg.head_channels == jcfg.head_channels
+    np.testing.assert_array_equal(pcfg.pillars.anchors(),
+                                  jcfg.pillars.anchors())
+
+
+@pytest.mark.parametrize('img_hw', [(544, 960), (64, 112)])
+def test_ring_rig_matches_jax(img_hw):
+    for got, want in zip(ring_rig_img2lidar(img_hw=img_hw),
+                         jax_ring_rig_img2lidar(img_hw=img_hw)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('depth', [18, 34, 50, 101])
+def test_resnet_name_map_matches_jax(depth):
+    assert resnet_name_map(depth) == jax_resnet_name_map(depth)
+
+
+def test_validation_matches():
+    for cls in (JaxLSSConfig, port.LSSConfig):
+        with pytest.raises(ValueError, match='remat_parts'):
+            cls(remat_parts=('nope',))
+    for cls in (JaxBEVFusionConfig, port.BEVFusionConfig):
+        with pytest.raises(ValueError, match='remat_exclude'):
+            cls(remat_exclude=('nope',))
+
+
+def test_serving_config_is_the_bench_configuration():
+    cfg = port.serving_config()
+    assert cfg.pillars.pillar_impl == 'dense'
+    assert cfg.lss.splat_mode == 'sample'
+    assert dataclasses.replace(
+        cfg, pillars=port.PointPillarsConfig()) == port.BEVFusionConfig()
+
+
+@pytest.mark.parametrize('change', [
+    {'rc_fusion': 'cross_attention'}, {'stem_s2d': True},
+    {'camera_stream': False}, {'pillars': port.PointPillarsConfig()},
+    {'lss': port.LSSConfig(splat_mode='scatter')}])
+def test_unported_options_are_refused(change):
+    cfg = dataclasses.replace(port.serving_config(), **change)
+    with pytest.raises(NotImplementedError, match='not ported'):
+        BEVFusion(cfg)
+
+
+def test_package_imports_without_jax():
+    """Every module of the port imports with jax, flax and the JAX
+    package blocked."""
+    modules = sorted(
+        'omnihd_scenes_tpu_torch.' + '.'.join(
+            p.relative_to(PACKAGE).with_suffix('').parts)
+        for p in PACKAGE.rglob('*.py'))
+    modules = [m.removesuffix('.__init__') for m in modules]
+    code = ('import sys\n'
+            'for name in ("jax", "flax", "jaxlib", "optax", '
+            '"omnihd_scenes_tpu"):\n'
+            '    sys.modules[name] = None\n'
+            'import importlib\n'
+            f'for m in {modules!r}:\n'
+            '    importlib.import_module(m)\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "flax", "omnihd_scenes_tpu") '
+            'and sys.modules[m] is not None]\n'
+            'assert not bad, bad\n'
+            'print("ok", len(%r))\n' % (modules,))
+    proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                          text=True, cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+
+
+def test_no_jax_import_in_sources():
+    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|omnihd_scenes_tpu)\b',
+                     re.M)
+    hits = [str(p) for p in PACKAGE.rglob('*.py') if pat.search(p.read_text())]
+    assert not hits, hits
