@@ -3,8 +3,9 @@
 Each kernel file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with :mod:`ctypes`.  Builds go
 to ``_build/<name>-<hash>/`` next to this file, keyed by a hash of the
-source, the flags and ``nvcc --version``, so an edited source or another
-toolkit rebuilds and an unchanged one is reused.  ``nvcc``'s own output (``-Xptxas -v``: registers, shared
+source, the shared headers (``csrc/*.cuh``), the flags and ``nvcc
+--version``, so an edited source or another toolkit rebuilds and an
+unchanged one is reused.  ``nvcc``'s own output (``-Xptxas -v``: registers, shared
 memory and spills per kernel) is kept beside the library as ``nvcc.log``.
 """
 
@@ -47,9 +48,10 @@ def nvcc_version() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built: keyed by the source, the flags
-    and the toolkit, so a change of any of them rebuilds."""
-    source = (CSRC / f'{name}.cu').read_bytes()
+    """Where ``csrc/<name>.cu`` is built: keyed by the source, the headers,
+    the flags and the toolkit, so a change of any of them rebuilds."""
+    source = b''.join(p.read_bytes() for p in
+                      [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))])
     key = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode()
                          + nvcc_version().encode())
     return BUILD_DIR / f'{name}-{key.hexdigest()[:16]}' / f'lib{name}.so'

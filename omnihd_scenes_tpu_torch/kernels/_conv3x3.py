@@ -1,0 +1,58 @@
+"""Argument checks shared by the two 3x3 convolution kernels (``qconv``,
+``bconv``), whose CUDA sources share ``csrc/conv3x3.cuh``.
+
+Both take PyTorch's convolution layouts in channels_last memory: ``x``
+(N, C, H, W) is NHWC in memory and the weight (Co, C, 3, 3) is OHWI, so
+the kernel reads both with the input channels contiguous.
+"""
+
+from __future__ import annotations
+
+import torch
+
+CL = torch.channels_last
+_K_BYTES = 64          # input-channel bytes per pipeline step of the kernel
+
+
+def check_shapes(name: str, x, w, scale, shift) -> None:
+    """Shapes every route takes: x (N, C, H, W), w (Co, C, 3, 3), scale and
+    shift (Co,) f32."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3):
+        raise ValueError(f'{name}: x must be (N, C, H, W) and w (Co, C, 3, 3), '
+                         f'got {tuple(x.shape)} / {tuple(w.shape)}')
+    co = w.shape[0]
+    for t, label in ((scale, 'scale'), (shift, 'shift')):
+        if t.shape != (co,) or t.dtype != torch.float32:
+            raise ValueError(f'{name}: {label} must be ({co},) float32, got '
+                             f'{tuple(t.shape)} {t.dtype}')
+
+
+def check_kernel_args(name: str, x, w, scale, shift, in_dtype) -> None:
+    """What the CUDA kernel takes beyond :func:`check_shapes`; raises on
+    anything else (no copy, no fallback)."""
+    if any(t.device != x.device for t in (w, scale, shift)):
+        raise ValueError(f'{name}: inputs must share one device')
+    if x.dtype != in_dtype or w.dtype != in_dtype:
+        raise TypeError(f'{name} kernel takes {in_dtype} x and w, got '
+                        f'{x.dtype} / {w.dtype}')
+    if not (x.is_contiguous(memory_format=CL)
+            and w.is_contiguous(memory_format=CL)):
+        raise ValueError(f'{name}: x and w must be channels_last contiguous '
+                         '(NHWC / OHWI in memory)')
+    if not (scale.is_contiguous() and shift.is_contiguous()):
+        raise ValueError(f'{name}: scale and shift must be contiguous')
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    if (c * x.element_size()) % _K_BYTES or co % 8 or n * h * wd == 0:
+        raise ValueError(
+            f'{name} kernel needs C * itemsize % {_K_BYTES} == 0, Co % 8 == 0 '
+            f'and a non-empty image, got C={c}, Co={co}, (N, H, W)='
+            f'{(n, h, wd)}')
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f'{name}: x and w must be 16-byte aligned')
+
+
+def empty_out(x, co: int, dtype: torch.dtype) -> torch.Tensor:
+    n, _, h, w = x.shape
+    return torch.empty((n, co, h, w), dtype=dtype, device=x.device,
+                       memory_format=CL)

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from omnihd_scenes_tpu_torch.models.layers import FLAX_BN_EPS
+from omnihd_scenes_tpu_torch.models.quant import QConv2d
 
 
 def resize_bilinear(x, hw):
@@ -35,9 +36,9 @@ class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256):
         super().__init__()
         self.lateral_convs = nn.ModuleList(
-            [nn.Conv2d(c, out_channels, 1) for c in in_channels])
+            [QConv2d(c, out_channels, 1) for c in in_channels])
         self.fpn_convs = nn.ModuleList(
-            [nn.Conv2d(out_channels, out_channels, 3, padding=1)
+            [QConv2d(out_channels, out_channels, 3, padding=1)
              for _ in in_channels])
 
     def forward(self, feats):
@@ -56,8 +57,8 @@ class FPNC(nn.Module):
         super().__init__()
         self.target_hw = tuple(target_hw)
         self.fpn = FPN(in_channels, out_channels)
-        self.reduce_conv = nn.Conv2d(out_channels * len(in_channels), outC,
-                                     3, padding=1, bias=False)
+        self.reduce_conv = QConv2d(out_channels * len(in_channels), outC,
+                                   3, padding=1, bias=False)
         self.bn = nn.BatchNorm2d(outC, eps=FLAX_BN_EPS)
 
     def forward(self, feats):

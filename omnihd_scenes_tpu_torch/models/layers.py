@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omnihd_scenes_tpu_torch.models.quant import QConv2d
+
 BN_EPS = 1e-3
 FLAX_BN_EPS = 1e-5
 
@@ -22,9 +24,9 @@ class ConvBNReLU(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, relu: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=kernel_size // 2,
-                              bias=False)
+        self.conv = QConv2d(in_channels, out_channels, kernel_size,
+                            stride=stride, padding=kernel_size // 2,
+                            bias=False)
         self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS)
         self.relu = relu
 

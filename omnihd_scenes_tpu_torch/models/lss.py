@@ -17,6 +17,7 @@ from torch import nn
 
 from omnihd_scenes_tpu_torch.config import LSSConfig
 from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, FLAX_BN_EPS
+from omnihd_scenes_tpu_torch.models.quant import QConv2d
 from omnihd_scenes_tpu_torch.models.resnet import BasicBlock
 from omnihd_scenes_tpu_torch.ops.lss_project import lss_sample_bev
 
@@ -44,15 +45,15 @@ class ASPP(nn.Module):
     def __init__(self, in_channels: int, mid_channels: int = 256):
         super().__init__()
         self.convs = nn.ModuleList([
-            nn.Conv2d(in_channels, mid_channels, 1 if d == 1 else 3,
-                      padding=0 if d == 1 else d, dilation=d, bias=False)
+            QConv2d(in_channels, mid_channels, 1 if d == 1 else 3,
+                    padding=0 if d == 1 else d, dilation=d, bias=False)
             for d in self.DILATIONS])
         self.bns = nn.ModuleList([nn.BatchNorm2d(mid_channels, eps=FLAX_BN_EPS)
                                   for _ in self.DILATIONS])
-        self.pool_conv = nn.Conv2d(in_channels, mid_channels, 1, bias=False)
+        self.pool_conv = QConv2d(in_channels, mid_channels, 1, bias=False)
         self.pool_bn = nn.BatchNorm2d(mid_channels, eps=FLAX_BN_EPS)
-        self.project = nn.Conv2d(mid_channels * 5, mid_channels, 1,
-                                 bias=False)
+        self.project = QConv2d(mid_channels * 5, mid_channels, 1,
+                               bias=False)
         self.project_bn = nn.BatchNorm2d(mid_channels, eps=FLAX_BN_EPS)
 
     def forward(self, x):

@@ -16,11 +16,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from omnihd_scenes_tpu_torch.models.layers import FLAX_BN_EPS
+from omnihd_scenes_tpu_torch.models.quant import QConv2d
 
 
 def _downsample(in_channels, out_channels, stride):
     return nn.Sequential(
-        nn.Conv2d(in_channels, out_channels, 1, stride=stride, bias=False),
+        QConv2d(in_channels, out_channels, 1, stride=stride, bias=False),
         nn.BatchNorm2d(out_channels, eps=FLAX_BN_EPS))
 
 
@@ -29,10 +30,10 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, planes, 3, stride=stride,
-                               padding=1, bias=False)
+        self.conv1 = QConv2d(in_channels, planes, 3, stride=stride,
+                             padding=1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes, eps=FLAX_BN_EPS)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = QConv2d(planes, planes, 3, padding=1, bias=False)
         self.bn2 = nn.BatchNorm2d(planes, eps=FLAX_BN_EPS)
         self.downsample = (_downsample(in_channels, planes, stride)
                            if stride != 1 or in_channels != planes else None)
@@ -50,12 +51,12 @@ class Bottleneck(nn.Module):
     def __init__(self, in_channels: int, planes: int, stride: int = 1):
         super().__init__()
         out_channels = planes * self.expansion
-        self.conv1 = nn.Conv2d(in_channels, planes, 1, bias=False)
+        self.conv1 = QConv2d(in_channels, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes, eps=FLAX_BN_EPS)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = QConv2d(planes, planes, 3, stride=stride, padding=1,
+                             bias=False)
         self.bn2 = nn.BatchNorm2d(planes, eps=FLAX_BN_EPS)
-        self.conv3 = nn.Conv2d(planes, out_channels, 1, bias=False)
+        self.conv3 = QConv2d(planes, out_channels, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(out_channels, eps=FLAX_BN_EPS)
         self.downsample = (_downsample(in_channels, out_channels, stride)
                            if stride != 1 or in_channels != out_channels
@@ -84,7 +85,7 @@ class ResNet(nn.Module):
         super().__init__()
         block, stage_blocks = ARCHS[depth]
         self.out_indices = tuple(out_indices)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = QConv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=FLAX_BN_EPS)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_channels = 64

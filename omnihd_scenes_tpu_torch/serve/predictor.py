@@ -5,17 +5,24 @@ The model path of ``bench.py:main`` (batch of camera + radar samples in,
 ``dtype`` (bf16 on the card) with channels_last activations; geometry
 (rots, trans), radar points and anchors stay f32 — the JAX bench casts
 them to bf16 as well — and decode + NMS run in f32.
+
+int8 PTQ tier (the ``bench.py --int8`` flow): :func:`calibrate` runs
+calibration then freeze and returns the quant state; ``Predictor(...,
+quant_state=state)`` serves int8, with every eligible 3x3 conv in the
+fused int8 kernel (``models/quant.py``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
 from omnihd_scenes_tpu_torch.config import BEVFusionConfig, DecodeCfg
 from omnihd_scenes_tpu_torch.models.anchor_head import anchor_head_get_bboxes
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+from omnihd_scenes_tpu_torch.models.quant import (load_quant_state,
+                                                  quant_state, set_mode)
 from omnihd_scenes_tpu_torch.weights import load_state_dict
 
 
@@ -32,12 +39,17 @@ class Predictor:
     Inputs are NumPy arrays or tensors in the JAX package's layouts:
     points (B, P, 8), points_mask (B, P), imgs (B, N, H, W, 3),
     rots (B, N, 3, 3), trans (B, N, 3).
+
+    With ``quant_state`` (from :func:`calibrate`, or the JAX ``quant``
+    collection through ``weights.flax_quant_to_torch``) the network runs
+    in the int8 PTQ tier.
     """
 
     def __init__(self, cfg: BEVFusionConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  device='cuda', dtype: torch.dtype = torch.bfloat16,
-                 decode_cfg: DecodeCfg = DecodeCfg()):
+                 decode_cfg: DecodeCfg = DecodeCfg(),
+                 quant_state: Optional[Mapping[str, torch.Tensor]] = None):
         self.device = torch.device(device)
         self.dtype = dtype
         self.decode_cfg = decode_cfg
@@ -45,6 +57,9 @@ class Predictor:
         load_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=dtype,
                               memory_format=torch.channels_last).eval()
+        if quant_state is not None:
+            load_quant_state(self.model, quant_state)
+            set_mode(self.model, 'int8')
         self.anchors = torch.from_numpy(cfg.pillars.anchors()).to(self.device)
 
     @torch.inference_mode()
@@ -63,3 +78,21 @@ class Predictor:
         return anchor_head_get_bboxes(
             out['cls_score'].float(), out['bbox_pred'].float(),
             out['dir_pred'].float(), self.anchors, self.decode_cfg)
+
+
+def calibrate(cfg: BEVFusionConfig, state_dict: Mapping[str, torch.Tensor],
+              requests: Sequence, device='cuda',
+              dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """PTQ calibration as ``bench.py --int8`` runs it: every request
+    through the network in ``calib`` mode (running max|x| per quantized
+    conv), then the last one in ``freeze`` mode (int8 weights from the
+    weights in ``dtype``).  Returns the quant state, on ``device``."""
+    if not requests:
+        raise ValueError('calibrate needs at least one request')
+    predictor = Predictor(cfg, state_dict, device=device, dtype=dtype)
+    set_mode(predictor.model, 'calib')
+    for request in requests:
+        predictor.forward(*request)
+    set_mode(predictor.model, 'freeze')
+    predictor.forward(*requests[-1])
+    return quant_state(predictor.model)

@@ -1,10 +1,12 @@
 """Per-stage latency profile of the serving path on one GPU.
 
     python -m omnihd_scenes_tpu_torch.tools.profile_components \
-        [--batch 4] [--requests 3] [--out profiles/profile_components.txt]
+        [--batch 4] [--requests 3] [--int8] \
+        [--out profiles/profile_components.txt]
 
 Builds ``Predictor`` at the serving configuration (bf16, channels_last,
-seeded random weights) and serves one warm-up and ``--requests`` timed
+seeded random weights; with ``--int8`` in the int8 PTQ tier, calibrated
+on one more request) and serves one warm-up and ``--requests`` timed
 requests of fresh inputs through :func:`staged_call`, which runs the ops
 of ``Predictor.__call__`` in the same order with a CUDA event between
 stages (a CPU test holds it equal to ``Predictor``).  Then one more
@@ -33,7 +35,8 @@ from omnihd_scenes_tpu_torch.models.anchor_head import (
 from omnihd_scenes_tpu_torch.models.lss import _nhwc
 from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, sample_fields
 from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
-from omnihd_scenes_tpu_torch.serve.predictor import Predictor, _as_tensor
+from omnihd_scenes_tpu_torch.serve.predictor import (Predictor, _as_tensor,
+                                                     calibrate)
 from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
                                                      random_state_dict)
 
@@ -140,6 +143,8 @@ def main(argv=None):
     parser.add_argument('--batch', type=int, default=4)
     parser.add_argument('--requests', type=int, default=3)
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--int8', action='store_true',
+                        help='serve the int8 PTQ tier')
     parser.add_argument('--out', default='profiles/profile_components.txt')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -149,17 +154,24 @@ def main(argv=None):
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    torch.backends.cudnn.allow_tf32 = False
+    # The int8 tier's other convs are f32 convs of int8 codes, exact in
+    # TF32: they run with PyTorch's default (TF32 on for cuDNN), as in
+    # chip_smoke.py.  The bf16 network has no f32 convs.
+    torch.backends.cudnn.allow_tf32 = args.int8
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = serving_config()
-    predictor = Predictor(cfg, random_state_dict(cfg, args.seed),
-                          device='cuda', dtype=torch.bfloat16)
+    state_dict = random_state_dict(cfg, args.seed)
     rng = np.random.RandomState(args.seed)
+    quant = (calibrate(cfg, state_dict, [random_request(rng, cfg, args.batch)],
+                       device='cuda') if args.int8 else None)
+    predictor = Predictor(cfg, state_dict, device='cuda',
+                          dtype=torch.bfloat16, quant_state=quant)
     requests = [random_request(rng, cfg, args.batch)
                 for _ in range(args.requests + 2)]
 
     runs = [stage_ms(predictor, r) for r in requests[:args.requests + 1]][1:]
-    lines = [card, f'stage | mean ms | per request (b{args.batch} bf16, '
+    tier = 'int8' if args.int8 else 'bf16'
+    lines = [card, f'stage | mean ms | per request (b{args.batch} {tier}, '
              f'{args.requests} requests after a warm-up, CUDA events)']
     for name in runs[0]:
         ms = [r[name] for r in runs]

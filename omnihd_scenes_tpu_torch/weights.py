@@ -11,11 +11,17 @@ weight/bias/running_mean/running_var.  Each torch BatchNorm carries its
 flax module's epsilon (see ``models/layers.py``).  The ResNet part is the
 JAX package's ``train/torch_import.resnet_name_map``, restated here so
 the port imports nothing of the JAX package.
+
+:func:`flax_quant_to_torch` / :func:`torch_quant_to_flax` carry the int8
+``quant`` collection: a conv whose kernel is ``('params', *p, 'kernel')``
+keeps ``act_amax`` / ``w8`` / ``w_scale`` at ``('quant', *p, leaf)`` and
+in the port as ``<module>.<leaf>`` (``models/quant.py:quant_state``);
+``w8`` goes HWIO <-> OIHW and stays int8, the scales stay f32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +29,7 @@ from torch import nn
 
 from omnihd_scenes_tpu_torch.config import BEVFusionConfig
 from omnihd_scenes_tpu_torch.models.lss import ASPP
+from omnihd_scenes_tpu_torch.models.quant import QUANT_KEYS
 from omnihd_scenes_tpu_torch.models.resnet import ARCHS, Bottleneck
 
 FlaxPath = Tuple[str, ...]            # (collection, module, ..., leaf)
@@ -190,6 +197,62 @@ def torch_to_flax(state_dict, cfg: BEVFusionConfig) -> Dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = _torch_to_flax_layout(v, path).copy(order='C')
+    return out
+
+
+def _conv_modules(cfg: BEVFusionConfig) -> Dict[FlaxPath, str]:
+    """flax module path -> torch module name, for every conv kernel."""
+    return {path[1:-1]: tkey[:-len('.weight')]
+            for tkey, path in name_map(cfg).items()
+            if path[0] == 'params' and path[-1] == 'kernel'}
+
+
+def _leaves(tree, prefix: FlaxPath = ()):
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def flax_quant_to_torch(quant, cfg: BEVFusionConfig) -> Dict[str,
+                                                             torch.Tensor]:
+    """The flax ``quant`` collection (its content, NumPy or JAX arrays)
+    -> the port's quant state (``models/quant.py:load_quant_state``)."""
+    modules = _conv_modules(cfg)
+    out = {}
+    for path, v in _leaves(quant):
+        mod, leaf = path[:-1], path[-1]
+        if mod not in modules or leaf not in QUANT_KEYS:
+            raise KeyError(f'quant leaf {path} names no conv of the model')
+        v = np.asarray(v)
+        if leaf == 'w8':
+            if v.dtype != np.int8 or v.ndim != 4:
+                raise TypeError(f'{path}: w8 must be a 4-d int8 kernel, got '
+                                f'{v.dtype} {v.shape}')
+            v = v.transpose(3, 2, 0, 1)
+        else:
+            v = v.astype(np.float32)
+        out[f'{modules[mod]}.{leaf}'] = torch.from_numpy(v.copy(order='C'))
+    return out
+
+
+def torch_quant_to_flax(state, cfg: BEVFusionConfig) -> Dict:
+    """The port's quant state -> the flax ``quant`` collection's content
+    (NumPy)."""
+    paths = {name: mod for mod, name in _conv_modules(cfg).items()}
+    out: Dict = {}
+    for key, t in state.items():
+        name, _, leaf = key.rpartition('.')
+        if name not in paths or leaf not in QUANT_KEYS:
+            raise KeyError(f'quant key {key!r} names no conv of the model')
+        v = t.detach().cpu().numpy()
+        if leaf == 'w8':
+            v = v.transpose(2, 3, 1, 0)
+        node = out
+        for k in paths[name]:
+            node = node.setdefault(k, {})
+        node[leaf] = v.copy(order='C')
     return out
 
 

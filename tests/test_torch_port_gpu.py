@@ -1,21 +1,36 @@
-"""The LSS sampling CUDA kernel against its plain PyTorch version, on the
-card.  Every test here needs a CUDA device and skips without one.
+"""The CUDA kernels (LSS sampling, int8 and bf16 3x3 convolution) against
+their plain PyTorch versions, on the card.  Every test here needs a CUDA
+device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_port_gpu.py -m gpu --noconftest -q
 
-Bound for f32 outputs: 1e-5 * max|ref| + 1e-6 (summation order over at
-most 6 products; the kernel rounds products and sums separately, so it
-is usually exact).
+Bounds:
+* lss_sample, f32 outputs: 1e-5 * max|ref| + 1e-6 (summation order over
+  at most 6 products; the kernel rounds products and sums separately, so
+  it is usually exact).
+* qconv3x3: the integer sum is exact in both versions and the epilogue
+  rounds the same steps, so f32 outputs within 2^-22 |ref| (one f32
+  rounding) and bf16 outputs within 1 ulp on under 1e-3 of the entries
+  (``tests/test_qconv.py``'s bound).
+* bconv3x3: both sum in f32 in different orders, so the bf16 output is
+  within 1 bf16 ulp of the plain f32 result rounded, plus 1e-5 *
+  max|ref| for cancellation near zero.
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
+from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
 from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
                                                         lss_sample_reference)
+from omnihd_scenes_tpu_torch.kernels.qconv import (qconv3x3,
+                                                   qconv3x3_reference)
+from omnihd_scenes_tpu_torch.models.quant import (QConv2d, quant_state,
+                                                  load_quant_state, set_mode)
 from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, sample_fields
 
 pytestmark = pytest.mark.gpu
@@ -116,3 +131,191 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                    *fields, **kw)
     with pytest.raises(ValueError, match='device'):
         lss_sample(feat, depth.cpu(), *fields, **kw)
+
+
+CL = torch.channels_last
+
+
+def _qconv_case(dev, n, h, w, c, co, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x8 = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=dev,
+                       dtype=torch.int8).permute(0, 3, 1, 2)
+    w8 = torch.randint(-127, 128, (co, 3, 3, c), generator=gen, device=dev,
+                       dtype=torch.int8).permute(0, 3, 1, 2)
+    scale = torch.rand(co, generator=gen, device=dev) * 9e-4 + 1e-4
+    shift = torch.randn(co, generator=gen, device=dev)
+    return x8, w8, scale, shift
+
+
+def bf16_ulps(got, want):
+    """Distance in bf16 units in the last place, entry by entry."""
+    g = got.float().to(torch.bfloat16).view(torch.int16).int()
+    w = want.float().to(torch.bfloat16).view(torch.int16).int()
+    return (g - w).abs()
+
+
+@pytest.mark.parametrize('n,h,w,c,co,relu,out_dtype', [
+    (1, 7, 9, 128, 128, True, torch.float32),
+    (2, 13, 17, 256, 384, False, torch.bfloat16),
+    (3, 5, 33, 384, 256, True, torch.bfloat16),
+    (1, 9, 11, 768, 128, False, torch.float32),
+    (2, 6, 131, 128, 768, True, torch.bfloat16),
+    (4, 1, 1, 256, 256, False, torch.float32)])
+def test_qconv_matches_plain(dev, n, h, w, c, co, relu, out_dtype):
+    x8, w8, scale, shift = _qconv_case(dev, n, h, w, c, co)
+    before = qconv3x3.launches
+    got = qconv3x3(x8, w8, scale, shift, relu=relu, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qconv3x3.launches == before + 1
+    assert got.shape == (n, co, h, w) and got.dtype == out_dtype
+    assert got.is_contiguous(memory_format=CL)
+    want = qconv3x3_reference(x8, w8, scale, shift, relu=relu,
+                              out_dtype=torch.float32)
+    if out_dtype == torch.float32:
+        assert bool(((got - want).abs()
+                     <= 2.0 ** -22 * want.abs() + 1e-30).all())
+    else:
+        ulp = bf16_ulps(got, want)
+        assert int(ulp.max()) <= 1
+        assert float((ulp > 0).float().mean()) < 1e-3
+
+
+def test_qconv_sums_do_not_overflow(dev):
+    """All codes at +-127 with matching weights: the largest sums a
+    layer can produce (127^2 * 9 * C) come out exact."""
+    c = 1024
+    x8 = torch.full((1, c, 4, 5), 127, dtype=torch.int8, device=dev)
+    x8 = x8.contiguous(memory_format=CL)
+    w8 = torch.full((128, c, 3, 3), -127, dtype=torch.int8, device=dev)
+    w8 = w8.contiguous(memory_format=CL)
+    one = torch.ones(128, device=dev)
+    got = qconv3x3(x8, w8, one, torch.zeros_like(one), relu=False,
+                   out_dtype=torch.float32)
+    want = qconv3x3_reference(x8, w8, one, torch.zeros_like(one),
+                              relu=False, out_dtype=torch.float32)
+    assert float(want.min()) == -127.0 ** 2 * 9 * c
+    assert torch.equal(got, want)
+
+
+def _bconv_reference_f32(x, w, scale, shift, relu, d):
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv2d(x.float(), w.float(), padding=d, dilation=d)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    y = y * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+    return y.clamp_min(0.0) if relu else y
+
+
+@pytest.mark.parametrize('n,h,w,c,co,d,relu', [
+    (2, 16, 24, 128, 128, 1, True),
+    (1, 8, 40, 256, 128, 2, False),
+    (3, 17, 23, 384, 256, 6, True),
+    (1, 19, 21, 256, 768, 12, False),
+    (2, 9, 13, 768, 128, 18, True)])
+def test_bconv_matches_plain(dev, n, h, w, c, co, d, relu):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn((n, h, w, c), generator=gen, device=dev).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    wt = (torch.randn((co, 3, 3, c), generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    scale = torch.rand(co, generator=gen, device=dev) + 0.5
+    shift = torch.randn(co, generator=gen, device=dev) * 0.1
+    before = bconv3x3.launches
+    got = bconv3x3(x, wt, scale, shift, relu=relu, dilation=d)
+    torch.cuda.synchronize()
+    assert bconv3x3.launches == before + 1
+    assert got.shape == (n, co, h, w) and got.dtype == torch.bfloat16
+    want = _bconv_reference_f32(x, wt, scale, shift, relu, d)
+    rounded = want.to(torch.bfloat16).float()
+    _, exp = torch.frexp(rounded)
+    ulp = torch.ldexp(torch.ones_like(rounded), exp - 8)
+    slack = (got.float() - rounded).abs() - ulp
+    assert float(slack.max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_bconv_defaults_are_identity_affine(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, 128, 8, 16), generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=CL)
+    wt = (torch.randn((128, 128, 3, 3), generator=gen, device=dev)
+          * 0.05).to(torch.bfloat16).contiguous(memory_format=CL)
+    got = bconv3x3(x, wt, relu=False)
+    ones = torch.ones(128, device=dev)
+    assert torch.equal(got, bconv3x3(x, wt, ones, ones * 0, relu=False))
+    assert bool((got < 0).any())
+
+
+def test_conv_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x8, w8, scale, shift = _qconv_case(dev, 1, 5, 6, 128, 128)
+    with pytest.raises(ValueError, match='device'):
+        qconv3x3(x8, w8.cpu(), scale, shift)
+    with pytest.raises(TypeError):
+        qconv3x3(x8.float(), w8, scale, shift)
+    with pytest.raises(TypeError):
+        qconv3x3(x8, w8, scale, shift, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match='channels_last'):
+        qconv3x3(x8.contiguous(), w8, scale, shift)
+    with pytest.raises(ValueError, match='channels_last'):
+        qconv3x3(x8, w8.contiguous(), scale, shift)
+    with pytest.raises(ValueError, match='C \\* itemsize'):
+        qconv3x3(*_qconv_case(dev, 1, 5, 6, 96, 128))
+    with pytest.raises(ValueError, match='Co % 8'):
+        qconv3x3(*_qconv_case(dev, 1, 5, 6, 128, 12))
+    with pytest.raises(ValueError, match='3, 3'):
+        qconv3x3(x8, w8[:, :, :2], scale, shift)
+    with pytest.raises(ValueError, match='scale'):
+        qconv3x3(x8, w8, scale[:64], shift)
+    xb = torch.zeros((1, 64, 5, 6), dtype=torch.bfloat16, device=dev)
+    wb = torch.zeros((128, 64, 3, 3), dtype=torch.bfloat16, device=dev)
+    xb, wb = xb.contiguous(memory_format=CL), wb.contiguous(memory_format=CL)
+    with pytest.raises(TypeError):
+        bconv3x3(xb.float(), wb)
+    with pytest.raises(ValueError, match='dilation'):
+        bconv3x3(xb, wb, dilation=0)
+    with pytest.raises(ValueError, match='channels_last'):
+        bconv3x3(xb.contiguous(), wb)
+    with pytest.raises(ValueError, match='C \\* itemsize'):
+        bconv3x3(xb[:, :48].contiguous(memory_format=CL),
+                 wb[:, :48].contiguous(memory_format=CL))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('stride,eligible', [(1, True), (2, False)])
+def test_qconv2d_int8_on_the_card_equals_the_cpu(dev, dtype, stride,
+                                                 eligible):
+    """A frozen int8 QConv2d on the card (the kernel when eligible, an f32
+    conv of the codes otherwise) against the same layer on the CPU (the
+    plain versions), on the same input: the same codes and integer sums,
+    so one f32 rounding (eligible) or f32 summation order apart."""
+    torch.manual_seed(0)
+    conv = QConv2d(256, 128, 3, stride=stride, padding=1)
+    x = torch.randn(2, 256, 9, 13)
+    with torch.inference_mode():
+        for mode in ('calib', 'freeze'):
+            set_mode(conv, mode)
+            conv(x)
+    state = quant_state(conv)
+    cpu = QConv2d(256, 128, 3, stride=stride, padding=1).to(dtype)
+    cpu.load_state_dict(conv.state_dict())
+    gpu = QConv2d(256, 128, 3, stride=stride, padding=1).to(
+        device=dev, dtype=dtype, memory_format=CL)
+    gpu.load_state_dict(conv.state_dict())
+    for m in (cpu, gpu):
+        load_quant_state(m, state)
+        set_mode(m, 'int8')
+    xd = x.to(dtype)
+    before = qconv3x3.launches
+    with torch.inference_mode():
+        got = gpu(xd.to(dev).contiguous(memory_format=CL)).cpu().float()
+        want = cpu(xd).float()
+    assert qconv3x3.launches == before + int(eligible)
+    if eligible and dtype == torch.float32:
+        assert bool(((got - want).abs() <= 2.0 ** -22 * want.abs()).all())
+    elif eligible:
+        assert torch.equal(got, want)
+    else:
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
