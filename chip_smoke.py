@@ -31,16 +31,24 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    fused BEV within HEAD_TOL of max|f32|, and at least BOX_MATCH of the
    kept bf16 boxes overlapping a kept f32 box of the same label;
 7. qconv vs plain at the int8 tier's b4 serving shapes (DepthNet block,
-   FPNC reduce, BEV encoder) on seeded int8 codes over +-127: f32 output
-   within 2^-22 |ref| of the plain version (exact integer sums on both
-   sides), bf16 output within 1 ulp on under 1e-3 of the entries;
-   kernel and plain times;
+   FPNC reduce, BEV encoder) and at edge shapes of the kernel's tiling
+   (images smaller than a tile, widths that split tiles, the fuse.conv
+   shape C=640 -> Co=384, a Co that is not a multiple of the block's
+   channel tile) on seeded int8 codes over +-127: f32 output within
+   2^-22 |ref| of the plain version (exact integer sums on both sides),
+   bf16 output within 1 ulp on under 1e-3 of the entries; for every
+   shape the kernel's ms, TOP/s and share of its bound, and the library
+   yardsticks (``torch._int_mm`` on a pre-built s8 im2col matrix of the
+   same (M, 9C, Co), its building not timed, and cuDNN's bf16 conv of
+   the same shape); the plain version's time at the b4 shapes;
 8. bconv vs plain at (24, 256, 136, 240) -> 256, dilation 1/6/12/18,
-   ReLU on and off: bf16 output within 1 ulp of the plain f32 result
-   rounded (+ 1e-5 max|ref| for cancellation); kernel, plain, and cuDNN
-   bf16 conv + separate BN + ReLU times; then its entry point on the
-   ASPP dilated branches of phase 6's request (BatchNorm folded into
-   scale/shift) against the model's own conv + BN + ReLU;
+   ReLU on and off, and at edge shapes (as phase 7, plus d=18 on a 9x13
+   image): bf16 output within 1 ulp of the plain f32 result rounded
+   (+ 1e-5 max|ref| for cancellation); kernel ms, TFLOP/s, share of its
+   bound, plain, cuDNN bf16 conv alone and cuDNN conv + separate BN +
+   ReLU times; then its entry point on the ASPP dilated branches of
+   phase 6's request (BatchNorm folded into scale/shift) against the
+   model's own conv + BN + ReLU;
 9. int8 parity at small size: a quant state calibrated on the CPU, the
    f32 int8 Predictor on the GPU (kernel route) against the one on the
    CPU (plain route): every quantized conv on the GPU's input within one
@@ -56,8 +64,14 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    INT8_HEAD_TOL of max|bf16|, at least INT8_BOX_MATCH of the kept int8
    boxes overlapping a kept bf16 box of the same label.
 
-The line before the last is a JSON object of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+The line before the last is a JSON object of the kernels (launches on
+the main paths, error against the plain version, kernel / plain /
+library ms, and the bound of ``tools/roofline.py``: the larger of the
+call's operations over the card's dense peak for their type and the
+bytes it must move, each needed input element read once and each output
+written once, over 3.35 TB/s; for ``lss_sample`` the elements that this
+run's index fields gather); the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero, without that line.
 """
 
@@ -94,8 +108,23 @@ KERNEL_REPLACES = {
 QCONV_SHAPES = {'DepthNet block': ((24, 256, 136, 240), 256),
                 'FPNC reduce': ((24, 768, 136, 240), 256),
                 'BEV encoder': ((4, 1024, 160, 240), 1024)}
+# Edge shapes of the block tiling (conv3x3.cuh: 128-pixel rectangles of
+# 2x64 .. 16x8, 128 or 256 output channels per block).
+QCONV_EDGES = {'1x1 image': ((4, 256, 1, 1), 256),
+               '7x9 image': ((2, 128, 7, 9), 128),
+               'w=30 (ResNet layer4)': ((24, 512, 17, 30), 512),
+               'w=131': ((1, 128, 6, 131), 256),
+               'fuse.conv C=640 -> Co=384': ((4, 640, 160, 240), 384),
+               'Co=136 (not a multiple of BN)': ((2, 128, 9, 13), 136)}
 BCONV_SHAPE = ((24, 256, 136, 240), 256)
 BCONV_DILATIONS = (1, 6, 12, 18)
+BCONV_EDGES = {'1x1 image': ((4, 128, 1, 1), 128, 1),
+               '7x9 image': ((2, 256, 7, 9), 256, 6),
+               'w=30': ((2, 256, 17, 30), 256, 12),
+               'w=131': ((1, 128, 6, 131), 128, 6),
+               'd=18 on 9x13': ((2, 128, 9, 13), 256, 18),
+               'fuse.conv C=640 -> Co=384': ((4, 640, 160, 240), 384, 1),
+               'Co=136 (not a multiple of BN)': ((2, 128, 9, 13), 136, 2)}
 
 
 def check(cond, msg):
@@ -177,7 +206,8 @@ def phase_kernel_vs_plain(dev, card):
     import torch
 
     from omnihd_scenes_tpu_torch.kernels.lss_sample import (
-        lss_sample, lss_sample_reference)
+        lss_sample, lss_sample_bytes, lss_sample_reference)
+    from omnihd_scenes_tpu_torch.tools.roofline import bound
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
@@ -219,9 +249,16 @@ def phase_kernel_vs_plain(dev, card):
     plain_ms = cuda_ms(lambda: lss_sample_reference(
         *args, lss.cam_solve_x, g.ny, g.nx, torch.bfloat16),
         iters=5, warmup=1)
-    print(f'[3 kernel vs plain] b{BATCH} bf16: kernel {ms:.4f} ms, plain '
-          f'PyTorch {plain_ms:.4f} ms by CUDA events ({card})')
-    return worst, ms, plain_ms
+    # A gather: no arithmetic to speak of, so the bytes this run's index
+    # fields make it read (each needed element once) bound it.
+    nbytes = lss_sample_bytes(*args, lss.cam_solve_x, g.ny, g.nx,
+                              torch.bfloat16)
+    bound_ms, bound_by = bound(0, 'bf16', nbytes)
+    print(f'[3 kernel vs plain] b{BATCH} bf16: kernel {ms:.4f} ms '
+          f'({bound_ms / ms:.3f} of its {bound_ms:.4f} ms {bound_by} bound, '
+          f'{nbytes / 1e9:.3f} GB), plain PyTorch {plain_ms:.4f} ms by CUDA '
+          f'events ({card})')
+    return worst, ms, plain_ms, bound_ms, bound_by
 
 
 def _small_config():
@@ -402,62 +439,158 @@ def bf16_ulps(got, want):
     return (g - w).abs()
 
 
+def _qconv_case(gen, dev, n, c, h, w, co):
+    import torch
+
+    x8 = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=dev,
+                       dtype=torch.int8).permute(0, 3, 1, 2)
+    w8 = torch.randint(-127, 128, (co, 3, 3, c), generator=gen, device=dev,
+                       dtype=torch.int8).permute(0, 3, 1, 2)
+    scale = torch.rand(co, generator=gen, device=dev) * 9e-6 + 1e-6
+    shift = torch.randn(co, generator=gen, device=dev)
+    return x8, w8, scale, shift
+
+
+def _int_mm_ms(x8, w8):
+    """``torch._int_mm`` of a pre-built s8 im2col matrix (M, 9C) by the
+    weight (9C, Co): the same integer sums as the kernel without its
+    epilogue; building the matrix is not timed.  None where cuBLASLt
+    does not take the shape (M <= 16)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, c, h, w = x8.shape
+    co = w8.shape[0]
+    if n * h * w <= 16:
+        return None
+    xp = F.pad(x8.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(n * h * w, 9 * c)
+    wk = w8.permute(0, 2, 3, 1).reshape(co, 9 * c).t()    # column-major
+    ms = cuda_ms(lambda: torch._int_mm(cols, wk), iters=10, warmup=2)
+    del cols, xp
+    return ms
+
+
+def _cudnn_bf16_ms(x, w, d=1, iters=10):
+    """cuDNN's bf16 conv alone (channels_last), the same shape as a
+    kernel call."""
+    import torch
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    xb = x.to(torch.bfloat16).contiguous(memory_format=cl)
+    wb = w.to(torch.bfloat16).contiguous(memory_format=cl)
+    with torch.inference_mode():
+        return cuda_ms(lambda: F.conv2d(xb, wb, padding=d, dilation=d),
+                       iters=iters, warmup=2)
+
+
 def phase_qconv(dev, card):
-    """The int8 kernel against its plain version at the tier's b4 shapes;
-    returns (max f32 |d|, kernel ms, plain ms) at the DepthNet shape."""
+    """The int8 kernel against its plain version at the tier's b4 shapes
+    and the tiling's edge shapes; returns (max f32 |d|, kernel ms, plain
+    ms, bound ms, bound_by, library ms) at the DepthNet shape."""
     import torch
 
     from omnihd_scenes_tpu_torch.kernels.qconv import (qconv3x3,
                                                        qconv3x3_reference)
+    from omnihd_scenes_tpu_torch.tools.roofline import bound, conv_cost
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    worst, times = 0.0, {}
-    for name, ((n, c, h, w), co) in QCONV_SHAPES.items():
-        x8 = torch.randint(-127, 128, (n, h, w, c), generator=gen,
-                           device=dev, dtype=torch.int8).permute(0, 3, 1, 2)
-        w8 = torch.randint(-127, 128, (co, 3, 3, c), generator=gen,
-                           device=dev, dtype=torch.int8).permute(0, 3, 1, 2)
-        scale = torch.rand(co, generator=gen, device=dev) * 9e-6 + 1e-6
-        shift = torch.randn(co, generator=gen, device=dev)
-        args = (x8, w8, scale, shift)
+    worst, first = 0.0, None
+    shapes = [(name, shape, True) for name, shape in QCONV_SHAPES.items()]
+    shapes += [(name, shape, False) for name, shape in QCONV_EDGES.items()]
+    for name, ((n, c, h, w), co), b4 in shapes:
+        args = _qconv_case(gen, dev, n, c, h, w, co)
         ref = qconv3x3_reference(*args, relu=True, out_dtype=torch.float32)
         got32 = qconv3x3(*args, relu=True, out_dtype=torch.float32)
         got16 = qconv3x3(*args, relu=True, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         err = (got32 - ref).abs()
-        bound = 2.0 ** -22 * ref.abs() + 1e-30
-        check(bool((err <= bound).all()), f'qconv f32 vs plain at {name}: '
-              f'{float((err - bound).max())} over the bound')
+        tol = 2.0 ** -22 * ref.abs() + 1e-30
+        check(bool((err <= tol).all()), f'qconv f32 vs plain at {name}: '
+              f'{float((err - tol).max())} over the bound')
         ulp = bf16_ulps(got16, ref)
         share = float((ulp > 0).float().mean())
         check(int(ulp.max()) <= 1 and share < 1e-3,
               f'qconv bf16 vs plain at {name}: {int(ulp.max())} ulp, '
               f'share {share}')
         worst = max(worst, float(err.max()))
+        del ref, got32, got16
         ms = cuda_ms(lambda: qconv3x3(*args, relu=True), iters=10, warmup=2)
-        plain_ms = cuda_ms(lambda: qconv3x3_reference(*args, relu=True),
-                           iters=2, warmup=1)
-        tops = 2 * 9 * c * co * n * h * w / ms / 1e9
-        times[name] = (ms, plain_ms)
+        ops, nbytes = conv_cost(n, c, h, w, co, 1, 2)
+        bound_ms, bound_by = bound(ops, 'int8', nbytes)
+        int_mm_ms = _int_mm_ms(args[0], args[1])
+        cudnn_ms = _cudnn_bf16_ms(args[0], args[1])
+        plain = ''
+        if b4:
+            plain_ms = cuda_ms(lambda: qconv3x3_reference(*args, relu=True),
+                               iters=2, warmup=1)
+            plain = f', plain (f64) {plain_ms:.4f} ms'
+            if first is None:
+                first = (ms, plain_ms, bound_ms, bound_by, int_mm_ms)
+        lib = 'n/a (M <= 16)' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'
         print(f'[7 qconv vs plain] {name} ({n}, {c}, {h}, {w}) -> {co}: f32 '
-              f'max|d| {float(err.max()):.3e} (max|ref| '
-              f'{float(ref.abs().max()):.3e}), bf16 max {int(ulp.max())} ulp '
-              f'on {share:.2e} of entries; kernel {ms:.4f} ms '
-              f'({tops:.1f} TOP/s), plain (f64) {plain_ms:.4f} ms ({card})')
-        del x8, w8, ref, got32, got16
-    return worst, *times['DepthNet block']
+              f'max|d| {float(err.max()):.3e}, bf16 max {int(ulp.max())} '
+              f'ulp on {share:.2e} of entries; kernel {ms:.4f} ms '
+              f'({ops / ms / 1e9:.1f} TOP/s, {bound_ms / ms:.3f} of its '
+              f'{bound_ms:.4f} ms {bound_by} bound){plain}; torch._int_mm '
+              f'on im2col {lib}, cuDNN bf16 conv {cudnn_ms:.4f} ms ({card})')
+        del args
+    return (worst, *first)
+
+
+def _bconv_weight(gen, dev, c, co):
+    import torch
+
+    return (torch.randn((co, 3, 3, c), generator=gen, device=dev)
+            * c ** -0.5 / 3).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+
+def _bconv_case(gen, dev, n, c, h, w, co):
+    import torch
+
+    x = torch.randn((n, h, w, c), generator=gen, device=dev).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    scale = torch.rand(co, generator=gen, device=dev) + 0.5
+    shift = torch.randn(co, generator=gen, device=dev) * 0.1
+    return x, _bconv_weight(gen, dev, c, co), scale, shift
+
+
+def _bconv_check(got, x, wt, scale, shift, relu, d, label):
+    """bf16 ``got`` within 1 ulp of the f32 conv (TF32 off) rounded, + 1e-5
+    max|ref| for cancellation; returns (max |d|, share of entries off the
+    rounded f32 result)."""
+    import torch
+    import torch.nn.functional as F
+
+    ref = F.conv2d(x.float(), wt.float(), padding=d, dilation=d)
+    ref = ref * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+    ref = ref.clamp_min(0.0) if relu else ref
+    torch.cuda.synchronize()
+    rounded = ref.to(torch.bfloat16).float()
+    _, exp = torch.frexp(rounded)
+    ulp = torch.ldexp(torch.ones_like(rounded), exp - 8)
+    diff = (got.float() - rounded).abs()
+    slack = float((diff - ulp).max())
+    allow = 1e-5 * float(ref.abs().max())
+    check(slack <= allow, f'bconv {label}: {slack} over 1 ulp (allowed '
+          f'{allow})')
+    return float(diff.max()), float((diff > 0).float().mean())
 
 
 def phase_bconv(dev, card, aspp, aspp_in):
-    """The bf16 kernel against its plain version and cuDNN; then its entry
-    point on the ASPP dilated branches.  Returns (max bf16 |d|, kernel
-    ms, plain ms at d = 6, entry-point launches)."""
+    """The bf16 kernel against its plain version and cuDNN at the ASPP
+    shape and the tiling's edge shapes; then its entry point on the ASPP
+    dilated branches.  Returns (max bf16 |d|, kernel ms, plain ms, bound
+    ms, bound_by, cuDNN conv ms, all at d = 6, entry-point launches)."""
     import torch
     import torch.nn.functional as F
     from torch import nn
 
     from omnihd_scenes_tpu_torch.kernels.bconv import (bconv3x3,
                                                        bconv3x3_reference)
+    from omnihd_scenes_tpu_torch.tools.roofline import bound, conv_cost
 
     cl = torch.channels_last
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -466,10 +599,12 @@ def phase_bconv(dev, card, aspp, aspp_in):
         torch.bfloat16).permute(0, 3, 1, 2)
     scale = torch.rand(co, generator=gen, device=dev) + 0.5
     shift = torch.randn(co, generator=gen, device=dev) * 0.1
+    bn_scale = scale / torch.sqrt(torch.ones_like(scale) + 1e-5)
+    ops, nbytes = conv_cost(n, c, h, w, co, 2, 2)
+    bound_ms, bound_by = bound(ops, 'bf16', nbytes)
     worst, times = 0.0, {}
     for d in BCONV_DILATIONS:
-        wt = (torch.randn((co, 3, 3, c), generator=gen, device=dev)
-              * c ** -0.5 / 3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        wt = _bconv_weight(gen, dev, c, co)
         conv = nn.Conv2d(c, co, 3, padding=d, dilation=d, bias=False)
         bn = nn.BatchNorm2d(co, eps=1e-5)
         with torch.no_grad():
@@ -478,41 +613,48 @@ def phase_bconv(dev, card, aspp, aspp_in):
             bn.bias.copy_(shift)
         cudnn = nn.Sequential(conv, bn, nn.ReLU()).to(
             device=dev, dtype=torch.bfloat16, memory_format=cl).eval()
-        bn_scale = scale / torch.sqrt(torch.ones_like(scale) + 1e-5)
         for relu in (True, False):
             got = bconv3x3(x, wt, bn_scale, shift, relu=relu, dilation=d)
-            ref = F.conv2d(x.float(), wt.float(), padding=d, dilation=d)
-            ref = ref * bn_scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
-            ref = ref.clamp_min(0.0) if relu else ref
-            torch.cuda.synchronize()
-            rounded = ref.to(torch.bfloat16).float()
-            _, exp = torch.frexp(rounded)
-            ulp = torch.ldexp(torch.ones_like(rounded), exp - 8)
-            diff = (got.float() - rounded).abs()
-            slack = float((diff - ulp).max())
-            allow = 1e-5 * float(ref.abs().max())
-            share = float((diff > 0).float().mean())
-            check(slack <= allow, f'bconv d={d} relu={relu}: {slack} over '
-                  f'1 ulp (allowed {allow})')
-            worst = max(worst, float(diff.max()))
-            print(f'[8 bconv vs plain] d={d} relu={relu}: max|d| '
-                  f'{float(diff.max()):.3e} (max|ref| '
-                  f'{float(ref.abs().max()):.3e}), within 1 ulp (+{allow:.1e}); '
-                  f'{share:.4f} of entries differ from the rounded f32 sum '
-                  f'(summation order)')
+            err, share = _bconv_check(got, x, wt, bn_scale, shift, relu, d,
+                                      f'd={d} relu={relu}')
+            worst = max(worst, err)
+            print(f'[8 bconv vs plain] d={d} relu={relu}: max|d| {err:.3e}, '
+                  f'within 1 ulp; {share:.4f} of entries differ from the '
+                  f'rounded f32 sum (summation order)')
+            del got
         with torch.inference_mode():
             ms = cuda_ms(lambda: bconv3x3(x, wt, bn_scale, shift,
                                           dilation=d), iters=10, warmup=2)
             plain_ms = cuda_ms(lambda: bconv3x3_reference(
                 x, wt, bn_scale, shift, dilation=d), iters=3, warmup=1)
-            cudnn_ms = cuda_ms(lambda: cudnn(x), iters=10, warmup=2)
-        times[d] = (ms, plain_ms)
-        tflops = 2 * 9 * c * co * n * h * w / ms / 1e9
+            fused_ms = cuda_ms(lambda: cudnn(x), iters=10, warmup=2)
+        conv_ms = _cudnn_bf16_ms(x, wt, d)
+        times[d] = (ms, plain_ms, conv_ms)
         print(f'[8 bconv vs plain] d={d} ({n}, {c}, {h}, {w}) -> {co}: '
-              f'kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain (f32 conv, '
-              f'TF32 off) {plain_ms:.4f} ms, cuDNN bf16 conv + BN + ReLU '
-              f'{cudnn_ms:.4f} ms ({card})')
-        del wt, conv, bn, cudnn, got, ref
+              f'kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, '
+              f'{bound_ms / ms:.3f} of its {bound_ms:.4f} ms {bound_by} '
+              f'bound), plain (f32 conv, TF32 off) {plain_ms:.4f} ms, cuDNN '
+              f'bf16 conv {conv_ms:.4f} ms, cuDNN bf16 conv + BN + ReLU '
+              f'{fused_ms:.4f} ms ({card})')
+        del wt, conv, bn, cudnn
+
+    for name, ((n, c, h, w), co, d) in BCONV_EDGES.items():
+        ex, ewt, escale, eshift = _bconv_case(gen, dev, n, c, h, w, co)
+        got = bconv3x3(ex, ewt, escale, eshift, relu=True, dilation=d)
+        err, share = _bconv_check(got, ex, ewt, escale, eshift, True, d,
+                                  name)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: bconv3x3(ex, ewt, escale, eshift, dilation=d),
+                     iters=10, warmup=2)
+        e_ops, e_bytes = conv_cost(n, c, h, w, co, 2, 2)
+        e_bound, e_by = bound(e_ops, 'bf16', e_bytes)
+        print(f'[8 bconv vs plain] {name} ({n}, {c}, {h}, {w}) -> {co}, '
+              f'd={d}: max|d| {err:.3e}, within 1 ulp ({share:.4f} of '
+              f'entries off the rounded f32 sum); kernel {ms:.4f} ms '
+              f'({e_ops / ms / 1e9:.1f} TFLOP/s, {e_bound / ms:.3f} of its '
+              f'{e_bound:.4f} ms {e_by} bound), cuDNN bf16 conv '
+              f'{_cudnn_bf16_ms(ex, ewt, d):.4f} ms ({card})')
+        del ex, ewt, got
 
     # The entry point on the serving network's ASPP dilated branches.
     bconv3x3.launches = 0
@@ -537,7 +679,8 @@ def phase_bconv(dev, card, aspp, aspp_in):
           f'request, {tuple(aspp_in.shape)}: {launches} launches, off the '
           f'model\'s bf16 conv + BN + ReLU by {rel} of max|model| (bf16 '
           f'rounding of the unfused conv output)')
-    return worst, *times[6], launches
+    ms, plain_ms, conv_ms = times[6]
+    return worst, ms, plain_ms, bound_ms, bound_by, conv_ms, launches
 
 
 def _eligible_layers(model):
@@ -725,7 +868,7 @@ def main():
 
     dev = torch.device('cuda', 0)
     phase_build()
-    err, ms, plain_ms = phase_kernel_vs_plain(dev, card)
+    lss_row = phase_kernel_vs_plain(dev, card)
     phase_small_parity(dev)
     cfg = serving_config()
     state_dict = random_state_dict(cfg, seed=0)
@@ -733,8 +876,8 @@ def main():
                                                           state_dict)
     check(launches > 0, 'the serving path never launched lss_sample')
     aspp_in = phase_bf16_vs_f32(dev, cfg, state_dict, predictor, request)
-    q_err, q_ms, q_plain_ms = phase_qconv(dev, card)
-    b_err, b_ms, b_plain_ms, b_launches = phase_bconv(
+    q_row = phase_qconv(dev, card)
+    *b_row, b_launches = phase_bconv(
         dev, card, predictor.model.lss.depthnet.aspp, aspp_in)
     del aspp_in
     phase_int8_small(dev)
@@ -746,16 +889,20 @@ def main():
         dev, card, cfg, state_dict, bf16_ms)
     torch.backends.cudnn.allow_tf32 = False
     phase_int8_vs_bf16(predictor, int8, int8_request)
-    rows = {'lss_sample': (launches, err, ms, plain_ms),
-            'qconv': (q_launches, q_err, q_ms, q_plain_ms),
-            'bconv': (b_launches, b_err, b_ms, b_plain_ms)}
+    # (launches, max |d|, ms, plain ms, bound ms, bound_by, library ms):
+    # lss_sample at b4, qconv at the DepthNet block (library: _int_mm on
+    # im2col), bconv at d = 6 (library: cuDNN's bf16 conv).
+    rows = {'lss_sample': (launches, *lss_row, None),
+            'qconv': (q_launches, *q_row),
+            'bconv': (b_launches, *b_row)}
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'{CSRC}{name}.cu',
         'replaces': KERNEL_REPLACES[name][0],
         **({'also_replaces': KERNEL_REPLACES[name][1]}
            if len(KERNEL_REPLACES[name]) > 1 else {}),
-        'launches': n, 'max_abs_err': e, 'ms': t, 'plain_ms': pt}
-        for name, (n, e, t, pt) in rows.items()]}))
+        'launches': n, 'max_abs_err': e, 'ms': t, 'plain_ms': pt,
+        'bound_ms': bt, 'bound_by': by, 'library_ms': lib}
+        for name, (n, e, t, pt, bt, by, lib) in rows.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

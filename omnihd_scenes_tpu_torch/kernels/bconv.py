@@ -20,7 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from omnihd_scenes_tpu_torch.kernels._conv3x3 import (check_kernel_args,
-                                                       check_shapes, empty_out)
+                                                       check_shapes, empty_out,
+                                                       launch_args,
+                                                       raise_on_error)
 
 
 def _affine_args(w, scale, shift):
@@ -62,7 +64,7 @@ def bconv3x3(x: torch.Tensor, w: torch.Tensor, scale=None, shift=None, *,
 
     ``scale`` / ``shift`` are (Co,) f32, ones / zeros when None.  A CPU
     tensor goes to :func:`bconv3x3_reference`; a CUDA tensor launches the
-    kernel (bf16 x and w channels_last, C % 32 == 0, Co % 8 == 0) or
+    kernel (bf16 x and w channels_last, C % 64 == 0, Co % 8 == 0) or
     raises.
     """
     scale, shift = _affine_args(w, scale, shift)
@@ -75,17 +77,15 @@ def bconv3x3(x: torch.Tensor, w: torch.Tensor, scale=None, shift=None, *,
     if x.device.type != 'cuda':
         raise ValueError(f'no bconv3x3 for device {x.device}')
     check_kernel_args('bconv3x3', x, w, scale, shift, torch.bfloat16)
-    n, c, h, wd = x.shape
-    co = w.shape[0]
+    n, h, wd, c, co, bh, bw, bn = launch_args(x, w)
     out = empty_out(x, co, torch.bfloat16)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                  shift.data_ptr(), out.data_ptr(), n, h, wd, c, co, d,
-                 int(relu), stream)
-    if err != 0:
-        raise RuntimeError(f'bconv3x3 kernel launch failed: CUDA error {err}')
+                 int(relu), bh, bw, bn, stream)
+    raise_on_error('bconv3x3', err)
     bconv3x3.launches += 1
     return out
 
@@ -99,6 +99,6 @@ def _kernel():
 
     fn = load_library('bconv').bconv3x3_forward
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
     fn.restype = i32
     return fn

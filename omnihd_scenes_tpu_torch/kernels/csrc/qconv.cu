@@ -7,7 +7,7 @@
 // checks).  The Pallas kernel pads and stacks three dx-shifted copies of
 // the input in HBM, because Mosaic needs 8-aligned dynamic sublane
 // offsets; here the kernel reads the NHWC activation in place and the
-// copy engine zero-fills the border (conv3x3.cuh).
+// TMA unit zero-fills the border (conv3x3.cuh).
 //
 // What bounds it on an H100: tensor-core operations.  The int8 PTQ tier
 // sends every eligible conv (3x3, stride 1, C and Co multiples of 128)
@@ -16,11 +16,12 @@
 // SECOND stages 2-3, fuse; counted from their shapes), at 768-6,144
 // operations per byte of s8 input and bf16 output, above the card's ~590
 // int8 operations per byte of HBM bandwidth.
-// The design is the simple mma.sync m16n8k32 s8 -> s32 implicit GEMM of
-// conv3x3.cuh; what it leaves on the table is listed there (wgmma + TMA,
-// a persistent scheduler, a wider warp tile, coalesced stores).  The
-// weights arrive already in the kernel's OHWI layout, packed once when
-// they are frozen or loaded (models/quant.py), never per request.
+// The design is the warp-specialised wgmma (m64nBNk32 s8 -> s32) implicit
+// GEMM of conv3x3.cuh, fed by TMA loads of the NHWC activation and the
+// OHWI weights through an mbarrier ring, one persistent block per SM; what
+// it leaves on the table is listed there.  The weights arrive already in the
+// kernel's OHWI layout, packed once when they are frozen or loaded
+// (models/quant.py), never per request.
 //
 // The sum of 9*C products of |v| <= 127 stays below 127^2 * 9 * C
 // (1.5e8 at C = 1024), so s32 cannot overflow.  The epilogue rounds the
@@ -29,18 +30,20 @@
 
 #include "conv3x3.cuh"
 
-// out_dtype: 0 = float32, 1 = bfloat16.  Returns a CUDA error code.
+// out_dtype: 0 = float32, 1 = bfloat16; (bh, bw) the block's pixel
+// rectangle and bn its channel tile (kernels/_conv3x3.py picks them).
+// Returns 0 or an error code (conv3x3::launch).
 extern "C" int qconv3x3_forward(const void* x8, const void* w8,
                                 const float* scale, const float* shift,
                                 void* out, int out_dtype, int n_img, int h,
-                                int w, int c, int co, int relu,
-                                void* stream) {
+                                int w, int c, int co, int relu, int bh,
+                                int bw, int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0)
-    return conv3x3::launch<conv3x3::S8, float>(x8, w8, scale, shift, out,
-                                               n_img, h, w, c, co, 1, relu, s);
+    return conv3x3::launch<conv3x3::S8, float>(
+        x8, w8, scale, shift, out, n_img, h, w, c, co, 1, relu, bh, bw, bn, s);
   if (out_dtype == 1)
     return conv3x3::launch<conv3x3::S8, __nv_bfloat16>(
-        x8, w8, scale, shift, out, n_img, h, w, c, co, 1, relu, s);
+        x8, w8, scale, shift, out, n_img, h, w, c, co, 1, relu, bh, bw, bn, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,33 +32,73 @@ _MAX_CHANNELS = 256
 _MAX_CAMERAS = 32
 
 
-def lss_sample_reference(feat, depth, i_star, j_star, kd_star,
-                         solve_x: Sequence[bool], ny: int, nx: int,
-                         out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain gather-multiply-sum: what the kernel computes, in f32, with
-    the cameras summed in order."""
-    b, _, f_h, f_w, c_ch = feat.shape
-    d_bins = depth.shape[-1]
-    nz = j_star.shape[2]
-    dev = feat.device
+def _camera_gathers(i_star, j_star, kd_star, solve_x, ny, nx, f_w, d_bins):
+    """Per camera n, over the (B, ny, nx, nz) output cells: (n, row,
+    column, depth bin) that each cell gathers (clamped into range), the
+    cell's word of ``i_star[b, n]`` (flat), whether that word is read (row
+    and bin in range) and whether the camera adds (column in range too)."""
+    b, _, f_h, nz, nb = i_star.shape
+    dev = i_star.device
     y = torch.arange(ny, device=dev).view(ny, 1, 1)
     x = torch.arange(nx, device=dev).view(1, nx, 1)
     z = torch.arange(nz, device=dev).view(1, 1, nz)
     bb = torch.arange(b, device=dev).view(b, 1, 1, 1)
-    acc = torch.zeros((b, ny, nx, nz, c_ch), dtype=torch.float32, device=dev)
     for n, sx in enumerate(solve_x):
         col, bg = (y, y * nx + x) if sx else (x, x * ny + y)
         cell = z * (ny * nx) + bg                         # (ny, nx, nz)
         j = j_star[:, n].flatten(1)[:, cell]              # (B, ny, nx, nz)
         kd = kd_star[:, n].flatten(1)[:, cell]
+        read_i = (j >= 0) & (j < f_h) & (kd >= 0) & (kd < d_bins)
         jc = j.clamp(0, f_h - 1)
-        i = i_star[bb, n, jc, z, col]
-        ok = ((j >= 0) & (j < f_h) & (i >= 0) & (i < f_w)
-              & (kd >= 0) & (kd < d_bins))
-        ic = i.clamp(0, f_w - 1)
-        w = depth[bb, n, jc, ic, kd.clamp(0, d_bins - 1)].float() * ok
+        word = (jc * nz + z) * nb + col
+        i = i_star[:, n].flatten(1)[bb, word]
+        ok = read_i & (i >= 0) & (i < f_w)
+        yield (n, jc, i.clamp(0, f_w - 1), kd.clamp(0, d_bins - 1), word,
+               read_i, ok)
+
+
+def lss_sample_reference(feat, depth, i_star, j_star, kd_star,
+                         solve_x: Sequence[bool], ny: int, nx: int,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain gather-multiply-sum: what the kernel computes, in f32, with
+    the cameras summed in order."""
+    b, _, _, f_w, c_ch = feat.shape
+    nz = j_star.shape[2]
+    dev = feat.device
+    bb = torch.arange(b, device=dev).view(b, 1, 1, 1)
+    acc = torch.zeros((b, ny, nx, nz, c_ch), dtype=torch.float32, device=dev)
+    for n, jc, ic, kdc, _, _, ok in _camera_gathers(
+            i_star, j_star, kd_star, solve_x, ny, nx, f_w, depth.shape[-1]):
+        w = depth[bb, n, jc, ic, kdc].float() * ok
         acc += feat[bb, n, jc, ic].float() * w[..., None]
     return acc.to(out_dtype)
+
+
+def lss_sample_bytes(feat, depth, i_star, j_star, kd_star,
+                     solve_x: Sequence[bool], ny: int, nx: int,
+                     out_dtype: torch.dtype) -> int:
+    """Bytes that the function must move on these inputs, each needed
+    element once: all of ``j_star`` and ``kd_star`` (every cell reads its
+    row and depth bin for every camera), each ``i_star`` word that a cell
+    with its row and bin in range reads, each depth value and feature row
+    that a contributing cell gathers, and the output written once."""
+    b, n_cams, f_h, f_w, c_ch = feat.shape
+    bb = torch.arange(b, device=feat.device).view(b, 1, 1, 1)
+    words_per_image = f_h * i_star.shape[3] * i_star.shape[4]
+
+    def distinct(index, mask):
+        return int(torch.unique(index.long()[mask]).numel())
+
+    nbytes = 4 * (j_star.numel() + kd_star.numel()) \
+        + b * ny * nx * j_star.shape[2] * c_ch * out_dtype.itemsize
+    for _, jc, ic, kdc, word, read_i, ok in _camera_gathers(
+            i_star, j_star, kd_star, solve_x, ny, nx, f_w, depth.shape[-1]):
+        pix = (bb * f_h + jc.long()) * f_w + ic
+        nbytes += 4 * distinct(bb * words_per_image + word, read_i)
+        nbytes += feat.element_size() * c_ch * distinct(pix, ok)
+        nbytes += depth.element_size() * distinct(pix * depth.shape[-1] + kdc,
+                                                  ok)
+    return nbytes
 
 
 def _check_shapes(feat, depth, i_star, j_star, kd_star, solve_x, ny, nx):

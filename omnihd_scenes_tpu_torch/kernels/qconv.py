@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from omnihd_scenes_tpu_torch.kernels._conv3x3 import (check_kernel_args,
-                                                       check_shapes, empty_out)
+                                                       check_shapes, empty_out,
+                                                       launch_args,
+                                                       raise_on_error)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,7 +62,7 @@ def qconv3x3(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     """Fused s8 3x3 conv + per-channel affine (+ ReLU).
 
     A CPU tensor goes to :func:`qconv3x3_reference`; a CUDA tensor
-    launches the kernel (int8 x8 and w8 channels_last, C % 64 == 0,
+    launches the kernel (int8 x8 and w8 channels_last, C % 128 == 0,
     Co % 8 == 0, out_dtype f32 or bf16) or raises.
     """
     check_shapes('qconv3x3', x8, w8, scale, shift)
@@ -73,17 +75,15 @@ def qconv3x3(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     if out_dtype not in _OUT_CODES:
         raise TypeError(f'qconv3x3 kernel stores float32 or bfloat16, not '
                         f'{out_dtype}')
-    n, c, h, w = x8.shape
-    co = w8.shape[0]
+    n, h, w, c, co, bh, bw, bn = launch_args(x8, w8)
     out = empty_out(x8, co, out_dtype)
     fn = _kernel()
     with torch.cuda.device(x8.device):
         stream = torch.cuda.current_stream(x8.device).cuda_stream
         err = fn(x8.data_ptr(), w8.data_ptr(), scale.data_ptr(),
                  shift.data_ptr(), out.data_ptr(), _OUT_CODES[out_dtype],
-                 n, h, w, c, co, int(relu), stream)
-    if err != 0:
-        raise RuntimeError(f'qconv3x3 kernel launch failed: CUDA error {err}')
+                 n, h, w, c, co, int(relu), bh, bw, bn, stream)
+    raise_on_error('qconv3x3', err)
     qconv3x3.launches += 1
     return out
 
@@ -97,6 +97,6 @@ def _kernel():
 
     fn = load_library('qconv').qconv3x3_forward
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
     fn.restype = i32
     return fn

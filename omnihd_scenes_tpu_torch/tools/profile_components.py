@@ -1,7 +1,7 @@
 """Per-stage latency profile of the serving path on one GPU.
 
     python -m omnihd_scenes_tpu_torch.tools.profile_components \
-        [--batch 4] [--requests 3] [--int8] \
+        [--batch 4] [--requests 3] [--int8 [--clocks]] \
         [--out profiles/profile_components.txt]
 
 Builds ``Predictor`` at the serving configuration (bf16, channels_last,
@@ -12,7 +12,16 @@ of ``Predictor.__call__`` in the same order with a CUDA event between
 stages (a CPU test holds it equal to ``Predictor``).  Then one more
 request runs under ``torch.profiler``: its wall time, device kernel
 time, busy share (kernel time / wall), peak allocated memory and the
-device kernels that took the most time.
+device kernels that took the most time.  With ``--int8`` a last request
+gives the ``qconv`` table: for each eligible layer its shape, the
+kernel's tiling, its ms from CUDA events around the launch, its bound
+(``tools/roofline.py``: operations over the 1,979 TOP/s int8 peak, or
+bytes over 3.35 TB/s if larger), the share of the bound and the gap (ms
+- bound).  ``--clocks`` then runs the table's slowest launch back to
+back for about 1.5 s and reports the SM clock and board power that
+``nvidia-smi`` samples every 100 ms meanwhile (medians; the first two
+samples, the ramp, dropped): whether the card's power limit holds the
+clock below its maximum under the kernel.
 
 The report is printed and written to ``--out``; a relative path is taken
 from the root of the checkout.
@@ -29,7 +38,9 @@ import numpy as np
 import torch
 
 from omnihd_scenes_tpu_torch.config import serving_config
+from omnihd_scenes_tpu_torch.kernels._conv3x3 import block_n, tile_shape
 from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample
+from omnihd_scenes_tpu_torch.models import quant
 from omnihd_scenes_tpu_torch.models.anchor_head import (
     anchor_head_decode_candidates)
 from omnihd_scenes_tpu_torch.models.lss import _nhwc
@@ -39,6 +50,7 @@ from omnihd_scenes_tpu_torch.serve.predictor import (Predictor, _as_tensor,
                                                      calibrate)
 from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
                                                      random_state_dict)
+from omnihd_scenes_tpu_torch.tools.roofline import bound, conv_cost
 
 CHECKOUT = Path(__file__).resolve().parents[2]
 N_TOP_KERNELS = 25
@@ -138,6 +150,94 @@ def kernel_profile(predictor, request):
     return wall, [(getattr(e, attr) / 1e3, e.count, e.key) for e in kernels]
 
 
+def qconv_layers(predictor, request):
+    """[(layer, (N, C, H, W), Co, out bytes per element, device ms)] of one
+    request, one row per ``qconv`` launch, timed by CUDA events recorded
+    just before and after the launch on the current stream; and a
+    callable that repeats the slowest launch."""
+    current, rows, calls = [], [], []
+    hooks = [m.register_forward_pre_hook(
+        lambda module, args, name=name: current.append(name))
+        for name, m in predictor.model.named_modules()
+        if isinstance(m, quant.QConv2d) and quant.qconv_eligible(m)]
+    launch = quant.qconv3x3
+
+    def timed(x8, w8, scale, shift, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(x8, w8, scale, shift, **kwargs)
+        end.record()
+        rows.append((current[-1], tuple(x8.shape), w8.shape[0],
+                     out.element_size(), start, end))
+        calls.append((x8, w8, scale, shift, kwargs))
+        return out
+
+    quant.qconv3x3 = timed
+    try:
+        predictor(*request)
+        torch.cuda.synchronize()
+    finally:
+        quant.qconv3x3 = launch
+        for hook in hooks:
+            hook.remove()
+    rows = [(name, shape, co, out_bytes, start.elapsed_time(end))
+            for name, shape, co, out_bytes, start, end in rows]
+    x8, w8, scale, shift, kwargs = calls[max(range(len(rows)),
+                                             key=lambda k: rows[k][-1])]
+    return rows, lambda: launch(x8, w8, scale, shift, **kwargs)
+
+
+def qconv_table(rows):
+    """Report lines: per launch its shape, tiling, ms, bound and gap."""
+    lines = ['layer | (N, C, H, W) -> Co | tile BHxBW, BN | ms | bound ms '
+             '(by) | share | gap ms']
+    total_ms = total_bound = 0.0
+    for name, (n, c, h, w), co, out_bytes, ms in rows:
+        ops, nbytes = conv_cost(n, c, h, w, co, 1, out_bytes)
+        bound_ms, bound_by = bound(ops, 'int8', nbytes)
+        bh, bw = tile_shape(h, w)
+        lines.append(
+            f'{name} | ({n}, {c}, {h}, {w}) -> {co} | {bh}x{bw}, '
+            f'{block_n(co)} | {ms:.4f} | {bound_ms:.4f} ({bound_by}) | '
+            f'{bound_ms / ms:.3f} | {ms - bound_ms:.4f}')
+        total_ms += ms
+        total_bound += bound_ms
+    lines.append(f'sum of {len(rows)} launches | | | {total_ms:.4f} | '
+                 f'{total_bound:.4f} | {total_bound / total_ms:.3f} | '
+                 f'{total_ms - total_bound:.4f}')
+    return lines
+
+
+def clocks_during(fn, seconds=1.5):
+    """(median SM MHz, median board W, samples) that ``nvidia-smi`` reads
+    every 100 ms while ``fn`` runs back to back for about ``seconds``; the
+    first two samples (the ramp) are dropped."""
+    proc = subprocess.Popen(
+        ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+         '--format=csv,noheader,nounits', '-lms', '100'],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = []
+    for line in out.splitlines()[2:]:
+        try:
+            rows.append([float(v) for v in line.split(',')])
+        except ValueError:
+            continue                 # '[N/A]' or a cut line
+    if not rows:
+        raise RuntimeError('nvidia-smi gave no clock samples')
+    mhz, watts = (float(np.median([r[i] for r in rows])) for i in (0, 1))
+    return mhz, watts, len(rows)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--batch', type=int, default=4)
@@ -145,8 +245,13 @@ def main(argv=None):
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--int8', action='store_true',
                         help='serve the int8 PTQ tier')
+    parser.add_argument('--clocks', action='store_true',
+                        help='with --int8: SM clock and board power while '
+                        'the slowest qconv launch runs back to back')
     parser.add_argument('--out', default='profiles/profile_components.txt')
     args = parser.parse_args(argv)
+    if args.clocks and not args.int8:
+        parser.error('--clocks needs --int8')
     if not torch.cuda.is_available():
         raise SystemExit('profile_components needs a CUDA device')
 
@@ -167,7 +272,7 @@ def main(argv=None):
     predictor = Predictor(cfg, state_dict, device='cuda',
                           dtype=torch.bfloat16, quant_state=quant)
     requests = [random_request(rng, cfg, args.batch)
-                for _ in range(args.requests + 2)]
+                for _ in range(args.requests + 3)]
 
     runs = [stage_ms(predictor, r) for r in requests[:args.requests + 1]][1:]
     tier = 'int8' if args.int8 else 'bf16'
@@ -181,7 +286,7 @@ def main(argv=None):
                  f'{np.mean([sum(r.values()) for r in runs]):.3f}')
 
     torch.cuda.reset_peak_memory_stats()
-    wall, kernels = kernel_profile(predictor, requests[-1])
+    wall, kernels = kernel_profile(predictor, requests[-2])
     busy = sum(ms for ms, _, _ in kernels)
     lines += ['', f'profiled request: wall {wall:.2f} ms, device kernels '
               f'{busy:.2f} ms, busy share {busy / wall:.3f}, peak allocated '
@@ -189,6 +294,21 @@ def main(argv=None):
               'device ms | launches | kernel']
     lines += [f'{ms:9.3f} | {count:5d} | {key[:100]}'
               for ms, count, key in kernels[:N_TOP_KERNELS]]
+    if args.int8:
+        conv_ms = sum(ms for ms, _, key in kernels if 'conv3x3_kernel' in key)
+        lines += ['', f'qconv per eligible layer, one more b{args.batch} '
+                  f'request (profiled request above: qconv kernels '
+                  f'{conv_ms:.3f} ms of device time; {card})']
+        rows, slowest = qconv_layers(predictor, requests[-1])
+        lines += qconv_table(rows)
+        if args.clocks:
+            name, (n, c, h, w), co = max(rows, key=lambda r: r[-1])[:3]
+            with torch.inference_mode():
+                mhz, watts, samples = clocks_during(slowest)
+            lines.append(f'{name} ({n}, {c}, {h}, {w}) -> {co} back to back: '
+                         f'SM clock {mhz:.0f} MHz, board power {watts:.1f} '
+                         f'W (median of {samples} nvidia-smi samples; '
+                         f'{card})')
     report = '\n'.join(lines)
     print(report)
     out = CHECKOUT / args.out

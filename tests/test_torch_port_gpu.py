@@ -10,6 +10,10 @@ Bounds:
 * lss_sample, f32 outputs: 1e-5 * max|ref| + 1e-6 (summation order over
   at most 6 products; the kernel rounds products and sums separately, so
   it is usually exact).
+The conv cases include the edge shapes of the kernels' block tiling
+(images smaller than a 128-pixel tile, widths that split tiles, channel
+counts that are not multiples of the block's channel tile).
+
 * qconv3x3: the integer sum is exact in both versions and the epilogue
   rounds the same steps, so f32 outputs within 2^-22 |ref| (one f32
   rounding) and bf16 outputs within 1 ulp on under 1e-3 of the entries
@@ -160,7 +164,15 @@ def bf16_ulps(got, want):
     (3, 5, 33, 384, 256, True, torch.bfloat16),
     (1, 9, 11, 768, 128, False, torch.float32),
     (2, 6, 131, 128, 768, True, torch.bfloat16),
-    (4, 1, 1, 256, 256, False, torch.float32)])
+    (4, 1, 1, 256, 256, False, torch.float32),
+    # Edge shapes of the block tiling: an image smaller than a tile,
+    # widths that split tiles (ResNet layer4's 17x30), the fuse.conv
+    # channels (C=640 -> Co=384), Co not a multiple of the channel tile.
+    (2, 7, 9, 128, 256, True, torch.float32),
+    (2, 17, 30, 512, 512, False, torch.bfloat16),
+    (1, 16, 24, 640, 384, True, torch.float32),
+    (2, 9, 13, 128, 136, False, torch.float32),
+    (1, 3, 200, 256, 8, True, torch.bfloat16)])
 def test_qconv_matches_plain(dev, n, h, w, c, co, relu, out_dtype):
     x8, w8, scale, shift = _qconv_case(dev, n, h, w, c, co)
     before = qconv3x3.launches
@@ -213,7 +225,16 @@ def _bconv_reference_f32(x, w, scale, shift, relu, d):
     (1, 8, 40, 256, 128, 2, False),
     (3, 17, 23, 384, 256, 6, True),
     (1, 19, 21, 256, 768, 12, False),
-    (2, 9, 13, 768, 128, 18, True)])
+    (2, 9, 13, 768, 128, 18, True),
+    # Edge shapes of the block tiling (as for qconv), and d = 18 on an
+    # image smaller than the dilation.
+    (4, 1, 1, 128, 128, 1, True),
+    (1, 7, 9, 256, 256, 6, False),
+    (2, 17, 30, 256, 256, 12, True),
+    (1, 6, 131, 128, 128, 6, False),
+    (2, 9, 13, 128, 256, 18, True),
+    (1, 16, 24, 640, 384, 1, True),
+    (2, 9, 13, 128, 136, 2, False)])
 def test_bconv_matches_plain(dev, n, h, w, c, co, d, relu):
     gen = torch.Generator(device=dev).manual_seed(d)
     x = torch.randn((n, h, w, c), generator=gen, device=dev).to(

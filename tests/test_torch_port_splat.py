@@ -15,6 +15,7 @@ import torch
 
 from omnihd_scenes_tpu.ops import lss_project as jax_lss
 from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
+                                                        lss_sample_bytes,
                                                         lss_sample_reference)
 from omnihd_scenes_tpu_torch.ops import lss_project as port_lss
 from tests.test_lss_project import (BEV_START, BEV_VOXEL, D0, DD, FH, FW, H,
@@ -176,6 +177,35 @@ def test_wrapper_checks_shapes(inputs):
     meta = [x.to('meta') for x in (t(feat)[None], t(depth)[None], *fields)]
     with pytest.raises(ValueError, match='device'):
         lss_sample(*meta, solve_x=SOLVE_X, ny=NY, nx=NX)
+
+
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16])
+def test_needed_bytes_count_each_gathered_element_once(inputs, out_dtype):
+    """``lss_sample_bytes`` against a cell-by-cell walk of the kernel's
+    reads (``csrc/lss_sample.cu``), with each element counted once."""
+    depth, feat = inputs
+    t = torch.from_numpy
+    g = port_lss._Geom(*GEOM_ARGS)
+    fields = port_lss.sample_fields(t(ROTS)[None], t(TRANS)[None], g, SOLVE_X)
+    i_star, j_star, kd_star = (f[0].numpy() for f in fields)
+    words, rows, values = set(), set(), set()
+    for n, sx in enumerate(SOLVE_X):
+        for z, y, x in np.ndindex(NZ, NY, NX):
+            col, bg = (y, y * NX + x) if sx else (x, x * NY + y)
+            j, kd = j_star[n, z, bg], kd_star[n, z, bg]
+            if not (0 <= j < FH and 0 <= kd < NDEPTH):
+                continue
+            words.add((n, j, z, col))
+            i = i_star[n, j, z, col]
+            if 0 <= i < FW:
+                rows.add((n, j, i))
+                values.add((n, j, i, kd))
+    assert len(values) > len(rows) > 100
+    want = (4 * (j_star.size + kd_star.size) + 4 * len(words)
+            + 4 * C * len(rows) + 4 * len(values)
+            + NY * NX * NZ * C * out_dtype.itemsize)
+    assert lss_sample_bytes(t(feat)[None], t(depth)[None], *fields, SOLVE_X,
+                            NY, NX, out_dtype) == want
 
 
 def test_cpu_calls_the_plain_version_and_counts_nothing(inputs):
