@@ -11,11 +11,22 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 2. build: the three kernels (``kernels/csrc/lss_sample.cu``,
    ``qconv.cu``, ``bconv.cu``) from source for sm_90a, one ``nvcc`` each,
    all started together; build seconds, registers and spills;
-3. kernel vs plain at production shapes (6 cameras, 136x240 features,
-   59 depth bins, 64 channels, 16x160x240 grid, the bench's ring rig) at
-   batch 1 and 4: f32 output within 1e-5 * max|ref| + 1e-6 of the plain
-   PyTorch version on the same bf16 inputs, identical support, bf16
-   output within 1 bf16 ulp of the rounded f32 output; timed at batch 4;
+3. the LSS kernel vs plain at production shapes (6 cameras, 136x240
+   features, 59 depth bins, 64 channels, 16x160x240 grid) at batch 1 and
+   4, with the bench's ring rig and with the rig moved per sample and
+   camera (``utils/rig.py:perturbed_rigs``): the fused kernel
+   (``lss_sample_bev``, geometry in) dumps the (j, i, kd) it used for
+   every cell and camera, which must equal the plain fields computed on
+   the card (or differ in at most 1e-3 of the entries, each by +-1 or at
+   a validity edge, and the output is then held to the plain gather on
+   the kernel's own indices); f32 output within 1e-5 * max|ref| + 1e-6
+   of the plain PyTorch version on the same bf16 inputs, identical
+   support, bf16 output within 1 bf16 ulp of the rounded f32 output; the
+   fields-in entry (``lss_sample``) held the same way at b4; times at b4:
+   the fused kernel, the serving stage (``camera_geometry`` + the fused
+   kernel), the two-step path (``sample_fields`` + the fields-in entry), the
+   fields-in entry alone and both plain versions, with the bounds of
+   ``lss_sample_bev_bytes`` / ``lss_sample_bytes``;
 4. small-size parity: the f32 Predictor on the GPU against the f32
    Predictor on the CPU (which the CPU tests hold to the JAX package):
    network outputs within 1e-4 of max|ref|, and decode + NMS on the same
@@ -24,8 +35,8 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    + LSS 16x160x240 + dense pillars 320x480 + SECOND/FPN + head) in bf16
    channels_last with seeded random weights answers one warm-up and 3
    timed batch-4 requests of fresh inputs; outputs must be finite and
-   (4, 500, .), and the kernel's launch count must rise with every
-   request;
+   (4, 500, .), ``lss_sample_bev`` must launch once per request and the
+   fields-in entry never;
 6. bf16 vs f32: the last timed request again, through the bf16 network
    and through an f32 Predictor on the same weights: head maps and the
    fused BEV within HEAD_TOL of max|f32|, and at least BOX_MATCH of the
@@ -59,7 +70,8 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 10. int8 serving: calibrate (+ freeze) on one fresh full-width b4 request
    in bf16, then 1 warm-up and 3 timed requests of fresh inputs through
    ``Predictor(quant_state=...)``; finite (4, 500, .) outputs, qconv
-   launches = eligible layers x requests, lss_sample launched too;
+   launches = eligible layers x requests, ``lss_sample_bev`` once per
+   request and the fields-in entry never;
 11. int8 vs bf16 on the last timed request: head maps within
    INT8_HEAD_TOL of max|bf16|, at least INT8_BOX_MATCH of the kept int8
    boxes overlapping a kept bf16 box of the same label.
@@ -69,8 +81,9 @@ the main paths, error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
 bytes it must move, each needed input element read once and each output
-written once, over 3.35 TB/s; for ``lss_sample`` the elements that this
-run's index fields gather); the last line is
+written once, over 3.35 TB/s; for the LSS kernel the elements that this
+run's indices gather, and for its fields-in entry the fields it reads
+too); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero, without that line.
 """
@@ -99,9 +112,11 @@ INT8_HEAD_TOL = 0.15
 INT8_BOX_MATCH = 0.75
 CSRC = 'omnihd_scenes_tpu_torch/kernels/csrc/'
 KERNELS = ('lss_sample', 'qconv', 'bconv')
+SPLAT_PASSES = ('omnihd_scenes_tpu/ops/pallas_splat.py:68',
+                'omnihd_scenes_tpu/ops/pallas_splat.py:80')
 KERNEL_REPLACES = {
-    'lss_sample': ('omnihd_scenes_tpu/ops/pallas_splat.py:68',
-                   'omnihd_scenes_tpu/ops/pallas_splat.py:80'),
+    'lss_sample': SPLAT_PASSES,
+    'lss_sample_fields_in': SPLAT_PASSES,
     'qconv': ('omnihd_scenes_tpu/ops/qconv.py:48',),
     'bconv': ('omnihd_scenes_tpu/ops/bconv.py:41',)}
 # (N, C, H, W) -> Co of the int8 tier's eligible layers at b4 (24 images).
@@ -185,80 +200,164 @@ def phase_build():
               f'(all three in parallel); ' + ' | '.join(ptxas))
 
 
-def _production_fields(batch, dev):
+def _production_geometry(batch, dev, moved):
+    """The serving LSS geometry at ``batch``: the bench's ring rig, the
+    same for every sample or (``moved``) moved per sample and camera."""
     import torch
 
-    from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
     from omnihd_scenes_tpu_torch.config import serving_config
-    from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, sample_fields
+    from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, camera_geometry
+    from omnihd_scenes_tpu_torch.utils.rig import (perturbed_rigs,
+                                                   ring_rig_img2lidar)
 
     lss = serving_config().lss
     nx, ny, nz = lss.bev_nx
     g = _Geom(lss.final_dim, lss.feat_hw, lss.camera_depth_range,
               lss.pc_range[:3], (lss.grid,) * 3, (nx, ny, nz))
     rots, trans = ring_rig_img2lidar(img_hw=lss.final_dim)
-    rots = torch.from_numpy(rots).to(dev).expand(batch, -1, -1, -1)
-    trans = torch.from_numpy(trans).to(dev).expand(batch, -1, -1)
-    return lss, g, sample_fields(rots, trans, g, lss.cam_solve_x)
+    if moved:
+        rots, trans = perturbed_rigs(rots, trans, batch, seed=batch)
+    else:
+        rots, trans = (a[None].repeat(batch, 0) for a in (rots, trans))
+    rots, trans = (torch.from_numpy(a).to(dev) for a in (rots, trans))
+    minv, mt = camera_geometry(rots, trans)
+    return lss, g, rots, trans, minv.contiguous(), mt.contiguous()
+
+
+def _index_differences(got, want, label):
+    """Entries of the kernel's (j, i, kd) dump that differ from the plain
+    fields on the card; any that do must stay within the bound the CPU
+    tests hold the port's fields to against JAX (at most 1e-3 of the
+    entries, each within +-1 or at a validity edge)."""
+    differ = total = 0
+    for name, a, b in zip(('j', 'i', 'kd'), got, want):
+        bad = a != b
+        differ += int(bad.sum())
+        total += bad.numel()
+        near = ((a - b).abs() <= 1) | (a == -1) | (b == -1)
+        check(bool(near[bad].all()), f'{label}: {name} indices differ by '
+              f'more than 1 off a validity edge')
+    check(differ <= 1e-3 * total, f'{label}: {differ} of {total} index '
+          f'entries differ')
+    return differ, total
+
+
+def _check_against(out32, out16, ref, label):
+    """f32 within 1e-5 max|ref| + 1e-6, identical support, bf16 within 1
+    ulp of the rounded f32 output; returns max |d|."""
+    import torch
+
+    err = float((out32 - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max()) + 1e-6
+    check(err <= tol, f'{label}: {err} > {tol}')
+    check(torch.equal(out32.ne(0).any(-1), ref.ne(0).any(-1)),
+          f'{label}: kernel and plain support differ')
+    rounded = out32.to(torch.bfloat16).float()
+    _, exp = torch.frexp(rounded)
+    ulp = torch.ldexp(torch.ones_like(rounded), exp - 8)
+    check(float(((out16.float() - rounded).abs() - ulp).max()) <= 0,
+          f'{label}: bf16 output off by more than 1 ulp')
+    return err, tol
 
 
 def phase_kernel_vs_plain(dev, card):
+    """The fused kernel against its plain version at b1 and b4, ring rig
+    and a rig moved per sample; then, at b4 on the ring rig, the
+    fields-in entry against its plain version, and the times.  Returns
+    the rows (max |d|, ms, plain ms, bound ms, bound_by) of the fused
+    kernel and of the fields-in entry."""
     import torch
 
     from omnihd_scenes_tpu_torch.kernels.lss_sample import (
-        lss_sample, lss_sample_bytes, lss_sample_reference)
+        cell_indices, gather_cells, geometry_fields, lss_sample,
+        lss_sample_bev, lss_sample_bev_bytes, lss_sample_bev_reference,
+        lss_sample_bytes, lss_sample_reference)
+    from omnihd_scenes_tpu_torch.ops.lss_project import (camera_geometry,
+                                                         sample_fields)
     from omnihd_scenes_tpu_torch.tools.roofline import bound
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
     for batch in (1, BATCH):
-        lss, g, fields = _production_fields(batch, dev)
-        f_h, f_w = lss.feat_hw
-        shape = (batch, len(lss.cam_solve_x), f_h, f_w)
-        feat = torch.randn(shape + (lss.camC,), generator=gen,
-                           device=dev).to(torch.bfloat16)
-        depth = torch.softmax(torch.randn(shape + (lss.depth_bins,),
-                                          generator=gen, device=dev),
-                              -1).to(torch.bfloat16)
-        args = (feat, depth, *fields)
-        kw = dict(solve_x=lss.cam_solve_x, ny=g.ny, nx=g.nx)
-        out32 = lss_sample(*args, out_dtype=torch.float32, **kw)
-        out16 = lss_sample(*args, out_dtype=torch.bfloat16, **kw)
-        ref = lss_sample_reference(*args, lss.cam_solve_x, g.ny, g.nx,
-                                   torch.float32)
-        torch.cuda.synchronize()
-        err = float((out32 - ref).abs().max())
-        tol = 1e-5 * float(ref.abs().max()) + 1e-6
-        check(err <= tol, f'kernel vs plain at b{batch}: {err} > {tol}')
-        support = ref.ne(0).any(-1)
-        check(torch.equal(out32.ne(0).any(-1), support),
-              f'kernel and plain support differ at b{batch}')
-        rounded = out32.to(torch.bfloat16).float()
-        _, exp = torch.frexp(rounded)
-        ulp = torch.ldexp(torch.ones_like(rounded), exp - 8)
-        bf16_err = float(((out16.float() - rounded).abs() - ulp).max())
-        check(bf16_err <= 0, f'bf16 output off by more than 1 ulp at '
-              f'b{batch}')
-        worst = max(worst, err)
-        print(f'[3 kernel vs plain] b{batch}: max|d| {err:.3e} (tol '
-              f'{tol:.3e}), support {int(support.sum())}/{support.numel()} '
-              f'cells identical, bf16 within 1 ulp')
+        for moved in (True, False):
+            lss, g, rots, trans, minv, mt = _production_geometry(batch, dev,
+                                                                 moved)
+            sx = lss.cam_solve_x
+            f_h, f_w = lss.feat_hw
+            shape = (batch, len(sx), f_h, f_w)
+            feat = torch.randn(shape + (lss.camC,), generator=gen,
+                               device=dev).to(torch.bfloat16)
+            depth = torch.softmax(torch.randn(shape + (lss.depth_bins,),
+                                              generator=gen, device=dev),
+                                  -1).to(torch.bfloat16)
+            label = f'b{batch} {"moved" if moved else "ring"} rig'
+            out32, idx = lss_sample_bev(feat, depth, minv, mt, g, sx,
+                                        out_dtype=torch.float32, dump=True)
+            out16 = lss_sample_bev(feat, depth, minv, mt, g, sx,
+                                   out_dtype=torch.bfloat16)
+            want_idx = cell_indices(*geometry_fields(minv, mt, g, sx), sx,
+                                    g.ny, g.nx, lss.depth_bins)
+            differ, total = _index_differences(idx, want_idx, label)
+            # With identical indices this is lss_sample_bev_reference; else
+            # the plain gather on the kernel's own indices.
+            ref = gather_cells(feat, depth, *(idx if differ else want_idx),
+                               torch.float32)
+            torch.cuda.synchronize()
+            err, tol = _check_against(out32, out16, ref, f'fused kernel '
+                                      f'vs plain at {label}')
+            worst = max(worst, err)
+            support = ref.ne(0).any(-1)
+            print(f'[3 kernel vs plain] fused, {label}: indices '
+                  f'{"identical" if not differ else f"{differ} differ"} '
+                  f'({total} (cell, camera, index) entries); max|d| '
+                  f'{err:.3e} (tol {tol:.3e}), support '
+                  f'{int(support.sum())}/{support.numel()} cells '
+                  f'identical, bf16 within 1 ulp')
+            del out32, out16, idx, want_idx, ref, support
 
-    ms = cuda_ms(lambda: lss_sample(*args, out_dtype=torch.bfloat16, **kw),
+    # b4, ring rig (the last case): the fields-in entry, then the times.
+    fields = sample_fields(rots, trans, g, sx)
+    kw = dict(solve_x=sx, ny=g.ny, nx=g.nx)
+    args = (feat, depth, *fields)
+    out32 = lss_sample(*args, out_dtype=torch.float32, **kw)
+    out16 = lss_sample(*args, out_dtype=torch.bfloat16, **kw)
+    ref = lss_sample_reference(*args, sx, g.ny, g.nx, torch.float32)
+    torch.cuda.synchronize()
+    f_err, _ = _check_against(out32, out16, ref, 'fields-in entry vs plain')
+    del out32, out16, ref
+
+    geo = (feat, depth, minv, mt, g, sx)
+    ms = cuda_ms(lambda: lss_sample_bev(*geo, out_dtype=torch.bfloat16),
                  iters=20, warmup=3)
-    plain_ms = cuda_ms(lambda: lss_sample_reference(
-        *args, lss.cam_solve_x, g.ny, g.nx, torch.bfloat16),
-        iters=5, warmup=1)
-    # A gather: no arithmetic to speak of, so the bytes this run's index
-    # fields make it read (each needed element once) bound it.
-    nbytes = lss_sample_bytes(*args, lss.cam_solve_x, g.ny, g.nx,
-                              torch.bfloat16)
+    stage_ms = cuda_ms(lambda: lss_sample_bev(
+        feat, depth, *(t.contiguous() for t in camera_geometry(rots, trans)),
+        g, sx, out_dtype=torch.bfloat16), iters=20, warmup=3)
+    f_ms = cuda_ms(lambda: lss_sample(*args, out_dtype=torch.bfloat16, **kw),
+                   iters=20, warmup=3)
+    old_ms = cuda_ms(lambda: lss_sample(
+        feat, depth, *sample_fields(rots, trans, g, sx),
+        out_dtype=torch.bfloat16, **kw), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: lss_sample_bev_reference(*geo, torch.bfloat16),
+                       iters=3, warmup=1)
+    f_plain_ms = cuda_ms(lambda: lss_sample_reference(
+        *args, sx, g.ny, g.nx, torch.bfloat16), iters=3, warmup=1)
+    # Gathers: no arithmetic to speak of, so the bytes that this run's
+    # indices make each function move (each needed element once) bound it.
+    nbytes = lss_sample_bev_bytes(*geo, torch.bfloat16)
     bound_ms, bound_by = bound(0, 'bf16', nbytes)
-    print(f'[3 kernel vs plain] b{BATCH} bf16: kernel {ms:.4f} ms '
-          f'({bound_ms / ms:.3f} of its {bound_ms:.4f} ms {bound_by} bound, '
-          f'{nbytes / 1e9:.3f} GB), plain PyTorch {plain_ms:.4f} ms by CUDA '
-          f'events ({card})')
-    return worst, ms, plain_ms, bound_ms, bound_by
+    f_bytes = lss_sample_bytes(*args, sx, g.ny, g.nx, torch.bfloat16)
+    f_bound, f_by = bound(0, 'bf16', f_bytes)
+    print(f'[3 kernel vs plain] b{BATCH} bf16, ring rig: fused kernel '
+          f'{ms:.4f} ms ({bound_ms / ms:.3f} of its {bound_ms:.4f} ms '
+          f'{bound_by} bound, {nbytes / 1e9:.4f} GB), plain PyTorch '
+          f'{plain_ms:.4f} ms; with camera_geometry (the serving stage) '
+          f'{stage_ms:.4f} ms; the two-step path (sample_fields + the '
+          f'fields-in entry) {old_ms:.4f} ms; the fields-in entry alone '
+          f'{f_ms:.4f} ms ({f_bound / f_ms:.3f} of its {f_bound:.4f} ms '
+          f'{f_by} bound, {f_bytes / 1e9:.4f} GB), its plain version '
+          f'{f_plain_ms:.4f} ms, by CUDA events ({card})')
+    return ((worst, ms, plain_ms, bound_ms, bound_by),
+            (f_err, f_ms, f_plain_ms, f_bound, f_by))
 
 
 def _small_config():
@@ -337,7 +436,8 @@ def kept_row_distance(a, b, s):
 def phase_serving(dev, card, cfg, state_dict):
     import torch
 
-    from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
+                                                            lss_sample_bev)
     from omnihd_scenes_tpu_torch.serve.predictor import Predictor
     from omnihd_scenes_tpu_torch.serve.synthetic import random_request
 
@@ -350,7 +450,7 @@ def phase_serving(dev, card, cfg, state_dict):
     counts, dev_ms, host_ms = [], [], []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    lss_sample.launches = 0
+    lss_sample_bev.launches = lss_sample.launches = 0
     for req in requests:
         t0 = time.perf_counter()
         start.record()
@@ -359,22 +459,26 @@ def phase_serving(dev, card, cfg, state_dict):
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(start.elapsed_time(end))
-        counts.append(lss_sample.launches)
+        counts.append(lss_sample_bev.launches)
         check(tuple(boxes.shape) == (BATCH, 500, 9)
               and tuple(scores.shape) == (BATCH, 500)
               and tuple(labels.shape) == (BATCH, 500),
               f'output shapes {boxes.shape} {scores.shape} {labels.shape}')
         check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
               'non-finite serving output')
-    launches = lss_sample.launches
-    check(all(b > a for a, b in zip([0] + counts, counts)),
-          f'kernel launch count did not rise with every request: {counts}')
+    launches = (lss_sample_bev.launches, lss_sample.launches)
+    check(counts == list(range(1, len(requests) + 1)),
+          f'lss_sample_bev launches after each request {counts}, not one '
+          f'per request')
+    check(lss_sample.launches == 0, 'the serving path launched the '
+          'fields-in entry')
     ms = float(np.mean(dev_ms[1:]))
     print(f'[5 serving] b{BATCH} x {N_TIMED} requests (+1 warm-up): '
           f'{ms:.2f} ms/request by CUDA events ({dev_ms[1:]}), host '
           f'{float(np.mean(host_ms[1:])):.2f} ms, {BATCH * 1e3 / ms:.2f} '
           f'samples/s ({card}); kept boxes {int(valid.sum())}; model setup '
-          f'{setup_s:.1f} s; lss_sample launches per request {counts}')
+          f'{setup_s:.1f} s; lss_sample_bev launches after each request '
+          f'{counts}, fields-in entry 0')
     return launches, predictor, requests[-1], ms
 
 
@@ -774,12 +878,12 @@ def phase_int8_small(dev):
 
 
 def phase_int8_serving(dev, card, cfg, state_dict, bf16_ms):
-    """Returns (qconv launches, lss_sample launches, the int8 Predictor,
-    the last request)."""
+    """Returns (qconv launches, the int8 Predictor, the last request)."""
     import torch
 
     from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
-    from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
+                                                            lss_sample_bev)
     from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
     from omnihd_scenes_tpu_torch.serve.predictor import Predictor, calibrate
     from omnihd_scenes_tpu_torch.serve.synthetic import random_request
@@ -798,14 +902,15 @@ def phase_int8_serving(dev, card, cfg, state_dict, bf16_ms):
     counts, dev_ms = [], []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    lss_sample.launches = qconv3x3.launches = bconv3x3.launches = 0
+    lss_sample_bev.launches = lss_sample.launches = 0
+    qconv3x3.launches = bconv3x3.launches = 0
     for req in requests:
         start.record()
         boxes, scores, labels, valid = predictor(*req)
         end.record()
         torch.cuda.synchronize()
         dev_ms.append(start.elapsed_time(end))
-        counts.append((qconv3x3.launches, lss_sample.launches))
+        counts.append((qconv3x3.launches, lss_sample_bev.launches))
         check(tuple(boxes.shape) == (BATCH, 500, 9)
               and tuple(scores.shape) == (BATCH, 500)
               and tuple(labels.shape) == (BATCH, 500),
@@ -813,12 +918,15 @@ def phase_int8_serving(dev, card, cfg, state_dict, bf16_ms):
               f'{labels.shape}')
         check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
               'non-finite int8 serving output')
-    q_launches, l_launches = qconv3x3.launches, lss_sample.launches
+    q_launches = qconv3x3.launches
     check(q_launches == eligible * len(requests) and eligible > 0,
           f'qconv launches {q_launches} != {eligible} eligible layers x '
           f'{len(requests)} requests')
-    check(all(b[1] > a[1] for a, b in zip([(0, 0)] + counts, counts)),
-          f'lss_sample did not launch in every int8 request: {counts}')
+    check([c[1] for c in counts] == list(range(1, len(requests) + 1)),
+          f'lss_sample_bev launches after each int8 request {counts}, not '
+          f'one per request')
+    check(lss_sample.launches == 0, 'the int8 path launched the fields-in '
+          'entry')
     check(bconv3x3.launches == 0, 'the int8 path launched bconv')
     ms = float(np.mean(dev_ms[1:]))
     print(f'[10 int8 serving] b{BATCH} x {N_TIMED} requests (+1 warm-up): '
@@ -826,9 +934,9 @@ def phase_int8_serving(dev, card, cfg, state_dict, bf16_ms):
           f'{BATCH * 1e3 / ms:.2f} samples/s, against bf16 {bf16_ms:.2f} '
           f'ms/request = {BATCH * 1e3 / bf16_ms:.2f} samples/s ({card}); '
           f'kept boxes {int(valid.sum())}; calibrate + freeze {calib_s:.2f} '
-          f's; {eligible} eligible layers, (qconv, lss_sample) launches '
-          f'after each request {counts}')
-    return q_launches, l_launches, predictor, requests[-1]
+          f's; {eligible} eligible layers, (qconv, lss_sample_bev) '
+          f'launches after each request {counts}, fields-in entry 0')
+    return q_launches, predictor, requests[-1]
 
 
 def phase_int8_vs_bf16(bf16, int8, request):
@@ -868,13 +976,12 @@ def main():
 
     dev = torch.device('cuda', 0)
     phase_build()
-    lss_row = phase_kernel_vs_plain(dev, card)
+    lss_row, fields_row = phase_kernel_vs_plain(dev, card)
     phase_small_parity(dev)
     cfg = serving_config()
     state_dict = random_state_dict(cfg, seed=0)
-    launches, predictor, request, bf16_ms = phase_serving(dev, card, cfg,
-                                                          state_dict)
-    check(launches > 0, 'the serving path never launched lss_sample')
+    (launches, fields_launches), predictor, request, bf16_ms = \
+        phase_serving(dev, card, cfg, state_dict)
     aspp_in = phase_bf16_vs_f32(dev, cfg, state_dict, predictor, request)
     q_row = phase_qconv(dev, card)
     *b_row, b_launches = phase_bconv(
@@ -885,24 +992,29 @@ def main():
     # holds exactly, so serve with PyTorch's default (TF32 on for cuDNN):
     # it changes only the summation order.  The parity phases keep it off.
     torch.backends.cudnn.allow_tf32 = True
-    q_launches, l_launches, int8, int8_request = phase_int8_serving(
+    q_launches, int8, int8_request = phase_int8_serving(
         dev, card, cfg, state_dict, bf16_ms)
     torch.backends.cudnn.allow_tf32 = False
     phase_int8_vs_bf16(predictor, int8, int8_request)
-    # (launches, max |d|, ms, plain ms, bound ms, bound_by, library ms):
-    # lss_sample at b4, qconv at the DepthNet block (library: _int_mm on
-    # im2col), bconv at d = 6 (library: cuDNN's bf16 conv).
-    rows = {'lss_sample': (launches, *lss_row, None),
-            'qconv': (q_launches, *q_row),
-            'bconv': (b_launches, *b_row)}
+    # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
+    # ms): lss_sample is the fused kernel (launches of the bf16 serving
+    # path; the int8 one launched it once per request too) at b4, its
+    # fields-in entry (on no serving path) at b4, qconv at the DepthNet
+    # block (library: _int_mm on im2col), bconv at d = 6 (library: cuDNN's
+    # bf16 conv).
+    rows = {'lss_sample': ('lss_sample', launches, *lss_row, None),
+            'lss_sample_fields_in': ('lss_sample', fields_launches,
+                                     *fields_row, None),
+            'qconv': ('qconv', q_launches, *q_row),
+            'bconv': ('bconv', b_launches, *b_row)}
     print(json.dumps({'kernels': [{
-        'name': name, 'route': 'cuda', 'source': f'{CSRC}{name}.cu',
+        'name': name, 'route': 'cuda', 'source': f'{CSRC}{src}.cu',
         'replaces': KERNEL_REPLACES[name][0],
         **({'also_replaces': KERNEL_REPLACES[name][1]}
            if len(KERNEL_REPLACES[name]) > 1 else {}),
         'launches': n, 'max_abs_err': e, 'ms': t, 'plain_ms': pt,
         'bound_ms': bt, 'bound_by': by, 'library_ms': lib}
-        for name, (n, e, t, pt, bt, by, lib) in rows.items()]}))
+        for name, (src, n, e, t, pt, bt, by, lib) in rows.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -128,21 +128,28 @@ class LiftSplatShoot(nn.Module):
         Returns bev (B, outC, ny, nx), depth (B, N, fH, fW, D) and depth
         logits (B, N, fH, fW, D) (None without DepthNet).
         """
-        cfg = self.cfg
         b, n_view = rots.shape[:2]
-        nx, ny, nz = cfg.bev_nx
         if self.use_depthnet:
             feat, depth, logits = self.depthnet(cam_feats)
             logits = _nhwc(logits, b, n_view)
         else:
             (feat, depth), logits = self.cam_encode(cam_feats), None
         depth = _nhwc(depth, b, n_view)
+        bev = self.view_transform(depth, _nhwc(feat, b, n_view), rots, trans)
+        return self.bev_encoder(bev), depth, logits
+
+    def view_transform(self, depth, feat, rots, trans):
+        """depth (B, N, fH, fW, D), feat (B, N, fH, fW, C) -> the
+        z-collapsed grid (B, nz * C, ny, nx), channels_last (a view of the
+        LSS kernel's (B, ny, nx, nz, C) result)."""
+        cfg = self.cfg
+        b, n_view = rots.shape[:2]
+        nx, ny, nz = cfg.bev_nx
         solve_x = (cfg.cam_solve_x + (True,) * n_view)[:n_view]
         vox = lss_sample_bev(
-            depth, _nhwc(feat, b, n_view), rots, trans,
+            depth, feat, rots, trans,
             image_size=cfg.final_dim, depth_range=cfg.camera_depth_range,
             bev_start=cfg.pc_range[:3], bev_voxel=(cfg.grid,) * 3,
             bev_nx=(nx, ny, nz), solve_x=solve_x)     # (B, nz, ny, nx, C)
         bev = vox.permute(0, 2, 3, 1, 4).reshape(b, ny, nx, nz * cfg.camC)
-        bev = self.bev_encoder(bev.permute(0, 3, 1, 2))
-        return bev, depth, logits
+        return bev.permute(0, 3, 1, 2)

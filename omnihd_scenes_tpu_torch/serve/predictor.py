@@ -23,6 +23,7 @@ from omnihd_scenes_tpu_torch.models.anchor_head import anchor_head_get_bboxes
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.quant import (load_quant_state,
                                                   quant_state, set_mode)
+from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 from omnihd_scenes_tpu_torch.weights import load_state_dict
 
 
@@ -66,6 +67,7 @@ class Predictor:
     def forward(self, points, points_mask, imgs, rots, trans):
         """The network alone: the model's dict of JAX-layout outputs."""
         dev = self.device
+        check_rotations(rots)
         return self.model(_as_tensor(points, dev, torch.float32),
                           _as_tensor(points_mask, dev, torch.bool),
                           _as_tensor(imgs, dev, self.dtype),

@@ -39,12 +39,11 @@ import torch
 
 from omnihd_scenes_tpu_torch.config import serving_config
 from omnihd_scenes_tpu_torch.kernels._conv3x3 import block_n, tile_shape
-from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample
 from omnihd_scenes_tpu_torch.models import quant
 from omnihd_scenes_tpu_torch.models.anchor_head import (
     anchor_head_decode_candidates)
 from omnihd_scenes_tpu_torch.models.lss import _nhwc
-from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, sample_fields
+from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
 from omnihd_scenes_tpu_torch.serve.predictor import (Predictor, _as_tensor,
                                                      calibrate)
@@ -61,13 +60,13 @@ def staged_call(predictor: Predictor, request, mark):
     """``predictor(*request)`` with ``mark(stage_name)`` called after each
     stage; the serving configuration only (DepthNet, concat fusion)."""
     m, dev = predictor.model, predictor.device
-    lss = m.cfg.lss
     if not m.lss.use_depthnet:
         raise NotImplementedError('staged_call follows the DepthNet path')
     points, points_mask, imgs, rots, trans = request
     points = _as_tensor(points, dev, torch.float32)
     points_mask = _as_tensor(points_mask, dev, torch.bool)
     imgs = _as_tensor(imgs, dev, predictor.dtype)
+    check_rotations(rots)
     rots = _as_tensor(rots, dev, torch.float32)
     trans = _as_tensor(trans, dev, torch.float32)
     mark('inputs to the device')
@@ -87,16 +86,9 @@ def staged_call(predictor: Predictor, request, mark):
     mark('camera: DepthNet + ASPP')
     ctx, depth = _nhwc(ctx, b, n), _nhwc(depth, b, n)
     mark('LSS: NHWC copies')
-    nx, ny, nz = lss.bev_nx
-    g = _Geom(lss.final_dim, depth.shape[2:4], lss.camera_depth_range,
-              lss.pc_range[:3], (lss.grid,) * 3, (nx, ny, nz))
-    solve_x = (lss.cam_solve_x + (True,) * n)[:n]
-    fields = sample_fields(rots, trans, g, solve_x)
-    mark('LSS: index fields')
-    vox = lss_sample(ctx, depth, *fields, solve_x=solve_x, ny=ny, nx=nx)
-    mark('LSS: lss_sample kernel')
-    cam_bev = m.lss.bev_encoder(
-        vox.reshape(b, ny, nx, nz * lss.camC).permute(0, 3, 1, 2))
+    bev = m.lss.view_transform(depth, ctx, rots, trans)
+    mark('LSS: view transform (lss_sample_bev)')
+    cam_bev = m.lss.bev_encoder(bev)
     mark('LSS: BEV encoder')
 
     fused = m.fuse(torch.cat([cam_bev, pts_bev], dim=1))

@@ -49,3 +49,31 @@ def ring_rig_img2lidar(img_hw: Tuple[int, int] = (544, 960),
         trans.append(_yaw_mat(np.deg2rad(yaw)) @ np.array(
             [cam_radius, 0.0, cam_height]))
     return (np.asarray(rots, np.float32), np.asarray(trans, np.float32))
+
+
+def perturbed_rigs(rots, trans, batch: int, seed: int,
+                   max_angle_deg: float = 2.0, max_shift: float = 0.2):
+    """A rig (rots (N, 3, 3), trans (N, 3)) moved independently for every
+    sample and camera, as calibration drift or extrinsic augmentation moves
+    it: turned about the ego x, y and z axes by seeded angles within
+    +-``max_angle_deg`` and shifted by up to ``max_shift`` m per axis.
+    Returns (rots (batch, N, 3, 3), trans (batch, N, 3)) float32."""
+    rng = np.random.RandomState(seed)
+    rots = np.asarray(rots, np.float64)
+    trans = np.asarray(trans, np.float64)
+    out_r = np.empty((batch,) + rots.shape)
+    out_t = np.empty((batch,) + trans.shape)
+    for b in range(batch):
+        for n in range(len(rots)):
+            ax, ay, az = np.deg2rad(rng.uniform(-max_angle_deg,
+                                                max_angle_deg, 3))
+            cx, sx, cy, sy = np.cos(ax), np.sin(ax), np.cos(ay), np.sin(ay)
+            turn = (_yaw_mat(az)
+                    @ np.array([[cy, 0.0, sy], [0.0, 1.0, 0.0],
+                                [-sy, 0.0, cy]])
+                    @ np.array([[1.0, 0.0, 0.0], [0.0, cx, -sx],
+                                [0.0, sx, cx]]))
+            out_r[b, n] = turn @ rots[n]
+            out_t[b, n] = turn @ trans[n] + rng.uniform(-max_shift,
+                                                       max_shift, 3)
+    return out_r.astype(np.float32), out_t.astype(np.float32)

@@ -7,9 +7,10 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_port_gpu.py -m gpu --noconftest -q
 
 Bounds:
-* lss_sample, f32 outputs: 1e-5 * max|ref| + 1e-6 (summation order over
-  at most 6 products; the kernel rounds products and sums separately, so
-  it is usually exact).
+* lss_sample and lss_sample_bev, f32 outputs: 1e-5 * max|ref| + 1e-6
+  (the kernel rounds products and sums separately and sums the cameras
+  in order, as the plain version does, so it is usually exact); the
+  fused kernel's indices identical to the plain fields on the card.
 The conv cases include the edge shapes of the kernels' block tiling
 (images smaller than a 128-pixel tile, widths that split tiles, channel
 counts that are not multiples of the block's channel tile).
@@ -27,15 +28,18 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
+from omnihd_scenes_tpu_torch.utils.rig import (perturbed_rigs,
+                                               ring_rig_img2lidar)
 from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
-from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
-                                                        lss_sample_reference)
+from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+    cell_indices, geometry_fields, lss_sample, lss_sample_bev,
+    lss_sample_bev_reference, lss_sample_reference)
 from omnihd_scenes_tpu_torch.kernels.qconv import (qconv3x3,
                                                    qconv3x3_reference)
 from omnihd_scenes_tpu_torch.models.quant import (QConv2d, quant_state,
                                                   load_quant_state, set_mode)
-from omnihd_scenes_tpu_torch.ops.lss_project import _Geom, sample_fields
+from omnihd_scenes_tpu_torch.ops.lss_project import (_Geom, camera_geometry,
+                                                     sample_fields)
 
 pytestmark = pytest.mark.gpu
 
@@ -135,6 +139,96 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                    *fields, **kw)
     with pytest.raises(ValueError, match='device'):
         lss_sample(feat, depth.cpu(), *fields, **kw)
+
+
+def _bev_case(dev, batch, dtype, seed=0, channels=64, moved=True):
+    """Geometry-in inputs: the ring rig, moved per sample and camera
+    (``moved``) or the same for every sample."""
+    g = _Geom(IMG_HW, FEAT_HW, DEPTH_RANGE, (-24.0, -16.0, -3.0),
+              (1.0, 1.0, 2.0), BEV_NX)
+    rots, trans = ring_rig_img2lidar(img_hw=IMG_HW)
+    if moved:
+        rots, trans = perturbed_rigs(rots, trans, batch, seed)
+    else:
+        rots, trans = (a[None].repeat(batch, 0) for a in (rots, trans))
+    minv, mt = camera_geometry(torch.from_numpy(rots).to(dev),
+                               torch.from_numpy(trans).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (batch, len(SOLVE_X)) + FEAT_HW
+    feat = torch.randn(shape + (channels,), generator=gen, device=dev)
+    depth = torch.softmax(torch.randn(shape + (D,), generator=gen,
+                                      device=dev), -1)
+    return (g, feat.to(dtype), depth.to(dtype), minv.contiguous(),
+            mt.contiguous())
+
+
+@pytest.mark.parametrize('in_dtype,out_dtype', [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize('batch', [1, 3])
+def test_fused_kernel_matches_plain(dev, batch, in_dtype, out_dtype):
+    g, feat, depth, minv, mt = _bev_case(dev, batch, in_dtype, seed=batch)
+    before = (lss_sample_bev.launches, lss_sample.launches)
+    got = lss_sample_bev(feat, depth, minv, mt, g, SOLVE_X,
+                         out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (lss_sample_bev.launches, lss_sample.launches) == (before[0] + 1,
+                                                              before[1])
+    assert got.shape == (batch, g.ny, g.nx, g.nz, 64)
+    assert got.dtype == out_dtype
+    want = lss_sample_bev_reference(feat, depth, minv, mt, g, SOLVE_X,
+                                    torch.float32)
+    assert want.ne(0).any(-1).float().mean() > 0.3, 'degenerate rig'
+    if out_dtype == torch.bfloat16:
+        want = want.to(torch.bfloat16).float()
+    _check(got, want)
+
+
+@pytest.mark.parametrize('channels', [2, 66, 256])
+@pytest.mark.parametrize('in_dtype', [torch.bfloat16, torch.float32])
+def test_fused_channel_counts(dev, channels, in_dtype):
+    g, feat, depth, minv, mt = _bev_case(dev, 2, in_dtype, seed=4,
+                                         channels=channels)
+    got = lss_sample_bev(feat, depth, minv, mt, g, SOLVE_X,
+                         out_dtype=torch.float32)
+    _check(got, lss_sample_bev_reference(feat, depth, minv, mt, g, SOLVE_X,
+                                         torch.float32))
+
+
+@pytest.mark.parametrize('moved', [False, True], ids=['ring', 'moved'])
+def test_fused_indices_equal_the_plain_fields(dev, moved):
+    """The (j, i, kd) that the dumping instance wrote, for every cell and
+    camera, against the plain fields computed on the card."""
+    g, feat, depth, minv, mt = _bev_case(dev, 3, torch.bfloat16, seed=5,
+                                         moved=moved)
+    out, idx = lss_sample_bev(feat, depth, minv, mt, g, SOLVE_X,
+                              out_dtype=torch.float32, dump=True)
+    want = cell_indices(*geometry_fields(minv, mt, g, SOLVE_X), SOLVE_X,
+                        g.ny, g.nx, D)
+    for name, a, b in zip('jik', idx, want):
+        assert a.shape == b.shape == (3, g.ny, g.nx, g.nz, len(SOLVE_X))
+        assert int((a != b).sum()) == 0, name
+    assert int((idx[1] >= 0).sum()) > 1000
+    assert torch.equal(out, lss_sample_bev(feat, depth, minv, mt, g,
+                                           SOLVE_X, out_dtype=torch.float32))
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    g, feat, depth, minv, mt = _bev_case(dev, 1, torch.bfloat16)
+    before = lss_sample_bev.launches
+    with pytest.raises(TypeError):
+        lss_sample_bev(feat.half(), depth.half(), minv, mt, g, SOLVE_X)
+    with pytest.raises(TypeError):
+        lss_sample_bev(feat.float(), depth.float(), minv, mt, g, SOLVE_X,
+                       out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='contiguous'):
+        lss_sample_bev(feat, depth, minv.transpose(2, 3), mt, g, SOLVE_X)
+    with pytest.raises(ValueError, match='device'):
+        lss_sample_bev(feat, depth, minv.cpu(), mt, g, SOLVE_X)
+    with pytest.raises(ValueError, match='even C'):
+        lss_sample_bev(feat[..., :3].contiguous(), depth, minv, mt, g,
+                       SOLVE_X)
+    assert lss_sample_bev.launches == before
 
 
 CL = torch.channels_last

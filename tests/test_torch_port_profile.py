@@ -33,4 +33,5 @@ def test_staged_call_equals_predictor(int8):
         assert torch.equal(g, w)
     assert marks[0] == 'inputs to the device'
     assert marks[-1] == 'decode: rotated IoU + NMS'
-    assert len(marks) == len(set(marks)) == 13
+    assert len(marks) == len(set(marks)) == 12
+    assert 'LSS: view transform (lss_sample_bev)' in marks
