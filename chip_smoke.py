@@ -74,10 +74,39 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    request and the fields-in entry never;
 11. int8 vs bf16 on the last timed request: head maps within
    INT8_HEAD_TOL of max|bf16|, at least INT8_BOX_MATCH of the kept int8
-   boxes overlapping a kept bf16 box of the same label.
+   boxes overlapping a kept bf16 box of the same label;
+12. the LSS backward kernel (``lss_sample_bev_backward``, the gradient of
+   the view transform for feat and depth) vs its plain version (an
+   ``index_add_`` scatter) at the production shapes, b1 and b4, ring and
+   moved rigs, bf16 and f32: both add with atomics in f32, in orders that
+   change from run to run, so f32 results within 1e-5 max|ref| and bf16
+   ones within 1 bf16 ulp plus that; its time at b4 bf16 (the training
+   dtype) beside the plain version and the bound of
+   ``lss_sample_bev_backward_cost``;
+13. sorted pillars served: a ``pillar_impl='sorted'`` Predictor, f32 on
+   the GPU against the same on the CPU, one b4 request at small size:
+   network outputs within 1e-4 of max|ref|, the same kept rows;
+14. one small f32 train step (forward, loss, backward, AdamW) on the GPU
+   against the CPU, TF32 off, with every BatchNorm in train mode and its
+   bias at +4 (ReLU inputs away from 0, where a rounding would send one
+   down the other branch on the other device: with the backbone frozen
+   and biases at 0 the f32 gradient of this step is 5e-3 off its own f64
+   value on the CPU, with this setting 4e-6): loss within 1e-5, the whole
+   gradient within 1e-4 in relative L2 norm, BatchNorm statistics within
+   1e-4 of max|ref|, parameters within 2.5 learning rates (Adam's first
+   step moves each by about one);
+15. training at full width: the shipped ``configs/bevfusion.py`` model
+   (``BEVFusionConfig()``: sorted pillars, the sampling splat, DepthNet)
+   under the bf16 policy, f32 master weights, AdamW + clip 35, at b1 and
+   b4: 1 warm-up and 3 timed steps of fresh synthetic batches with depth
+   targets (on the card before the timing), CUDA events per step;
+   ms/step, samples/s, peak GiB, finite losses; the LSS forward and
+   backward kernels launch exactly once per step, and DepthNet's
+   ``depth_conv`` gets a nonzero gradient.
 
 The line before the last is a JSON object of the kernels (launches on
-the main paths, error against the plain version, kernel / plain /
+the main paths: the serving path's for the forward kernels, the b4
+training phase's for the LSS backward, error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
 bytes it must move, each needed input element read once and each output
@@ -116,6 +145,9 @@ SPLAT_PASSES = ('omnihd_scenes_tpu/ops/pallas_splat.py:68',
                 'omnihd_scenes_tpu/ops/pallas_splat.py:80')
 KERNEL_REPLACES = {
     'lss_sample': SPLAT_PASSES,
+    # The splat's backward is the einsum VJP inside the custom_vjp of
+    # pallas_splat.py:246-261, not a Pallas kernel.
+    'lss_sample_backward': ('omnihd_scenes_tpu/ops/pallas_splat.py:246',),
     'lss_sample_fields_in': SPLAT_PASSES,
     'qconv': ('omnihd_scenes_tpu/ops/qconv.py:48',),
     'bconv': ('omnihd_scenes_tpu/ops/bconv.py:41',)}
@@ -132,6 +164,7 @@ QCONV_EDGES = {'1x1 image': ((4, 256, 1, 1), 256),
                'fuse.conv C=640 -> Co=384': ((4, 640, 160, 240), 384),
                'Co=136 (not a multiple of BN)': ((2, 128, 9, 13), 136)}
 BCONV_SHAPE = ((24, 256, 136, 240), 256)
+TRAIN_BATCHES = (1, 4)
 BCONV_DILATIONS = (1, 6, 12, 18)
 BCONV_EDGES = {'1x1 image': ((4, 128, 1, 1), 128, 1),
                '7x9 image': ((2, 256, 7, 9), 256, 6),
@@ -967,11 +1000,273 @@ def phase_int8_vs_bf16(bf16, int8, request):
           f'int8 kept boxes match bf16 ones for only {share:.4f}')
 
 
+def phase_backward(dev, card):
+    """The LSS backward kernel against its plain version at b1 and b4,
+    ring rig and a rig moved per sample, bf16 and f32; then its time at
+    b4 bf16 on the ring rig.  Returns (max |d|, ms, plain ms, bound ms,
+    bound_by)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample_bev_backward, lss_sample_bev_backward_cost,
+        lss_sample_bev_backward_reference)
+    from omnihd_scenes_tpu_torch.tools.roofline import bound
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = 0.0
+    for batch in (1, BATCH):
+        for moved in (True, False):
+            lss, g, _, _, minv, mt = _production_geometry(batch, dev, moved)
+            sx = lss.cam_solve_x
+            shape = (batch, len(sx)) + tuple(lss.feat_hw)
+            for dtype in (torch.bfloat16, torch.float32):
+                feat = torch.randn(shape + (lss.camC,), generator=gen,
+                                   device=dev).to(dtype)
+                depth = torch.softmax(torch.randn(
+                    shape + (lss.depth_bins,), generator=gen, device=dev),
+                    -1).to(dtype)
+                grad = torch.randn((batch, g.ny, g.nx, g.nz, lss.camC),
+                                   generator=gen, device=dev).to(dtype)
+                args = (grad, feat, depth, minv, mt, g, sx)
+                got = lss_sample_bev_backward(*args)
+                want = lss_sample_bev_backward_reference(*args)
+                torch.cuda.synchronize()
+                rel = []
+                for name, a, b in zip(('dfeat', 'ddepth'), got, want):
+                    a, b = a.float(), b.float()
+                    slack = 1e-5 * float(b.abs().max())
+                    if dtype == torch.bfloat16:
+                        _, exp = torch.frexp(b)
+                        slack = slack + torch.ldexp(torch.ones_like(b),
+                                                    exp - 8)
+                    check(bool(((a - b).abs() <= slack).all()),
+                          f'backward {name} off the plain version at b{batch}'
+                          f' {"moved" if moved else "ring"} {dtype}')
+                    err = float((a - b).abs().max())
+                    worst = max(worst, err)
+                    rel.append(err / float(b.abs().max()))
+                print(f'[12 backward vs plain] b{batch} '
+                      f'{"moved" if moved else "ring"} rig, {dtype}: '
+                      f'dfeat {rel[0]:.3e}, ddepth {rel[1]:.3e} of max|ref|'
+                      f' (f32 atomics in both; bf16 within 1 ulp)')
+                del got, want
+    # b4, ring rig, bf16 (the last case's geometry, the training dtype).
+    feat, depth, grad = (t.to(torch.bfloat16) for t in (feat, depth, grad))
+    args = (grad, feat, depth, minv, mt, g, sx)
+    ms = cuda_ms(lambda: lss_sample_bev_backward(*args), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: lss_sample_bev_backward_reference(*args),
+                       iters=3, warmup=1)
+    ops, nbytes = lss_sample_bev_backward_cost(*args)
+    bound_ms, bound_by = bound(ops, 'f32', nbytes)
+    print(f'[12 backward vs plain] b{BATCH} bf16, ring rig: kernel (with its '
+          f'zeroed f32 buffers and the casts) {ms:.4f} ms ({bound_ms / ms:.3f}'
+          f' of its {bound_ms:.4f} ms {bound_by} bound: {ops / 1e9:.3f} '
+          f'GFLOP f32, {nbytes / 1e9:.4f} GB), plain PyTorch '
+          f'(index_add_) {plain_ms:.4f} ms, by CUDA events ({card})')
+    return worst, ms, plain_ms, bound_ms, bound_by
+
+
+def _small_sorted_config():
+    import dataclasses
+
+    cfg = _small_config()
+    return dataclasses.replace(cfg, pillars=dataclasses.replace(
+        cfg.pillars, pillar_impl='sorted', max_voxels=256,
+        max_points_per_voxel=8))
+
+
+def phase_sorted_serving(dev):
+    """A sorted-pillar Predictor, f32 on the GPU against the CPU, one b4
+    request at small size."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.anchor_head import (
+        anchor_head_get_bboxes)
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict)
+
+    cfg = _small_sorted_config()
+    sd = random_state_dict(cfg, seed=2)
+    req = random_request(np.random.RandomState(5), cfg, batch=BATCH,
+                         n_points=600)
+    gpu = Predictor(cfg, sd, device=dev, dtype=torch.float32)
+    cpu = Predictor(cfg, sd, device='cpu', dtype=torch.float32)
+    out_g = {k: v.cpu() for k, v in gpu.forward(*req).items()}
+    out_c = cpu.forward(*req)
+    worst = 0.0
+    for k in ('bev', 'cls_score', 'bbox_pred', 'dir_pred', 'depth'):
+        rel = float((out_g[k] - out_c[k]).abs().max() / out_c[k].abs().max())
+        check(rel <= 1e-4, f'sorted GPU vs CPU {k}: {rel:.3e} of max|ref|')
+        worst = max(worst, rel)
+    dec_g = [t.cpu() for t in gpu(*req)]
+    dec_c = cpu(*req)
+    check(torch.equal(dec_g[3].sum(-1), dec_c[3].sum(-1))
+          and int(dec_c[3].sum()) > 0, 'sorted GPU and CPU keep different '
+          'numbers of boxes')
+    row_err = max(kept_row_distance(dec_g, dec_c, s) for s in range(BATCH))
+    check(row_err <= 1e-4, f'sorted GPU and CPU kept rows differ by '
+          f'{row_err}')
+    print(f'[13 sorted pillars served] b{BATCH} small-size request, GPU f32 '
+          f'vs CPU f32: network outputs within {worst:.3e} of max|ref|; '
+          f'{int(dec_c[3].sum())} kept rows within {row_err:.1e}')
+
+
+def _train_state(cfg, state_dict, dev, lr):
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.train.loop import create_train_state
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    model = BEVFusion(cfg)
+    model.load_state_dict(state_dict)
+    model.to(dev, memory_format=torch.channels_last)
+    return create_train_state(model, lambda p: make_optimizer(
+        p, make_lr_schedule(lr, 1000, warmup_iters=0)))
+
+
+def small_train_case(seed):
+    """(config, state_dict, batch) of the small GPU-vs-CPU train step:
+    sorted pillars, no frozen backbone BN, every BatchNorm bias at +4."""
+    import dataclasses
+
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_state_dict,
+                                                         random_train_batch)
+
+    cfg = dataclasses.replace(_small_sorted_config(),
+                              frozen_backbone_bn=False)
+    sd = random_state_dict(cfg, seed)
+    for k in [k for k in sd if k.endswith('.running_mean')]:
+        sd[k[:-len('running_mean')] + 'bias'] += 4.0
+    batch = random_train_batch(np.random.RandomState(seed), cfg, 2,
+                               n_points=600, max_gt=8)
+    batch['gt_boxes'][..., :2] /= 5          # inside the small grid
+    return cfg, sd, batch
+
+
+def phase_small_train(dev):
+    """One small f32 train step on the GPU against the CPU (TF32 off)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import make_train_step
+
+    cfg, sd, batch = small_train_case(seed=3)
+    lr = 1e-3
+    runs = []
+    for device in ('cpu', dev):
+        state = _train_state(cfg, sd, device, lr)
+        grads = {}
+        hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
+                 for k, p in state.model.named_parameters()]
+        loss_fn = make_loss_fn_generic(state.model, 'bevfusion',
+                                       cfg.pillars.anchors(),
+                                       camera_depth_range=(1.0, 9.0, 1.0))
+        before = lss_sample_bev_backward.launches
+        _, loss, _ = make_train_step(loss_fn)(state, batch)
+        for h in hooks:
+            h.remove()
+        runs.append((float(loss), lss_sample_bev_backward.launches - before,
+                     {k: v.cpu() for k, v in grads.items()},
+                     {k: v.cpu() for k, v in state.model.state_dict().items()
+                      if v.is_floating_point()}))
+    (l_c, n_c, g_c, s_c), (l_g, n_g, g_g, s_g) = runs
+    check(n_c == 0 and n_g == 1, f'backward kernel launches CPU {n_c}, GPU '
+          f'{n_g}')
+    rel_loss = abs(l_g - l_c) / abs(l_c)
+    diff = sum(float((g_g[k] - g).square().sum()) for k, g in g_c.items())
+    norm = sum(float(g.square().sum()) for g in g_c.values())
+    rel_grad = (diff / norm) ** 0.5
+    stat_err = max(float((s_g[k] - v).abs().max() / v.abs().max())
+                   for k, v in s_c.items() if 'running' in k)
+    param_err = max(float((s_g[k] - v).abs().max()) for k, v in s_c.items()
+                    if 'running' not in k)
+    print(f'[14 small train step] GPU f32 vs CPU f32: loss {l_g:.6f} vs '
+          f'{l_c:.6f} ({rel_loss:.2e}), gradient {rel_grad:.2e} in relative '
+          f'L2, BatchNorm statistics {stat_err:.2e} of max, parameters '
+          f'after AdamW within {param_err / lr:.3f} learning rates')
+    check(rel_loss <= 1e-5 and rel_grad <= 1e-4 and stat_err <= 1e-4
+          and param_err <= 2.5 * lr, 'GPU train step off the CPU one')
+
+
+def phase_train(dev, card, batch, state_dict):
+    """Full-width training under the bf16 policy at ``batch``: 1 warm-up
+    and N_TIMED timed steps.  Returns (ms per step, LSS backward
+    launches, the LSS forward's)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample, lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_train_batch
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import batch_to, make_train_step
+
+    cfg = BEVFusionConfig()
+    rng = np.random.RandomState(100 + batch)
+    t0 = time.perf_counter()
+    batches = [batch_to(random_train_batch(rng, cfg, batch), dev)
+               for _ in range(1 + N_TIMED)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    state = _train_state(cfg, state_dict, dev, lr=2e-4)
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        state.model, 'bevfusion', cfg.pillars.anchors(),
+        camera_depth_range=cfg.lss.camera_depth_range)))
+    depth_conv = state.model.lss.depthnet.depth_conv.weight
+    seen = []
+    hook = depth_conv.register_hook(lambda g: seen.append(g.abs().amax()))
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    dev_ms, losses, counts = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    lss_sample_bev.launches = lss_sample_bev_backward.launches = 0
+    lss_sample.launches = 0
+    for b in batches:
+        start.record()
+        state, loss, aux = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        counts.append((lss_sample_bev.launches,
+                       lss_sample_bev_backward.launches))
+    launches = (lss_sample_bev_backward.launches, lss_sample_bev.launches)
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = len(batches)
+    check(counts == [(k, k) for k in range(1, steps + 1)],
+          f'(LSS forward, backward) launches after each step {counts}, not '
+          f'one each per step')
+    check(lss_sample.launches == 0, 'training launched the fields-in entry')
+    check(all(np.isfinite(losses)), f'non-finite losses {losses}')
+    check(all(float(v) > 0 for v in seen) and len(seen) == steps,
+          'DepthNet depth_conv got no gradient')
+    ms = float(np.mean(dev_ms[1:]))
+    print(f'[15 train step] b{batch}, bf16 policy, {N_TIMED} steps (+1 '
+          f'warm-up): {ms:.2f} ms/step by CUDA events ({dev_ms[1:]}), '
+          f'{batch * 1e3 / ms:.3f} samples/s, peak {peak:.2f} GiB allocated '
+          f'({card}); losses {[round(v, 4) for v in losses]}, grad norm '
+          f'{float(aux["grad_norm"]):.3f}, depth_conv max|grad| '
+          f'{float(seen[-1]):.3e}; (LSS forward, backward) launches after '
+          f'each step {counts}; {steps} batches made and uploaded in '
+          f'{data_s:.1f} s')
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return ms, launches
+
+
 def main():
     card = phase_device()
     import torch
 
-    from omnihd_scenes_tpu_torch.config import serving_config
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig, serving_config
     from omnihd_scenes_tpu_torch.serve.synthetic import random_state_dict
 
     dev = torch.device('cuda', 0)
@@ -996,13 +1291,25 @@ def main():
         dev, card, cfg, state_dict, bf16_ms)
     torch.backends.cudnn.allow_tf32 = False
     phase_int8_vs_bf16(predictor, int8, int8_request)
+    del predictor, int8, int8_request, request
+    torch.cuda.empty_cache()
+    back_row = phase_backward(dev, card)
+    phase_sorted_serving(dev)
+    phase_small_train(dev)
+    train_sd = random_state_dict(BEVFusionConfig(), seed=0)
+    train = {b: phase_train(dev, card, b, train_sd) for b in TRAIN_BATCHES}
+    back_launches = train[BATCH][1][0]
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
-    # path; the int8 one launched it once per request too) at b4, its
+    # path; the int8 one and training launched it once per request or
+    # step too) at b4, its backward (launches of the b4 training phase;
+    # max |d| over bf16 and f32), its
     # fields-in entry (on no serving path) at b4, qconv at the DepthNet
     # block (library: _int_mm on im2col), bconv at d = 6 (library: cuDNN's
     # bf16 conv).
     rows = {'lss_sample': ('lss_sample', launches, *lss_row, None),
+            'lss_sample_backward': ('lss_sample', back_launches, *back_row,
+                                    None),
             'lss_sample_fields_in': ('lss_sample', fields_launches,
                                      *fields_row, None),
             'qconv': ('qconv', q_launches, *q_row),

@@ -9,9 +9,10 @@ These copies keep the same fields, defaults and derived properties;
 Fields that only steer TPU machinery (``splat_impl``,
 ``splat_shard_axis``, ``cam_b_windows``, ``remat*``, ``axis_name``) are
 kept so a configuration means the same thing in both packages.  The port
-has one splat implementation per device, serves inference only (remat is
-a training trade-off) and ignores FOV windows, which by construction
-change no output.  Options whose value would change the result and that
+has one splat implementation per device, does not rematerialise (it
+refuses ``remat=True``; ``remat_parts`` and ``remat_exclude`` then change
+nothing) and ignores FOV windows, which by construction change no
+output.  Options whose value would change the result and that
 the port does not implement yet are rejected by
 :func:`omnihd_scenes_tpu_torch.models.bevfusion.check_supported`.
 """

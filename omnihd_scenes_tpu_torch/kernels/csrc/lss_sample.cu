@@ -1,5 +1,5 @@
-// LSS sampling view transform (forward) for Hopper, sm_90a: one fused kernel
-// from the camera geometry to the BEV grid.
+// LSS sampling view transform for Hopper, sm_90a: one fused kernel from the
+// camera geometry to the BEV grid, and its backward.
 //
 // Replaces the TPU Pallas kernels of omnihd_scenes_tpu/ops/pallas_splat.py
 // together with the index fields they are fed (sample_bev_pallas, :175,
@@ -56,6 +56,23 @@
 //     footprints overlap in L2.
 // Channel counts whose rows are not a multiple of 16 bytes (or a feat not
 // 16-byte aligned) take the same core with 2-element vectors.
+//
+// The backward, lss_sample_bev_backward, is the gradient for feat and depth
+// (the JAX package's is the einsum VJP inside the jax.custom_vjp of
+// pallas_splat.py:246-261, not a Pallas kernel).  It walks the same blocks
+// and computes the same (j, i, kd) with the same index code (lss_geom.cuh),
+// so it scatters exactly where the forward gathered: for each (cell,
+// camera) in range,
+//   dfeat[b, n, j, i, :]    += g[cell, :] * depth[b, n, j, i, kd]
+//   ddepth[b, n, j, i, kd]  += <g[cell, :], feat[b, n, j, i, :]>
+// into f32 buffers with atomics (the wrapper casts them once).  A cell is
+// seen by a camera or two, and a pixel by a few cells along its ray, so the
+// atomics rarely collide.  What bounds it: the bytes of g (as large as the
+// forward's output), the gathers and the scattered rows, and the atomics'
+// throughput in L2.  The design is the simple one: one warp per cell, its
+// lanes over channel pairs (a 128-byte bf16 row per load at C = 64), the
+// dot product reduced across the warp with shuffles.  The sum order of the
+// atomics changes from run to run, so the result's last bits do too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,42 +238,42 @@ __device__ __forceinline__ void store_row(OutT* p, const float* v) {
   }
 }
 
-// ---- the kernel ------------------------------------------------------------
+// ---- the block's cells and their cameras (forward and backward) ----------
 
-// EV channels per vector, up to K vectors per lane and cell; kDump writes
-// the (j, i, kd) of every (cell, camera) to (B, ny, nx, nz, N) int32.
-template <class Src, typename InT, typename OutT, int EV, int K, bool kDump>
-__global__ void __launch_bounds__(kThreads, min_blocks<K>())
-lss_sample_kernel(Src src, const InT* __restrict__ feat,
-                  const InT* __restrict__ depth, OutT* __restrict__ out,
-                  int32_t* __restrict__ dump_j, int32_t* __restrict__ dump_i,
-                  int32_t* __restrict__ dump_kd, Dims d) {
-  extern __shared__ int32_t smem[];
-  // Per cell, its contributing cameras in camera order: [k][kMaxCells].
-  int32_t* s_pix = smem;                            // pixel (b, n, j, i)
-  int32_t* s_kd = smem + d.n_cams * kMaxCells;      // depth bin
-  int32_t* s_count = s_kd + d.n_cams * kMaxCells;   // [kMaxCells]
-  float* scratch = reinterpret_cast<float*>(s_count + kMaxCells);
+// The block's span of the output: one sample b, one BEV row y, the x run
+// from x0, all nz; cells = (x, z) pairs in it, cell0 the first's index.
+struct Span {
+  int b, y, x0, cells;
+  int64_t cell0;
+};
 
-  // The walk: per sample, groups of kWalkRows rows; inside a group down y
-  // first, then along x.
+// The walk: per sample, groups of kWalkRows rows; inside a group down y
+// first, then along x.
+__device__ __forceinline__ Span block_span(const Dims& d) {
   const int per_b = d.ny * d.tiles_x;
-  const int b = blockIdx.x / per_b;
-  const int r = blockIdx.x - b * per_b;
+  Span sp;
+  sp.b = blockIdx.x / per_b;
+  const int r = blockIdx.x - sp.b * per_b;
   const int grp = r / (kWalkRows * d.tiles_x);
   const int y0 = grp * kWalkRows;
   const int rows = min(kWalkRows, d.ny - y0);
   const int w = r - grp * kWalkRows * d.tiles_x;
-  const int y = y0 + w % rows;
-  const int x0 = (w / rows) * d.tile_x;
-  const int cells = min(d.tile_x, d.nx - x0) * d.nz;
-  const int64_t cell0 = (((int64_t)b * d.ny + y) * d.nx + x0) * d.nz;
+  sp.y = y0 + w % rows;
+  sp.x0 = (w / rows) * d.tile_x;
+  sp.cells = min(d.tile_x, d.nx - sp.x0) * d.nz;
+  sp.cell0 = (((int64_t)sp.b * d.ny + sp.y) * d.nx + sp.x0) * d.nz;
+  return sp;
+}
 
-  src.prepare(b, d, scratch);
-  __syncthreads();
-
-  // 1. Indices, no loads of data: a thread takes whole cells and walks the
-  // cameras in order, keeping the ones whose (j, i, kd) are in range.
+// A thread takes whole cells and walks the cameras in order, keeping in
+// shared memory the ones whose (j, i, kd) are in range: their pixel (b, n,
+// j, i) and depth bin, [k][kMaxCells], and their count.  kDump writes every
+// camera's (j, i, kd) to (B, ny, nx, nz, N) int32.
+template <class Src, bool kDump>
+__device__ __forceinline__ void collect_cameras(
+    const Src& src, const float* scratch, int b, int y, int x0, int cells,
+    int64_t cell0, const Dims& d, int32_t* s_pix, int32_t* s_kd,
+    int32_t* s_count, int32_t* dump_j, int32_t* dump_i, int32_t* dump_kd) {
   for (int c = threadIdx.x; c < cells; c += kThreads) {
     const int xi = c / d.nz;
     const int z = c - xi * d.nz;
@@ -280,6 +297,34 @@ lss_sample_kernel(Src src, const InT* __restrict__ feat,
     }
     s_count[c] = count;
   }
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+// EV channels per vector, up to K vectors per lane and cell; kDump writes
+// the (j, i, kd) of every (cell, camera) to (B, ny, nx, nz, N) int32.
+template <class Src, typename InT, typename OutT, int EV, int K, bool kDump>
+__global__ void __launch_bounds__(kThreads, min_blocks<K>())
+lss_sample_kernel(Src src, const InT* __restrict__ feat,
+                  const InT* __restrict__ depth, OutT* __restrict__ out,
+                  int32_t* __restrict__ dump_j, int32_t* __restrict__ dump_i,
+                  int32_t* __restrict__ dump_kd, Dims d) {
+  extern __shared__ int32_t smem[];
+  // Per cell, its contributing cameras in camera order: [k][kMaxCells].
+  int32_t* s_pix = smem;                            // pixel (b, n, j, i)
+  int32_t* s_kd = smem + d.n_cams * kMaxCells;      // depth bin
+  int32_t* s_count = s_kd + d.n_cams * kMaxCells;   // [kMaxCells]
+  float* scratch = reinterpret_cast<float*>(s_count + kMaxCells);
+  const Span sp = block_span(d);
+  const int b = sp.b, y = sp.y, x0 = sp.x0, cells = sp.cells;
+  const int64_t cell0 = sp.cell0;
+
+  src.prepare(b, d, scratch);
+  __syncthreads();
+
+  // 1. Indices, no loads of data.
+  collect_cameras<Src, kDump>(src, scratch, b, y, x0, cells, cell0, d, s_pix,
+                              s_kd, s_count, dump_j, dump_i, dump_kd);
   __syncthreads();
 
   // 2. Gathers: 1 << lpc_log2 lanes per cell, K vectors of EV channels
@@ -363,6 +408,86 @@ lss_sample_kernel(Src src, const InT* __restrict__ feat,
   }
 }
 
+
+// ---- the backward ------------------------------------------------------------
+
+// Two consecutive channels as f32.
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// grad (B, ny, nx, nz, C) in T -> dfeat (B, N, fH, fW, C) and ddepth
+// (B, N, fH, fW, D) f32, added to with atomics; one warp per cell.
+template <class Src, typename T>
+__global__ void __launch_bounds__(kThreads)
+lss_sample_backward_kernel(Src src, const T* __restrict__ grad,
+                           const T* __restrict__ feat,
+                           const T* __restrict__ depth,
+                           float* __restrict__ dfeat,
+                           float* __restrict__ ddepth, Dims d) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_pix = smem;
+  int32_t* s_kd = smem + d.n_cams * kMaxCells;
+  int32_t* s_count = s_kd + d.n_cams * kMaxCells;
+  float* scratch = reinterpret_cast<float*>(s_count + kMaxCells);
+  const Span sp = block_span(d);
+
+  src.prepare(sp.b, d, scratch);
+  __syncthreads();
+  collect_cameras<Src, false>(src, scratch, sp.b, sp.y, sp.x0, sp.cells,
+                              sp.cell0, d, s_pix, s_kd, s_count, nullptr,
+                              nullptr, nullptr);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pairs = d.c_ch / 2;
+  for (int c = warp; c < sp.cells; c += kWarps) {
+    const int cnt = s_count[c];
+    const T* g_row = grad + (sp.cell0 + c) * d.c_ch;
+    for (int t = 0; t < cnt; ++t) {
+      const int64_t pix = s_pix[t * kMaxCells + c];
+      const int64_t at = pix * d.d_bins + s_kd[t * kMaxCells + c];
+      const float w = load_depth(depth + at);
+      const T* f_row = feat + pix * d.c_ch;
+      float* df_row = dfeat + pix * d.c_ch;
+      float dot = 0.f;
+      for (int p = lane; p < pairs; p += 32) {
+        const float2 g = load_pair(g_row + 2 * p);
+        const float2 f = load_pair(f_row + 2 * p);
+        atomicAdd(df_row + 2 * p, g.x * w);
+        atomicAdd(df_row + 2 * p + 1, g.y * w);
+        dot += g.x * f.x + g.y * f.y;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) atomicAdd(ddepth + at, dot);
+    }
+  }
+}
+
+template <class Src, typename T>
+int launch_backward(const Src& src, const void* grad, const void* feat,
+                    const void* depth, float* dfeat, float* ddepth, Dims d,
+                    cudaStream_t stream) {
+  const int64_t blocks = (int64_t)d.n_batch * d.ny * d.tiles_x;
+  const size_t smem = (size_t)d.n_cams *
+                          (2 * kMaxCells * sizeof(int32_t) +
+                           lss::kCamCoefFloats * sizeof(float)) +
+                      kMaxCells * sizeof(int32_t);
+  lss_sample_backward_kernel<Src, T>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          src, static_cast<const T*>(grad), static_cast<const T*>(feat),
+          static_cast<const T*>(depth), dfeat, ddepth, d);
+  return (int)cudaGetLastError();
+}
+
 // ---- launch ------------------------------------------------------------------
 
 enum : int { kBadDtype = 1001, kBadShape = 1002 };
@@ -413,16 +538,22 @@ int launch_widths(const Src& src, const void* feat, const void* depth,
   return kBadShape;
 }
 
+// What both directions take, and the blocks' x tiling.
+bool tile(Dims* d) {
+  if (d->n_cams < 1 || d->n_cams > kMaxCams || d->nz < 1 ||
+      d->nz > kMaxCells || d->c_ch < 2 || d->c_ch % 2 || d->c_ch > 256)
+    return false;
+  d->tile_x = std::max(1, kMaxCells / d->nz);
+  d->tiles_x = (d->nx + d->tile_x - 1) / d->tile_x;
+  return true;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.
 template <class Src, bool kDump>
 int launch_dtypes(const Src& src, const void* feat, const void* depth,
                   void* out, int32_t* dj, int32_t* di, int32_t* dkd,
                   int in_dtype, int out_dtype, Dims d, cudaStream_t stream) {
-  if (d.n_cams < 1 || d.n_cams > kMaxCams || d.nz < 1 || d.nz > kMaxCells ||
-      d.c_ch < 2 || d.c_ch % 2 || d.c_ch > 256)
-    return kBadShape;
-  d.tile_x = std::max(1, kMaxCells / d.nz);
-  d.tiles_x = (d.nx + d.tile_x - 1) / d.tile_x;
+  if (!tile(&d)) return kBadShape;
   if (in_dtype == 1 && out_dtype == 1)
     return launch_widths<Src, __nv_bfloat16, __nv_bfloat16, kDump>(
         src, feat, depth, out, dj, di, dkd, d, stream);
@@ -495,4 +626,30 @@ extern "C" int lss_sample_bev_forward(
   return launch_dtypes<GeomSource, false>(src, feat, depth, out, nullptr,
                                           nullptr, nullptr, in_dtype,
                                           out_dtype, d, s);
+}
+
+// The backward (geometry in, as lss_sample_bev_forward): grad (B, ny, nx,
+// nz, C), feat and depth, all in dtype -> dfeat (B, N, fH, fW, C) and ddepth
+// (B, N, fH, fW, D) f32, which the caller zeroes.
+extern "C" int lss_sample_bev_backward(
+    const void* grad, const void* feat, const void* depth, const float* minv,
+    const float* mt, const float* tables, float* dfeat, float* ddepth,
+    int dtype, uint32_t solve_x_mask, int n_batch, int n_cams, int f_h,
+    int f_w, int c_ch, int d_bins, int nz, int ny, int nx, float d_floor,
+    float d0, float inv_dd, float u_scale, float v_scale, float w_lim,
+    float h_lim, void* stream) {
+  const GeomSource src{minv, mt, tables,
+                       lss::GeomConsts{d_floor, d0, inv_dd, u_scale, v_scale,
+                                       w_lim, h_lim}};
+  Dims d = make_dims(solve_x_mask, n_batch, n_cams, f_h, f_w, c_ch, d_bins,
+                     nz, ny, nx);
+  if (!tile(&d)) return kBadShape;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_backward<GeomSource, __nv_bfloat16>(src, grad, feat, depth,
+                                                      dfeat, ddepth, d, s);
+  if (dtype == 0)
+    return launch_backward<GeomSource, float>(src, grad, feat, depth, dfeat,
+                                              ddepth, d, s);
+  return kBadDtype;
 }

@@ -1,7 +1,8 @@
-"""LSS sampling view transform: the CUDA kernel's wrappers and their plain
+"""LSS sampling view transform: the CUDA kernels' wrappers and their plain
 PyTorch versions, and the index fields the plain versions compute.
 
-Two entry points share one kernel (``csrc/lss_sample.cu``):
+Three entry points of ``csrc/lss_sample.cu``; the first two share one
+gather kernel:
 
 * :func:`lss_sample_bev` (the main path) takes the camera geometry, as the
   JAX ``sample_bev_pallas`` does: ``minv`` (B, N, 3, 3) and ``mt`` (B, N,
@@ -12,6 +13,15 @@ Two entry points share one kernel (``csrc/lss_sample.cu``):
   :func:`geometry_fields` + :func:`lss_sample_reference`.
 * :func:`lss_sample` takes precomputed int32 index fields, so that tests
   can feed the gather core any fields.
+* :func:`lss_sample_bev_backward` is the gradient of
+  :func:`lss_sample_bev` for feat and depth: the same index fields
+  (computed by the same ``csrc/lss_geom.cuh``), scattering the output's
+  gradient where the forward gathered.  Its plain version is
+  :func:`lss_sample_bev_backward_reference` (``index_add_``).
+  :class:`LSSSampleBEV` is the ``torch.autograd.Function`` of the pair,
+  the counterpart of the ``jax.custom_vjp`` of
+  ``omnihd_scenes_tpu/ops/pallas_splat.py:246-261``.  ``minv`` and ``mt``
+  get no gradient: they reach the output only through rounded indices.
 
 Layouts (one launch covers the whole batch and every camera):
 
@@ -224,6 +234,36 @@ def gather_cells(feat, depth, j, i, kd, out_dtype: torch.dtype):
         w = depth[bb, n, jc, ic, kn.clamp(0, d_bins - 1)].float() * ok
         acc += feat[bb, n, jc, ic].float() * w[..., None]
     return acc.to(out_dtype)
+
+
+def scatter_cells(grad, feat, depth, j, i, kd):
+    """Plain backward of :func:`gather_cells` on the same indices:
+    ``index_add_`` of ``grad`` (B, ny, nx, nz, C) into d feat (the cell's
+    gradient row times the depth value it read) and d depth (the cell's
+    gradient row dotted with the feature row it read), in f32, returned
+    in the dtypes of feat and depth."""
+    b, n_cams, f_h, f_w, c_ch = feat.shape
+    d_bins = depth.shape[-1]
+    bb = torch.arange(b, device=feat.device).view(b, 1, 1, 1)
+    g = grad.float().reshape(-1, c_ch)
+    feat_rows = feat.reshape(-1, c_ch)
+    depth_flat = depth.reshape(-1)
+    dfeat = torch.zeros((feat_rows.shape[0], c_ch), dtype=torch.float32,
+                        device=feat.device)
+    ddepth = torch.zeros(depth_flat.shape, dtype=torch.float32,
+                         device=feat.device)
+    for n in range(n_cams):
+        jn, i_n, kn = j[..., n], i[..., n], kd[..., n]
+        ok = ((jn >= 0) & (jn < f_h) & (i_n >= 0) & (i_n < f_w) & (kn >= 0)
+              & (kn < d_bins)).reshape(-1)
+        pix = (((bb * n_cams + n) * f_h + jn.clamp(0, f_h - 1)) * f_w
+               + i_n.clamp(0, f_w - 1)).reshape(-1)
+        at = pix * d_bins + kn.clamp(0, d_bins - 1).reshape(-1)
+        w = depth_flat[at].float() * ok
+        dfeat.index_add_(0, pix, g * w[:, None])
+        ddepth.index_add_(0, at, (g * feat_rows[pix].float()).sum(-1) * ok)
+    return (dfeat.view(feat.shape).to(feat.dtype),
+            ddepth.view(depth.shape).to(depth.dtype))
 
 
 # ---- fields in -----------------------------------------------------------------
@@ -483,6 +523,112 @@ def lss_sample_bev(feat: torch.Tensor, depth: torch.Tensor,
 lss_sample_bev.launches = 0
 
 
+def lss_sample_bev_backward_reference(grad, feat, depth, minv, mt,
+                                      geom: _Geom, solve_x: Sequence[bool]):
+    """Plain version of :func:`lss_sample_bev_backward`: the index
+    fields, then :func:`scatter_cells`."""
+    idx = cell_indices(*geometry_fields(minv, mt, geom, solve_x), solve_x,
+                       geom.ny, geom.nx, depth.shape[-1])
+    return scatter_cells(grad, feat, depth, *idx)
+
+
+def lss_sample_bev_backward_cost(grad, feat, depth, minv, mt, geom: _Geom,
+                                 solve_x: Sequence[bool]):
+    """(f32 operations, bytes) that the backward needs on these inputs:
+    4 C operations (2 per channel into d feat, 2 into d depth) for each
+    (cell, camera) whose indices are in range; the gradient and each
+    gathered depth value and feature row read once (the forward's count,
+    :func:`lss_sample_bev_bytes`, with the gradient in place of the
+    output), and d feat and d depth written once."""
+    idx = cell_indices(*geometry_fields(minv, mt, geom, solve_x), solve_x,
+                       geom.ny, geom.nx, depth.shape[-1])
+    f_h, f_w, d_bins = feat.shape[2], feat.shape[3], depth.shape[-1]
+    j, i, kd = idx
+    pairs = int(((j >= 0) & (j < f_h) & (i >= 0) & (i < f_w) & (kd >= 0)
+                 & (kd < d_bins)).sum())
+    nbytes = (lss_sample_bev_bytes(feat, depth, minv, mt, geom, solve_x,
+                                   grad.dtype)
+              + feat.numel() * feat.element_size()
+              + depth.numel() * depth.element_size())
+    return 4 * feat.shape[-1] * pairs, nbytes
+
+
+def lss_sample_bev_backward(grad: torch.Tensor, feat: torch.Tensor,
+                            depth: torch.Tensor, minv: torch.Tensor,
+                            mt: torch.Tensor, geom: _Geom,
+                            solve_x: Sequence[bool]):
+    """Gradients of :func:`lss_sample_bev` for feat and depth, given the
+    output's gradient ``grad`` (B, ny, nx, nz, C) in feat's dtype.
+
+    A CPU tensor goes to :func:`lss_sample_bev_backward_reference`; a
+    CUDA tensor launches the backward kernel or raises.  The kernel adds
+    into f32 buffers with atomics, so the order of its sums, and the last
+    bits of the result, change from run to run; the sums are cast once to
+    the dtypes of feat and depth.
+    """
+    solve_x = tuple(bool(s) for s in solve_x)
+    _check_geometry(feat, depth, minv, mt, geom, solve_x)
+    b, n_cams, f_h, f_w, c_ch = feat.shape
+    ny, nx, nz = geom.ny, geom.nx, geom.nz
+    if tuple(grad.shape) != (b, ny, nx, nz, c_ch):
+        raise ValueError(f'grad must be (B, ny, nx, nz, C) = '
+                         f'{(b, ny, nx, nz, c_ch)}, got {tuple(grad.shape)}')
+    if grad.dtype != feat.dtype:
+        raise TypeError(f'grad must have feat\'s dtype {feat.dtype}, got '
+                        f'{grad.dtype}')
+    if feat.device.type == 'cpu':
+        return lss_sample_bev_backward_reference(grad, feat, depth, minv, mt,
+                                                 geom, solve_x)
+    if feat.device.type != 'cuda':
+        raise ValueError(f'no lss_sample_bev_backward for device '
+                         f'{feat.device}')
+
+    _check_card('lss_sample_bev_backward', feat, depth, feat.dtype,
+                (feat, depth, minv, mt, grad), nz)
+    dev = feat.device
+    dfeat = torch.zeros(feat.shape, dtype=torch.float32, device=dev)
+    ddepth = torch.zeros(depth.shape, dtype=torch.float32, device=dev)
+    tables = _device_tables(geom.args, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch('lss_sample_bev_backward', _kernel('lss_sample_bev_backward'),
+                grad.data_ptr(), feat.data_ptr(), depth.data_ptr(),
+                minv.data_ptr(), mt.data_ptr(), tables.data_ptr(),
+                dfeat.data_ptr(), ddepth.data_ptr(),
+                _DTYPE_CODES[feat.dtype], _mask(solve_x), b, n_cams, f_h,
+                f_w, c_ch, depth.shape[-1], nz, ny, nx,
+                *(float(v) for v in _geom_consts(geom)), stream)
+    lss_sample_bev_backward.launches += 1
+    return dfeat.to(feat.dtype), ddepth.to(depth.dtype)
+
+
+lss_sample_bev_backward.launches = 0
+
+
+class LSSSampleBEV(torch.autograd.Function):
+    """:func:`lss_sample_bev` with :func:`lss_sample_bev_backward` as its
+    gradient for feat and depth (none for the geometry).
+
+    ``LSSSampleBEV.apply(feat, depth, minv, mt, geom, solve_x)``, the
+    output in feat's dtype; one forward launch per call, one backward
+    launch per backward pass.
+    """
+
+    @staticmethod
+    def forward(ctx, feat, depth, minv, mt, geom, solve_x):
+        ctx.save_for_backward(feat, depth, minv, mt)
+        ctx.geom, ctx.solve_x = geom, tuple(bool(s) for s in solve_x)
+        return lss_sample_bev(feat, depth, minv, mt, geom, solve_x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        feat, depth, minv, mt = ctx.saved_tensors
+        dfeat, ddepth = lss_sample_bev_backward(
+            grad.contiguous(), feat, depth, minv, mt, ctx.geom, ctx.solve_x)
+        return dfeat, ddepth, None, None, None, None
+
+
 def _mask(solve_x):
     return sum(1 << n for n, sx in enumerate(solve_x) if sx)
 
@@ -498,6 +644,9 @@ def _kernel(entry: str):
     if entry == 'lss_sample_forward':
         fn.argtypes = ([ptr] * 6 + [i32, i32, ctypes.c_uint32] + [i32] * 10
                        + [ptr])
+    elif entry == 'lss_sample_bev_backward':
+        fn.argtypes = ([ptr] * 8 + [i32, ctypes.c_uint32] + [i32] * 9
+                       + [f32] * 7 + [ptr])
     else:
         fn.argtypes = ([ptr] * 9 + [i32, i32, ctypes.c_uint32] + [i32] * 9
                        + [f32] * 7 + [ptr])

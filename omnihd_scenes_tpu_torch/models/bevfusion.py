@@ -1,14 +1,20 @@
 """BEVFusion camera + 4D-radar detector (counterpart of
-``omnihd_scenes_tpu/models/bevfusion.py``), serving configuration.
+``omnihd_scenes_tpu/models/bevfusion.py``), and its depth loss.
 
-radar: DensePillarEncoder -> SECOND -> SECONDFPN -> (B, 384, 160, 240);
+radar: voxelize -> PillarFeatureNet -> scatter (``pillar_impl='sorted'``,
+the configuration that trains) or DensePillarEncoder (``'dense'``, the
+serving configuration) -> SECOND -> SECONDFPN -> (B, 384, 160, 240);
 camera: ResNet -> FPNC -> LiftSplatShoot (DepthNet, sampling splat) ->
 (B, 256, 160, 240); fusion: concat -> 3x3 ConvBNReLU -> SE gate ->
-Anchor3DHead.  RCFusion's cross-modal fuser, single-stream variants, the
-sorted pillar path and the space-to-depth stem are not ported yet.
+Anchor3DHead.  ``model.train()`` is the JAX ``train=True``: batch
+statistics in every BatchNorm but the frozen backbone's.  RCFusion's
+cross-modal fuser, single-stream variants, ``dense_fold``, remat and the
+space-to-depth stem are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -18,9 +24,11 @@ from omnihd_scenes_tpu_torch.models.anchor_head import Anchor3DHead
 from omnihd_scenes_tpu_torch.models.fpnc import FPNC
 from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, SEBlock
 from omnihd_scenes_tpu_torch.models.lss import LiftSplatShoot
-from omnihd_scenes_tpu_torch.models.pillar_encoders import DensePillarEncoder
+from omnihd_scenes_tpu_torch.models.pillar_encoders import (
+    DensePillarEncoder, PillarFeatureNet)
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
 from omnihd_scenes_tpu_torch.models.second import SECOND, SECONDFPN
+from omnihd_scenes_tpu_torch.ops.voxelize import scatter_to_bev, voxelize
 
 RADAR_POINT_DIMS = 8
 
@@ -35,7 +43,11 @@ def check_supported(cfg: BEVFusionConfig) -> None:
         'stem_s2d': cfg.stem_s2d,
         'with_head': cfg.with_head is not True,
         'lss.splat_mode': cfg.lss.splat_mode != 'sample',
-        'pillars.pillar_impl': cfg.pillars.pillar_impl != 'dense',
+        'pillars.pillar_impl': cfg.pillars.pillar_impl not in ('dense',
+                                                                'sorted'),
+        # torch.utils.checkpoint over the trunks; an 80 GB card holds the
+        # b4 step without it.
+        'remat': cfg.remat,
     }
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
@@ -56,14 +68,20 @@ class BEVFusion(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         pc = cfg.pillars
-        self.pillar_encoder = DensePillarEncoder(
-            RADAR_POINT_DIMS, pc.pfn_channels, pc.voxel_size,
-            pc.point_cloud_range, pc.bev_hw, pc.with_velocity_snr_center)
+        if pc.pillar_impl == 'dense':
+            self.pillar_encoder = DensePillarEncoder(
+                RADAR_POINT_DIMS, pc.pfn_channels, pc.voxel_size,
+                pc.point_cloud_range, pc.bev_hw, pc.with_velocity_snr_center)
+        else:
+            self.pillar_encoder = PillarFeatureNet(
+                RADAR_POINT_DIMS, pc.pfn_channels, pc.voxel_size,
+                pc.point_cloud_range, pc.with_velocity_snr_center)
         self.second = SECOND(pc.pfn_channels[-1], pc.second_layer_nums,
                              pc.second_strides, pc.second_channels)
         self.second_fpn = SECONDFPN(pc.second_channels, pc.fpn_strides,
                                     pc.fpn_channels)
-        self.resnet = ResNet(cfg.resnet_depth, cfg.resnet_out_indices)
+        self.resnet = ResNet(cfg.resnet_depth, cfg.resnet_out_indices,
+                             cfg.frozen_backbone_bn)
         self.fpnc = FPNC(self.resnet.out_channels, 256, cfg.imc,
                          cfg.lss.feat_hw)
         self.lss = LiftSplatShoot(cfg.lss, cfg.imc, cfg.use_depthnet)
@@ -72,8 +90,19 @@ class BEVFusion(nn.Module):
         self.head = Anchor3DHead(cfg.head_channels, pc.num_classes,
                                  pc.num_anchors)
 
+    def pillar_canvas(self, points, points_mask):
+        """Points (B, P, 8) + mask (B, P) -> the (B, C, H, W) pillar canvas
+        (channels_last)."""
+        pc = self.cfg.pillars
+        if pc.pillar_impl == 'dense':
+            return self.pillar_encoder(points, points_mask)
+        vox = voxelize(points, points_mask, pc.point_cloud_range,
+                       pc.voxel_size, pc.max_voxels, pc.max_points_per_voxel)
+        pf = self.pillar_encoder(vox.features, vox.num_points, vox.coords)
+        return scatter_to_bev(pf, vox.coords, vox.valid, pc.bev_hw)
+
     def forward(self, points, points_mask, imgs, rots, trans):
-        canvas = self.pillar_encoder(points, points_mask)
+        canvas = self.pillar_canvas(points, points_mask)
         pts_bev = self.second_fpn(self.second(canvas))
 
         b, n = imgs.shape[:2]
@@ -97,3 +126,28 @@ class BEVFusion(nn.Module):
         return {'cls_score': nhwc(cls_score), 'bbox_pred': nhwc(bbox_pred),
                 'dir_pred': nhwc(dir_pred), 'bev': nhwc(fused),
                 'depth': depth, 'depth_logits': depth_logits}
+
+
+def depth_dist_loss(pred_depth, gt_gaussian, gt_min_depth,
+                    camera_depth_range: Tuple[float, float, float],
+                    method: str = 'kld'):
+    """Depth distribution loss (reference ``depth_dist_loss``), in f32.
+
+    pred_depth (..., D) softmax depth distributions; gt_gaussian (..., D)
+    target distributions; gt_min_depth (...) per-pixel min depth (0 = no
+    observation).  Averaged over the pixels whose min depth lies in the
+    camera's depth range.
+    """
+    pred, gt = pred_depth.float(), gt_gaussian.float()
+    mask = ((gt_min_depth >= camera_depth_range[0])
+            & (gt_min_depth <= camera_depth_range[1]))
+    denom = mask.sum().clamp(min=1)
+    if method == 'kld':
+        # F.kl_div(log(pred + 1e-4), target, 'batchmean').
+        per = (gt * (torch.log(gt.clamp(min=1e-12))
+                     - torch.log(pred + 1e-4))).sum(-1)
+    elif method == 'mse':
+        per = ((pred - gt) ** 2).mean(-1)
+    else:
+        raise NotImplementedError(method)
+    return torch.where(mask, per, 0.0).sum() / denom

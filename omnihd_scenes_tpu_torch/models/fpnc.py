@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from omnihd_scenes_tpu_torch.models.layers import FLAX_BN_EPS
+from omnihd_scenes_tpu_torch.models.layers import FLAX_BN_EPS, BatchNorm
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
 
 
@@ -59,7 +59,7 @@ class FPNC(nn.Module):
         self.fpn = FPN(in_channels, out_channels)
         self.reduce_conv = QConv2d(out_channels * len(in_channels), outC,
                                    3, padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(outC, eps=FLAX_BN_EPS)
+        self.bn = BatchNorm(outC, FLAX_BN_EPS)
 
     def forward(self, feats):
         outs = self.fpn(feats)

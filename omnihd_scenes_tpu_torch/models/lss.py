@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from omnihd_scenes_tpu_torch.config import LSSConfig
-from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, FLAX_BN_EPS
+from omnihd_scenes_tpu_torch.models.layers import (FLAX_BN_EPS, BatchNorm,
+                                                 ConvBNReLU)
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
 from omnihd_scenes_tpu_torch.models.resnet import BasicBlock
 from omnihd_scenes_tpu_torch.ops.lss_project import lss_sample_bev
@@ -48,13 +49,13 @@ class ASPP(nn.Module):
             QConv2d(in_channels, mid_channels, 1 if d == 1 else 3,
                     padding=0 if d == 1 else d, dilation=d, bias=False)
             for d in self.DILATIONS])
-        self.bns = nn.ModuleList([nn.BatchNorm2d(mid_channels, eps=FLAX_BN_EPS)
+        self.bns = nn.ModuleList([BatchNorm(mid_channels, FLAX_BN_EPS)
                                   for _ in self.DILATIONS])
         self.pool_conv = QConv2d(in_channels, mid_channels, 1, bias=False)
-        self.pool_bn = nn.BatchNorm2d(mid_channels, eps=FLAX_BN_EPS)
+        self.pool_bn = BatchNorm(mid_channels, FLAX_BN_EPS)
         self.project = QConv2d(mid_channels * 5, mid_channels, 1,
                                bias=False)
-        self.project_bn = nn.BatchNorm2d(mid_channels, eps=FLAX_BN_EPS)
+        self.project_bn = BatchNorm(mid_channels, FLAX_BN_EPS)
 
     def forward(self, x):
         branches = [F.relu(bn(conv(x))) for conv, bn in zip(self.convs,

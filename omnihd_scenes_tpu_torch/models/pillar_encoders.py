@@ -1,8 +1,16 @@
-"""Sort-free radar pillar encoder (counterpart of
-``omnihd_scenes_tpu/models/pillar_encoders.py:DensePillarEncoder``, the
-``pillar_impl='dense'`` serving path).
+"""Radar pillar encoders (counterpart of
+``omnihd_scenes_tpu/models/pillar_encoders.py``).
 
-Every pillar statistic is a scatter straight onto the BEV grid:
+:class:`PillarFeatureNet` (``pillar_impl='sorted'``, the configuration
+that trains) encodes the static (B, V, P, D) voxel buffers of
+:func:`omnihd_scenes_tpu_torch.ops.voxelize.voxelize`: each point gains
+its offsets from the pillar's mean and centre, then Linear -> BN -> ReLU
+-> a max over the pillar's points, padding masked out.  The PFN
+BatchNorm's batch statistics run over every (B, V, P) slot, padding
+included, as in JAX.
+
+:class:`DensePillarEncoder` (``pillar_impl='dense'``, the serving path)
+is its sort-free form.  Every pillar statistic is a scatter straight onto the BEV grid:
 counts/sums by ``index_add_``, the per-point augmentation by a gather of
 the pillar means, the PFN max-pool by ``scatter_reduce('amax')``.
 Invalid points (masked or out of range) go to one extra sentinel row
@@ -19,19 +27,89 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from omnihd_scenes_tpu_torch.models.layers import BN_EPS
+from omnihd_scenes_tpu_torch.models.layers import BN_EPS, BatchNorm
 
 
 class PFNLayer(nn.Module):
-    """Per-point Linear (no bias) -> BN -> ReLU."""
+    """Per-point Linear (no bias) -> BN -> ReLU over (..., C) points; the
+    BN's batch statistics run over every leading slot."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.linear = nn.Linear(in_features, out_features, bias=False)
-        self.bn = nn.BatchNorm1d(out_features, eps=BN_EPS)
+        self.bn = BatchNorm(out_features, BN_EPS)
 
     def forward(self, x):
-        return F.relu(self.bn(self.linear(x)))
+        y = self.linear(x)
+        return F.relu(self.bn(y.reshape(-1, y.shape[-1])).view(y.shape))
+
+
+def _augment_pillar_features(features, num_points, coords,
+                             voxel_size: Sequence[float],
+                             point_cloud_range: Sequence[float],
+                             with_velocity_snr_center: bool = False):
+    """features (..., V, P, D) -> (..., V, P, D + 5 [+ 4]): the points,
+    their offsets from the pillar's mean xyz and from the pillar centre
+    (xy) [and from the mean velocity / SNR of dims 3:7], zero in the
+    padding slots."""
+    denom = num_points.clamp(min=1).to(features.dtype)[..., None, None]
+    mean_xyz = features[..., :3].sum(-2, keepdim=True) / denom
+    vx, vy = voxel_size[0], voxel_size[1]
+    # coords = (iy, ix)
+    cx = coords[..., 1].to(features.dtype)[..., None] * vx \
+        + (vx / 2 + point_cloud_range[0])
+    cy = coords[..., 0].to(features.dtype)[..., None] * vy \
+        + (vy / 2 + point_cloud_range[1])
+    feats = [features, features[..., :3] - mean_xyz,
+             torch.stack([features[..., 0] - cx, features[..., 1] - cy], -1)]
+    if with_velocity_snr_center:
+        mean_v = features[..., 3:7].sum(-2, keepdim=True) / denom
+        feats.append(features[..., 3:7] - mean_v)
+    out = torch.cat(feats, -1)
+    return torch.where(_point_mask(num_points, features.shape[-2]), out, 0.0)
+
+
+def _point_mask(num_points, slots):
+    """(..., V, P, 1): slot p of a pillar holds a point."""
+    return (torch.arange(slots, device=num_points.device)
+            < num_points[..., None])[..., None]
+
+
+class PillarFeatureNet(nn.Module):
+    """Voxel buffers -> (..., V, C) pillar features: features (..., V, P,
+    D), num_points (..., V), coords (..., V, 2) (iy, ix).  Pillars with no
+    point get 0."""
+
+    def __init__(self, in_channels: int = 8,
+                 feat_channels: Tuple[int, ...] = (64,),
+                 voxel_size: Sequence[float] = (0.25, 0.25, 8.0),
+                 point_cloud_range: Sequence[float] = (-60, -40, -3.0, 60, 40,
+                                                       5.0),
+                 with_velocity_snr_center: bool = False):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.with_velocity_snr_center = with_velocity_snr_center
+        d_in = in_channels + 5 + (4 if with_velocity_snr_center else 0)
+        layers = []
+        for ch in feat_channels:
+            layers.append(PFNLayer(d_in, ch))
+            d_in = 2 * ch                     # points + the pooled feature
+        self.pfn = nn.ModuleList(layers)
+
+    def forward(self, features, num_points, coords):
+        x = _augment_pillar_features(features, num_points, coords,
+                                     self.voxel_size, self.point_cloud_range,
+                                     self.with_velocity_snr_center)
+        mask = _point_mask(num_points, features.shape[-2])
+        for i, layer in enumerate(self.pfn):
+            x = layer(x.to(layer.linear.weight.dtype))
+            pooled = torch.where(mask, x, -torch.inf).amax(-2)
+            pooled = torch.where(num_points[..., None] > 0, pooled, 0.0)
+            if i == len(self.pfn) - 1:
+                return pooled
+            x = torch.cat([torch.where(mask, x, 0.0),
+                           pooled[..., None, :].expand_as(x)], -1)
 
 
 class DensePillarEncoder(nn.Module):

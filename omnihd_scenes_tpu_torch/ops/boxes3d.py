@@ -3,7 +3,13 @@
 Box layout ``[x, y, z_bottom, w(x_size), l(y_size), h(z_size), yaw, vx,
 vy]`` in the LiDAR frame.  Every function takes optional leading batch
 dims.  Rotated IoU uses the JAX package's Green's-theorem clipping, op
-for op, so keep-sets of the NMS built on it agree.
+for op, so keep-sets of the NMS built on it agree.  The nearest-BEV IoU
+and the box encoder are the target assigner's (training).
+
+A division by a constant is written as a multiply by its reciprocal
+where it feeds ``floor``: that is what the JAX functions compute under
+``jax.jit`` (XLA turns ``x / c`` into ``x * (1 / c)``), and every JAX path
+that calls them is jitted.
 """
 
 from __future__ import annotations
@@ -13,9 +19,47 @@ import math
 import torch
 
 
+def gravity_center(boxes):
+    """(..., 3) gravity centres of bottom-centred boxes."""
+    return torch.stack([boxes[..., 0], boxes[..., 1],
+                        boxes[..., 2] + boxes[..., 5] * 0.5], dim=-1)
+
+
 def limit_period(val, offset: float = 0.5, period: float = math.pi):
     """Wrap angle into [-offset*period, (1-offset)*period)."""
-    return val - torch.floor(val / period + offset) * period
+    return val - torch.floor(val * (1.0 / period) + offset) * period
+
+
+def nearest_bev(boxes):
+    """Rotated BEV boxes -> nearest axis-aligned (..., 4) (x1, y1, x2, y2):
+    the xy extents swap when the yaw is closer to +-pi/2."""
+    rot = limit_period(boxes[..., 6], 0.5, math.pi)
+    swap = rot.abs() > math.pi / 4
+    dx = torch.where(swap, boxes[..., 4], boxes[..., 3])
+    dy = torch.where(swap, boxes[..., 3], boxes[..., 4])
+    cx, cy = boxes[..., 0], boxes[..., 1]
+    return torch.stack([cx - dx / 2, cy - dy / 2, cx + dx / 2, cy + dy / 2],
+                       dim=-1)
+
+
+def iou_2d(boxes1, boxes2, eps: float = 1e-6):
+    """Pairwise IoU (..., N, M) of axis-aligned (..., N, 4) and (..., M,
+    4) (x1, y1, x2, y2) boxes."""
+    area1 = ((boxes1[..., 2] - boxes1[..., 0])
+             * (boxes1[..., 3] - boxes1[..., 1]))[..., :, None]
+    area2 = ((boxes2[..., 2] - boxes2[..., 0])
+             * (boxes2[..., 3] - boxes2[..., 1]))[..., None, :]
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1 + area2 - inter).clamp(min=eps)
+
+
+def bbox_overlaps_nearest_3d(boxes1, boxes2):
+    """Nearest-BEV IoU matrix (..., N, M) of 7+-dim boxes (the assigner's
+    metric, mmdet3d ``BboxOverlapsNearest3D``)."""
+    return iou_2d(nearest_bev(boxes1), nearest_bev(boxes2))
 
 
 def bev_corners(boxes):
@@ -89,6 +133,20 @@ def rotated_iou_bev(boxes1, boxes2, eps: float = 1e-6):
     area1 = (boxes1[..., 3] * boxes1[..., 4])[..., :, None]
     area2 = (boxes2[..., 3] * boxes2[..., 4])[..., None, :]
     return inter / (area1 + area2 - inter).clamp(min=eps)
+
+
+def encode_boxes(anchors, gt):
+    """Anchor-relative regression targets (mmdet3d
+    ``DeltaXYZWLHRBBoxCoder``); anchors and gt (..., 9)."""
+    xa, ya, za, wa, la, ha, ra, vxa, vya = anchors.unbind(-1)
+    xg, yg, zg, wg, lg, hg, rg, vxg, vyg = gt.unbind(-1)
+    za = za + ha / 2
+    zg = zg + hg / 2
+    diag = torch.sqrt(la * la + wa * wa)
+    return torch.stack([(xg - xa) / diag, (yg - ya) / diag, (zg - za) / ha,
+                        torch.log(wg / wa), torch.log(lg / la),
+                        torch.log(hg / ha), rg - ra, (vxg - vxa) / diag,
+                        (vyg - vya) / diag], dim=-1)
 
 
 def decode_boxes(anchors, deltas):

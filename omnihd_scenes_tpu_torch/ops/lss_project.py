@@ -6,9 +6,10 @@ read the depth-weighted feature there (Simple-BEV-style sampling; see the
 JAX module's docstring for the geometry).  The camera geometry (minv, mt)
 is inverted here in plain PyTorch, as the JAX module inverts it outside
 its kernel; the index fields and the gather-multiply-sum run in
-:func:`omnihd_scenes_tpu_torch.kernels.lss_sample.lss_sample_bev` (one
+:class:`omnihd_scenes_tpu_torch.kernels.lss_sample.LSSSampleBEV` (one
 fused CUDA kernel on the card, its plain version, op for op the JAX
-``_sample_indices`` and a gather, on the CPU).  The JAX module's one-hot
+``_sample_indices`` and a gather, on the CPU; its backward a CUDA
+scatter kernel on the card and ``index_add_`` on the CPU).  The JAX module's one-hot
 einsum forms and FOV ``b_windows`` are TPU workarounds for a gather and
 are not ported.
 """
@@ -80,7 +81,7 @@ def lss_sample_bev(depth: torch.Tensor,
     g = _Geom(image_size, (f_h, f_w), depth_range, bev_start, bev_voxel,
               bev_nx)
     minv, mt = camera_geometry(rots, trans)
-    out = lss_kernel.lss_sample_bev(feat.contiguous(), depth.contiguous(),
-                                    minv.contiguous(), mt.contiguous(), g,
-                                    solve_x)
+    out = lss_kernel.LSSSampleBEV.apply(
+        feat.contiguous(), depth.contiguous(), minv.contiguous(),
+        mt.contiguous(), g, solve_x)
     return out.permute(0, 3, 1, 2, 4)

@@ -1,7 +1,8 @@
-"""Per-stage latency profile of the serving path on one GPU.
+"""Per-stage latency profile of the serving path, or of a training step,
+on one GPU.
 
     python -m omnihd_scenes_tpu_torch.tools.profile_components \
-        [--batch 4] [--requests 3] [--int8 [--clocks]] \
+        [--batch 4] [--requests 3] [--int8 [--clocks] | --train] \
         [--out profiles/profile_components.txt]
 
 Builds ``Predictor`` at the serving configuration (bf16, channels_last,
@@ -23,6 +24,15 @@ back for about 1.5 s and reports the SM clock and board power that
 samples, the ramp, dropped): whether the card's power limit holds the
 clock below its maximum under the kernel.
 
+With ``--train`` it profiles the training step instead: the shipped
+model (``BEVFusionConfig()``: sorted pillars) with seeded random f32
+weights under the bf16 policy, one warm-up and ``--requests`` timed steps
+of fresh synthetic batches (on the card before the timing) through
+``make_train_step(bf16_policy(make_loss_fn_generic(...)))`` itself, given
+a ``mark`` that records a CUDA event after the forward, the loss (with
+the target assignment), the backward and the optimizer; then one more
+step, without marks, under ``torch.profiler``.
+
 The report is printed and written to ``--out``; a relative path is taken
 from the root of the checkout.
 """
@@ -37,19 +47,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from omnihd_scenes_tpu_torch.config import serving_config
+from omnihd_scenes_tpu_torch.config import BEVFusionConfig, serving_config
 from omnihd_scenes_tpu_torch.kernels._conv3x3 import block_n, tile_shape
 from omnihd_scenes_tpu_torch.models import quant
 from omnihd_scenes_tpu_torch.models.anchor_head import (
     anchor_head_decode_candidates)
+from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.lss import _nhwc
 from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
 from omnihd_scenes_tpu_torch.serve.predictor import (Predictor, _as_tensor,
                                                      calibrate)
 from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
-                                                     random_state_dict)
+                                                     random_state_dict,
+                                                     random_train_batch)
 from omnihd_scenes_tpu_torch.tools.roofline import bound, conv_cost
+from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+from omnihd_scenes_tpu_torch.train.loop import (batch_to, create_train_state,
+                                                make_train_step)
+from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                 make_optimizer)
 
 CHECKOUT = Path(__file__).resolve().parents[2]
 N_TOP_KERNELS = 25
@@ -71,7 +89,7 @@ def staged_call(predictor: Predictor, request, mark):
     trans = _as_tensor(trans, dev, torch.float32)
     mark('inputs to the device')
 
-    pts_bev = m.pillar_encoder(points, points_mask)
+    pts_bev = m.pillar_canvas(points, points_mask)
     mark('radar: dense pillars')
     pts_bev = m.second_fpn(m.second(pts_bev))
     mark('radar: SECOND + FPN')
@@ -107,30 +125,42 @@ def staged_call(predictor: Predictor, request, mark):
     return out
 
 
-def stage_ms(predictor, request):
-    """{stage: device ms} of one request, by CUDA events."""
-    marks = []
+class StageMarks:
+    """``mark(stage)`` records a CUDA event on the current stream;
+    :meth:`take` returns {stage: device ms since the mark before it} and
+    starts over."""
 
-    def mark(name):
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, name):
         event = torch.cuda.Event(enable_timing=True)
         event.record()
-        marks.append((name, event))
+        self.events.append((name, event))
 
+    def take(self):
+        torch.cuda.synchronize()
+        marks, self.events = self.events, []
+        return {name: prev.elapsed_time(event)
+                for (_, prev), (name, event) in zip(marks, marks[1:])}
+
+
+def stage_ms(run, mark: StageMarks):
+    """{stage: device ms} of ``run()``, which calls ``mark`` after each
+    stage."""
     mark('start')
-    staged_call(predictor, request, mark)
-    torch.cuda.synchronize()
-    return {name: prev.elapsed_time(event)
-            for (_, prev), (name, event) in zip(marks, marks[1:])}
+    run()
+    return mark.take()
 
 
-def kernel_profile(predictor, request):
-    """Wall ms, device kernel ms and the top kernels of one request."""
+def kernel_profile(run):
+    """Wall ms, device kernel ms and the top kernels of ``run()``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor(*request)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -230,6 +260,53 @@ def clocks_during(fn, seconds=1.5):
     return mhz, watts, len(rows)
 
 
+def kernel_lines(what, wall, kernels):
+    busy = sum(ms for ms, _, _ in kernels)
+    return ([f'profiled {what}: wall {wall:.2f} ms, device kernels '
+             f'{busy:.2f} ms, busy share {busy / wall:.3f}, peak allocated '
+             f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+             'device ms | launches | kernel']
+            + [f'{ms:9.3f} | {count:5d} | {key[:100]}'
+               for ms, count, key in kernels[:N_TOP_KERNELS]])
+
+
+def train_report(card, args):
+    """Stage table and kernel profile of the b``args.batch`` train step."""
+    cfg = BEVFusionConfig()
+    model = BEVFusion(cfg)
+    model.load_state_dict(random_state_dict(cfg, args.seed))
+    model.to('cuda', memory_format=torch.channels_last)
+    state = create_train_state(model, lambda p: make_optimizer(
+        p, make_lr_schedule(2e-4, 1000, warmup_iters=0)))
+
+    def train_step(mark=None):
+        return make_train_step(bf16_policy(make_loss_fn_generic(
+            model, 'bevfusion', cfg.pillars.anchors(),
+            camera_depth_range=cfg.lss.camera_depth_range, mark=mark)), mark)
+
+    rng = np.random.RandomState(args.seed)
+    batches = [batch_to(random_train_batch(rng, cfg, args.batch), 'cuda')
+               for _ in range(args.requests + 2)]
+    mark = StageMarks()
+    marked = train_step(mark)
+    runs = [stage_ms(lambda b=b: marked(state, b), mark)
+            for b in batches[:args.requests + 1]][1:]
+    lines = [card, f'stage | mean ms | per step (b{args.batch} train step, '
+             f'bf16 policy, {args.requests} steps after a warm-up, CUDA '
+             f'events)']
+    for name in runs[0]:
+        ms = [r[name] for r in runs]
+        lines.append(f'{name} | {np.mean(ms):.3f} | '
+                     + ', '.join(f'{x:.3f}' for x in ms))
+    total = np.mean([sum(r.values()) for r in runs])
+    lines.append(f'sum of stages | {total:.3f} ({args.batch * 1e3 / total:.3f}'
+                 f' samples/s)')
+    torch.cuda.reset_peak_memory_stats()
+    step = train_step()
+    wall, kernels = kernel_profile(lambda: step(state, batches[-1]))
+    return '\n'.join(lines + ['', *kernel_lines('step', wall, kernels)])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--batch', type=int, default=4)
@@ -240,10 +317,14 @@ def main(argv=None):
     parser.add_argument('--clocks', action='store_true',
                         help='with --int8: SM clock and board power while '
                         'the slowest qconv launch runs back to back')
+    parser.add_argument('--train', action='store_true',
+                        help='profile the training step instead of serving')
     parser.add_argument('--out', default='profiles/profile_components.txt')
     args = parser.parse_args(argv)
     if args.clocks and not args.int8:
         parser.error('--clocks needs --int8')
+    if args.train and args.int8:
+        parser.error('--train profiles the bf16 policy; no --int8')
     if not torch.cuda.is_available():
         raise SystemExit('profile_components needs a CUDA device')
 
@@ -256,6 +337,13 @@ def main(argv=None):
     # chip_smoke.py.  The bf16 network has no f32 convs.
     torch.backends.cudnn.allow_tf32 = args.int8
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.train:
+        report = train_report(card, args)
+        print(report)
+        out = CHECKOUT / args.out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(report + '\n')
+        return
     cfg = serving_config()
     state_dict = random_state_dict(cfg, args.seed)
     rng = np.random.RandomState(args.seed)
@@ -266,7 +354,9 @@ def main(argv=None):
     requests = [random_request(rng, cfg, args.batch)
                 for _ in range(args.requests + 3)]
 
-    runs = [stage_ms(predictor, r) for r in requests[:args.requests + 1]][1:]
+    mark = StageMarks()
+    runs = [stage_ms(lambda r=r: staged_call(predictor, r, mark), mark)
+            for r in requests[:args.requests + 1]][1:]
     tier = 'int8' if args.int8 else 'bf16'
     lines = [card, f'stage | mean ms | per request (b{args.batch} {tier}, '
              f'{args.requests} requests after a warm-up, CUDA events)']
@@ -278,14 +368,8 @@ def main(argv=None):
                  f'{np.mean([sum(r.values()) for r in runs]):.3f}')
 
     torch.cuda.reset_peak_memory_stats()
-    wall, kernels = kernel_profile(predictor, requests[-2])
-    busy = sum(ms for ms, _, _ in kernels)
-    lines += ['', f'profiled request: wall {wall:.2f} ms, device kernels '
-              f'{busy:.2f} ms, busy share {busy / wall:.3f}, peak allocated '
-              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
-              'device ms | launches | kernel']
-    lines += [f'{ms:9.3f} | {count:5d} | {key[:100]}'
-              for ms, count, key in kernels[:N_TOP_KERNELS]]
+    wall, kernels = kernel_profile(lambda: predictor(*requests[-2]))
+    lines += ['', *kernel_lines('request', wall, kernels)]
     if args.int8:
         conv_ms = sum(ms for ms, _, key in kernels if 'conv3x3_kernel' in key)
         lines += ['', f'qconv per eligible layer, one more b{args.batch} '

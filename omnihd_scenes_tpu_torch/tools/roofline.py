@@ -9,9 +9,9 @@ needs read once, each output written once) over the HBM rate.
 
 from __future__ import annotations
 
-# Dense tensor-core peaks and the HBM3 rate of one H100 SXM (NVIDIA's
-# data sheet).
-PEAK_OPS = {'int8': 1979e12, 'bf16': 989e12}
+# Dense tensor-core peaks, the f32 rate outside the tensor cores and the
+# HBM3 rate of one H100 SXM (NVIDIA's data sheet).
+PEAK_OPS = {'int8': 1979e12, 'bf16': 989e12, 'f32': 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 

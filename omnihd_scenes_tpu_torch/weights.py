@@ -12,6 +12,9 @@ flax module's epsilon (see ``models/layers.py``).  The ResNet part is the
 JAX package's ``train/torch_import.resnet_name_map``, restated here so
 the port imports nothing of the JAX package.
 
+:func:`flax_tree_to_torch` carries one collection of such a tree (a
+gradient tree is shaped like ``params``) into the same torch names.
+
 :func:`flax_quant_to_torch` / :func:`torch_quant_to_flax` carry the int8
 ``quant`` collection: a conv whose kernel is ``('params', *p, 'kernel')``
 keeps ``act_amax`` / ``w8`` / ``w_scale`` at ``('quant', *p, leaf)`` and
@@ -176,16 +179,28 @@ def _torch_to_flax_layout(v: np.ndarray, path: FlaxPath) -> np.ndarray:
     return v.T if v.ndim == 2 else v
 
 
-def flax_to_torch(variables, cfg: BEVFusionConfig) -> Dict[str, torch.Tensor]:
+def flax_to_torch(variables, cfg: BEVFusionConfig,
+                  collections=('params', 'batch_stats')
+                  ) -> Dict[str, torch.Tensor]:
     """Flax ``{'params', 'batch_stats'}`` -> torch state_dict (f32)."""
     sd = {}
     for tkey, path in name_map(cfg).items():
+        if path[0] not in collections:
+            continue
         v = variables
         for k in path:
             v = v[k]
         v = _flax_to_torch_layout(np.asarray(v, np.float32), path)
         sd[tkey] = torch.from_numpy(v.copy(order='C'))
     return sd
+
+
+def flax_tree_to_torch(tree, cfg: BEVFusionConfig,
+                       collection: str = 'params') -> Dict[str, torch.Tensor]:
+    """One flax collection's content (e.g. a gradient tree shaped like
+    ``params``, or new ``batch_stats``) -> {torch key: f32 tensor} in the
+    torch layouts, for the keys of that collection."""
+    return flax_to_torch({collection: tree}, cfg, collections=(collection,))
 
 
 def torch_to_flax(state_dict, cfg: BEVFusionConfig) -> Dict:

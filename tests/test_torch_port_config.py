@@ -94,12 +94,22 @@ def test_serving_config_is_the_bench_configuration():
 
 @pytest.mark.parametrize('change', [
     {'rc_fusion': 'cross_attention'}, {'stem_s2d': True},
-    {'camera_stream': False}, {'pillars': port.PointPillarsConfig()},
-    {'lss': port.LSSConfig(splat_mode='scatter')}])
+    {'camera_stream': False},
+    {'pillars': port.PointPillarsConfig(pillar_impl='dense_fold')},
+    {'lss': port.LSSConfig(splat_mode='scatter')}, {'remat': True}])
 def test_unported_options_are_refused(change):
     cfg = dataclasses.replace(port.serving_config(), **change)
     with pytest.raises(NotImplementedError, match='not ported'):
         BEVFusion(cfg)
+
+
+def test_training_configuration_builds():
+    """The defaults (sorted pillars, the configuration that trains) build,
+    with the sorted encoder under the name the weight bridge maps."""
+    model = BEVFusion(port.BEVFusionConfig())
+    assert type(model.pillar_encoder).__name__ == 'PillarFeatureNet'
+    assert model.state_dict()['pillar_encoder.pfn.0.linear.weight'].shape == (
+        64, 13)
 
 
 def test_package_imports_without_jax():

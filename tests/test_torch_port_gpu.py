@@ -11,6 +11,17 @@ Bounds:
   (the kernel rounds products and sums separately and sums the cameras
   in order, as the plain version does, so it is usually exact); the
   fused kernel's indices identical to the plain fields on the card.
+* lss_sample_bev_backward: both versions add in f32 with atomics, in
+  orders that change from run to run, so f32 results within 1e-5 *
+  max|ref| and bf16 results within 1 bf16 ulp of the plain version's
+  plus that.
+* a small f32 train step on the card against the same step on the CPU
+  (TF32 off), every BatchNorm in train mode with its bias at +4 so that
+  no ReLU input sits within a rounding of 0 (where it would take the
+  other branch on the other device): the loss within 1e-5 relative, the
+  whole gradient within 1e-4 in relative L2 norm, the new BatchNorm
+  statistics within 1e-4 of max|ref|, the parameters after AdamW within
+  2.5 learning rates.
 The conv cases include the edge shapes of the kernels' block tiling
 (images smaller than a 128-pixel tile, widths that split tiles, channel
 counts that are not multiples of the block's channel tile).
@@ -32,7 +43,8 @@ from omnihd_scenes_tpu_torch.utils.rig import (perturbed_rigs,
                                                ring_rig_img2lidar)
 from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
 from omnihd_scenes_tpu_torch.kernels.lss_sample import (
-    cell_indices, geometry_fields, lss_sample, lss_sample_bev,
+    LSSSampleBEV, cell_indices, geometry_fields, lss_sample, lss_sample_bev,
+    lss_sample_bev_backward, lss_sample_bev_backward_reference,
     lss_sample_bev_reference, lss_sample_reference)
 from omnihd_scenes_tpu_torch.kernels.qconv import (qconv3x3,
                                                    qconv3x3_reference)
@@ -229,6 +241,161 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
         lss_sample_bev(feat[..., :3].contiguous(), depth, minv, mt, g,
                        SOLVE_X)
     assert lss_sample_bev.launches == before
+
+
+def _grad_case(dev, batch, dtype, seed, channels=64, moved=True):
+    g, feat, depth, minv, mt = _bev_case(dev, batch, dtype, seed, channels,
+                                         moved)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    grad = torch.randn((batch, g.ny, g.nx, g.nz, channels), generator=gen,
+                       device=dev).to(dtype)
+    return grad, feat, depth, minv, mt, g
+
+
+def _check_backward(got, want):
+    """f32: 1e-5 max|ref|; bf16: 1 ulp of the reference plus that."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        slack = 1e-5 * float(b.abs().max())
+        if got[0].dtype == torch.bfloat16:
+            _, exp = torch.frexp(b)
+            slack = slack + torch.ldexp(torch.ones_like(b), exp - 8)
+        assert bool(((a - b).abs() <= slack).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('moved', [False, True], ids=['ring', 'moved'])
+@pytest.mark.parametrize('batch', [1, 3])
+def test_backward_kernel_matches_plain(dev, batch, moved, dtype):
+    args = _grad_case(dev, batch, dtype, seed=batch + 7, moved=moved)
+    before = lss_sample_bev_backward.launches
+    got = lss_sample_bev_backward(*args, SOLVE_X)
+    torch.cuda.synchronize()
+    assert lss_sample_bev_backward.launches == before + 1
+    want = lss_sample_bev_backward_reference(*args, SOLVE_X)
+    assert float(want[0].float().abs().max()) > 0
+    _check_backward(got, want)
+
+
+@pytest.mark.parametrize('channels', [2, 66, 256])
+def test_backward_channel_counts(dev, channels):
+    args = _grad_case(dev, 2, torch.float32, seed=3, channels=channels)
+    _check_backward(lss_sample_bev_backward(*args, SOLVE_X),
+                    lss_sample_bev_backward_reference(*args, SOLVE_X))
+
+
+def test_function_launches_once_each_way(dev):
+    """``LSSSampleBEV`` on card tensors: one forward and one backward
+    launch, the geometry without a gradient."""
+    grad, feat, depth, minv, mt, g = _grad_case(dev, 2, torch.bfloat16,
+                                                seed=11)
+    f, d = feat.clone().requires_grad_(), depth.clone().requires_grad_()
+    before = (lss_sample_bev.launches, lss_sample_bev_backward.launches)
+    out = LSSSampleBEV.apply(f, d, minv, mt, g, SOLVE_X)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert (lss_sample_bev.launches, lss_sample_bev_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    _check_backward((f.grad, d.grad), lss_sample_bev_backward_reference(
+        grad, feat, depth, minv, mt, g, SOLVE_X))
+
+
+def test_backward_refuses_what_the_kernel_does_not_take(dev):
+    grad, feat, depth, minv, mt, g = _grad_case(dev, 1, torch.float32,
+                                                seed=2)
+    before = lss_sample_bev_backward.launches
+    with pytest.raises(TypeError):           # (f32 in, bf16 grad)
+        lss_sample_bev_backward(grad.to(torch.bfloat16), feat, depth, minv,
+                                mt, g, SOLVE_X)
+    with pytest.raises(TypeError):           # (bf16 in, f32 grad)
+        lss_sample_bev_backward(grad, feat.to(torch.bfloat16),
+                                depth.to(torch.bfloat16), minv, mt, g,
+                                SOLVE_X)
+    with pytest.raises(ValueError, match='contiguous'):
+        lss_sample_bev_backward(grad.transpose(1, 2).contiguous().transpose(
+            1, 2), feat, depth, minv, mt, g, SOLVE_X)
+    with pytest.raises(ValueError, match='device'):
+        lss_sample_bev_backward(grad.cpu(), feat, depth, minv, mt, g,
+                                SOLVE_X)
+    assert lss_sample_bev_backward.launches == before
+
+
+def _small_train_case(seed):
+    import numpy as np
+
+    from omnihd_scenes_tpu_torch import config as c
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_state_dict,
+                                                         random_train_batch)
+
+    pc_range = (-8.0, -8.0, -3.0, 8.0, 8.0, 5.0)
+    cfg = c.BEVFusionConfig(
+        frozen_backbone_bn=False,
+        lss=c.LSSConfig(final_dim=(64, 112),
+                        camera_depth_range=(1.0, 9.0, 1.0),
+                        pc_range=pc_range, grid=2.0),
+        pillars=c.PointPillarsConfig(
+            point_cloud_range=pc_range, voxel_size=(1.0, 1.0, 8.0),
+            max_voxels=256, max_points_per_voxel=8, bev_hw=(16, 16),
+            anchor_ranges=tuple((-8.0, -8.0, z, 8.0, 8.0, z)
+                                for z in (0.91, 1.142, 0.906, 1.516))))
+    sd = random_state_dict(cfg, seed)
+    for k in [k for k in sd if k.endswith('.running_mean')]:
+        sd[k[:-len('running_mean')] + 'bias'] += 4.0
+    batch = random_train_batch(np.random.RandomState(seed), cfg, 2,
+                               n_points=600, max_gt=8)
+    batch['gt_boxes'][..., :2] /= 5
+    return cfg, sd, batch
+
+
+def test_small_train_step_matches_the_cpu(dev):
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import (create_train_state,
+                                                    make_train_step)
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sd, batch = _small_train_case(seed=1)
+    lr = 1e-3
+    runs = {}
+    for device in ('cpu', dev):
+        model = BEVFusion(cfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        state = create_train_state(model, lambda p: make_optimizer(
+            p, make_lr_schedule(lr, 10, warmup_iters=0)))
+        loss_fn = make_loss_fn_generic(model, 'bevfusion',
+                                       cfg.pillars.anchors(),
+                                       camera_depth_range=(1.0, 9.0, 1.0))
+        grads = {}
+        hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
+                 for k, p in model.named_parameters()]
+        launches = lss_sample_bev_backward.launches
+        _, loss, _ = make_train_step(loss_fn)(state, batch)
+        for h in hooks:
+            h.remove()
+        runs[str(device)] = dict(
+            loss=float(loss), launches=lss_sample_bev_backward.launches
+            - launches, grads={k: v.cpu() for k, v in grads.items()},
+            state={k: v.cpu() for k, v in model.state_dict().items()})
+    cpu, gpu = runs['cpu'], runs[str(dev)]
+    assert cpu['launches'] == 0 and gpu['launches'] == 1
+    assert abs(gpu['loss'] - cpu['loss']) <= 1e-5 * abs(cpu['loss'])
+    diff = sum(float((gpu['grads'][k] - g).square().sum())
+               for k, g in cpu['grads'].items())
+    norm = sum(float(g.square().sum()) for g in cpu['grads'].values())
+    assert diff ** 0.5 <= 1e-4 * norm ** 0.5
+    for k, v in cpu['state'].items():
+        if not v.is_floating_point():
+            continue
+        err = float((gpu['state'][k] - v).abs().max())
+        if 'running' in k:
+            assert err <= 1e-4 * float(v.abs().max()), k
+        else:
+            assert err <= 2.5 * lr, k
 
 
 CL = torch.channels_last
