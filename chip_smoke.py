@@ -72,17 +72,27 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``Predictor(quant_state=...)``; finite (4, 500, .) outputs, qconv
    launches = eligible layers x requests, ``lss_sample_bev`` once per
    request and the fields-in entry never;
+10b. int8 exactness at full width: on the last timed request, each of
+   the tier's convs outside ``qconv`` (f32 convs of int8 codes, TF32 on
+   as serving runs them) against exact int32 sums (``torch._int_mm`` on
+   an s8 im2col, phase 7's yardstick; JAX sums them in int32): every
+   entry equal; prints the worst layer, its largest sum and the largest
+   sum of |x w| any partial sum can reach;
 11. int8 vs bf16 on the last timed request: head maps within
    INT8_HEAD_TOL of max|bf16|, at least INT8_BOX_MATCH of the kept int8
    boxes overlapping a kept bf16 box of the same label;
-12. the LSS backward kernel (``lss_sample_bev_backward``, the gradient of
-   the view transform for feat and depth) vs its plain version (an
-   ``index_add_`` scatter) at the production shapes, b1 and b4, ring and
-   moved rigs, bf16 and f32: both add with atomics in f32, in orders that
-   change from run to run, so f32 results within 1e-5 max|ref| and bf16
-   ones within 1 bf16 ulp plus that; its time at b4 bf16 (the training
-   dtype) beside the plain version and the bound of
-   ``lss_sample_bev_backward_cost``;
+12. the LSS backward kernels (``lss_sample_bev_backward``, the gradient
+   of the view transform for feat and depth, pixel-major) vs their plain
+   version (an ``index_add_`` scatter) at the production shapes, b1 and
+   b4, ring and moved rigs, bf16 and f32: two launches bitwise equal;
+   within 1e-5 max|ref| (bf16: plus 1 ulp) of the plain version on the
+   card, whose CUDA ``index_add_`` adds with atomics; at b1 d feat
+   bit-equal to the plain version run on the CPU (``index_add_`` in
+   index order, the kernel's order) on the card's indices; at b4 bf16
+   (the training dtype) its time beside the plain version and the bound
+   of ``lss_sample_bev_backward_cost``, its steps (count, cumsum, fill +
+   gather), and the previous design (f32 atomics, kept in the source as a
+   yardstick) split into memset, kernel and casts;
 13. sorted pillars served: a ``pillar_impl='sorted'`` Predictor, f32 on
    the GPU against the same on the CPU, one b4 request at small size:
    network outputs within 1e-4 of max|ref|, the same kept rows;
@@ -972,6 +982,80 @@ def phase_int8_serving(dev, card, cfg, state_dict, bf16_ms):
     return q_launches, predictor, requests[-1]
 
 
+def _conv_exactness(m, x):
+    """One int8 conv outside ``qconv`` on its input ``x``: the f32 conv of
+    the int8 codes as ``QConv2d._int8`` runs it, against its exact int32
+    sums (``torch._int_mm`` on an s8 im2col, K and Co padded to multiples
+    of 8, a few images at a time).  Returns (entries that differ, max
+    |exact sum|, max sum of |x w|: the most any partial sum can reach)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omnihd_scenes_tpu_torch.ops.qconv import quantize_act
+
+    check(m.groups == 1, 'grouped int8 conv')
+    x8, _ = quantize_act(x, m.act_amax)
+    y = F.conv2d(x8.float(), m.w8.float(), None, m.stride, m.padding,
+                 m.dilation, m.groups)
+    co, c, kh, kw = m.w8.shape
+    k = c * kh * kw
+    kp, cop = -(-k // 8) * 8, -(-co // 8) * 8
+    w = torch.zeros((cop, kp), dtype=torch.int8, device=x.device)
+    w[:co, :k] = m.w8.contiguous().reshape(co, k)
+    n, _, ho, wo = y.shape
+    per = max(1, 2 ** 30 // (4 * k * ho * wo))
+    bad = top = reach = 0
+    for i in range(0, n, per):
+        cols = F.unfold(x8[i:i + per].float(), (kh, kw), m.dilation,
+                        m.padding, m.stride)
+        cols = F.pad(cols.transpose(1, 2).reshape(-1, k).to(torch.int8),
+                     (0, kp - k))
+        exact = torch._int_mm(cols, w.t())[:, :co]
+        reach = max(reach, int(torch._int_mm(cols.abs(), w.abs().t()).max()))
+        exact = exact.view(-1, ho * wo, co).transpose(1, 2).reshape(
+            -1, co, ho, wo)
+        bad += int((y[i:i + per].double() != exact.double()).sum())
+        top = max(top, int(exact.abs().max()))
+    return bad, top, reach
+
+
+def phase_int8_exact(int8, request):
+    """Each int8 conv outside ``qconv`` of one full-width b4 int8 request,
+    under serving's settings (TF32 on), against exact int32 sums."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.quant import QConv2d, qconv_eligible
+
+    seen = {}
+
+    def hook(module, args, out, name):
+        seen[name] = _conv_exactness(module, args[0])
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: hook(mod, args, out, name))
+        for name, m in int8.model.named_modules()
+        if isinstance(m, QConv2d) and not qconv_eligible(m)]
+    try:
+        int8.forward(*request)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    check(len(seen) == len(hooks) > 0, f'{len(seen)} of {len(hooks)} int8 '
+          f'convs outside qconv ran')
+    worst = max(seen, key=lambda k: (seen[k][0], seen[k][2]))
+    inexact = [k for k, v in seen.items() if v[0]]
+    print(f'[10b int8 exactness] {len(seen)} int8 convs outside qconv, one '
+          f'full-width b{BATCH} request, TF32 on (serving): '
+          f'{len(seen) - len(inexact)} exact against int32 sums '
+          f'(torch._int_mm on im2col); worst layer {worst}: '
+          f'{seen[worst][0]} entries off, |sum| up to {seen[worst][1]}, sum '
+          f'of |x w| up to {seen[worst][2]} (2^24 = {2 ** 24}); largest '
+          f'|sum| of any layer {max(v[1] for v in seen.values())}, largest '
+          f'sum of |x w| {max(v[2] for v in seen.values())}')
+    check(not inexact, f'int8 convs not exact: {inexact}')
+
+
 def phase_int8_vs_bf16(bf16, int8, request):
     import torch
 
@@ -1000,16 +1084,111 @@ def phase_int8_vs_bf16(bf16, int8, request):
           f'int8 kept boxes match bf16 ones for only {share:.4f}')
 
 
+def _old_backward_split(args, iters=20, warmup=3):
+    """The previous design of the backward (kept in ``lss_sample.cu`` as
+    ``lss_sample_bev_backward_atomic``) on ``args``, by CUDA events per
+    step: (zero-filling two f32 buffers, the atomic kernel, the casts to
+    the inputs' dtype), mean ms."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels import lss_sample as kern
+
+    grad, feat, depth, minv, mt, g, sx = args
+    dev = feat.device
+    fn = kern._kernel('lss_sample_bev_backward_atomic')
+    tables = kern._device_tables(g.args, dev)
+    shape = (kern._mask(sx), *feat.shape, depth.shape[-1], g.nz, g.ny, g.nx,
+             *(float(v) for v in kern._geom_consts(g)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = np.zeros(3)
+    for it in range(warmup + iters):
+        ev[0].record()
+        dfeat = torch.zeros(feat.shape, dtype=torch.float32, device=dev)
+        ddepth = torch.zeros(depth.shape, dtype=torch.float32, device=dev)
+        ev[1].record()
+        kern._launch('lss_sample_bev_backward_atomic', fn, grad.data_ptr(),
+                     feat.data_ptr(), depth.data_ptr(), minv.data_ptr(),
+                     mt.data_ptr(), tables.data_ptr(), dfeat.data_ptr(),
+                     ddepth.data_ptr(), kern._DTYPE_CODES[feat.dtype],
+                     *shape, stream)
+        ev[2].record()
+        dfeat.to(feat.dtype), ddepth.to(depth.dtype)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if it >= warmup:
+            parts += [ev[k].elapsed_time(ev[k + 1]) for k in range(3)]
+    return parts / iters
+
+
+def _new_backward_split(args, iters=20, warmup=3):
+    """The steps of ``lss_sample_bev_backward`` on ``args`` (its wrapper's
+    calls, unrolled), by CUDA events per step: (zeroing the histogram +
+    the count kernel, ``torch.cumsum``, the fill + gather kernels), mean
+    ms."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels import lss_sample as kern
+
+    grad, feat, depth, minv, mt, g, sx = args
+    dev = feat.device
+    counts, ends, keys, ordered = kern._backward_scratch(feat.shape, g, dev)
+    dfeat, ddepth = torch.empty_like(feat), torch.empty_like(depth)
+    tables = kern._device_tables(g.args, dev)
+    shape = (kern._mask(sx), *feat.shape, depth.shape[-1], g.nz, g.ny, g.nx,
+             *(float(v) for v in kern._geom_consts(g)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = np.zeros(3)
+    for it in range(warmup + iters):
+        ev[0].record()
+        kern._launch('count', kern._kernel('lss_sample_bev_backward_count'),
+                     minv.data_ptr(), mt.data_ptr(), tables.data_ptr(),
+                     counts.data_ptr(), *shape, stream)
+        ev[1].record()
+        torch.cumsum(counts, 0, dtype=torch.int32, out=ends)
+        ev[2].record()
+        kern._launch('fill + gather', kern._kernel('lss_sample_bev_backward'),
+                     grad.data_ptr(), feat.data_ptr(), depth.data_ptr(),
+                     minv.data_ptr(), mt.data_ptr(), tables.data_ptr(),
+                     counts.data_ptr(), ends.data_ptr(), keys.data_ptr(),
+                     ordered.data_ptr(), dfeat.data_ptr(), ddepth.data_ptr(),
+                     kern._DTYPE_CODES[feat.dtype], *shape, stream)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if it >= warmup:
+            parts += [ev[k].elapsed_time(ev[k + 1]) for k in range(3)]
+    got = kern.lss_sample_bev_backward(grad, feat, depth, minv, mt, g, sx)
+    check(torch.equal(dfeat, got[0]) and torch.equal(ddepth, got[1]),
+          'the unrolled backward differs from its wrapper')
+    return parts / iters
+
+
+def _backward_tolerance(a, b):
+    """|a - b| <= 1e-5 max|b|, plus 1 ulp of b where b is bf16."""
+    import torch
+
+    slack = 1e-5 * float(b.float().abs().max())
+    if b.dtype == torch.bfloat16:
+        _, exp = torch.frexp(b.float())
+        slack = slack + torch.ldexp(torch.ones_like(b.float()), exp - 8)
+    return bool(((a.float() - b.float()).abs() <= slack).all())
+
+
 def phase_backward(dev, card):
-    """The LSS backward kernel against its plain version at b1 and b4,
-    ring rig and a rig moved per sample, bf16 and f32; then its time at
-    b4 bf16 on the ring rig.  Returns (max |d|, ms, plain ms, bound ms,
+    """The LSS backward kernel at b1 and b4, ring rig and a rig moved per
+    sample, bf16 and f32: two launches bitwise equal, within the stated
+    tolerance of the plain version on the card, and at b1 its d feat
+    bit-equal to the plain version run on the CPU on the card's indices;
+    then at b4 bf16 on the ring rig its time, its steps, and the previous
+    design's split.  Returns (max |d|, ms, plain ms, bound ms,
     bound_by)."""
     import torch
 
     from omnihd_scenes_tpu_torch.kernels.lss_sample import (
-        lss_sample_bev_backward, lss_sample_bev_backward_cost,
-        lss_sample_bev_backward_reference)
+        cell_indices, geometry_fields, lss_sample_bev_backward,
+        lss_sample_bev_backward_cost, lss_sample_bev_backward_reference,
+        scatter_cells)
     from omnihd_scenes_tpu_torch.tools.roofline import bound
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1019,6 +1198,7 @@ def phase_backward(dev, card):
             lss, g, _, _, minv, mt = _production_geometry(batch, dev, moved)
             sx = lss.cam_solve_x
             shape = (batch, len(sx)) + tuple(lss.feat_hw)
+            label = f'b{batch} {"moved" if moved else "ring"} rig'
             for dtype in (torch.bfloat16, torch.float32):
                 feat = torch.randn(shape + (lss.camC,), generator=gen,
                                    device=dev).to(dtype)
@@ -1029,40 +1209,57 @@ def phase_backward(dev, card):
                                    generator=gen, device=dev).to(dtype)
                 args = (grad, feat, depth, minv, mt, g, sx)
                 got = lss_sample_bev_backward(*args)
+                again = lss_sample_bev_backward(*args)
+                check(torch.equal(got[0], again[0])
+                      and torch.equal(got[1], again[1]),
+                      f'backward at {label} {dtype}: two launches differ')
                 want = lss_sample_bev_backward_reference(*args)
-                torch.cuda.synchronize()
                 rel = []
                 for name, a, b in zip(('dfeat', 'ddepth'), got, want):
-                    a, b = a.float(), b.float()
-                    slack = 1e-5 * float(b.abs().max())
-                    if dtype == torch.bfloat16:
-                        _, exp = torch.frexp(b)
-                        slack = slack + torch.ldexp(torch.ones_like(b),
-                                                    exp - 8)
-                    check(bool(((a - b).abs() <= slack).all()),
-                          f'backward {name} off the plain version at b{batch}'
-                          f' {"moved" if moved else "ring"} {dtype}')
-                    err = float((a - b).abs().max())
+                    check(a.dtype == b.dtype and _backward_tolerance(a, b),
+                          f'backward {name} off the plain version at '
+                          f'{label} {dtype}')
+                    err = float((a.float() - b.float()).abs().max())
                     worst = max(worst, err)
-                    rel.append(err / float(b.abs().max()))
-                print(f'[12 backward vs plain] b{batch} '
-                      f'{"moved" if moved else "ring"} rig, {dtype}: '
-                      f'dfeat {rel[0]:.3e}, ddepth {rel[1]:.3e} of max|ref|'
-                      f' (f32 atomics in both; bf16 within 1 ulp)')
-                del got, want
+                    rel.append(err / float(b.float().abs().max()))
+                exact = ''
+                if batch == 1:
+                    idx = cell_indices(*geometry_fields(minv, mt, g, sx), sx,
+                                       g.ny, g.nx, lss.depth_bins)
+                    cpu = scatter_cells(*(t.cpu() for t in (grad, feat,
+                                                            depth, *idx)))
+                    check(torch.equal(got[0].cpu(), cpu[0])
+                          and _backward_tolerance(got[1].cpu(), cpu[1]),
+                          f'backward at {label} {dtype} off the plain '
+                          f'version on the CPU')
+                    exact = ('; d feat bit-equal to the plain version run '
+                             'on the CPU on these indices')
+                print(f'[12 backward vs plain] {label}, {dtype}: two '
+                      f'launches bitwise equal; against the plain version '
+                      f'on the card (CUDA index_add_) dfeat {rel[0]:.3e}, '
+                      f'ddepth {rel[1]:.3e} of max|ref|{exact}')
+                del got, again, want
     # b4, ring rig, bf16 (the last case's geometry, the training dtype).
     feat, depth, grad = (t.to(torch.bfloat16) for t in (feat, depth, grad))
     args = (grad, feat, depth, minv, mt, g, sx)
     ms = cuda_ms(lambda: lss_sample_bev_backward(*args), iters=20, warmup=3)
+    old = _old_backward_split(args)
+    ms_again = cuda_ms(lambda: lss_sample_bev_backward(*args), iters=20,
+                       warmup=3)
+    steps = _new_backward_split(args)
     plain_ms = cuda_ms(lambda: lss_sample_bev_backward_reference(*args),
                        iters=3, warmup=1)
     ops, nbytes = lss_sample_bev_backward_cost(*args)
     bound_ms, bound_by = bound(ops, 'f32', nbytes)
-    print(f'[12 backward vs plain] b{BATCH} bf16, ring rig: kernel (with its '
-          f'zeroed f32 buffers and the casts) {ms:.4f} ms ({bound_ms / ms:.3f}'
-          f' of its {bound_ms:.4f} ms {bound_by} bound: {ops / 1e9:.3f} '
-          f'GFLOP f32, {nbytes / 1e9:.4f} GB), plain PyTorch '
-          f'(index_add_) {plain_ms:.4f} ms, by CUDA events ({card})')
+    print(f'[12 backward vs plain] b{BATCH} bf16, ring rig: kernel {ms:.4f} '
+          f'/ {ms_again:.4f} ms before / after the old design '
+          f'({bound_ms / ms:.3f} of its {bound_ms:.4f} ms {bound_by} bound: '
+          f'{ops / 1e9:.3f} GFLOP f32, {nbytes / 1e9:.4f} GB); its steps: '
+          f'histogram zero + count {steps[0]:.4f}, torch.cumsum '
+          f'{steps[1]:.4f}, fill + gather {steps[2]:.4f} ms; the old design '
+          f'(f32 atomics) memset {old[0]:.4f}, kernel {old[1]:.4f}, '
+          f'casts {old[2]:.4f} = {old.sum():.4f} ms; plain PyTorch '
+          f'(index_add_) {plain_ms:.4f} ms; by CUDA events ({card})')
     return worst, ms, plain_ms, bound_ms, bound_by
 
 
@@ -1289,6 +1486,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
     q_launches, int8, int8_request = phase_int8_serving(
         dev, card, cfg, state_dict, bf16_ms)
+    phase_int8_exact(int8, int8_request)
     torch.backends.cudnn.allow_tf32 = False
     phase_int8_vs_bf16(predictor, int8, int8_request)
     del predictor, int8, int8_request, request

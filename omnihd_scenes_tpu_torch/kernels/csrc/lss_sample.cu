@@ -59,20 +59,56 @@
 //
 // The backward, lss_sample_bev_backward, is the gradient for feat and depth
 // (the JAX package's is the einsum VJP inside the jax.custom_vjp of
-// pallas_splat.py:246-261, not a Pallas kernel).  It walks the same blocks
-// and computes the same (j, i, kd) with the same index code (lss_geom.cuh),
-// so it scatters exactly where the forward gathered: for each (cell,
-// camera) in range,
-//   dfeat[b, n, j, i, :]    += g[cell, :] * depth[b, n, j, i, kd]
-//   ddepth[b, n, j, i, kd]  += <g[cell, :], feat[b, n, j, i, :]>
-// into f32 buffers with atomics (the wrapper casts them once).  A cell is
-// seen by a camera or two, and a pixel by a few cells along its ray, so the
-// atomics rarely collide.  What bounds it: the bytes of g (as large as the
-// forward's output), the gathers and the scattered rows, and the atomics'
-// throughput in L2.  The design is the simple one: one warp per cell, its
-// lanes over channel pairs (a 128-byte bf16 row per load at C = 64), the
-// dot product reduced across the warp with shuffles.  The sum order of the
-// atomics changes from run to run, so the result's last bits do too.
+// pallas_splat.py:246-261, not a Pallas kernel).  For each (cell, camera)
+// whose indices are in range, the pair's pixel p = (b, n, j, i) gets
+//   dfeat[p, :]       += g[cell, :] * depth[p, kd]
+//   ddepth[p, kd]     += <g[cell, :], feat[p, :]>
+// What bounds it on an H100: device-memory bytes, ~0.56 GB at b4 bf16 (the
+// gradient, as large as the forward's output, read once; feat and depth
+// read once; d feat and d depth written once).  The design is pixel-major,
+// so that every output element is written once, in feat's dtype, from
+// sums taken in a fixed order, with no atomics into the outputs and no f32
+// scratch of their size:
+//   1. count: the forward's block walk and collect_cameras (so the pairs
+//      are the forward's by construction) add one per pair to an int32
+//      histogram over the B N fH fW pixels (3.1 MB at b4: it stays in L2);
+//      the wrapper takes its inclusive prefix sum (torch.cumsum), the end
+//      of each pixel's bucket;
+//   2. fill: the same walk writes each pair's key, its cell within the
+//      sample times D plus kd, into a free slot of its pixel's bucket
+//      (slots taken with integer atomics, so in no fixed order; the
+//      histogram is left at zero);
+//   3. gather: a lane group per pixel (8 lanes and 16-byte vectors per
+//      128-byte bf16 row, as the forward) ranks its bucket's keys (each
+//      lane counts the keys below its own; keys are unique: a cell meets a
+//      pixel at most once), writes them in increasing cell order to a
+//      second list, then sums the pairs in that order: the pixel's feature
+//      row loaded once, kBatch gradient rows and depth values in flight
+//      before any is summed, d feat accumulated in f32 registers with the
+//      multiply and the add rounded separately, each pair's dot product
+//      reduced across the group with shuffles and added to the pixel's d
+//      depth row in shared memory.  The d feat row and the whole d depth
+//      row (zeros where no pair fell, and for pixels with an empty bucket)
+//      are written once with streaming stores.  Buckets are skewed (far
+//      pixels collect many cells along their ray): nothing caps their
+//      length; ranking a bucket of L keys costs L^2 / 8 comparisons per
+//      lane on keys that sit in L1.
+// Measured on an H100 (PERF.md): the gather kernel takes most of the time
+// and is held back by each pixel's chain of dependent loads (bucket ends,
+// keys, the sorted copy, then the rows), not by the bytes: it keeps most
+// of its time with no gradient row read at all, and its speed follows the
+// lane groups resident per SM, so variants that carried more pairs or
+// pixels per lane group (more registers or serial work) were slower.
+// Determinism and the plain version: each pixel belongs to one camera, so
+// the plain index_add_ (sequential over its index on the CPU) adds a
+// pixel's pairs in increasing cell order too; the f32 d feat is bit-equal
+// to it on the same indices.  d depth's dot product is reduced in another
+// order than the plain .sum(-1), so it agrees within a tolerance.  Two
+// runs give identical bits.
+//
+// lss_sample_bev_backward_atomic keeps the previous design (one warp per
+// cell, f32 atomics into buffers the caller zeroes) as a yardstick that
+// chip_smoke.py times beside the new one; no path of the port calls it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -409,85 +445,6 @@ lss_sample_kernel(Src src, const InT* __restrict__ feat,
 }
 
 
-// ---- the backward ------------------------------------------------------------
-
-// Two consecutive channels as f32.
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(p));
-  return make_float2(__uint_as_float(w << 16),
-                     __uint_as_float(w & 0xffff0000u));
-}
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-// grad (B, ny, nx, nz, C) in T -> dfeat (B, N, fH, fW, C) and ddepth
-// (B, N, fH, fW, D) f32, added to with atomics; one warp per cell.
-template <class Src, typename T>
-__global__ void __launch_bounds__(kThreads)
-lss_sample_backward_kernel(Src src, const T* __restrict__ grad,
-                           const T* __restrict__ feat,
-                           const T* __restrict__ depth,
-                           float* __restrict__ dfeat,
-                           float* __restrict__ ddepth, Dims d) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_pix = smem;
-  int32_t* s_kd = smem + d.n_cams * kMaxCells;
-  int32_t* s_count = s_kd + d.n_cams * kMaxCells;
-  float* scratch = reinterpret_cast<float*>(s_count + kMaxCells);
-  const Span sp = block_span(d);
-
-  src.prepare(sp.b, d, scratch);
-  __syncthreads();
-  collect_cameras<Src, false>(src, scratch, sp.b, sp.y, sp.x0, sp.cells,
-                              sp.cell0, d, s_pix, s_kd, s_count, nullptr,
-                              nullptr, nullptr);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int pairs = d.c_ch / 2;
-  for (int c = warp; c < sp.cells; c += kWarps) {
-    const int cnt = s_count[c];
-    const T* g_row = grad + (sp.cell0 + c) * d.c_ch;
-    for (int t = 0; t < cnt; ++t) {
-      const int64_t pix = s_pix[t * kMaxCells + c];
-      const int64_t at = pix * d.d_bins + s_kd[t * kMaxCells + c];
-      const float w = load_depth(depth + at);
-      const T* f_row = feat + pix * d.c_ch;
-      float* df_row = dfeat + pix * d.c_ch;
-      float dot = 0.f;
-      for (int p = lane; p < pairs; p += 32) {
-        const float2 g = load_pair(g_row + 2 * p);
-        const float2 f = load_pair(f_row + 2 * p);
-        atomicAdd(df_row + 2 * p, g.x * w);
-        atomicAdd(df_row + 2 * p + 1, g.y * w);
-        dot += g.x * f.x + g.y * f.y;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) atomicAdd(ddepth + at, dot);
-    }
-  }
-}
-
-template <class Src, typename T>
-int launch_backward(const Src& src, const void* grad, const void* feat,
-                    const void* depth, float* dfeat, float* ddepth, Dims d,
-                    cudaStream_t stream) {
-  const int64_t blocks = (int64_t)d.n_batch * d.ny * d.tiles_x;
-  const size_t smem = (size_t)d.n_cams *
-                          (2 * kMaxCells * sizeof(int32_t) +
-                           lss::kCamCoefFloats * sizeof(float)) +
-                      kMaxCells * sizeof(int32_t);
-  lss_sample_backward_kernel<Src, T>
-      <<<(unsigned)blocks, kThreads, smem, stream>>>(
-          src, static_cast<const T*>(grad), static_cast<const T*>(feat),
-          static_cast<const T*>(depth), dfeat, ddepth, d);
-  return (int)cudaGetLastError();
-}
-
 // ---- launch ------------------------------------------------------------------
 
 enum : int { kBadDtype = 1001, kBadShape = 1002 };
@@ -498,6 +455,14 @@ int log2_ceil(int v) {
   return l;
 }
 
+// Shared memory of a block of the walk (forward and backward): the cells'
+// cameras and depth bins, their counts and the cameras' coefficients.
+size_t walk_smem(const Dims& d) {
+  return (size_t)d.n_cams * (2 * kMaxCells * sizeof(int32_t) +
+                             lss::kCamCoefFloats * sizeof(float)) +
+         kMaxCells * sizeof(int32_t);
+}
+
 template <class Src, typename InT, typename OutT, int EV, int K, bool kDump>
 int launch(const Src& src, const void* feat, const void* depth, void* out,
            int32_t* dj, int32_t* di, int32_t* dkd, Dims d,
@@ -506,12 +471,8 @@ int launch(const Src& src, const void* feat, const void* depth, void* out,
   d.lpc_log2 = log2_ceil(std::min(d.chunks, 32));
   if ((d.chunks + (1 << d.lpc_log2) - 1) >> d.lpc_log2 > K) return kBadShape;
   const int64_t blocks = (int64_t)d.n_batch * d.ny * d.tiles_x;
-  const size_t smem = (size_t)d.n_cams *
-                          (2 * kMaxCells * sizeof(int32_t) +
-                           lss::kCamCoefFloats * sizeof(float)) +
-                      kMaxCells * sizeof(int32_t);
   lss_sample_kernel<Src, InT, OutT, EV, K, kDump>
-      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+      <<<(unsigned)blocks, kThreads, walk_smem(d), stream>>>(
           src, static_cast<const InT*>(feat), static_cast<const InT*>(depth),
           static_cast<OutT*>(out), dj, di, dkd, d);
   return (int)cudaGetLastError();
@@ -582,6 +543,309 @@ Dims make_dims(uint32_t mask, int n_batch, int n_cams, int f_h, int f_w,
   return d;
 }
 
+// ---- the backward ------------------------------------------------------------
+
+constexpr int kBatch = 4;  // pairs whose loads a lane group issues at once
+
+// The block's pairs, from the forward's walk: each (cell, camera) in range
+// adds one to its pixel's count (kFill false), or takes a slot of its
+// pixel's bucket, ends[pix] - 1 downwards, and writes its key there (kFill
+// true: the counts go back to zero).  key = cell within the sample * D + kd.
+template <class Src, bool kFill>
+__global__ void __launch_bounds__(kThreads)
+lss_backward_bucket_kernel(Src src, int32_t* __restrict__ counts,
+                           const int32_t* __restrict__ ends,
+                           int32_t* __restrict__ keys, Dims d) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_pix = smem;
+  int32_t* s_kd = smem + d.n_cams * kMaxCells;
+  int32_t* s_count = s_kd + d.n_cams * kMaxCells;
+  float* scratch = reinterpret_cast<float*>(s_count + kMaxCells);
+  const Span sp = block_span(d);
+
+  src.prepare(sp.b, d, scratch);
+  __syncthreads();
+  collect_cameras<Src, false>(src, scratch, sp.b, sp.y, sp.x0, sp.cells,
+                              sp.cell0, d, s_pix, s_kd, s_count, nullptr,
+                              nullptr, nullptr);
+  // Each thread reads back only the cells it collected: no barrier.
+  const int cell_base =
+      (int)(sp.cell0 - (int64_t)sp.b * d.ny * d.nx * d.nz);
+  for (int c = threadIdx.x; c < sp.cells; c += kThreads) {
+    const int cnt = s_count[c];
+    for (int t = 0; t < cnt; ++t) {
+      const int pix = s_pix[t * kMaxCells + c];
+      if constexpr (kFill) {
+        const int slot = __ldg(ends + pix) - atomicSub(counts + pix, 1);
+        keys[slot] = (cell_base + c) * d.d_bins + s_kd[t * kMaxCells + c];
+      } else {
+        atomicAdd(counts + pix, 1);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         *reinterpret_cast<const unsigned short*>(&h));
+}
+__device__ __forceinline__ void store_one(float* p, float v) { __stcs(p, v); }
+
+// grad (B, ny, nx, nz, C), feat (B, N, fH, fW, C), depth (B, N, fH, fW, D)
+// in T; ends / keys from the bucket kernels -> dfeat and ddepth in T.  A
+// lane group of 1 << lpc_log2 lanes per pixel, EV channels per vector, K
+// vectors per lane; a warp's pixels are consecutive, so its d depth rows
+// are one contiguous span, staged in shared memory and stored whole.
+template <typename T, int EV, int K>
+__global__ void __launch_bounds__(kThreads)
+lss_backward_gather_kernel(const T* __restrict__ grad,
+                           const T* __restrict__ feat,
+                           const T* __restrict__ depth,
+                           const int32_t* __restrict__ ends,
+                           const int32_t* __restrict__ keys,
+                           int32_t* sorted, T* __restrict__ dfeat,
+                           T* __restrict__ ddepth, Dims d, int n_pix) {
+  extern __shared__ float s_dd[];  // [kWarps][pixels per warp][D]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lpc = 1 << d.lpc_log2;
+  const int ppw = 32 >> d.lpc_log2;
+  const int q0 = lane & (lpc - 1);
+  const int sub = lane >> d.lpc_log2;
+  const unsigned gmask =
+      lpc == 32 ? 0xffffffffu : ((1u << lpc) - 1u) << (sub * lpc);
+  const int p0 = (blockIdx.x * kWarps + warp) * ppw;
+  if (p0 >= n_pix) return;                 // the whole warp
+  const int rows = min(ppw, n_pix - p0);
+  float* dd = s_dd + warp * ppw * d.d_bins;
+  for (int k = lane; k < ppw * d.d_bins; k += 32) dd[k] = 0.f;
+  __syncwarp();
+
+  const int p = p0 + sub;
+  if (sub < rows) {
+    const int start = p == 0 ? 0 : __ldg(ends + p - 1);
+    const int len = __ldg(ends + p) - start;
+    float acc[K][EV];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < EV; ++e) acc[k][e] = 0.f;
+    if (len > 0) {
+      RowVec<T, EV> f[K];
+      const T* f_row = feat + (int64_t)p * d.c_ch;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int q = q0 + k * lpc;
+        if (q < d.chunks) f[k].load(f_row + q * EV);
+      }
+      const int per_b = d.n_cams * d.f_h * d.f_w;
+      const T* g_base =
+          grad + (int64_t)(p / per_b) * d.ny * d.nx * d.nz * d.c_ch;
+      const T* w_row = depth + (int64_t)p * d.d_bins;
+      float* dd_row = dd + sub * d.d_bins;
+
+      // The bucket in increasing key (= cell) order: each key's rank is
+      // the number of keys below it (keys are unique: a cell meets a pixel
+      // at most once).
+      for (int t = q0; t < len; t += lpc) {
+        const int key = __ldg(keys + start + t);
+        int rank = 0;
+        for (int u = 0; u < len; ++u) rank += __ldg(keys + start + u) < key;
+        sorted[start + rank] = key;
+      }
+      __syncwarp(gmask);
+
+      // The sums in that order, the loads of kBatch pairs issued before
+      // any is summed.
+      for (int t0 = 0; t0 < len; t0 += kBatch) {
+        RowVec<T, EV> g[kBatch][K];
+        float w[kBatch];
+        int kd[kBatch];
+#pragma unroll
+        for (int s = 0; s < kBatch; ++s) {
+          if (t0 + s < len) {
+            const int key = sorted[start + t0 + s];
+            const int cell = key / d.d_bins;
+            kd[s] = key - cell * d.d_bins;
+            w[s] = load_depth(w_row + kd[s]);
+            const T* g_row = g_base + (int64_t)cell * d.c_ch;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const int q = q0 + k * lpc;
+              if (q < d.chunks) g[s][k].load(g_row + q * EV);
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kBatch; ++s) {
+          if (t0 + s < len) {
+            float dot = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              if (q0 + k * lpc < d.chunks) {
+#pragma unroll
+                for (int e = 0; e < EV; ++e) {
+                  const float gv = g[s][k].get(e);
+                  acc[k][e] = __fadd_rn(acc[k][e], __fmul_rn(gv, w[s]));
+                  dot = fmaf(gv, f[k].get(e), dot);
+                }
+              }
+            }
+            for (int off = lpc >> 1; off > 0; off >>= 1)
+              dot += __shfl_xor_sync(gmask, dot, off);
+            if (q0 == 0) dd_row[kd[s]] += dot;
+          }
+        }
+      }
+    }
+    T* df_row = dfeat + (int64_t)p * d.c_ch;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = q0 + k * lpc;
+      if (q < d.chunks) store_row<T, EV>(df_row + q * EV, acc[k]);
+    }
+  }
+  __syncwarp();
+  T* out = ddepth + (int64_t)p0 * d.d_bins;
+  for (int k = lane; k < rows * d.d_bins; k += 32) store_one(out + k, dd[k]);
+}
+
+template <class Src, bool kFill>
+int launch_bucket(const Src& src, int32_t* counts, const int32_t* ends,
+                  int32_t* keys, const Dims& d, cudaStream_t stream) {
+  lss_backward_bucket_kernel<Src, kFill>
+      <<<d.n_batch * d.ny * d.tiles_x, kThreads, walk_smem(d), stream>>>(
+          src, counts, ends, keys, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int EV, int K>
+int launch_gather(const void* grad, const void* feat, const void* depth,
+                  const int32_t* ends, const int32_t* keys, int32_t* sorted,
+                  void* dfeat, void* ddepth, Dims d, cudaStream_t stream) {
+  d.chunks = d.c_ch / EV;
+  d.lpc_log2 = log2_ceil(std::min(d.chunks, 32));
+  if ((d.chunks + (1 << d.lpc_log2) - 1) >> d.lpc_log2 > K) return kBadShape;
+  const int ppw = 32 >> d.lpc_log2;
+  const size_t smem = (size_t)kWarps * ppw * d.d_bins * sizeof(float);
+  auto kernel = lss_backward_gather_kernel<T, EV, K>;
+  if (smem > 48 * 1024) {
+    if (smem > 227 * 1024) return kBadShape;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_pix = d.n_batch * d.n_cams * d.f_h * d.f_w;
+  const int per_block = kWarps * ppw;
+  kernel<<<(unsigned)((n_pix + per_block - 1) / per_block), kThreads, smem,
+           stream>>>(static_cast<const T*>(grad), static_cast<const T*>(feat),
+                     static_cast<const T*>(depth), ends, keys, sorted,
+                     static_cast<T*>(dfeat), static_cast<T*>(ddepth), d,
+                     n_pix);
+  return (int)cudaGetLastError();
+}
+
+// The vector width, as the forward picks it: 16 bytes where a row is a
+// multiple of 16 bytes and grad and feat are 16-byte aligned, else 2
+// channels.
+template <typename T>
+int launch_gather_widths(const void* grad, const void* feat,
+                         const void* depth, const int32_t* ends,
+                         const int32_t* keys, int32_t* sorted, void* dfeat,
+                         void* ddepth, const Dims& d, cudaStream_t stream) {
+  constexpr int kWide = 16 / (int)sizeof(T);
+  const bool wide = (d.c_ch * (int)sizeof(T)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dfeat) % 16 == 0;
+  if (!wide)
+    return launch_gather<T, 2, 4>(grad, feat, depth, ends, keys, sorted,
+                                  dfeat, ddepth, d, stream);
+  if (d.c_ch / kWide <= 32)
+    return launch_gather<T, kWide, 1>(grad, feat, depth, ends, keys, sorted,
+                                      dfeat, ddepth, d, stream);
+  if constexpr (sizeof(T) == 4)
+    return launch_gather<T, kWide, 2>(grad, feat, depth, ends, keys, sorted,
+                                      dfeat, ddepth, d, stream);
+  return kBadShape;
+}
+
+// The previous design, kept as chip_smoke.py's yardstick only: grad -> dfeat
+// and ddepth f32, zeroed by the caller, added to with atomics; one warp per
+// cell.
+
+// Two consecutive channels as f32.
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+template <class Src, typename T>
+__global__ void __launch_bounds__(kThreads)
+lss_backward_atomic_kernel(Src src, const T* __restrict__ grad,
+                           const T* __restrict__ feat,
+                           const T* __restrict__ depth,
+                           float* __restrict__ dfeat,
+                           float* __restrict__ ddepth, Dims d) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_pix = smem;
+  int32_t* s_kd = smem + d.n_cams * kMaxCells;
+  int32_t* s_count = s_kd + d.n_cams * kMaxCells;
+  float* scratch = reinterpret_cast<float*>(s_count + kMaxCells);
+  const Span sp = block_span(d);
+
+  src.prepare(sp.b, d, scratch);
+  __syncthreads();
+  collect_cameras<Src, false>(src, scratch, sp.b, sp.y, sp.x0, sp.cells,
+                              sp.cell0, d, s_pix, s_kd, s_count, nullptr,
+                              nullptr, nullptr);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pairs = d.c_ch / 2;
+  for (int c = warp; c < sp.cells; c += kWarps) {
+    const int cnt = s_count[c];
+    const T* g_row = grad + (sp.cell0 + c) * d.c_ch;
+    for (int t = 0; t < cnt; ++t) {
+      const int64_t pix = s_pix[t * kMaxCells + c];
+      const int64_t at = pix * d.d_bins + s_kd[t * kMaxCells + c];
+      const float w = load_depth(depth + at);
+      const T* f_row = feat + pix * d.c_ch;
+      float* df_row = dfeat + pix * d.c_ch;
+      float dot = 0.f;
+      for (int p = lane; p < pairs; p += 32) {
+        const float2 g = load_pair(g_row + 2 * p);
+        const float2 f = load_pair(f_row + 2 * p);
+        atomicAdd(df_row + 2 * p, g.x * w);
+        atomicAdd(df_row + 2 * p + 1, g.y * w);
+        dot += g.x * f.x + g.y * f.y;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) atomicAdd(ddepth + at, dot);
+    }
+  }
+}
+
+template <class Src, typename T>
+int launch_atomic(const Src& src, const void* grad, const void* feat,
+                  const void* depth, float* dfeat, float* ddepth,
+                  const Dims& d, cudaStream_t stream) {
+  const int64_t blocks = (int64_t)d.n_batch * d.ny * d.tiles_x;
+  lss_backward_atomic_kernel<Src, T>
+      <<<(unsigned)blocks, kThreads, walk_smem(d), stream>>>(
+          src, static_cast<const T*>(grad), static_cast<const T*>(feat),
+          static_cast<const T*>(depth), dfeat, ddepth, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns 0, or cudaGetLastError() after the launch, or 1001 (dtype pair),
@@ -628,10 +892,63 @@ extern "C" int lss_sample_bev_forward(
                                           out_dtype, d, s);
 }
 
-// The backward (geometry in, as lss_sample_bev_forward): grad (B, ny, nx,
-// nz, C), feat and depth, all in dtype -> dfeat (B, N, fH, fW, C) and ddepth
-// (B, N, fH, fW, D) f32, which the caller zeroes.
+// The backward (geometry in, as lss_sample_bev_forward), in two calls
+// around the wrapper's prefix sum:
+//   lss_sample_bev_backward_count zeroes counts (B, N, fH, fW) int32 and
+//     counts each pixel's pairs into it;
+//   lss_sample_bev_backward takes ends, the inclusive prefix sum of counts,
+//     and keys and sorted, int32 lists with room for every pair (B ny nx nz
+//     N entries each), and writes every element of dfeat (B, N, fH, fW, C)
+//     and ddepth (B, N, fH, fW, D) in dtype from grad (B, ny, nx, nz, C),
+//     feat and depth, all in dtype; counts are left at zero.
+extern "C" int lss_sample_bev_backward_count(
+    const float* minv, const float* mt, const float* tables, int32_t* counts,
+    uint32_t solve_x_mask, int n_batch, int n_cams, int f_h, int f_w,
+    int c_ch, int d_bins, int nz, int ny, int nx, float d_floor, float d0,
+    float inv_dd, float u_scale, float v_scale, float w_lim, float h_lim,
+    void* stream) {
+  const GeomSource src{minv, mt, tables,
+                       lss::GeomConsts{d_floor, d0, inv_dd, u_scale, v_scale,
+                                       w_lim, h_lim}};
+  Dims d = make_dims(solve_x_mask, n_batch, n_cams, f_h, f_w, c_ch, d_bins,
+                     nz, ny, nx);
+  if (!tile(&d)) return kBadShape;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      counts, 0, (size_t)n_batch * n_cams * f_h * f_w * sizeof(int32_t), s);
+  if (err != cudaSuccess) return (int)err;
+  return launch_bucket<GeomSource, false>(src, counts, nullptr, nullptr, d, s);
+}
+
 extern "C" int lss_sample_bev_backward(
+    const void* grad, const void* feat, const void* depth, const float* minv,
+    const float* mt, const float* tables, int32_t* counts,
+    const int32_t* ends, int32_t* keys, int32_t* sorted, void* dfeat,
+    void* ddepth, int dtype, uint32_t solve_x_mask, int n_batch, int n_cams,
+    int f_h, int f_w, int c_ch, int d_bins, int nz, int ny, int nx,
+    float d_floor, float d0, float inv_dd, float u_scale, float v_scale,
+    float w_lim, float h_lim, void* stream) {
+  if (dtype != 0 && dtype != 1) return kBadDtype;
+  const GeomSource src{minv, mt, tables,
+                       lss::GeomConsts{d_floor, d0, inv_dd, u_scale, v_scale,
+                                       w_lim, h_lim}};
+  Dims d = make_dims(solve_x_mask, n_batch, n_cams, f_h, f_w, c_ch, d_bins,
+                     nz, ny, nx);
+  if (!tile(&d)) return kBadShape;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_bucket<GeomSource, true>(src, counts, ends, keys, d, s);
+  if (err != 0) return err;
+  if (dtype == 1)
+    return launch_gather_widths<__nv_bfloat16>(grad, feat, depth, ends, keys,
+                                               sorted, dfeat, ddepth, d, s);
+  return launch_gather_widths<float>(grad, feat, depth, ends, keys, sorted,
+                                     dfeat, ddepth, d, s);
+}
+
+// The previous design (chip_smoke.py's yardstick): as lss_sample_bev_backward
+// but into f32 dfeat and ddepth that the caller zeroes, added to with
+// atomics.
+extern "C" int lss_sample_bev_backward_atomic(
     const void* grad, const void* feat, const void* depth, const float* minv,
     const float* mt, const float* tables, float* dfeat, float* ddepth,
     int dtype, uint32_t solve_x_mask, int n_batch, int n_cams, int f_h,
@@ -646,10 +963,10 @@ extern "C" int lss_sample_bev_backward(
   if (!tile(&d)) return kBadShape;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_backward<GeomSource, __nv_bfloat16>(src, grad, feat, depth,
-                                                      dfeat, ddepth, d, s);
+    return launch_atomic<GeomSource, __nv_bfloat16>(src, grad, feat, depth,
+                                                    dfeat, ddepth, d, s);
   if (dtype == 0)
-    return launch_backward<GeomSource, float>(src, grad, feat, depth, dfeat,
-                                              ddepth, d, s);
+    return launch_atomic<GeomSource, float>(src, grad, feat, depth, dfeat,
+                                            ddepth, d, s);
   return kBadDtype;
 }

@@ -15,8 +15,9 @@ gather kernel:
   can feed the gather core any fields.
 * :func:`lss_sample_bev_backward` is the gradient of
   :func:`lss_sample_bev` for feat and depth: the same index fields
-  (computed by the same ``csrc/lss_geom.cuh``), scattering the output's
-  gradient where the forward gathered.  Its plain version is
+  (computed by the same ``csrc/lss_geom.cuh``), the (cell, camera) pairs
+  bucketed by pixel and each pixel's gradient summed over its bucket in
+  cell order.  Its plain version is
   :func:`lss_sample_bev_backward_reference` (``index_add_``).
   :class:`LSSSampleBEV` is the ``torch.autograd.Function`` of the pair,
   the counterpart of the ``jax.custom_vjp`` of
@@ -561,15 +562,17 @@ def lss_sample_bev_backward(grad: torch.Tensor, feat: torch.Tensor,
     output's gradient ``grad`` (B, ny, nx, nz, C) in feat's dtype.
 
     A CPU tensor goes to :func:`lss_sample_bev_backward_reference`; a
-    CUDA tensor launches the backward kernel or raises.  The kernel adds
-    into f32 buffers with atomics, so the order of its sums, and the last
-    bits of the result, change from run to run; the sums are cast once to
-    the dtypes of feat and depth.
+    CUDA tensor launches the pixel-major backward kernels or raises: the
+    pairs are bucketed by pixel (count, ``torch.cumsum``, fill) and each
+    pixel sums its bucket in increasing cell order, as the plain
+    ``index_add_`` does on the CPU, into outputs in feat's and depth's
+    dtype, every element written once.  Two runs give identical bits.
     """
     solve_x = tuple(bool(s) for s in solve_x)
     _check_geometry(feat, depth, minv, mt, geom, solve_x)
     b, n_cams, f_h, f_w, c_ch = feat.shape
     ny, nx, nz = geom.ny, geom.nx, geom.nz
+    d_bins = depth.shape[-1]
     if tuple(grad.shape) != (b, ny, nx, nz, c_ch):
         raise ValueError(f'grad must be (B, ny, nx, nz, C) = '
                          f'{(b, ny, nx, nz, c_ch)}, got {tuple(grad.shape)}')
@@ -585,24 +588,46 @@ def lss_sample_bev_backward(grad: torch.Tensor, feat: torch.Tensor,
 
     _check_card('lss_sample_bev_backward', feat, depth, feat.dtype,
                 (feat, depth, minv, mt, grad), nz)
+    cells = ny * nx * nz
+    if cells * d_bins >= 2 ** 31 or b * cells * n_cams >= 2 ** 31:
+        raise ValueError('lss_sample_bev_backward keys its pairs (cell * D + '
+                         'kd, and one slot per cell and camera) in int32')
     dev = feat.device
-    dfeat = torch.zeros(feat.shape, dtype=torch.float32, device=dev)
-    ddepth = torch.zeros(depth.shape, dtype=torch.float32, device=dev)
+    counts, ends, keys, ordered = _backward_scratch(feat.shape, geom, dev)
+    dfeat = torch.empty(feat.shape, dtype=feat.dtype, device=dev)
+    ddepth = torch.empty(depth.shape, dtype=depth.dtype, device=dev)
     tables = _device_tables(geom.args, dev)
+    shape = (_mask(solve_x), b, n_cams, f_h, f_w, c_ch, d_bins, nz, ny, nx,
+             *(float(v) for v in _geom_consts(geom)))
+    name = 'lss_sample_bev_backward'
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch('lss_sample_bev_backward', _kernel('lss_sample_bev_backward'),
-                grad.data_ptr(), feat.data_ptr(), depth.data_ptr(),
+        _launch(name, _kernel('lss_sample_bev_backward_count'),
                 minv.data_ptr(), mt.data_ptr(), tables.data_ptr(),
-                dfeat.data_ptr(), ddepth.data_ptr(),
-                _DTYPE_CODES[feat.dtype], _mask(solve_x), b, n_cams, f_h,
-                f_w, c_ch, depth.shape[-1], nz, ny, nx,
-                *(float(v) for v in _geom_consts(geom)), stream)
+                counts.data_ptr(), *shape, stream)
+        torch.cumsum(counts, 0, dtype=torch.int32, out=ends)
+        _launch(name, _kernel(name), grad.data_ptr(), feat.data_ptr(),
+                depth.data_ptr(), minv.data_ptr(), mt.data_ptr(),
+                tables.data_ptr(), counts.data_ptr(), ends.data_ptr(),
+                keys.data_ptr(), ordered.data_ptr(), dfeat.data_ptr(),
+                ddepth.data_ptr(), _DTYPE_CODES[feat.dtype], *shape, stream)
     lss_sample_bev_backward.launches += 1
-    return dfeat.to(feat.dtype), ddepth.to(depth.dtype)
+    return dfeat, ddepth
 
 
 lss_sample_bev_backward.launches = 0
+
+
+def _backward_scratch(feat_shape, geom: _Geom, device):
+    """int32 scratch of the backward, views of one buffer: the pixels'
+    counts and bucket ends (B N fH fW each) and two key lists (the fill's
+    and a sorted copy) with room for every (cell, camera) pair."""
+    b, n_cams, f_h, f_w, _ = feat_shape
+    n_pix = b * n_cams * f_h * f_w
+    cap = b * geom.ny * geom.nx * geom.nz * n_cams
+    sizes = (n_pix, n_pix, cap, cap)
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=device)
+    return buf.split(sizes)
 
 
 class LSSSampleBEV(torch.autograd.Function):
@@ -633,6 +658,21 @@ def _mask(solve_x):
     return sum(1 << n for n, sx in enumerate(solve_x) if sx)
 
 
+# C signatures of the entry points of ``csrc/lss_sample.cu``: pointers,
+# then ints / the solve_x mask / float constants, then the stream.
+_PTR, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float)
+_GEOM = [_U32] + [_I32] * 9 + [_F32] * 7 + [_PTR]
+_ARGTYPES = {
+    'lss_sample_forward': [_PTR] * 6 + [_I32, _I32, _U32] + [_I32] * 10
+                          + [_PTR],
+    'lss_sample_bev_forward': [_PTR] * 9 + [_I32, _I32] + _GEOM,
+    'lss_sample_bev_backward_count': [_PTR] * 4 + _GEOM,
+    'lss_sample_bev_backward': [_PTR] * 12 + [_I32] + _GEOM,
+    'lss_sample_bev_backward_atomic': [_PTR] * 8 + [_I32] + _GEOM,
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(entry: str):
     """Entry point ``entry`` of ``csrc/lss_sample.cu``, with its C
@@ -640,15 +680,6 @@ def _kernel(entry: str):
     from omnihd_scenes_tpu_torch.kernels._build import load_library
 
     fn = getattr(load_library('lss_sample'), entry)
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if entry == 'lss_sample_forward':
-        fn.argtypes = ([ptr] * 6 + [i32, i32, ctypes.c_uint32] + [i32] * 10
-                       + [ptr])
-    elif entry == 'lss_sample_bev_backward':
-        fn.argtypes = ([ptr] * 8 + [i32, ctypes.c_uint32] + [i32] * 9
-                       + [f32] * 7 + [ptr])
-    else:
-        fn.argtypes = ([ptr] * 9 + [i32, i32, ctypes.c_uint32] + [i32] * 9
-                       + [f32] * 7 + [ptr])
-    fn.restype = i32
+    fn.argtypes = _ARGTYPES[entry]
+    fn.restype = ctypes.c_int
     return fn

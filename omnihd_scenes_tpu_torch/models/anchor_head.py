@@ -83,13 +83,16 @@ def anchor_head_loss(cls_score, bbox_pred, dir_pred, anchors, gt_boxes,
     A*2), anchors (H, W, A, 9) shared by the batch, gt_boxes (B, G, 9),
     gt_labels (B, G), gt_mask (B, G).  Returns 'loss_cls', 'loss_bbox',
     'loss_dir' and 'num_pos' (the batch mean of each sample's count).
+    The terms are evaluated in the predictions' dtype, promoted with the
+    f32 targets as ``jnp`` promotes them (the JAX loss under its bf16
+    policy); ``train/builder.py:DetectionLosses`` picks that dtype.
     """
     b, nc = cls_score.shape[0], cfg.num_classes
     flat_anchors = anchors.reshape(-1, anchors.shape[-1]).float()
     a, code = flat_anchors.shape
-    cls_score = cls_score.reshape(b, a, nc).float()
-    bbox_pred = bbox_pred.reshape(b, a, code).float()
-    dir_pred = dir_pred.reshape(b, a, 2).float()
+    cls_score = cls_score.reshape(b, a, nc)
+    bbox_pred = bbox_pred.reshape(b, a, code)
+    dir_pred = dir_pred.reshape(b, a, 2)
 
     tgt = assign_targets(flat_anchors, gt_boxes.float(), gt_labels, gt_mask,
                          nc, cfg.pos_iou_thr, cfg.neg_iou_thr,

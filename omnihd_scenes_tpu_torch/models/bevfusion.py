@@ -131,14 +131,15 @@ class BEVFusion(nn.Module):
 def depth_dist_loss(pred_depth, gt_gaussian, gt_min_depth,
                     camera_depth_range: Tuple[float, float, float],
                     method: str = 'kld'):
-    """Depth distribution loss (reference ``depth_dist_loss``), in f32.
+    """Depth distribution loss (reference ``depth_dist_loss``), in the
+    dtype of ``pred_depth`` and ``gt_gaussian``.
 
     pred_depth (..., D) softmax depth distributions; gt_gaussian (..., D)
     target distributions; gt_min_depth (...) per-pixel min depth (0 = no
     observation).  Averaged over the pixels whose min depth lies in the
     camera's depth range.
     """
-    pred, gt = pred_depth.float(), gt_gaussian.float()
+    pred, gt = pred_depth, gt_gaussian
     mask = ((gt_min_depth >= camera_depth_range[0])
             & (gt_min_depth <= camera_depth_range[1]))
     denom = mask.sum().clamp(min=1)

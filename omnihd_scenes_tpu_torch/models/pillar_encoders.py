@@ -147,8 +147,10 @@ class DensePillarEncoder(nn.Module):
         vx, vy = self.voxel_size[0], self.voxel_size[1]
 
         pts = points.reshape(b * n, d)
-        ix = torch.floor((pts[:, 0] - x0) / vx)
-        iy = torch.floor((pts[:, 1] - y0) / vy)
+        # Jitted JAX's form of ``/ vx``: a multiply by the f32 reciprocal
+        # (as ops/voxelize.py), which floors some bin edges differently.
+        ix = torch.floor((pts[:, 0] - x0) * (1.0 / vx))
+        iy = torch.floor((pts[:, 1] - y0) * (1.0 / vy))
         valid = ((pts[:, 0] >= x0) & (pts[:, 0] < x1)
                  & (pts[:, 1] >= y0) & (pts[:, 1] < y1)
                  & (pts[:, 2] >= z0) & (pts[:, 2] < z1)

@@ -63,7 +63,16 @@ def forward(model, params: Optional[Mapping[str, torch.Tensor]], batch):
 
 
 class DetectionLosses:
-    """``(outputs, batch) -> (total, aux)`` of the bevfusion family."""
+    """``(outputs, batch) -> (total, aux)`` of the bevfusion family.
+
+    The loss terms are evaluated in at least f32: the outputs they read
+    and the depth targets are upcast first (under the bf16 policy, f32
+    losses of bf16 outputs).  The JAX package evaluates them in the
+    outputs' own dtype under its bf16 policy
+    (``omnihd_scenes_tpu/train/amp.py``); on the mini configuration the
+    two choices move one bf16 step's gradient by far less than bf16 does
+    (``tests/test_torch_port_bf16_step.py``).
+    """
 
     def __init__(self, anchors_np: np.ndarray, depth_loss_weight: float,
                  camera_depth_range):
@@ -72,17 +81,23 @@ class DetectionLosses:
         self.depth_loss_weight = depth_loss_weight
         self.camera_depth_range = camera_depth_range
 
+    @staticmethod
+    def _upcast(t):
+        return t.to(torch.promote_types(t.dtype, torch.float32))
+
     def __call__(self, out, batch):
+        up = self._upcast
         dev = out['cls_score'].device
         if self.anchors.device != dev:
             self.anchors = self.anchors.to(dev)
-        aux = anchor_head_loss(out['cls_score'], out['bbox_pred'],
-                               out['dir_pred'], self.anchors,
+        aux = anchor_head_loss(up(out['cls_score']), up(out['bbox_pred']),
+                               up(out['dir_pred']), self.anchors,
                                batch['gt_boxes'], batch['gt_labels'],
                                batch['gt_mask'], self.head_cfg)
         total = aux['loss_cls'] + aux['loss_bbox'] + aux['loss_dir']
         if 'depth_gaussian' in batch and out.get('depth') is not None:
-            dl = depth_dist_loss(out['depth'], batch['depth_gaussian'],
+            dl = depth_dist_loss(up(out['depth']),
+                                 up(batch['depth_gaussian']),
                                  batch['depth_min'], self.camera_depth_range)
             aux['loss_depth'] = dl
             total = total + self.depth_loss_weight * dl

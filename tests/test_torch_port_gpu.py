@@ -11,10 +11,15 @@ Bounds:
   (the kernel rounds products and sums separately and sums the cameras
   in order, as the plain version does, so it is usually exact); the
   fused kernel's indices identical to the plain fields on the card.
-* lss_sample_bev_backward: both versions add in f32 with atomics, in
-  orders that change from run to run, so f32 results within 1e-5 *
-  max|ref| and bf16 results within 1 bf16 ulp of the plain version's
-  plus that.
+* lss_sample_bev_backward: the kernel sums each pixel's (cell, camera)
+  pairs in increasing cell order, the order of the plain ``index_add_``
+  on the CPU, so its d feat (f32 sums, then one rounding to feat's dtype)
+  is bit-equal to the plain version run on the CPU on the card's indices;
+  its d depth reduces each dot product in another order than ``.sum(-1)``:
+  within 1e-5 * max|ref|, plus 1 bf16 ulp of the reference in bf16.  Two
+  launches give identical bits.  The plain version on the card adds with
+  CUDA atomics in a changing order: the kernel is within that same
+  tolerance of it.
 * a small f32 train step on the card against the same step on the CPU
   (TF32 off), every BatchNorm in train mode with its bias at +4 so that
   no ReLU input sits within a rounding of 0 (where it would take the
@@ -45,7 +50,7 @@ from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
 from omnihd_scenes_tpu_torch.kernels.lss_sample import (
     LSSSampleBEV, cell_indices, geometry_fields, lss_sample, lss_sample_bev,
     lss_sample_bev_backward, lss_sample_bev_backward_reference,
-    lss_sample_bev_reference, lss_sample_reference)
+    lss_sample_bev_reference, lss_sample_reference, scatter_cells)
 from omnihd_scenes_tpu_torch.kernels.qconv import (qconv3x3,
                                                    qconv3x3_reference)
 from omnihd_scenes_tpu_torch.models.quant import (QConv2d, quant_state,
@@ -252,16 +257,28 @@ def _grad_case(dev, batch, dtype, seed, channels=64, moved=True):
     return grad, feat, depth, minv, mt, g
 
 
-def _check_backward(got, want):
-    """f32: 1e-5 max|ref|; bf16: 1 ulp of the reference plus that."""
+def _check_backward(got, want, exact_dfeat=False):
+    """f32: 1e-5 max|ref|; bf16: 1 ulp of the reference plus that; with
+    ``exact_dfeat``, d feat bit-equal."""
+    if exact_dfeat:
+        assert torch.equal(got[0].cpu(), want[0])
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
-        a, b = a.float(), b.float()
+        a, b = a.float().cpu(), b.float().cpu()
         slack = 1e-5 * float(b.abs().max())
         if got[0].dtype == torch.bfloat16:
             _, exp = torch.frexp(b)
             slack = slack + torch.ldexp(torch.ones_like(b), exp - 8)
         assert bool(((a - b).abs() <= slack).all())
+
+
+def _plain_on_the_cpu(grad, feat, depth, minv, mt, g):
+    """The plain scatter run on the CPU (``index_add_`` in index order) on
+    the indices computed on the card."""
+    idx = cell_indices(*geometry_fields(minv, mt, g, SOLVE_X), SOLVE_X,
+                       g.ny, g.nx, depth.shape[-1])
+    return scatter_cells(grad.cpu(), feat.cpu(), depth.cpu(),
+                         *(t.cpu() for t in idx))
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -283,6 +300,62 @@ def test_backward_channel_counts(dev, channels):
     args = _grad_case(dev, 2, torch.float32, seed=3, channels=channels)
     _check_backward(lss_sample_bev_backward(*args, SOLVE_X),
                     lss_sample_bev_backward_reference(*args, SOLVE_X))
+    _check_backward(lss_sample_bev_backward(*args, SOLVE_X),
+                    _plain_on_the_cpu(*args), exact_dfeat=True)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('moved', [False, True], ids=['ring', 'moved'])
+def test_backward_is_deterministic_and_in_the_plain_order(dev, moved, dtype):
+    """Two launches bitwise equal; d feat bit-equal to the plain scatter on
+    the CPU (same order of sums), d depth within its tolerance."""
+    args = _grad_case(dev, 2, dtype, seed=21, moved=moved)
+    got = lss_sample_bev_backward(*args, SOLVE_X)
+    again = lss_sample_bev_backward(*args, SOLVE_X)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = _plain_on_the_cpu(*args)
+    assert float(want[0].float().abs().max()) > 0
+    _check_backward(got, want, exact_dfeat=True)
+
+
+# (feature map, BEV grid (nx, ny, nz), voxel, least longest bucket): 4x8
+# features collect 64 pairs or more in a pixel; one pixel per camera on a
+# 96x64x8 grid over 1,024.
+LONG_BUCKETS = {'long': ((4, 8), BEV_NX, (1.0, 1.0, 2.0), 64),
+                'one-pixel-cameras': ((1, 1), (96, 64, 8), (0.5, 0.5, 1.0),
+                                      1025)}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('case', list(LONG_BUCKETS))
+def test_backward_long_buckets(dev, case, dtype):
+    """Pixels whose buckets hold many pairs, summed in cell order all the
+    same."""
+    feat_hw, bev_nx, voxel, longest = LONG_BUCKETS[case]
+    g = _Geom(IMG_HW, feat_hw, DEPTH_RANGE, (-24.0, -16.0, -3.0), voxel,
+              bev_nx)
+    rots, trans = perturbed_rigs(*ring_rig_img2lidar(img_hw=IMG_HW), 2, 3)
+    minv, mt = (t.contiguous() for t in camera_geometry(
+        torch.from_numpy(rots).to(dev), torch.from_numpy(trans).to(dev)))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (2, len(SOLVE_X)) + feat_hw
+    feat = torch.randn(shape + (64,), generator=gen, device=dev).to(dtype)
+    depth = torch.softmax(torch.randn(shape + (D,), generator=gen,
+                                      device=dev), -1).to(dtype)
+    grad = torch.randn((2, g.ny, g.nx, g.nz, 64), generator=gen,
+                       device=dev).to(dtype)
+    j, i, kd = cell_indices(*geometry_fields(minv, mt, g, SOLVE_X), SOLVE_X,
+                            g.ny, g.nx, D)
+    f_h, f_w = feat_hw
+    ok = (j >= 0) & (j < f_h) & (i >= 0) & (i < f_w) & (kd >= 0) & (kd < D)
+    n = torch.arange(len(SOLVE_X), device=dev).expand_as(j)
+    b = torch.arange(2, device=dev).view(2, 1, 1, 1, 1).expand_as(j)
+    pix = (((b * len(SOLVE_X) + n) * f_h + j) * f_w + i)[ok]
+    assert int(torch.bincount(pix.long()).max()) >= longest
+    args = (grad, feat, depth, minv, mt, g)
+    got = lss_sample_bev_backward(*args, SOLVE_X)
+    assert torch.equal(got[0], lss_sample_bev_backward(*args, SOLVE_X)[0])
+    _check_backward(got, _plain_on_the_cpu(*args), exact_dfeat=True)
 
 
 def test_function_launches_once_each_way(dev):

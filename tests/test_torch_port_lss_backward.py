@@ -6,12 +6,19 @@ JAX f32 einsum path ``_einsum_all`` (what the JAX ``custom_vjp`` of
 ``tests/test_lss_project.py`` and on per-sample moved rigs, within 1e-5
 of max|ref|; against torch autograd of the plain gather; and the
 ``LSSSampleBEV`` Function, which routes CPU tensors to the plain
-versions and launches nothing.  The CUDA kernel sums with atomics, so on
-the card its last bits change from run to run; ``tests/
-test_torch_port_gpu.py`` and ``chip_smoke.py`` hold it to this plain
-version there.
-"""
+versions and launches nothing.
 
+The CUDA kernel is pixel-major: it buckets the (cell, camera) pairs by
+pixel and sums each bucket in increasing cell order.  On the CPU,
+``index_add_`` adds in the order of its index, which is cell order within
+each pixel (a pixel belongs to one camera), so the kernel's order is the
+plain version's: ``test_pixel_major_order_is_the_plain_order`` holds the
+f32 d feat of that order bit-equal to the plain version, and d depth
+(whose dot products the kernel reduces in another order than ``.sum(-1)``)
+within 1e-5 of max|ref|, on the mini rigs and on a coarse image grid
+whose longest bucket holds 64 pairs or more.  ``tests/test_torch_port_gpu.py`` and
+``chip_smoke.py`` hold the kernel to this plain version on the card.
+"""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,3 +146,70 @@ def test_backward_refuses_a_wrong_gradient(batch):
     with pytest.raises(TypeError, match="feat's dtype"):
         kern.lss_sample_bev_backward(grad.to(torch.bfloat16), feat, depth,
                                      minv, mt, g, SOLVE_X)
+
+
+# Feature maps 4x7 on the mini rig: a pixel's ray meets 64 cells or more.
+COARSE_HW = (4, 7)
+
+
+def _coarse_case():
+    rng = np.random.RandomState(13)
+    shape = (1, 6) + COARSE_HW
+    logits = rng.randn(*shape, NDEPTH).astype(np.float32)
+    depth = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    minv, mt = camera_geometry(torch.from_numpy(ROTS[None]),
+                               torch.from_numpy(TRANS[None]))
+    args = list(GEOM_ARGS)
+    args[1] = COARSE_HW
+    return (torch.from_numpy(rng.randn(1, NY, NX, NZ, C).astype(np.float32)),
+            torch.from_numpy(rng.randn(*shape, C).astype(np.float32)),
+            torch.from_numpy(depth), minv.contiguous(), mt.contiguous(),
+            kern._Geom(*args))
+
+
+def _pixel_major(grad, feat, depth, j, i, kd):
+    """The kernel's order in plain PyTorch: the in-range (cell, camera)
+    pairs bucketed by pixel, each bucket summed in increasing cell order
+    (all buckets' r-th pairs at once: they hit distinct pixels).  Returns
+    d feat and d depth in f32 and the bucket lengths."""
+    b, n_cams, f_h, f_w, c_ch = feat.shape
+    d_bins = depth.shape[-1]
+    ny, nx, nz = j.shape[1:4]
+    cells = ny * nx * nz
+    ok = ((j >= 0) & (j < f_h) & (i >= 0) & (i < f_w) & (kd >= 0)
+          & (kd < d_bins))
+    bb, y, x, z, n = torch.nonzero(ok, as_tuple=True)
+    cell = (y * nx + x) * nz + z
+    pix = ((bb * n_cams + n) * f_h + j[ok]) * f_w + i[ok]
+    order = torch.argsort(pix * cells + cell)
+    pix, cell, bb, kd = pix[order], cell[order], bb[order], kd[ok][order]
+    counts = torch.bincount(pix, minlength=b * n_cams * f_h * f_w)
+    rank = torch.arange(len(pix)) - (torch.cumsum(counts, 0) - counts)[pix]
+    g = grad.float().reshape(-1, c_ch)[bb * cells + cell]
+    w = depth.float().reshape(-1, d_bins)[pix, kd]
+    dot = (g * feat.float().reshape(-1, c_ch)[pix]).sum(-1)
+    dfeat = torch.zeros((counts.numel(), c_ch))
+    ddepth = torch.zeros((counts.numel(), d_bins))
+    for r in range(int(counts.max())):
+        at = rank == r
+        dfeat[pix[at]] += g[at] * w[at, None]
+        ddepth[pix[at], kd[at]] += dot[at]
+    return dfeat.view(feat.shape), ddepth.view(depth.shape), counts
+
+
+@pytest.mark.parametrize('case', ['mini', 'coarse'])
+def test_pixel_major_order_is_the_plain_order(batch, plain, case):
+    """Each pixel's pairs summed in increasing cell order: f32 d feat
+    bit-equal to the plain ``index_add_``, d depth within 1e-5."""
+    if case == 'coarse':
+        args = _coarse_case()
+        want = kern.lss_sample_bev_backward_reference(*args, SOLVE_X)
+    else:
+        args, want = batch, plain
+    grad, feat, depth, minv, mt, g = args
+    idx = kern.cell_indices(*kern.geometry_fields(minv, mt, g, SOLVE_X),
+                            SOLVE_X, g.ny, g.nx, NDEPTH)
+    dfeat, ddepth, counts = _pixel_major(grad, feat, depth, *idx)
+    assert int(counts.max()) >= (64 if case == 'coarse' else 8)
+    assert torch.equal(dfeat, want[0])
+    _close(ddepth.numpy(), want[1].numpy())

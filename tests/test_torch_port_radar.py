@@ -106,3 +106,38 @@ def test_second_and_second_fpn(radar):
     assert got_bev.shape == (2, sum(PC.fpn_channels), *PC.head_hw)
     np.testing.assert_allclose(got_bev.permute(0, 2, 3, 1).numpy(),
                                np.asarray(bev), rtol=1e-4, atol=1e-5)
+
+
+def test_dense_pillar_indices_match_jitted_jax_off_powers_of_two():
+    """0.3 m pillars, points on the bin edges: jitted JAX bins
+    ``(x - x0) * f32(1 / 0.3)`` (XLA's form of ``/ 0.3``), which floors 8
+    of the 48 x edges and 3 of the 32 y edges into the next pillar; the
+    port's canvas holds the same pillars (occupancy equal) and values."""
+    vs, pcr, hw = (0.3, 0.3, 8.0), (-7.2, -4.8, -3.0, 7.2, 4.8, 5.0), (32, 48)
+    rng = np.random.RandomState(7)
+    pts = rng.uniform(-1, 1, (2, 400, 8)).astype(np.float32)
+    pts[..., 0] = (pcr[0] + rng.randint(0, 48, (2, 400)) * 0.3).astype(
+        np.float32)
+    pts[..., 1] = (pcr[1] + rng.randint(0, 32, (2, 400)) * 0.3).astype(
+        np.float32)
+    pts[..., 2] = rng.uniform(-2, 4, (2, 400))
+    mask = np.ones((2, 400), bool)
+    jax_mod = JaxDensePillarEncoder(feat_channels=(64,), voxel_size=vs,
+                                    point_cloud_range=pcr, grid_hw=hw)
+    v = random_variables(jax_mod, pts, mask, False)
+    want = np.asarray(jax.jit(lambda v, p, m: jax_mod.apply(v, p, m, False))(
+        v, pts, mask))
+    p, s = v['params']['PFNLayer_0'], v['batch_stats']['PFNLayer_0']
+    port = DensePillarEncoder(8, (64,), vs, pcr, hw)
+    port.load_state_dict({k: torch.from_numpy(np.array(a)) for k, a in {
+        'pfn.0.linear.weight': p['Dense_0']['kernel'].T,
+        'pfn.0.bn.weight': p['BatchNorm_0']['scale'],
+        'pfn.0.bn.bias': p['BatchNorm_0']['bias'],
+        'pfn.0.bn.running_mean': s['BatchNorm_0']['mean'],
+        'pfn.0.bn.running_var': s['BatchNorm_0']['var']}.items()},
+        strict=False)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(pts), torch.from_numpy(mask))
+    got = got.permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(got.any(-1), want.any(-1))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
