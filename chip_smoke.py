@@ -112,11 +112,38 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    targets (on the card before the timing), CUDA events per step;
    ms/step, samples/s, peak GiB, finite losses; the LSS forward and
    backward kernels launch exactly once per step, and DepthNet's
-   ``depth_conv`` gets a nonzero gradient.
+   ``depth_conv`` gets a nonzero gradient;
+16. the pillar families at a small size (16x16 pillars, SECOND
+   64/128/256, FPN 3x128), f32 on the GPU against the CPU, TF32 off:
+   PointPillars radar (sorted and dense), RadarPillarNet and LiDAR (4
+   dims, 64 points per pillar); head maps within 1e-4 of max|ref| and the
+   same kept rows after decode + NMS of the same maps (weights as drawn),
+   one train step's loss within 1e-5 and gradient within 1e-4 (relative
+   L2; BatchNorm biases +4); no LSS kernel launches;
+17. full-width pillar training and inference in each shipped
+   configuration (``configs/pointpillars_radar.py``, ``radarpillarnet.py``,
+   ``pointpillars_lidar.py``: 320x480 at 0.25 m, 30,000 pillars, SECOND
+   64/128/256, FPN 3x128, 307,200 anchors) built by
+   ``build_model_from_cfg``: b8 synthetic batches (radar 40,000 points x
+   8 dims, LiDAR 120,000 x 4, 64 GT boxes): one b8 eval-mode forward +
+   decode + NMS on the seeded weights (ms, peak GiB, finite boxes), then
+   1 warm-up and 3 timed f32 steps (ms/step, peak GiB, finite and falling
+   losses);
+18. the LSS camera-only model of ``configs/lss_camera.py`` at full width:
+   1 + 3 b4 bf16-policy train steps as phase 15 (one LSS forward and one
+   backward launch per step, finite and falling losses, ms, peak GiB) and
+   one b4 bf16 request (one ``lss_sample_bev`` launch, ms);
+19. the CLIs on the card: a synthetic dataroot written without images,
+   its infos, ``tools.train configs/synthetic/pointpillars_radar_synth.py``
+   and ``tools.test ... --eval`` as subprocesses (exit codes checked,
+   finite mAP and NOS in ``metrics.json``), then the micro-train recipe
+   of ``tests/test_learning_quick.py`` (``micro_train``) on the card:
+   mAP > 0.5 and NOS > 0.45, with its seconds.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
-training phase's for the LSS backward, error against the plain version, kernel / plain /
+training phase's for the LSS backward, and for the LSS kernels also the
+camera-only path's (phase 18), error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
 bytes it must move, each needed input element read once and each output
@@ -1390,10 +1417,12 @@ def phase_small_train(dev):
           and param_err <= 2.5 * lr, 'GPU train step off the CPU one')
 
 
-def phase_train(dev, card, batch, state_dict):
-    """Full-width training under the bf16 policy at ``batch``: 1 warm-up
-    and N_TIMED timed steps.  Returns (ms per step, LSS backward
-    launches, the LSS forward's)."""
+def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
+                label='15 train step', falling=False):
+    """Full-width training under the bf16 policy at ``batch`` (the fusion
+    model of ``configs/bevfusion.py``, or ``cfg`` of family ``mtype``):
+    1 warm-up and N_TIMED timed steps.  Returns (ms per step, (LSS
+    backward launches, the LSS forward's))."""
     import torch
 
     from omnihd_scenes_tpu_torch.config import BEVFusionConfig
@@ -1404,16 +1433,20 @@ def phase_train(dev, card, batch, state_dict):
     from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
     from omnihd_scenes_tpu_torch.train.loop import batch_to, make_train_step
 
-    cfg = BEVFusionConfig()
+    cfg = cfg or BEVFusionConfig()
     rng = np.random.RandomState(100 + batch)
     t0 = time.perf_counter()
-    batches = [batch_to(random_train_batch(rng, cfg, batch), dev)
-               for _ in range(1 + N_TIMED)]
+    batches = []
+    for _ in range(1 + N_TIMED):
+        b = random_train_batch(rng, cfg, batch)
+        if not cfg.radar_stream:
+            del b['points'], b['points_mask']
+        batches.append(batch_to(b, dev))
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     state = _train_state(cfg, state_dict, dev, lr=2e-4)
     step = make_train_step(bf16_policy(make_loss_fn_generic(
-        state.model, 'bevfusion', cfg.pillars.anchors(),
+        state.model, mtype, cfg.pillars.anchors(),
         camera_depth_range=cfg.lss.camera_depth_range)))
     depth_conv = state.model.lss.depthnet.depth_conv.weight
     seen = []
@@ -1443,10 +1476,12 @@ def phase_train(dev, card, batch, state_dict):
           f'one each per step')
     check(lss_sample.launches == 0, 'training launched the fields-in entry')
     check(all(np.isfinite(losses)), f'non-finite losses {losses}')
+    check(not falling or losses[-1] < losses[0],
+          f'losses do not fall: {losses}')
     check(all(float(v) > 0 for v in seen) and len(seen) == steps,
           'DepthNet depth_conv got no gradient')
     ms = float(np.mean(dev_ms[1:]))
-    print(f'[15 train step] b{batch}, bf16 policy, {N_TIMED} steps (+1 '
+    print(f'[{label}] b{batch}, bf16 policy, {N_TIMED} steps (+1 '
           f'warm-up): {ms:.2f} ms/step by CUDA events ({dev_ms[1:]}), '
           f'{batch * 1e3 / ms:.3f} samples/s, peak {peak:.2f} GiB allocated '
           f'({card}); losses {[round(v, 4) for v in losses]}, grad norm '
@@ -1457,6 +1492,401 @@ def phase_train(dev, card, batch, state_dict):
     del state, step, batches
     torch.cuda.empty_cache()
     return ms, launches
+
+
+PILLAR_CONFIGS = ('configs/pointpillars_radar.py', 'configs/radarpillarnet.py',
+                  'configs/pointpillars_lidar.py')
+PILLAR_BATCH = 8                       # samples_per_device of the configs
+PILLAR_POINTS = {'radar': 40000, 'lidar': 120000}
+PILLAR_GT = 64
+SMALL_RANGE = (-8.0, -8.0, -3.0, 8.0, 8.0, 5.0)
+
+
+def pillar_batch(rng, model, batch, n_points, max_gt=PILLAR_GT,
+                 train=True):
+    """A synthetic batch for a pillar model: ``n_points`` points per
+    sample uniform over its range (all valid; xyz, then the other
+    ``point_dims - 3`` dims uniform over +-3), and ``max_gt`` GT boxes
+    inside it (centres uniform, sizes 1-4 m, yaw uniform, labels over the
+    classes)."""
+    cfg = model.cfg
+    x0, y0, z0, x1, y1, z1 = cfg.point_cloud_range
+    dims = model.point_dims
+    pts = rng.uniform(-3, 3, (batch, n_points, dims)).astype(np.float32)
+    pts[..., 0] = rng.uniform(x0 + 0.5, x1 - 0.5, (batch, n_points))
+    pts[..., 1] = rng.uniform(y0 + 0.5, y1 - 0.5, (batch, n_points))
+    pts[..., 2] = rng.uniform(z0 + 1, z1 - 1, (batch, n_points))
+    out = {'points': pts, 'points_mask': np.ones((batch, n_points), bool)}
+    if train:
+        boxes = rng.uniform(-1, 1, (batch, max_gt, 9)).astype(np.float32)
+        boxes[..., 0] = rng.uniform(0.9 * x0, 0.9 * x1, (batch, max_gt))
+        boxes[..., 1] = rng.uniform(0.9 * y0, 0.9 * y1, (batch, max_gt))
+        boxes[..., 3:6] = rng.uniform(1, 4, (batch, max_gt, 3))
+        boxes[..., 6] = rng.uniform(-np.pi, np.pi, (batch, max_gt))
+        out.update(gt_boxes=boxes, gt_labels=rng.randint(
+            0, cfg.num_classes, (batch, max_gt)).astype(np.int32),
+            gt_mask=np.ones((batch, max_gt), bool))
+    return out
+
+
+def _small_pillar_cases():
+    """name -> (PointPillarsConfig, point dims) at a small size: 16x16
+    pillars of 1 m, SECOND 64/128/256, FPN 3x128."""
+    import dataclasses
+
+    from omnihd_scenes_tpu_torch.config import PointPillarsConfig
+
+    base = PointPillarsConfig(
+        point_cloud_range=SMALL_RANGE, voxel_size=(1.0, 1.0, 8.0),
+        max_voxels=200, max_points_per_voxel=8, bev_hw=(16, 16),
+        anchor_ranges=tuple((-8.0, -8.0, z, 8.0, 8.0, z)
+                            for z in (0.91, 1.142, 0.906, 1.516)))
+    return {
+        'radar sorted': (base, 8),
+        'radar dense': (dataclasses.replace(base, pillar_impl='dense'), 8),
+        'RadarPillarNet': (dataclasses.replace(
+            base, with_velocity_snr_center=True), 8),
+        'LiDAR 4 dims, 64 per pillar': (dataclasses.replace(
+            base, max_points_per_voxel=64), 4)}
+
+
+def phase_pillars_small(dev):
+    """PointPillars radar (sorted and dense), RadarPillarNet and LiDAR at
+    a small size, f32 on the GPU against the CPU (TF32 off): eval-mode
+    head maps within 1e-4 of max|ref| and the same kept rows after decode
+    + NMS of the same maps (weights as drawn), one train step's loss
+    within 1e-5 and gradient within 1e-4 (relative L2; BatchNorm biases
+    +4)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.models.anchor_head import (
+        anchor_head_get_bboxes)
+    from omnihd_scenes_tpu_torch.models.detectors import PointPillars
+    from omnihd_scenes_tpu_torch.train.builder import (init_model,
+                                                       make_loss_fn_generic)
+    from omnihd_scenes_tpu_torch.train.loop import (create_train_state,
+                                                    make_train_step)
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    before = (lss_sample_bev.launches, lss_sample_bev_backward.launches)
+    for name, (cfg, dims) in _small_pillar_cases().items():
+        model = init_model(PointPillars(cfg, dims),
+                           torch.Generator().manual_seed(4))
+        # Weights as drawn for the forward and the decode (a saturated
+        # head would tie scores, which top-k orders by device); BatchNorm
+        # biases +4 for the train step.
+        sd_raw = model.state_dict()
+        sd = {k: v.clone() for k, v in sd_raw.items()}
+        for k in [k for k in sd if k.endswith('.running_mean')]:
+            sd[k[:-len('running_mean')] + 'bias'] += 4.0
+        rng = np.random.RandomState(6)
+        batch = pillar_batch(rng, model, 2, 600, max_gt=8)
+        batch['gt_boxes'][..., :2] *= 0.8
+        anchors = cfg.anchors()
+        runs = []
+        for device in ('cpu', dev):
+            m = PointPillars(cfg, dims)
+            m.load_state_dict(sd_raw)
+            m.to(device)
+            with torch.no_grad():
+                out = {k: v.cpu() for k, v in m.eval()(
+                    torch.from_numpy(batch['points']).to(device),
+                    torch.from_numpy(batch['points_mask']).to(device)
+                ).items()}
+            m.load_state_dict(sd)
+            if device == 'cpu':
+                maps = {k: out[k] for k in ('cls_score', 'bbox_pred',
+                                            'dir_pred')}
+            # Decode + NMS of the CPU's head maps on each device (phase
+            # 4's rule: near-ties of the maps may flip a kept box).
+            dets = [t.cpu() for t in anchor_head_get_bboxes(
+                *(maps[k].to(device) for k in ('cls_score', 'bbox_pred',
+                                               'dir_pred')),
+                torch.from_numpy(anchors).to(device))]
+            state = create_train_state(m, lambda p: make_optimizer(
+                p, make_lr_schedule(1e-3, 100, warmup_iters=0)))
+            grads = {}
+            hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
+                     for k, p in m.named_parameters()]
+            _, loss, _ = make_train_step(make_loss_fn_generic(
+                m, 'pointpillars', anchors))(state, batch)
+            for h in hooks:
+                h.remove()
+            runs.append((out, dets, float(loss),
+                         {k: v.cpu() for k, v in grads.items()}))
+        (o_c, d_c, l_c, g_c), (o_g, d_g, l_g, g_g) = runs
+        worst = max(float((o_g[k] - o_c[k]).abs().max() / o_c[k].abs().max())
+                    for k in ('cls_score', 'bbox_pred', 'dir_pred', 'bev'))
+        kept = [int(d[3].sum()) for d in (d_c, d_g)]
+        row = max(kept_row_distance(d_g, d_c, s) for s in range(2))
+        rel_loss = abs(l_g - l_c) / abs(l_c)
+        rel_grad = (sum(float((g_g[k] - g).square().sum())
+                        for k, g in g_c.items())
+                    / sum(float(g.square().sum())
+                          for g in g_c.values())) ** 0.5
+        print(f'[16 pillars small] {name}: GPU vs CPU f32 maps within '
+              f'{worst:.2e} of max|ref|; kept rows {kept}, within {row:.1e}; '
+              f'train step loss {l_g:.5f} vs {l_c:.5f} ({rel_loss:.1e}), '
+              f'gradient {rel_grad:.1e} relative L2')
+        check(worst <= 1e-4, f'{name}: maps off by {worst}')
+        check(kept[0] == kept[1] and kept[0] > 0 and row <= 1e-4,
+              f'{name}: kept rows differ ({kept}, {row})')
+        check(rel_loss <= 1e-5 and rel_grad <= 1e-4,
+              f'{name}: train step off ({rel_loss}, {rel_grad})')
+    check((lss_sample_bev.launches, lss_sample_bev_backward.launches)
+          == before, 'a pillar model launched an LSS kernel')
+
+
+def phase_pillars_full(dev, card, path):
+    """A shipped pillar configuration at full width (320x480 at 0.25 m,
+    30,000 pillars, SECOND 64/128/256, FPN 3x128, 307,200 anchors) with
+    seeded random weights: one warm-up and one timed b8 eval-mode forward
+    + decode + NMS, then 1 warm-up and N_TIMED timed f32 train steps at b8
+    (the CLI's default precision; the config's lr without its warm-up) on
+    fresh synthetic batches."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.train.builder import (
+        anchors_for, build_model_from_cfg, init_model, make_loss_fn_generic,
+        make_predict_fn_generic)
+    from omnihd_scenes_tpu_torch.train.config import Config
+    from omnihd_scenes_tpu_torch.train.loop import (batch_to,
+                                                    create_train_state,
+                                                    make_train_step)
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    cfg = Config.fromfile(path)
+    model, mtype = build_model_from_cfg(cfg)
+    init_model(model, torch.Generator().manual_seed(0)).to(dev)
+    kind = cfg.data.train.modality
+    n_points = PILLAR_POINTS[kind]
+    anchors = anchors_for(model, mtype)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    predict = make_predict_fn_generic(model, mtype, anchors)
+    req = batch_to(pillar_batch(np.random.RandomState(8), model,
+                                PILLAR_BATCH, n_points, train=False), dev)
+    predict(model, req)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start.record()
+    boxes, scores, labels, valid = predict(model, req)
+    end.record()
+    torch.cuda.synchronize()
+    infer_ms = start.elapsed_time(end)
+    infer_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    finite = bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all())
+    check(boxes.shape == (PILLAR_BATCH, 500, 9) and finite,
+          f'{path}: decode {tuple(boxes.shape)}, finite {finite}')
+    del req
+
+    rng = np.random.RandomState(7)
+    batches = [batch_to(pillar_batch(rng, model, PILLAR_BATCH, n_points), dev)
+               for _ in range(1 + N_TIMED)]
+    state = create_train_state(model, lambda p: make_optimizer(
+        p, make_lr_schedule(cfg.optimizer.lr, 1000, warmup_iters=0)))
+    step = make_train_step(make_loss_fn_generic(model, mtype, anchors))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dev_ms, losses = [], []
+    for b in batches:
+        start.record()
+        state, loss, aux = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms = float(np.mean(dev_ms[1:]))
+    print(f'[17 pillars full width] {path} ({mtype}, {kind}, '
+          f'{model.point_dims} dims, {n_points} points, '
+          f'{model.cfg.max_points_per_voxel} per pillar): b{PILLAR_BATCH} '
+          f'inference (forward + decode + NMS) {infer_ms:.2f} ms, peak '
+          f'{infer_peak:.2f} GiB, {int(valid.sum())} boxes kept; '
+          f'b{PILLAR_BATCH} f32 train {ms:.2f} ms/step by CUDA events '
+          f'({dev_ms[1:]}), {PILLAR_BATCH * 1e3 / ms:.2f} samples/s, peak '
+          f'{peak:.2f} GiB; losses {[round(v, 3) for v in losses]}, grad '
+          f'norm {float(aux["grad_norm"]):.3f} ({card})')
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f'{path}: losses {losses}')
+    del state, step, model, batches
+    torch.cuda.empty_cache()
+
+
+def phase_lss_camera(dev, card):
+    """The LSS camera-only model of ``configs/lss_camera.py`` at full
+    width: b4 bf16-policy train steps (one LSS forward and one backward
+    launch each, finite and falling losses) and one b4 bf16 request."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample, lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+    from omnihd_scenes_tpu_torch.train.builder import (build_model_from_cfg,
+                                                       init_model)
+    from omnihd_scenes_tpu_torch.train.config import Config
+
+    model, mtype = build_model_from_cfg(Config.fromfile(
+        'configs/lss_camera.py'))
+    cfg = model.cfg
+    sd = init_model(model, torch.Generator().manual_seed(0)).state_dict()
+    del model
+    _, (back, fwd) = phase_train(
+        dev, card, BATCH, sd, cfg=cfg, mtype=mtype,
+        label='18 LSS camera-only train step', falling=True)
+    predictor = Predictor(cfg, sd, device=dev, dtype=torch.bfloat16)
+    _, _, imgs, rots, trans = random_request(np.random.RandomState(9), cfg,
+                                             BATCH, n_points=1)
+    predictor(None, None, imgs, rots, trans)
+    torch.cuda.synchronize()
+    lss_sample_bev.launches = lss_sample.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    boxes, scores, labels, valid = predictor(None, None, imgs, rots, trans)
+    end.record()
+    torch.cuda.synchronize()
+    infer = lss_sample_bev.launches
+    check(infer == 1 and lss_sample.launches == 0,
+          f'LSS camera-only request launched the fused kernel {infer} times')
+    check(boxes.shape == (BATCH, 500, 9)
+          and bool(torch.isfinite(boxes).all()), 'camera-only decode')
+    print(f'[18 LSS camera-only request] b{BATCH} bf16 (ResNet50, FPNC, '
+          f'DepthNet, LSS 16x160x240, head on the 256-channel camera BEV): '
+          f'{start.elapsed_time(end):.2f} ms by CUDA events, one '
+          f'lss_sample_bev launch, {int(valid.sum())} boxes kept ({card})')
+    del predictor
+    torch.cuda.empty_cache()
+    return {'train_fwd': fwd, 'train_back': back, 'infer': infer}
+
+
+def phase_cli(dev, card):
+    """The CLIs on the card: a synthetic dataroot without images, its
+    infos, ``tools.train`` on ``configs/synthetic/pointpillars_radar_synth.py``
+    and ``tools.test --eval`` as subprocesses (finite mAP and NOS in the
+    metrics JSON), then the micro-train recipe of
+    ``tests/test_learning_quick.py`` on the card (mAP > 0.5, NOS > 0.45)."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
+                                                          generate)
+
+    config = 'configs/synthetic/pointpillars_radar_synth.py'
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'synth')
+        generate(root, 'v1.0-mini', SyntheticConfig(), images=False)
+        create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
+                               max_sweeps=0)
+        opts = ['--cfg-options', f'dataroot={root}',
+                f'data.train.ann_file={root}/synth_infos_temporal_train.pkl',
+                f'data.val.ann_file={root}/synth_infos_temporal_val.pkl']
+        work = os.path.join(tmp, 'work')
+        times = []
+        for args in (['omnihd_scenes_tpu_torch.tools.train', config,
+                      '--work-dir', work],
+                     ['omnihd_scenes_tpu_torch.tools.test', config,
+                      os.path.join(work, 'ckpts'), '--eval', '--out-dir',
+                      os.path.join(work, 'test')]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, '-m', *args, *opts],
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            times.append(time.perf_counter() - t0)
+            check(proc.returncode == 0, f'{args[0]} exited '
+                  f'{proc.returncode}: {proc.stderr[-2000:]}')
+        with open(os.path.join(work, 'test', 'metrics.json')) as f:
+            metrics = json.load(f)
+        with open(os.path.join(work, 'train.log.json')) as f:
+            env = json.loads(f.readline())
+        check(np.isfinite(metrics['mAP']) and np.isfinite(metrics['NOS']),
+              f'CLI metrics {metrics}')
+        check(env['device'].startswith('cuda'), f'tools.train ran on {env}')
+        print(f'[19 CLIs] tools.train ({env["device_name"]}) '
+              f'{times[0]:.1f} s and tools.test --eval {times[1]:.1f} s '
+              f'(whole processes): mAP {metrics["mAP"]:.4f}, NOS '
+              f'{metrics["NOS"]:.4f}')
+        t0 = time.perf_counter()
+        metrics, losses = micro_train(root, os.path.join(tmp, 'micro'), dev)
+        seconds = time.perf_counter() - t0
+    print(f'[19 micro-train] 350 epochs of the quick recipe on the card in '
+          f'{seconds:.1f} s ({card}): loss {losses[0]:.3f} -> '
+          f'{losses[-1]:.3f}, mAP {metrics["mAP"]:.4f}, NOS '
+          f'{metrics["NOS"]:.4f}')
+    check(metrics['mAP'] > 0.5 and metrics['NOS'] > 0.45,
+          f'micro-train missed the bound: {metrics}')
+
+
+MICRO_RANGE = (-40.0, -30.0, -3.0, 40.0, 30.0, 5.0)
+
+
+def micro_train(dataroot, work_dir, device, epochs=350):
+    """The micro-train recipe of ``tests/test_learning_quick.py`` on the
+    port: a PointPillars with 1 m pillars over the cropped +-40 x +-30 m
+    range (60x80 grid, channels 16/32/32) trained on the synthetic train
+    split (8 samples, batch 8) for ``epochs`` epochs at lr 1e-2 (20
+    warm-up steps), then decoded (128 candidates, 32 boxes) and scored by
+    the devkit eval on the same split.  Returns (metrics, losses of the
+    last step of each epoch)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import DecodeCfg, PointPillarsConfig
+    from omnihd_scenes_tpu_torch.data.dataset import NewScenesDetDataset
+    from omnihd_scenes_tpu_torch.data.loader import TrainLoader
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.models.detectors import PointPillars
+    from omnihd_scenes_tpu_torch.train.builder import init_model
+    from omnihd_scenes_tpu_torch.train.detection import (make_loss_fn,
+                                                         make_predict_fn,
+                                                         run_inference)
+    from omnihd_scenes_tpu_torch.train.loop import (create_train_state,
+                                                    make_train_step)
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    infos = f'{work_dir}/infos'
+    create_newscenes_infos(dataroot, infos, 'synth', version='v1.0-mini',
+                           max_sweeps=0)
+    ann = f'{infos}/synth_infos_temporal_train.pkl'
+    common = dict(ann_file=ann, modality='radar', max_points=2000, max_gt=24,
+                  pc_range=list(MICRO_RANGE))
+    train_ds = NewScenesDetDataset(point_shuffle=True, **common)
+    eval_ds = NewScenesDetDataset(test_mode=True, **common)
+    model = PointPillars(PointPillarsConfig(
+        point_cloud_range=MICRO_RANGE, voxel_size=(1.0, 1.0, 8.0),
+        max_voxels=1024, max_points_per_voxel=8, bev_hw=(60, 80),
+        pfn_channels=(16,), second_channels=(16, 32, 32),
+        fpn_channels=(16, 16, 16)), train_ds.point_dim)
+    init_model(model, torch.Generator().manual_seed(0)).to(device)
+    loader = TrainLoader(train_ds, 8, seed=0)
+    schedule = make_lr_schedule(1e-2, len(loader) * epochs, warmup_iters=20)
+    state = create_train_state(model,
+                               lambda p: make_optimizer(p, schedule))
+    step = make_train_step(make_loss_fn(model))
+    losses = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            state, loss, _ = step(state, batch)
+        losses.append(loss)
+    losses = [float(v) for v in losses]
+    results = run_inference(make_predict_fn(model, DecodeCfg(
+        nms_pre=128, max_num=32)), model, eval_ds, 2)
+    metrics = eval_ds.evaluate(results, dataroot=dataroot,
+                               version='v1.0-mini', eval_set='train_mini',
+                               jsonfile_prefix=f'{work_dir}/eval')
+    return metrics, np.asarray(losses)
 
 
 def main():
@@ -1497,6 +1927,12 @@ def main():
     train_sd = random_state_dict(BEVFusionConfig(), seed=0)
     train = {b: phase_train(dev, card, b, train_sd) for b in TRAIN_BATCHES}
     back_launches = train[BATCH][1][0]
+    del train_sd
+    phase_pillars_small(dev)
+    for path in PILLAR_CONFIGS:
+        phase_pillars_full(dev, card, path)
+    cam = phase_lss_camera(dev, card)
+    phase_cli(dev, card)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -1512,13 +1948,20 @@ def main():
                                      *fields_row, None),
             'qconv': ('qconv', q_launches, *q_row),
             'bconv': ('bconv', b_launches, *b_row)}
+    # Launches on the LSS camera-only path (phase 18): its b4 training
+    # run (1 + N_TIMED steps) and one b4 request.
+    lss_camera = {'lss_sample': {'train_b4': cam['train_fwd'],
+                                 'request_b4': cam['infer']},
+                  'lss_sample_backward': {'train_b4': cam['train_back']}}
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'{CSRC}{src}.cu',
         'replaces': KERNEL_REPLACES[name][0],
         **({'also_replaces': KERNEL_REPLACES[name][1]}
            if len(KERNEL_REPLACES[name]) > 1 else {}),
         'launches': n, 'max_abs_err': e, 'ms': t, 'plain_ms': pt,
-        'bound_ms': bt, 'bound_by': by, 'library_ms': lib}
+        'bound_ms': bt, 'bound_by': by, 'library_ms': lib,
+        **({'launches_lss_camera': lss_camera[name]}
+           if name in lss_camera else {})}
         for name, (src, n, e, t, pt, bt, by, lib) in rows.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -47,6 +47,14 @@ class Anchor3DHead(nn.Module):
     def forward(self, x):
         return self.conv_cls(x), self.conv_reg(x), self.conv_dir(x)
 
+    def outputs(self, bev):
+        """(B, C, H, W) BEV -> the JAX-layout dict: 'cls_score' /
+        'bbox_pred' / 'dir_pred' (B, H, W, A*K) and 'bev' (B, H, W, C),
+        NHWC views."""
+        names = ('cls_score', 'bbox_pred', 'dir_pred', 'bev')
+        return {k: t.permute(0, 2, 3, 1)
+                for k, t in zip(names, (*self(bev), bev))}
+
 
 class HeadLossConfig(NamedTuple):
     num_classes: int = 4

@@ -184,9 +184,10 @@ class DensePillarEncoder(nn.Module):
         for i, layer in enumerate(self.pfn):
             x = layer(x.to(layer.linear.weight.dtype))
             ch = x.shape[-1]
-            # Scatter-max in f32 whatever the network dtype.
-            canvas = pts.new_zeros((b * hw + 1, ch)).scatter_reduce_(
-                0, lin[:, None].expand(-1, ch), x.float(), 'amax',
+            # Scatter-max in at least f32 whatever the network dtype.
+            src = x.to(torch.promote_types(x.dtype, torch.float32))
+            canvas = src.new_zeros((b * hw + 1, ch)).scatter_reduce_(
+                0, lin[:, None].expand(-1, ch), src, 'amax',
                 include_self=False)
             if i != len(self.pfn) - 1:
                 x = torch.cat([x, canvas[lin_g].to(x.dtype)], -1)

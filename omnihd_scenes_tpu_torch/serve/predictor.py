@@ -39,7 +39,8 @@ class Predictor:
 
     Inputs are NumPy arrays or tensors in the JAX package's layouts:
     points (B, P, 8), points_mask (B, P), imgs (B, N, H, W, 3),
-    rots (B, N, 3, 3), trans (B, N, 3).
+    rots (B, N, 3, 3), trans (B, N, 3); points and mask are None for the
+    camera-only model (``radar_stream=False``).
 
     With ``quant_state`` (from :func:`calibrate`, or the JAX ``quant``
     collection through ``weights.flax_quant_to_torch``) the network runs
@@ -68,8 +69,10 @@ class Predictor:
         """The network alone: the model's dict of JAX-layout outputs."""
         dev = self.device
         check_rotations(rots)
-        return self.model(_as_tensor(points, dev, torch.float32),
-                          _as_tensor(points_mask, dev, torch.bool),
+        if points is not None:               # None: camera-only model
+            points = _as_tensor(points, dev, torch.float32)
+            points_mask = _as_tensor(points_mask, dev, torch.bool)
+        return self.model(points, points_mask,
                           _as_tensor(imgs, dev, self.dtype),
                           _as_tensor(rots, dev, torch.float32),
                           _as_tensor(trans, dev, torch.float32))

@@ -2,7 +2,9 @@
 
 :func:`flax_to_torch` turns flax ``{'params', 'batch_stats'}`` (NumPy or
 JAX arrays) into a ``state_dict`` of
-:class:`omnihd_scenes_tpu_torch.models.bevfusion.BEVFusion`;
+:class:`omnihd_scenes_tpu_torch.models.bevfusion.BEVFusion` (any of its
+ported configurations) or, given a ``PointPillarsConfig``, of
+:class:`omnihd_scenes_tpu_torch.models.detectors.PointPillars`;
 :func:`torch_to_flax` goes back.  Layouts: conv HWIO <-> OIHW;
 ConvTranspose (kh, kw, in, out) <-> (in, out, kh, kw) flipped in both
 spatial dims (flax's ``ConvTranspose`` does not transpose its kernel,
@@ -24,18 +26,19 @@ in the port as ``<module>.<leaf>`` (``models/quant.py:quant_state``);
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+from omnihd_scenes_tpu_torch.config import BEVFusionConfig, PointPillarsConfig
 from omnihd_scenes_tpu_torch.models.lss import ASPP
 from omnihd_scenes_tpu_torch.models.quant import QUANT_KEYS
 from omnihd_scenes_tpu_torch.models.resnet import ARCHS, Bottleneck
 
 FlaxPath = Tuple[str, ...]            # (collection, module, ..., leaf)
+ModelConfig = Union[BEVFusionConfig, PointPillarsConfig]
 
 
 class _NameMap:
@@ -90,8 +93,13 @@ def resnet_name_map(depth: int) -> Dict[str, FlaxPath]:
     return m.pairs
 
 
-def name_map(cfg: BEVFusionConfig) -> Dict[str, FlaxPath]:
-    """torch state_dict key -> flax (collection, *path) for BEVFusion."""
+def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
+    """torch state_dict key -> flax (collection, *path) for BEVFusion, or
+    for PointPillars when ``cfg`` is a ``PointPillarsConfig``.  The
+    pillar, ``fuse`` and ``se`` keys exist only in the configurations
+    that build those modules."""
+    if isinstance(cfg, PointPillarsConfig):
+        return pointpillars_name_map(cfg)
     m = _NameMap()
     for tkey, path in resnet_name_map(cfg.resnet_depth).items():
         m.pairs[f'resnet.{tkey}'] = (path[0], 'ResNet_0') + tuple(path[1:])
@@ -136,7 +144,19 @@ def name_map(cfg: BEVFusionConfig) -> Dict[str, FlaxPath]:
         m.conv_bn(f'lss.bev_encoder.layers.{i}',
                   lss + ('BevEncoderConvs_0', f'ConvBNReLU_{i}'))
 
-    pc = cfg.pillars
+    if cfg.radar_stream:
+        _pillar_block(m, cfg.pillars)
+    if cfg.lc_fusion and cfg.radar_stream:
+        m.conv_bn('fuse', ('ConvBNReLU_0',))
+        if cfg.se:
+            m.conv('se.conv', ('SEBlock_0', 'Conv_0'), bias=True)
+    _head(m)
+    return m.pairs
+
+
+def _pillar_block(m: _NameMap, pc: PointPillarsConfig):
+    """The pillar stream; flax keeps it at the top level of both
+    PointPillars and BEVFusion."""
     for i in range(len(pc.pfn_channels)):
         pfn = ('PillarFeatureNet_0', f'PFNLayer_{i}')
         m.pairs[f'pillar_encoder.pfn.{i}.linear.weight'] = (
@@ -151,11 +171,18 @@ def name_map(cfg: BEVFusionConfig) -> Dict[str, FlaxPath]:
         m.conv_bn(f'second_fpn.deblocks.{i}',
                   ('SECONDFPN_0', f'DeconvBNReLU_{i}'), conv='deconv')
 
-    m.conv_bn('fuse', ('ConvBNReLU_0',))
-    if cfg.se:
-        m.conv('se.conv', ('SEBlock_0', 'Conv_0'), bias=True)
+
+def _head(m: _NameMap):
     for i, name in enumerate(('conv_cls', 'conv_reg', 'conv_dir')):
         m.conv(f'head.{name}', ('Anchor3DHead_0', f'Conv_{i}'), bias=True)
+
+
+def pointpillars_name_map(cfg: PointPillarsConfig) -> Dict[str, FlaxPath]:
+    """torch state_dict key -> flax (collection, *path) for PointPillars
+    (and RadarPillarNet)."""
+    m = _NameMap()
+    _pillar_block(m, cfg)
+    _head(m)
     return m.pairs
 
 
@@ -179,7 +206,7 @@ def _torch_to_flax_layout(v: np.ndarray, path: FlaxPath) -> np.ndarray:
     return v.T if v.ndim == 2 else v
 
 
-def flax_to_torch(variables, cfg: BEVFusionConfig,
+def flax_to_torch(variables, cfg: ModelConfig,
                   collections=('params', 'batch_stats')
                   ) -> Dict[str, torch.Tensor]:
     """Flax ``{'params', 'batch_stats'}`` -> torch state_dict (f32)."""
@@ -195,7 +222,7 @@ def flax_to_torch(variables, cfg: BEVFusionConfig,
     return sd
 
 
-def flax_tree_to_torch(tree, cfg: BEVFusionConfig,
+def flax_tree_to_torch(tree, cfg: ModelConfig,
                        collection: str = 'params') -> Dict[str, torch.Tensor]:
     """One flax collection's content (e.g. a gradient tree shaped like
     ``params``, or new ``batch_stats``) -> {torch key: f32 tensor} in the
@@ -203,7 +230,7 @@ def flax_tree_to_torch(tree, cfg: BEVFusionConfig,
     return flax_to_torch({collection: tree}, cfg, collections=(collection,))
 
 
-def torch_to_flax(state_dict, cfg: BEVFusionConfig) -> Dict:
+def torch_to_flax(state_dict, cfg: ModelConfig) -> Dict:
     """Torch state_dict -> flax ``{'params', 'batch_stats'}`` (NumPy)."""
     out: Dict = {}
     for tkey, path in name_map(cfg).items():
@@ -215,7 +242,7 @@ def torch_to_flax(state_dict, cfg: BEVFusionConfig) -> Dict:
     return out
 
 
-def _conv_modules(cfg: BEVFusionConfig) -> Dict[FlaxPath, str]:
+def _conv_modules(cfg: ModelConfig) -> Dict[FlaxPath, str]:
     """flax module path -> torch module name, for every conv kernel."""
     return {path[1:-1]: tkey[:-len('.weight')]
             for tkey, path in name_map(cfg).items()
@@ -230,7 +257,7 @@ def _leaves(tree, prefix: FlaxPath = ()):
         yield prefix, tree
 
 
-def flax_quant_to_torch(quant, cfg: BEVFusionConfig) -> Dict[str,
+def flax_quant_to_torch(quant, cfg: ModelConfig) -> Dict[str,
                                                              torch.Tensor]:
     """The flax ``quant`` collection (its content, NumPy or JAX arrays)
     -> the port's quant state (``models/quant.py:load_quant_state``)."""
@@ -252,7 +279,7 @@ def flax_quant_to_torch(quant, cfg: BEVFusionConfig) -> Dict[str,
     return out
 
 
-def torch_quant_to_flax(state, cfg: BEVFusionConfig) -> Dict:
+def torch_quant_to_flax(state, cfg: ModelConfig) -> Dict:
     """The port's quant state -> the flax ``quant`` collection's content
     (NumPy)."""
     paths = {name: mod for mod, name in _conv_modules(cfg).items()}

@@ -113,8 +113,9 @@ def test_training_configuration_builds():
 
 
 def test_package_imports_without_jax():
-    """Every module of the port imports with jax, flax and the JAX
-    package blocked."""
+    """Every module of the port imports with jax, flax, the JAX package,
+    OpenCV and matplotlib blocked (the card's machine has neither of the
+    last two)."""
     modules = sorted(
         'omnihd_scenes_tpu_torch.' + '.'.join(
             p.relative_to(PACKAGE).with_suffix('').parts)
@@ -122,13 +123,13 @@ def test_package_imports_without_jax():
     modules = [m.removesuffix('.__init__') for m in modules]
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '
-            '"omnihd_scenes_tpu"):\n'
+            '"omnihd_scenes_tpu", "cv2", "matplotlib"):\n'
             '    sys.modules[name] = None\n'
             'import importlib\n'
             f'for m in {modules!r}:\n'
             '    importlib.import_module(m)\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "flax", "omnihd_scenes_tpu") '
+            '("jax", "flax", "omnihd_scenes_tpu", "cv2", "matplotlib") '
             'and sys.modules[m] is not None]\n'
             'assert not bad, bad\n'
             'print("ok", len(%r))\n' % (modules,))
@@ -139,7 +140,10 @@ def test_package_imports_without_jax():
 
 
 def test_no_jax_import_in_sources():
-    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|omnihd_scenes_tpu)\b',
-                     re.M)
+    """No import of JAX or the JAX package anywhere in the port, and none
+    of OpenCV or matplotlib at module level (only inside the function
+    that needs it)."""
+    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|omnihd_scenes_tpu)\b'
+                     r'|^(import|from)\s+(cv2|matplotlib)\b', re.M)
     hits = [str(p) for p in PACKAGE.rglob('*.py') if pat.search(p.read_text())]
     assert not hits, hits

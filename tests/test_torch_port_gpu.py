@@ -394,7 +394,7 @@ def test_backward_refuses_what_the_kernel_does_not_take(dev):
     assert lss_sample_bev_backward.launches == before
 
 
-def _small_train_case(seed):
+def _small_train_case(seed, camera_only=False):
     import numpy as np
 
     from omnihd_scenes_tpu_torch import config as c
@@ -403,7 +403,8 @@ def _small_train_case(seed):
 
     pc_range = (-8.0, -8.0, -3.0, 8.0, 8.0, 5.0)
     cfg = c.BEVFusionConfig(
-        frozen_backbone_bn=False,
+        frozen_backbone_bn=False, radar_stream=not camera_only,
+        lc_fusion=not camera_only, se=not camera_only,
         lss=c.LSSConfig(final_dim=(64, 112),
                         camera_depth_range=(1.0, 9.0, 1.0),
                         pc_range=pc_range, grid=2.0),
@@ -418,10 +419,35 @@ def _small_train_case(seed):
     batch = random_train_batch(np.random.RandomState(seed), cfg, 2,
                                n_points=600, max_gt=8)
     batch['gt_boxes'][..., :2] /= 5
+    if camera_only:
+        del batch['points'], batch['points_mask']
     return cfg, sd, batch
 
 
 def test_small_train_step_matches_the_cpu(dev):
+    _train_step_on_both(dev, *_small_train_case(seed=1), 'bevfusion')
+
+
+def test_lss_camera_only_train_step_matches_the_cpu(dev):
+    """The camera-only model (no radar stream, no fusion, no SE): the same
+    bounds, and one LSS forward and one backward launch on the card."""
+    _train_step_on_both(dev, *_small_train_case(seed=2, camera_only=True),
+                        'lss')
+
+
+def test_pillar_families_on_the_card_equal_the_cpu(dev):
+    """PointPillars radar (sorted, dense), RadarPillarNet and LiDAR at a
+    small size: ``chip_smoke.py`` phase 16's checks (head maps within
+    1e-4 of max|ref|, the same kept rows, one train step's loss within
+    1e-5 and gradient within 1e-4)."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.phase_pillars_small(dev)
+
+
+def _train_step_on_both(dev, cfg, sd, batch, mtype):
     from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
     from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
     from omnihd_scenes_tpu_torch.train.loop import (create_train_state,
@@ -431,7 +457,6 @@ def test_small_train_step_matches_the_cpu(dev):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, sd, batch = _small_train_case(seed=1)
     lr = 1e-3
     runs = {}
     for device in ('cpu', dev):
@@ -440,22 +465,25 @@ def test_small_train_step_matches_the_cpu(dev):
         model.to(device)
         state = create_train_state(model, lambda p: make_optimizer(
             p, make_lr_schedule(lr, 10, warmup_iters=0)))
-        loss_fn = make_loss_fn_generic(model, 'bevfusion',
+        loss_fn = make_loss_fn_generic(model, mtype,
                                        cfg.pillars.anchors(),
                                        camera_depth_range=(1.0, 9.0, 1.0))
         grads = {}
         hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
                  for k, p in model.named_parameters()]
-        launches = lss_sample_bev_backward.launches
+        launches = (lss_sample_bev.launches,
+                    lss_sample_bev_backward.launches)
         _, loss, _ = make_train_step(loss_fn)(state, batch)
         for h in hooks:
             h.remove()
         runs[str(device)] = dict(
-            loss=float(loss), launches=lss_sample_bev_backward.launches
-            - launches, grads={k: v.cpu() for k, v in grads.items()},
+            loss=float(loss), launches=(
+                lss_sample_bev.launches - launches[0],
+                lss_sample_bev_backward.launches - launches[1]),
+            grads={k: v.cpu() for k, v in grads.items()},
             state={k: v.cpu() for k, v in model.state_dict().items()})
     cpu, gpu = runs['cpu'], runs[str(dev)]
-    assert cpu['launches'] == 0 and gpu['launches'] == 1
+    assert cpu['launches'] == (0, 0) and gpu['launches'] == (1, 1)
     assert abs(gpu['loss'] - cpu['loss']) <= 1e-5 * abs(cpu['loss'])
     diff = sum(float((gpu['grads'][k] - g).square().sum())
                for k, g in cpu['grads'].items())

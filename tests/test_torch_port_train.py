@@ -428,5 +428,5 @@ def test_run_training_guards_and_logs(tmp_path):
 
 
 def test_other_families_are_not_ported():
-    with pytest.raises(NotImplementedError, match='pointpillars'):
-        make_loss_fn_generic(None, 'pointpillars', np.zeros((1, 1, 1, 9)))
+    with pytest.raises(NotImplementedError, match='bevformer'):
+        make_loss_fn_generic(None, 'bevformer', np.zeros((1, 1, 1, 9)))
