@@ -138,12 +138,37 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    and ``tools.test ... --eval`` as subprocesses (exit codes checked,
    finite mAP and NOS in ``metrics.json``), then the micro-train recipe
    of ``tests/test_learning_quick.py`` (``micro_train``) on the card:
-   mAP > 0.5 and NOS > 0.45, with its seconds.
+   mAP > 0.5 and NOS > 0.45, with its seconds;
+20. BEVFusion-OCC (``MTLConfig``) at a small size (16x16 BEV at 1 m,
+   sorted pillars, 12 classes over 4 z bins), f32 on the GPU against the
+   CPU, TF32 off, for each ``trunk_mode`` ('none', 'per_task' behind
+   non-identity detection and occupancy grid crops, 'shared'): network
+   outputs and occupancy logits within 1e-4 of max|ref| (weights as
+   drawn), the occupancy argmax equal wherever the CPU's top two logits
+   differ by more than 1e-5 of max|logit| (the number of differing voxels
+   printed), one train step's loss within 1e-5 and gradient within 1e-4
+   in relative L2 (BatchNorm biases +4), one LSS backward launch;
+21. BEVFusion-OCC serving at full width (``bench.py --mtl``'s model: the
+   serving configuration inside ``MTLConfig``), b4 bf16, 1 + 3 requests
+   of fresh inputs: ms by CUDA events, samples/s, the difference to phase
+   5's request, peak GiB, one ``lss_sample_bev`` launch per request, the
+   (4, 240, 160, 16) int64 occupancy argmax on the card, in the class
+   range and moving with the input;
+22. BEVFusion-OCC training at full width (``configs/bevfusion_occ.py``
+   built by ``build_model_from_cfg``: sorted pillars, synthetic ``gt_occ``
+   of ``serve/synthetic.py``), 1 + 3 b4 bf16-policy steps as phase 15:
+   ms, peak GiB, finite losses with the total, ``loss_occ`` and
+   ``loss_ssc`` falling, one LSS forward and one backward launch per step;
+23. RCFusion: the small GPU-vs-CPU checks of phase 20 (no occupancy), 1 +
+   3 b4 bf16 requests of the serving configuration with the cross-modal
+   fuser (ms, peak GiB, one LSS launch each), and 1 + 3 b4 bf16-policy
+   steps of ``configs/rcfusion.py`` as phase 22.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
 training phase's for the LSS backward, and for the LSS kernels also the
-camera-only path's (phase 18), error against the plain version, kernel / plain /
+camera-only path's (phase 18), BEVFusion-OCC's (phases 21-22) and
+RCFusion's (phase 23), error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
 bytes it must move, each needed input element read once and each output
@@ -520,6 +545,7 @@ def phase_serving(dev, card, cfg, state_dict):
     counts, dev_ms, host_ms = [], [], []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
     lss_sample_bev.launches = lss_sample.launches = 0
     for req in requests:
         t0 = time.perf_counter()
@@ -543,10 +569,11 @@ def phase_serving(dev, card, cfg, state_dict):
     check(lss_sample.launches == 0, 'the serving path launched the '
           'fields-in entry')
     ms = float(np.mean(dev_ms[1:]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f'[5 serving] b{BATCH} x {N_TIMED} requests (+1 warm-up): '
           f'{ms:.2f} ms/request by CUDA events ({dev_ms[1:]}), host '
           f'{float(np.mean(host_ms[1:])):.2f} ms, {BATCH * 1e3 / ms:.2f} '
-          f'samples/s ({card}); kept boxes {int(valid.sum())}; model setup '
+          f'samples/s, peak {peak:.2f} GiB allocated ({card}); kept boxes {int(valid.sum())}; model setup '
           f'{setup_s:.1f} s; lss_sample_bev launches after each request '
           f'{counts}, fields-in entry 0')
     return launches, predictor, requests[-1], ms
@@ -1336,15 +1363,29 @@ def phase_sorted_serving(dev):
           f'{int(dec_c[3].sum())} kept rows within {row_err:.1e}')
 
 
+def _model(cfg):
+    """BEVFusion (RCFusion with ``rc_fusion='cross_attention'``), or
+    BEVFusion-OCC for an ``MTLConfig``."""
+    from omnihd_scenes_tpu_torch.config import MTLConfig
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
+
+    return BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig) else BEVFusion(cfg)
+
+
+def _fusion(cfg):
+    """The fusion trunk's configuration (an ``MTLConfig``'s ``fusion``)."""
+    return getattr(cfg, 'fusion', cfg)
+
+
 def _train_state(cfg, state_dict, dev, lr):
     import torch
 
-    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
     from omnihd_scenes_tpu_torch.train.loop import create_train_state
     from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
                                                      make_optimizer)
 
-    model = BEVFusion(cfg)
+    model = _model(cfg)
     model.load_state_dict(state_dict)
     model.to(dev, memory_format=torch.channels_last)
     return create_train_state(model, lambda p: make_optimizer(
@@ -1370,26 +1411,24 @@ def small_train_case(seed):
     return cfg, sd, batch
 
 
-def phase_small_train(dev):
-    """One small f32 train step on the GPU against the CPU (TF32 off)."""
-    import torch
-
+def _small_step_runs(dev, cfg, sd, batch, mtype, lr=1e-3):
+    """One f32 train step of ``cfg``'s model from ``sd`` on the CPU, then
+    on the GPU: [(loss, LSS backward launches, gradients, floating
+    state after the step)] for each."""
     from omnihd_scenes_tpu_torch.kernels.lss_sample import (
         lss_sample_bev_backward)
     from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
     from omnihd_scenes_tpu_torch.train.loop import make_train_step
 
-    cfg, sd, batch = small_train_case(seed=3)
-    lr = 1e-3
     runs = []
     for device in ('cpu', dev):
         state = _train_state(cfg, sd, device, lr)
         grads = {}
         hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
                  for k, p in state.model.named_parameters()]
-        loss_fn = make_loss_fn_generic(state.model, 'bevfusion',
-                                       cfg.pillars.anchors(),
-                                       camera_depth_range=(1.0, 9.0, 1.0))
+        loss_fn = make_loss_fn_generic(
+            state.model, mtype, cfg.pillars.anchors(),
+            camera_depth_range=_fusion(cfg).lss.camera_depth_range)
         before = lss_sample_bev_backward.launches
         _, loss, _ = make_train_step(loss_fn)(state, batch)
         for h in hooks:
@@ -1398,13 +1437,25 @@ def phase_small_train(dev):
                      {k: v.cpu() for k, v in grads.items()},
                      {k: v.cpu() for k, v in state.model.state_dict().items()
                       if v.is_floating_point()}))
-    (l_c, n_c, g_c, s_c), (l_g, n_g, g_g, s_g) = runs
+    return runs
+
+
+def _relative_l2(got, want):
+    """||got - want|| / ||want|| over every entry of two tensor dicts."""
+    diff = sum(float((got[k] - w).square().sum()) for k, w in want.items())
+    return (diff / sum(float(w.square().sum()) for w in want.values())) ** 0.5
+
+
+def phase_small_train(dev):
+    """One small f32 train step on the GPU against the CPU (TF32 off)."""
+    cfg, sd, batch = small_train_case(seed=3)
+    lr = 1e-3
+    (l_c, n_c, g_c, s_c), (l_g, n_g, g_g, s_g) = _small_step_runs(
+        dev, cfg, sd, batch, 'bevfusion', lr)
     check(n_c == 0 and n_g == 1, f'backward kernel launches CPU {n_c}, GPU '
           f'{n_g}')
     rel_loss = abs(l_g - l_c) / abs(l_c)
-    diff = sum(float((g_g[k] - g).square().sum()) for k, g in g_c.items())
-    norm = sum(float(g.square().sum()) for g in g_c.values())
-    rel_grad = (diff / norm) ** 0.5
+    rel_grad = _relative_l2(g_g, g_c)
     stat_err = max(float((s_g[k] - v).abs().max() / v.abs().max())
                    for k, v in s_c.items() if 'running' in k)
     param_err = max(float((s_g[k] - v).abs().max()) for k, v in s_c.items()
@@ -1421,8 +1472,10 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
                 label='15 train step', falling=False):
     """Full-width training under the bf16 policy at ``batch`` (the fusion
     model of ``configs/bevfusion.py``, or ``cfg`` of family ``mtype``):
-    1 warm-up and N_TIMED timed steps.  Returns (ms per step, (LSS
-    backward launches, the LSS forward's))."""
+    1 warm-up and N_TIMED timed steps; with ``falling``, the total loss
+    and the occupancy losses (BEVFusion-OCC) must fall from the first step
+    to the last.  Returns (ms per step, (LSS backward launches, the LSS
+    forward's))."""
     import torch
 
     from omnihd_scenes_tpu_torch.config import BEVFusionConfig
@@ -1434,12 +1487,13 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     from omnihd_scenes_tpu_torch.train.loop import batch_to, make_train_step
 
     cfg = cfg or BEVFusionConfig()
+    fcfg = _fusion(cfg)
     rng = np.random.RandomState(100 + batch)
     t0 = time.perf_counter()
     batches = []
     for _ in range(1 + N_TIMED):
         b = random_train_batch(rng, cfg, batch)
-        if not cfg.radar_stream:
+        if not fcfg.radar_stream:
             del b['points'], b['points_mask']
         batches.append(batch_to(b, dev))
     torch.cuda.synchronize()
@@ -1447,14 +1501,15 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     state = _train_state(cfg, state_dict, dev, lr=2e-4)
     step = make_train_step(bf16_policy(make_loss_fn_generic(
         state.model, mtype, cfg.pillars.anchors(),
-        camera_depth_range=cfg.lss.camera_depth_range)))
-    depth_conv = state.model.lss.depthnet.depth_conv.weight
+        camera_depth_range=fcfg.lss.camera_depth_range)))
+    trunk = getattr(state.model, 'fusion', state.model)
+    depth_conv = trunk.lss.depthnet.depth_conv.weight
     seen = []
     hook = depth_conv.register_hook(lambda g: seen.append(g.abs().amax()))
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    dev_ms, losses, counts = [], [], []
+    dev_ms, losses, counts, occ_losses = [], [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
     lss_sample_bev.launches = lss_sample_bev_backward.launches = 0
     lss_sample.launches = 0
@@ -1465,6 +1520,8 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
         torch.cuda.synchronize()
         dev_ms.append(start.elapsed_time(end))
         losses.append(float(loss))
+        occ_losses.append({k: float(aux[k]) for k in ('loss_occ', 'loss_ssc')
+                           if k in aux})
         counts.append((lss_sample_bev.launches,
                        lss_sample_bev_backward.launches))
     launches = (lss_sample_bev_backward.launches, lss_sample_bev.launches)
@@ -1478,6 +1535,11 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     check(all(np.isfinite(losses)), f'non-finite losses {losses}')
     check(not falling or losses[-1] < losses[0],
           f'losses do not fall: {losses}')
+    for k in occ_losses[0]:
+        parts = [o[k] for o in occ_losses]
+        check(all(np.isfinite(parts)) and (not falling or parts[-1]
+                                           < parts[0]),
+              f'{k} not finite and falling: {parts}')
     check(all(float(v) > 0 for v in seen) and len(seen) == steps,
           'DepthNet depth_conv got no gradient')
     ms = float(np.mean(dev_ms[1:]))
@@ -1489,6 +1551,9 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
           f'{float(seen[-1]):.3e}; (LSS forward, backward) launches after '
           f'each step {counts}; {steps} batches made and uploaded in '
           f'{data_s:.1f} s')
+    if occ_losses[0]:
+        rounded = [{k: round(v, 4) for k, v in o.items()} for o in occ_losses]
+        print(f'[{label}] occupancy losses per step {rounded}')
     del state, step, batches
     torch.cuda.empty_cache()
     return ms, launches
@@ -1675,7 +1740,7 @@ def phase_pillars_full(dev, card, path):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     start.record()
-    boxes, scores, labels, valid = predict(model, req)
+    (boxes, scores, labels, valid), _ = predict(model, req)
     end.record()
     torch.cuda.synchronize()
     infer_ms = start.elapsed_time(end)
@@ -1888,6 +1953,235 @@ def micro_train(dataroot, work_dir, device, epochs=350):
                                jsonfile_prefix=f'{work_dir}/eval')
     return metrics, np.asarray(losses)
 
+def _small_mtl_config(mode, crops=False):
+    """BEVFusion-OCC at a small size (sorted pillars, no frozen backbone
+    BN, 12 classes over 4 z bins) with a 16x16 BEV at 1 m, so that the task
+    trunks' stride-8 stage keeps 2x2 cells (at 1x1 with batch 2 its
+    train-mode BatchNorms normalise two values, an ill-conditioned
+    gradient); ``crops``: detection shifted by half a cell, occupancy at
+    0.5 m over a 12 x 8 m window."""
+    import dataclasses
+
+    from omnihd_scenes_tpu_torch.config import MTLConfig
+
+    base = _small_config()
+    fusion = dataclasses.replace(
+        base, frozen_backbone_bn=False,
+        lss=dataclasses.replace(base.lss, grid=1.0),
+        pillars=dataclasses.replace(
+            base.pillars, pillar_impl='sorted', voxel_size=(0.5, 0.5, 8.0),
+            bev_hw=(32, 32), max_voxels=512, max_points_per_voxel=8))
+    grids = {}
+    if crops:
+        grids = dict(grid_conf=((-8.0, 8.0, 1.0), (-8.0, 8.0, 1.0)),
+                     det_grid_conf=((-7.5, 8.5, 1.0), (-8.5, 7.5, 1.0)),
+                     occ_grid_conf=((-6.0, 6.0, 0.5), (-4.0, 4.0, 0.5)))
+    return MTLConfig(fusion=fusion, occ_dz=4, trunk_mode=mode, **grids)
+
+
+def _small_parity(dev, cfg, mtype, seed, label):
+    """``cfg``'s model at a small size, f32 on the GPU against the CPU
+    (TF32 off): eval-mode network outputs within 1e-4 of max|ref| (weights
+    as drawn), the occupancy argmax equal wherever the CPU's top two
+    logits differ by more than 1e-5 of max|logit|, and one train step's
+    loss within 1e-5 and gradient within 1e-4 in relative L2 (BatchNorm
+    biases +4).  Returns the (worst map error, differing argmax voxels,
+    all voxels)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict,
+                                                         random_train_batch)
+
+    sd = random_state_dict(cfg, seed)
+    req = random_request(np.random.RandomState(seed), cfg, batch=2,
+                         n_points=600)
+    outs = [{k: v.float().cpu() for k, v in Predictor(
+        cfg, sd, device=d, dtype=torch.float32).forward(*req).items()
+        if v is not None} for d in (dev, 'cpu')]
+    out_g, out_c = outs
+    worst = 0.0
+    for k, want in out_c.items():
+        rel = float((out_g[k] - want).abs().max() / want.abs().max())
+        check(rel <= 1e-4, f'{label} GPU vs CPU {k}: {rel:.3e} of max|ref|')
+        worst = max(worst, rel)
+    differ = total = 0
+    if 'occ_logits' in out_c:
+        logits = out_c['occ_logits']
+        a_g, a_c = out_g['occ_logits'].argmax(-1), logits.argmax(-1)
+        top2 = logits.topk(2, -1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 1e-5 * float(
+            logits.abs().max())
+        differ, total = int((a_g != a_c).sum()), a_c.numel()
+        check(bool(near[a_g != a_c].all()), f'{label}: the occupancy argmax '
+              f'differs away from a near-tie')
+    for k in [k for k in sd if k.endswith('.running_mean')]:
+        sd[k[:-len('running_mean')] + 'bias'] += 4.0
+    batch = random_train_batch(np.random.RandomState(seed), cfg, 2,
+                               n_points=600, max_gt=8)
+    batch['gt_boxes'][..., :2] /= 5          # inside the small grid
+    (l_c, n_c, g_c, _), (l_g, n_g, g_g, _) = _small_step_runs(
+        dev, cfg, sd, batch, mtype)
+    rel_loss = abs(l_g - l_c) / abs(l_c)
+    rel_grad = _relative_l2(g_g, g_c)
+    print(f'[{label}] GPU vs CPU f32: maps within {worst:.2e} of max|ref|; '
+          f'occupancy argmax differs in {differ} of {total} voxels (each a '
+          f'near-tie); train step loss {l_g:.5f} vs {l_c:.5f} '
+          f'({rel_loss:.1e}), gradient {rel_grad:.1e} relative L2, LSS '
+          f'backward launches CPU {n_c} GPU {n_g}')
+    check(n_c == 0 and n_g == 1, f'{label}: backward launches {n_c}, {n_g}')
+    check(rel_loss <= 1e-5 and rel_grad <= 1e-4,
+          f'{label}: train step off ({rel_loss}, {rel_grad})')
+    return worst, differ, total
+
+
+def phase_mtl_small(dev):
+    """BEVFusion-OCC small, GPU vs CPU, every trunk mode, 'per_task'
+    behind non-identity grid crops."""
+    for seed, (mode, crops) in enumerate((('none', False),
+                                          ('per_task', True),
+                                          ('shared', False))):
+        _small_parity(dev, _small_mtl_config(mode, crops), 'bevfusion_mtl',
+                      seed + 10, f'20 MTL small, trunk_mode={mode!r}'
+                      + (', grid crops' if crops else ''))
+
+
+def _timed_requests(dev, predictor, requests):
+    """Run ``requests`` through ``predictor`` (the first a warm-up):
+    (device ms of each timed one by CUDA events, lss_sample_bev launches
+    after each request, peak GiB allocated, the last outputs)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
+                                                            lss_sample_bev)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    lss_sample_bev.launches = lss_sample.launches = 0
+    dev_ms, counts, outs = [], [], []
+    for req in requests:
+        start.record()
+        out = predictor(*req)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        counts.append(lss_sample_bev.launches)
+        outs.append(out)
+    check(counts == list(range(1, len(requests) + 1))
+          and lss_sample.launches == 0,
+          f'lss_sample_bev launches after each request {counts}, not one '
+          f'per request')
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return dev_ms[1:], counts, peak, outs
+
+
+def phase_mtl_serving(dev, card, bf16_ms):
+    """BEVFusion-OCC serving at full width (``bench.py --mtl``'s model:
+    the serving configuration inside ``MTLConfig``), b4 bf16, 1 warm-up
+    and N_TIMED timed requests of fresh inputs: ms, samples/s, peak GiB,
+    one LSS launch per request, the (4, 240, 160, 16) occupancy argmax on
+    the card, its values in the class range and moving with the input."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import MTLConfig, serving_config
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict)
+
+    cfg = MTLConfig(fusion=serving_config())
+    t0 = time.perf_counter()
+    predictor = Predictor(cfg, random_state_dict(cfg, seed=0), device=dev,
+                          dtype=torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(21)
+    requests = [random_request(rng, cfg, BATCH) for _ in range(1 + N_TIMED)]
+    dev_ms, counts, peak, outs = _timed_requests(dev, predictor, requests)
+    nx, ny, _ = cfg.fusion.lss.bev_nx
+    for boxes, scores, labels, valid, occ in outs:
+        check(tuple(boxes.shape) == (BATCH, 500, 9)
+              and bool(torch.isfinite(boxes).all()), 'MTL decode')
+        check(tuple(occ.shape) == (BATCH, nx, ny, cfg.occ_dz)
+              and occ.is_cuda and occ.dtype == torch.int64,
+              f'occupancy grid {tuple(occ.shape)} {occ.dtype} {occ.device}')
+        check(0 <= int(occ.min()) and int(occ.max()) < cfg.occ_classes,
+              'occupancy classes out of range')
+    moved = float((outs[-1][4] != outs[-2][4]).float().mean())
+    check(moved > 0, 'the occupancy argmax did not move with the input')
+    classes = int(torch.unique(outs[-1][4]).numel())
+    ms = float(np.mean(dev_ms))
+    print(f'[21 MTL serving] b{BATCH} bf16 x {N_TIMED} requests (+1 '
+          f'warm-up), BEVFusion-OCC at full width: {ms:.2f} ms/request by '
+          f'CUDA events ({dev_ms}), {BATCH * 1e3 / ms:.3f} samples/s, '
+          f'{ms - bf16_ms:+.2f} ms against phase 5\'s BEVFusion request; '
+          f'peak {peak:.2f} GiB allocated ({card}); occupancy argmax '
+          f'{tuple(outs[-1][4].shape)} on the card, {classes} classes, '
+          f'{moved:.3f} of voxels moved between the last two requests; '
+          f'lss_sample_bev launches after each request {counts}; setup '
+          f'{setup_s:.1f} s')
+    del predictor, outs
+    torch.cuda.empty_cache()
+    return counts[0]
+
+
+def _train_from_config(dev, card, path, label):
+    """1 + N_TIMED b4 bf16-policy train steps of the model a shipped
+    config builds, seeded random weights; losses must fall."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.train.builder import (build_model_from_cfg,
+                                                       init_model)
+    from omnihd_scenes_tpu_torch.train.config import Config
+
+    model, mtype = build_model_from_cfg(Config.fromfile(path))
+    sd = init_model(model, torch.Generator().manual_seed(0)).state_dict()
+    cfg = model.cfg
+    del model
+    _, (back, fwd) = phase_train(dev, card, BATCH, sd, cfg=cfg, mtype=mtype,
+                                 label=label, falling=True)
+    return {'train_fwd': fwd, 'train_back': back}
+
+
+def phase_rcfusion(dev, card):
+    """RCFusion: small GPU vs CPU parity, 1 + N_TIMED full-width b4 bf16
+    requests (the serving configuration with the cross-modal fuser) and
+    1 + N_TIMED b4 training steps of ``configs/rcfusion.py``."""
+    import dataclasses
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import serving_config
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict)
+
+    small = dataclasses.replace(_small_mtl_config('none').fusion,
+                                rc_fusion='cross_attention')
+    _small_parity(dev, small, 'rcfusion', 30, '23 RCFusion small')
+    cfg = dataclasses.replace(serving_config(), rc_fusion='cross_attention')
+    predictor = Predictor(cfg, random_state_dict(cfg, seed=0), device=dev,
+                          dtype=torch.bfloat16)
+    rng = np.random.RandomState(23)
+    requests = [random_request(rng, cfg, BATCH) for _ in range(1 + N_TIMED)]
+    dev_ms, counts, peak, outs = _timed_requests(dev, predictor, requests)
+    boxes, scores, labels, valid = outs[-1]
+    check(tuple(boxes.shape) == (BATCH, 500, 9)
+          and bool(torch.isfinite(boxes).all()), 'RCFusion decode')
+    print(f'[23 RCFusion request] b{BATCH} bf16 x {N_TIMED} requests (+1 '
+          f'warm-up; the serving configuration with the cross-modal fuser): '
+          f'{float(np.mean(dev_ms)):.2f} ms/request by CUDA events '
+          f'({dev_ms}), peak {peak:.2f} GiB allocated, {int(valid.sum())} '
+          f'boxes kept, lss_sample_bev launches after each request {counts} '
+          f'({card})')
+    del predictor, outs
+    torch.cuda.empty_cache()
+    out = _train_from_config(dev, card, 'configs/rcfusion.py',
+                             '23 RCFusion train step')
+    out['request'] = counts[0]
+    return out
+
 
 def main():
     card = phase_device()
@@ -1933,6 +2227,11 @@ def main():
         phase_pillars_full(dev, card, path)
     cam = phase_lss_camera(dev, card)
     phase_cli(dev, card)
+    phase_mtl_small(dev)
+    mtl = {'request': phase_mtl_serving(dev, card, bf16_ms)}
+    mtl.update(_train_from_config(dev, card, 'configs/bevfusion_occ.py',
+                                  '22 MTL train step'))
+    rcf = phase_rcfusion(dev, card)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -1948,11 +2247,16 @@ def main():
                                      *fields_row, None),
             'qconv': ('qconv', q_launches, *q_row),
             'bconv': ('bconv', b_launches, *b_row)}
-    # Launches on the LSS camera-only path (phase 18): its b4 training
-    # run (1 + N_TIMED steps) and one b4 request.
-    lss_camera = {'lss_sample': {'train_b4': cam['train_fwd'],
-                                 'request_b4': cam['infer']},
-                  'lss_sample_backward': {'train_b4': cam['train_back']}}
+    # Launches on the LSS camera-only path (phase 18), BEVFusion-OCC
+    # (phases 21-22) and RCFusion (phase 23): each b4 training run (1 +
+    # N_TIMED steps) and each path's first b4 request.
+    paths = {'launches_lss_camera': dict(cam, request=cam['infer']),
+             'launches_mtl': mtl, 'launches_rcfusion': rcf}
+    extra = {'lss_sample': {}, 'lss_sample_backward': {}}
+    for key, p in paths.items():
+        extra['lss_sample'][key] = {'train_b4': p['train_fwd'],
+                                    'request_b4': p['request']}
+        extra['lss_sample_backward'][key] = {'train_b4': p['train_back']}
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'{CSRC}{src}.cu',
         'replaces': KERNEL_REPLACES[name][0],
@@ -1960,8 +2264,7 @@ def main():
            if len(KERNEL_REPLACES[name]) > 1 else {}),
         'launches': n, 'max_abs_err': e, 'ms': t, 'plain_ms': pt,
         'bound_ms': bt, 'bound_by': by, 'library_ms': lib,
-        **({'launches_lss_camera': lss_camera[name]}
-           if name in lss_camera else {})}
+        **extra.get(name, {})}
         for name, (src, n, e, t, pt, bt, by, lib) in rows.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The JAX dataclasses live in flax modules (``models/lss.py:35``,
 ``models/detectors.py:29``, ``models/bevfusion.py:69``,
-``models/anchor_head.py:121``), so importing them would pull in flax.
+``models/mtl.py:83``, ``models/anchor_head.py:121``), so importing them
+would pull in flax.
 These copies keep the same fields, defaults and derived properties;
 ``tests/test_torch_port_config.py`` holds them equal field by field.
 
@@ -155,6 +156,43 @@ class BEVFusionConfig:
         if self.radar_stream:
             return self.lic
         return self.imc
+
+
+@dataclass(frozen=True)
+class MTLConfig:
+    """BEVFusion-OCC: the fusion trunk with detection and occupancy heads.
+
+    ``task_weights`` (3dod, occ) is carried as in JAX, which stores it and
+    applies it nowhere (the occupancy loss's weight is
+    ``make_loss_fn_generic``'s ``occ_weight``).  ``trunk_mode``: 'none'
+    (the shipped OCC baseline: the fusion trunk's own head serves
+    detection, the occupancy head reads the fused BEV), 'per_task' (one
+    BevEncode trunk per task between its crop and its decoder) or 'shared'
+    (one BevEncode trunk on the full BEV, then the crops).  The grids are
+    ((x0, x1, dx), (y0, y1, dy)); None or equal grids crop nothing.
+    """
+
+    fusion: BEVFusionConfig = BEVFusionConfig()
+    occ_classes: int = 12
+    occ_dz: int = 16
+    task_weights: Tuple[float, float] = (1.0, 1.0)   # (3dod, occ)
+    enable_det: bool = True
+    enable_occ: bool = True
+    trunk_mode: str = 'none'
+    grid_conf: Optional[Tuple] = None
+    det_grid_conf: Optional[Tuple] = None
+    occ_grid_conf: Optional[Tuple] = None
+
+    def __post_init__(self):
+        if self.trunk_mode not in ('none', 'per_task', 'shared'):
+            raise ValueError(f"trunk_mode {self.trunk_mode!r} not in "
+                             "('none', 'per_task', 'shared')")
+
+    @property
+    def pillars(self) -> PointPillarsConfig:
+        """The fusion trunk's pillar configuration (its anchors serve the
+        detection head)."""
+        return self.fusion.pillars
 
 
 class DecodeCfg(NamedTuple):

@@ -11,11 +11,13 @@ quaternion, per-class rectangular range drop,
 Unlike the reference (torch DataLoader + DataContainer), samples are
 plain dicts of fixed-shape NumPy arrays ready for device upload.
 
-Restated from ``omnihd_scenes_tpu/data/dataset.py`` for the point-cloud
-modalities (``'radar'``, ``'lidar'``): the same seeded ``RandomState``
-draws, hence the same samples bit for bit.  The camera data path (images,
-depth targets, augmentation) and occupancy GT need OpenCV-based loaders
-that are not ported yet; their options are refused.
+Restated from ``omnihd_scenes_tpu/data/dataset.py``: the point-cloud
+modalities (``'radar'``, ``'lidar'``), ``modality='camera'`` (no points),
+the cameras (``use_camera``; ``data/image_loading.py``, which needs
+OpenCV), their depth targets (``load_depth_gt``) and the occupancy GT
+(``load_occ``), with the same seeded ``RandomState`` draws, hence the same
+samples bit for bit.  Training augmentation (``aug``) is not ported yet
+and is refused.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def load_infos(ann_file: str) -> List[Dict]:
 
 
 class NewScenesDetDataset:
-    """Point-cloud detection dataset (radar or lidar modality)."""
+    """Detection dataset: radar or LiDAR points, and/or the cameras, with
+    optional depth targets and occupancy GT."""
 
     def __init__(self,
                  ann_file: str,
@@ -73,15 +76,11 @@ class NewScenesDetDataset:
                  occ_downsample: Sequence[int] = (1, 1, 1),
                  aug: Optional[Dict] = None,
                  seed: int = 0):
-        unported = {'modality=camera': modality == 'camera',
-                    'use_camera': use_camera, 'load_depth_gt': load_depth_gt,
-                    'load_occ': load_occ, 'aug': bool(aug)}
-        bad = sorted(k for k, v in unported.items() if v)
-        if bad:
+        if aug:
             raise NotImplementedError(
-                f'not ported yet: {bad} (ROADMAP queue 1 item 3: image and '
-                f'depth loading, augmentation, the occupancy eval)')
-        if modality not in ('radar', 'lidar'):
+                "not ported yet: ['aug'] (ROADMAP queue 1 item 3: training "
+                "augmentation)")
+        if modality not in ('radar', 'lidar', 'camera'):
             raise ValueError(f'unknown modality {modality!r}')
         self.infos = load_infos(ann_file)
         self.modality = modality
@@ -193,14 +192,72 @@ class NewScenesDetDataset:
         out_boxes[n:, :2] = -1e4
         return out_boxes, out_labels, out_mask
 
+    def _load_camera(self, info: Dict) -> Dict[str, np.ndarray]:
+        from omnihd_scenes_tpu_torch.data.image_loading import load_camera_data
+
+        cam = load_camera_data(info, scale=self.image_scale,
+                               front_back_scale=self.front_back_scale,
+                               target_hw=self.image_target_hw,
+                               fast_decode=self.image_fast_decode)
+        if self.load_depth_gt:
+            from omnihd_scenes_tpu_torch.data.depth_loading import (
+                gaussian_depth_target, load_gt_depth)
+
+            hw = cam['imgs'].shape[1:3]
+            gauss, mins = [], []
+            for cam_type, cam_info in info['cams'].items():
+                dmap = load_gt_depth(
+                    cam_info['data_path'], hw, self.image_scale,
+                    self.front_back_scale,
+                    is_front_back=cam_type in ('camera_front',
+                                               'camera_back'))
+                g, m = gaussian_depth_target(dmap, self.depth_stride,
+                                             self.camera_depth_range)
+                gauss.append(g)
+                mins.append(m)
+            cam['depth_gaussian'] = np.stack(gauss)
+            cam['depth_min'] = np.stack(mins)
+        return cam
+
+    def _load_occ(self, info: Dict) -> np.ndarray:
+        """Occupancy GT: sparse (N, 4) [i, j, k, cls] npz -> dense grid.
+
+        The occ path derives from the lidar path (reference
+        ``tools/merge_data_with_occ.py:8-26``: lidar/*.bin ->
+        occ_gt/*.npz); parity with ``LoadOccupancy_Newscenes``
+        (``pipelines/loading.py:69-108``).
+        """
+        occ_path = info.get('occ_path')
+        if occ_path is None:
+            occ_path = info['lidar_path'].replace(
+                '/lidar/', '/occ_gt/').replace('.bin', '.npz')
+        occ = np.load(occ_path)['occ_gt']
+        grid = np.zeros(self.occ_size, np.int32)
+        grid[occ[:, 0].astype(int), occ[:, 1].astype(int),
+             occ[:, 2].astype(int)] = occ[:, 3]
+        dx, dy, dz = self.occ_downsample
+        if (dx, dy, dz) != (1, 1, 1):
+            # Max-pool downsample keeps sparse occupied labels visible
+            # at reduced resolution (small-config testing only).
+            sx, sy, sz = (self.occ_size[0] // dx, self.occ_size[1] // dy,
+                          self.occ_size[2] // dz)
+            grid = grid[:sx * dx, :sy * dy, :sz * dz].reshape(
+                sx, dx, sy, dy, sz, dz).max(axis=(1, 3, 5))
+        return grid
+
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         info = self.infos[idx]
         sample = {'index': np.int32(idx)}
-        points, pmask = self._load_points(info)
-        if self.point_shuffle and not self.test_mode:
-            perm = self.rng.permutation(points.shape[0])
-            points, pmask = points[perm], pmask[perm]
-        sample.update(points=points, points_mask=pmask)
+        if self.modality in ('radar', 'lidar'):
+            points, pmask = self._load_points(info)
+            if self.point_shuffle and not self.test_mode:
+                perm = self.rng.permutation(points.shape[0])
+                points, pmask = points[perm], pmask[perm]
+            sample.update(points=points, points_mask=pmask)
+        if self.use_camera:
+            sample.update(self._load_camera(info))
+        if self.load_occ:
+            sample['gt_occ'] = self._load_occ(info)
         if not self.test_mode:
             boxes, labels, mask = self._load_annotations(info)
             sample.update(gt_boxes=boxes, gt_labels=labels, gt_mask=mask)

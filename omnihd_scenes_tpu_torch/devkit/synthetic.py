@@ -100,7 +100,9 @@ class SyntheticConfig:
 def _write_image(path: str, img: np.ndarray, draws) -> None:
     """Paint ``draws`` (depth, polygon, colour) far to near onto ``img``
     and write it as a JPEG (needs OpenCV)."""
-    import cv2
+    from omnihd_scenes_tpu_torch.data.image_loading import require_cv2
+
+    cv2 = require_cv2()
 
     for _, poly, color in sorted(draws, key=lambda d: -d[0]):
         hull = cv2.convexHull(poly.reshape(-1, 1, 2))
@@ -116,6 +118,8 @@ def generate(dataroot: str, version: str = 'v1.0-mini',
     tables still name the image files, and every other file is the same
     byte for byte, since each image's noise is drawn from the generator's
     random stream either way.  It suits radar and LiDAR runs only.
+    ``images=True`` needs OpenCV and writes the JAX generator's JPEGs byte
+    for byte.
     """
     cfg = cfg or SyntheticConfig()
     rng = np.random.RandomState(cfg.seed)

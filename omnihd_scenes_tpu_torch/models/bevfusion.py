@@ -5,14 +5,16 @@ radar: voxelize -> PillarFeatureNet -> scatter (``pillar_impl='sorted'``,
 the configuration that trains) or DensePillarEncoder (``'dense'``, the
 serving configuration) -> SECOND -> SECONDFPN -> (B, 384, 160, 240);
 camera: ResNet -> FPNC -> LiftSplatShoot (DepthNet, sampling splat) ->
-(B, 256, 160, 240); fusion: concat -> 3x3 ConvBNReLU -> SE gate ->
-Anchor3DHead.  Without the radar stream (``configs/lss_camera.py``, the
-LSS camera-only model) the head reads the camera BEV directly, as in
-JAX; with it but ``lc_fusion=False`` the head reads the radar BEV.
-``model.train()`` is the JAX ``train=True``: batch statistics in every
-BatchNorm but the frozen backbone's.  RCFusion's cross-modal fuser, the
-camera-less variant, ``dense_fold``, remat and the space-to-depth stem
-are not ported yet.
+(B, 256, 160, 240); fusion: concat -> 3x3 ConvBNReLU (``rc_fusion=
+'concat'``) or RCFusion's :class:`CrossModalFusion` (``'cross_attention'``)
+-> SE gate -> Anchor3DHead (none with ``with_head=False``, the trunk of
+``models/mtl.py``'s task-trunk modes).  Without the radar stream
+(``configs/lss_camera.py``, the LSS camera-only model) the head reads the
+camera BEV directly, as in JAX; with it but ``lc_fusion=False`` the head
+reads the radar BEV.  ``model.train()`` is the JAX ``train=True``: batch
+statistics in every BatchNorm but the frozen backbone's.  The camera-less
+variant, ``dense_fold``, remat and the space-to-depth stem are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch import nn
 
 from omnihd_scenes_tpu_torch.config import BEVFusionConfig
 from omnihd_scenes_tpu_torch.models.anchor_head import Anchor3DHead
 from omnihd_scenes_tpu_torch.models.detectors import PillarBackbone
-from omnihd_scenes_tpu_torch.models.fpnc import FPNC
+from omnihd_scenes_tpu_torch.models.fpnc import FPNC, resize_bilinear
 from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, SEBlock
 from omnihd_scenes_tpu_torch.models.lss import LiftSplatShoot
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
@@ -35,9 +38,8 @@ def check_supported(cfg: BEVFusionConfig) -> None:
     (the pillar stream refuses its own, ``PillarBackbone``)."""
     unsupported = {
         'camera_stream': cfg.camera_stream is not True,
-        'rc_fusion': cfg.rc_fusion != 'concat',
+        'rc_fusion': cfg.rc_fusion not in ('concat', 'cross_attention'),
         'stem_s2d': cfg.stem_s2d,
-        'with_head': cfg.with_head is not True,
         'lss.splat_mode': cfg.lss.splat_mode != 'sample',
         # torch.utils.checkpoint over the trunks; an 80 GB card holds the
         # b4 step without it.
@@ -48,6 +50,34 @@ def check_supported(cfg: BEVFusionConfig) -> None:
         raise NotImplementedError(f'not ported yet: {bad}')
 
 
+class CrossModalFusion(nn.Module):
+    """RCFusion's spatial-attention swap fuser (reference
+    ``rcfusion/detectors/BEVCross_modal_attention.py:6-43``): each modality
+    is gated by the sigmoid of a bias-free 3x3 conv over the other's
+    channel mean and max, then concat + 3x3 ConvBNReLU."""
+
+    def __init__(self, img_channels: int, radar_channels: int,
+                 out_channels: int = 384, kernel_size: int = 3):
+        super().__init__()
+        pad = kernel_size // 2
+        self.att_img = nn.Conv2d(2, 1, kernel_size, padding=pad, bias=False)
+        self.att_radar = nn.Conv2d(2, 1, kernel_size, padding=pad,
+                                   bias=False)
+        self.fuse = ConvBNReLU(img_channels + radar_channels, out_channels)
+
+    @staticmethod
+    def _attention(conv, x):
+        pooled = torch.cat([x.mean(1, keepdim=True),
+                            x.amax(1, keepdim=True)], 1)
+        return torch.sigmoid(conv(pooled))
+
+    def forward(self, img_bev, radar_bev):
+        img_att = self._attention(self.att_img, img_bev)
+        radar_att = self._attention(self.att_radar, radar_bev)
+        return self.fuse(torch.cat([img_bev * radar_att,
+                                    radar_bev * img_att], 1))
+
+
 class BEVFusion(PillarBackbone):
     """Fusion detector over padded inputs.
 
@@ -55,8 +85,9 @@ class BEVFusion(PillarBackbone):
     W, 3), rots (B, N, 3, 3), trans (B, N, 3)) returns a dict of
     JAX-layout views: 'bev' (B, H, W, C), 'cls_score' / 'bbox_pred' /
     'dir_pred' (B, H, W, A*K), 'depth' / 'depth_logits' (B, N, fH, fW,
-    D).  Without the radar stream, ``points`` and ``points_mask`` are
-    None.  ``point_dims`` is the dataset's point width (8 for radar).
+    D).  With ``with_head=False`` the head maps are None.  Without the
+    radar stream, ``points`` and ``points_mask`` are None.
+    ``point_dims`` is the dataset's point width (8 for radar).
     """
 
     def __init__(self, cfg: BEVFusionConfig, point_dims: int = 8):
@@ -72,11 +103,16 @@ class BEVFusion(PillarBackbone):
                          cfg.lss.feat_hw)
         self.lss = LiftSplatShoot(cfg.lss, cfg.imc, cfg.use_depthnet)
         fusion = cfg.radar_stream and cfg.lc_fusion
-        self.fuse = (ConvBNReLU(cfg.lss.outC + sum(pc.fpn_channels), cfg.lic)
-                     if fusion else None)
+        self.fuse = None
+        if fusion and cfg.rc_fusion == 'cross_attention':
+            self.fuse = CrossModalFusion(cfg.lss.outC, sum(pc.fpn_channels),
+                                         cfg.lic)
+        elif fusion:
+            self.fuse = ConvBNReLU(cfg.lss.outC + sum(pc.fpn_channels),
+                                   cfg.lic)
         self.se = SEBlock(cfg.lic) if fusion and cfg.se else None
-        self.head = Anchor3DHead(cfg.head_channels, pc.num_classes,
-                                 pc.num_anchors)
+        self.head = (Anchor3DHead(cfg.head_channels, pc.num_classes,
+                                  pc.num_anchors) if cfg.with_head else None)
 
     def forward(self, points, points_mask, imgs, rots, trans):
         pts_bev = None
@@ -88,20 +124,26 @@ class BEVFusion(PillarBackbone):
         b, n = imgs.shape[:2]
         # NHWC images viewed as NCHW: channels_last memory, no copy.
         flat = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)
-        feat = self.fpnc(self.resnet(flat.to(self.head.conv_cls.weight.dtype)))
+        feat = self.fpnc(self.resnet(flat.to(self.resnet.conv1.weight.dtype)))
         cam_bev, depth, depth_logits = self.lss(feat, rots, trans)
-        if pts_bev is not None and cam_bev.shape[-2:] != pts_bev.shape[-2:]:
-            raise NotImplementedError(
-                f'camera BEV {tuple(cam_bev.shape[-2:])} != radar BEV '
-                f'{tuple(pts_bev.shape[-2:])}: the resize is not ported')
+        if pts_bev is not None:
+            # The LSS grid is (ny, nx), y-major like the pillar FPN output;
+            # resized when the resolutions differ.
+            cam_bev = resize_bilinear(cam_bev, pts_bev.shape[-2:])
 
-        if self.fuse is not None:
+        if isinstance(self.fuse, CrossModalFusion):
+            fused = self.fuse(cam_bev, pts_bev)
+        elif self.fuse is not None:
             fused = self.fuse(torch.cat([cam_bev, pts_bev], dim=1))
-            if self.se is not None:
-                fused = self.se(fused)
         else:
             fused = cam_bev if pts_bev is None else pts_bev
-        out = self.head.outputs(fused)
+        if self.se is not None:
+            fused = self.se(fused)
+        if self.head is not None:
+            out = self.head.outputs(fused)
+        else:
+            out = {'cls_score': None, 'bbox_pred': None, 'dir_pred': None,
+                   'bev': fused.permute(0, 2, 3, 1)}
         out.update(depth=depth, depth_logits=depth_logits)
         return out
 

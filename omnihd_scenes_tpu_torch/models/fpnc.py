@@ -1,9 +1,12 @@
-"""FPN + FPNC neck (counterpart of ``omnihd_scenes_tpu/models/fpnc.py``).
+"""FPN + FPNC neck (counterpart of ``omnihd_scenes_tpu/models/fpnc.py``),
+and :func:`resize_bilinear`, the port's ``jax.image.resize(method=
+'bilinear')``.
 
 The neck only ever upsamples (backbone strides 8/16/32 to the stride-4
 LSS feature map), where ``F.interpolate(bilinear, align_corners=False)``
-computes what ``jax.image.resize(method='bilinear')`` does.  Downsampling
-would differ (jax antialiases), so :func:`resize_bilinear` refuses it.
+computes what ``jax.image.resize`` does.  When a dimension shrinks, jax
+antialiases (a triangle filter widened by the inverse scale), which
+:func:`resize_bilinear` restates with its weight matrices.
 """
 
 from __future__ import annotations
@@ -18,15 +21,39 @@ from omnihd_scenes_tpu_torch.models.layers import FLAX_BN_EPS, BatchNorm
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
 
 
+def _resize_weights(n_in: int, n_out: int, dtype, device):
+    """(n_in, n_out) weights of ``jax.image.resize``'s antialiased
+    triangle filter (``jax._src.image.scale.compute_weight_mat``), in f32
+    (f64 for f64 inputs); divisions by constants as multiplies by their
+    reciprocal, as jitted JAX computes them."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n_out, dtype=dtype, device=device) + 0.5)
+              * inv_scale - 0.5)
+    dist = (sample[None, :] - torch.arange(n_in, dtype=dtype,
+                                           device=device)[:, None]).abs()
+    w = (1 - dist * (1.0 / kernel_scale)).clamp(min=0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * 1.1920928955078125e-07,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
 def resize_bilinear(x, hw):
+    """(..., H, W) -> (..., *hw) as ``jax.image.resize(method='bilinear')``:
+    ``F.interpolate`` when both dimensions grow or stay, jax's antialiased
+    weight matrices when one shrinks."""
     hw = tuple(hw)
     if tuple(x.shape[-2:]) == hw:
         return x
-    if hw[0] < x.shape[-2] or hw[1] < x.shape[-1]:
-        raise NotImplementedError(
-            f'bilinear downsampling {tuple(x.shape[-2:])} -> {hw} is not '
-            'ported (jax.image.resize antialiases)')
-    return F.interpolate(x, size=hw, mode='bilinear', align_corners=False)
+    if hw[0] >= x.shape[-2] and hw[1] >= x.shape[-1]:
+        return F.interpolate(x, size=hw, mode='bilinear',
+                             align_corners=False)
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    wy, wx = (_resize_weights(n_in, n_out, dt, x.device).to(x.dtype)
+              for n_in, n_out in zip(x.shape[-2:], hw))
+    return torch.einsum('...hw,hy,wx->...yx', x, wy, wx)
 
 
 class FPN(nn.Module):

@@ -1,10 +1,12 @@
 """Serving entry point: BEVFusion forward + box decode + rotated NMS.
 
 The model path of ``bench.py:main`` (batch of camera + radar samples in,
-``(boxes, scores, labels, valid)`` per sample out).  The network runs in
-``dtype`` (bf16 on the card) with channels_last activations; geometry
-(rots, trans), radar points and anchors stay f32 — the JAX bench casts
-them to bf16 as well — and decode + NMS run in f32.
+``(boxes, scores, labels, valid)`` per sample out).  Given an
+``MTLConfig`` it serves BEVFusion-OCC (``bench.py --mtl``) and returns
+the occupancy argmax (B, Dx, Dy, Dz), a device tensor, after the boxes.
+The network runs in ``dtype`` (bf16 on the card) with channels_last
+activations; geometry (rots, trans), radar points and anchors stay f32 —
+the JAX bench casts them to bf16 as well — and decode + NMS run in f32.
 
 int8 PTQ tier (the ``bench.py --int8`` flow): :func:`calibrate` runs
 calibration then freeze and returns the quant state; ``Predictor(...,
@@ -14,13 +16,15 @@ fused int8 kernel (``models/quant.py``).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 
-from omnihd_scenes_tpu_torch.config import BEVFusionConfig, DecodeCfg
+from omnihd_scenes_tpu_torch.config import (BEVFusionConfig, DecodeCfg,
+                                            MTLConfig)
 from omnihd_scenes_tpu_torch.models.anchor_head import anchor_head_get_bboxes
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
 from omnihd_scenes_tpu_torch.models.quant import (load_quant_state,
                                                   quant_state, set_mode)
 from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
@@ -35,7 +39,8 @@ def _as_tensor(x, device, dtype=None):
 class Predictor:
     """``Predictor(cfg, state_dict, device, dtype)(points, points_mask,
     imgs, rots, trans)`` -> (boxes (B, max_num, 9), scores (B, max_num),
-    labels (B, max_num) int32, valid (B, max_num) bool).
+    labels (B, max_num) int32, valid (B, max_num) bool), and for an
+    ``MTLConfig`` then the occupancy argmax (B, Dx, Dy, Dz) int64.
 
     Inputs are NumPy arrays or tensors in the JAX package's layouts:
     points (B, P, 8), points_mask (B, P), imgs (B, N, H, W, 3),
@@ -47,7 +52,7 @@ class Predictor:
     in the int8 PTQ tier.
     """
 
-    def __init__(self, cfg: BEVFusionConfig,
+    def __init__(self, cfg: Union[BEVFusionConfig, MTLConfig],
                  state_dict: Mapping[str, torch.Tensor],
                  device='cuda', dtype: torch.dtype = torch.bfloat16,
                  decode_cfg: DecodeCfg = DecodeCfg(),
@@ -55,7 +60,8 @@ class Predictor:
         self.device = torch.device(device)
         self.dtype = dtype
         self.decode_cfg = decode_cfg
-        model = BEVFusion(cfg)
+        model = (BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig)
+                 else BEVFusion(cfg))
         load_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=dtype,
                               memory_format=torch.channels_last).eval()
@@ -80,9 +86,12 @@ class Predictor:
     @torch.inference_mode()
     def __call__(self, points, points_mask, imgs, rots, trans):
         out = self.forward(points, points_mask, imgs, rots, trans)
-        return anchor_head_get_bboxes(
+        dets = anchor_head_get_bboxes(
             out['cls_score'].float(), out['bbox_pred'].float(),
             out['dir_pred'].float(), self.anchors, self.decode_cfg)
+        if 'occ_logits' in out:
+            return (*dets, out['occ_logits'].argmax(-1))
+        return dets
 
 
 def calibrate(cfg: BEVFusionConfig, state_dict: Mapping[str, torch.Tensor],
@@ -94,6 +103,10 @@ def calibrate(cfg: BEVFusionConfig, state_dict: Mapping[str, torch.Tensor],
     weights in ``dtype``).  Returns the quant state, on ``device``."""
     if not requests:
         raise ValueError('calibrate needs at least one request')
+    if isinstance(cfg, MTLConfig):
+        raise NotImplementedError(
+            'the int8 tier of BEVFusion-OCC (an MTLConfig) is not ported: '
+            'calibrate serves the detection models only')
     predictor = Predictor(cfg, state_dict, device=device, dtype=dtype)
     set_mode(predictor.model, 'calib')
     for request in requests:

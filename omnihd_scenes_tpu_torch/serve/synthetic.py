@@ -4,32 +4,45 @@ tests and profiles)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
-from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+from omnihd_scenes_tpu_torch.config import BEVFusionConfig, MTLConfig
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL, occupancy_shape
 from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
 from omnihd_scenes_tpu_torch.weights import init_weights
 
 N_POINTS = 40000
 MAX_GT = 64
+# Occupancy GT shares: occupied voxels (classes 1..n_cls-1), unknown (255).
+OCC_OCCUPIED = 0.05
+OCC_UNKNOWN = 0.10
+
+Config = Union[BEVFusionConfig, MTLConfig]
 
 
-def random_state_dict(cfg: BEVFusionConfig,
-                      seed: int) -> Dict[str, torch.Tensor]:
-    """A ``BEVFusion(cfg)`` state_dict of seeded random weights (CPU, f32)."""
-    return init_weights(BEVFusion(cfg),
+def _fusion(cfg: Config) -> BEVFusionConfig:
+    return cfg.fusion if isinstance(cfg, MTLConfig) else cfg
+
+
+def random_state_dict(cfg: Config, seed: int) -> Dict[str, torch.Tensor]:
+    """A ``BEVFusion(cfg)`` (``BEVFusionMTL`` for an ``MTLConfig``)
+    state_dict of seeded random weights (CPU, f32)."""
+    model = (BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig)
+             else BEVFusion(cfg))
+    return init_weights(model,
                         torch.Generator().manual_seed(seed)).state_dict()
 
 
-def random_request(rng: np.random.RandomState, cfg: BEVFusionConfig,
+def random_request(rng: np.random.RandomState, cfg: Config,
                    batch: int, n_points: int = N_POINTS):
     """Fresh ``Predictor`` inputs drawn as ``bench.py:main`` draws them:
     radar points uniform inside the range, all valid; N(0, 1) images; the
     ring rig for every sample."""
+    cfg = _fusion(cfg)
     x0, y0 = cfg.pillars.point_cloud_range[:2]
     points = rng.uniform(x0 + 5, -x0 - 5, size=(batch, n_points, 8)).astype(
         np.float32)
@@ -43,7 +56,7 @@ def random_request(rng: np.random.RandomState, cfg: BEVFusionConfig,
             np.tile(trans[None], (batch, 1, 1)))
 
 
-def random_train_batch(rng: np.random.RandomState, cfg: BEVFusionConfig,
+def random_train_batch(rng: np.random.RandomState, cfg: Config,
                        batch: int, n_points: int = N_POINTS,
                        max_gt: int = MAX_GT,
                        depth: bool = True) -> Dict[str, np.ndarray]:
@@ -53,7 +66,13 @@ def random_train_batch(rng: np.random.RandomState, cfg: BEVFusionConfig,
     over +-40 m, sizes 1-4 m, labels over the classes, all valid.  With
     ``depth``, also ``depth_gaussian`` (B, N, fH, fW, D), a normalised
     Gaussian (std 1 bin) around a per-pixel depth, and ``depth_min`` (B,
-    N, fH, fW), that depth, 0 (no observation) on a fifth of the pixels."""
+    N, fH, fW), that depth, 0 (no observation) on a fifth of the pixels.
+    For an ``MTLConfig``, also ``gt_occ`` (B, Dx, Dy, Dz) uint8 on the
+    occupancy head's grid (240x160x16 at full width): each voxel occupied
+    with probability ``OCC_OCCUPIED`` (a class uniform over 1..n_cls-1),
+    unknown (255) with ``OCC_UNKNOWN``, free (0) otherwise."""
+    mtl = cfg if isinstance(cfg, MTLConfig) else None
+    cfg = _fusion(cfg)
     h, w = cfg.lss.final_dim
     n_views = cfg.num_views
     rots, trans = ring_rig_img2lidar(img_hw=(h, w))
@@ -82,4 +101,12 @@ def random_train_batch(rng: np.random.RandomState, cfg: BEVFusionConfig,
         out['depth_gaussian'] = (g / np.maximum(g.sum(-1, keepdims=True),
                                                 1e-12)).astype(np.float32)
         out['depth_min'] = d_min
+    if mtl is not None:
+        shape = (batch, *occupancy_shape(mtl))
+        u = rng.uniform(size=shape)
+        occ = np.zeros(shape, np.uint8)
+        occ[u < OCC_UNKNOWN + OCC_OCCUPIED] = 255
+        hit = u < OCC_OCCUPIED
+        occ[hit] = rng.randint(1, mtl.occ_classes, int(hit.sum()))
+        out['gt_occ'] = occ
     return out

@@ -2,8 +2,8 @@
 on one GPU.
 
     python -m omnihd_scenes_tpu_torch.tools.profile_components \
-        [--batch 4] [--requests 3] [--int8 [--clocks] | --train] \
-        [--out profiles/profile_components.txt]
+        [--batch 4] [--requests 3] [--int8 [--clocks] | --train \
+        [--config CONFIG]] [--out profiles/profile_components.txt]
 
 Builds ``Predictor`` at the serving configuration (bf16, channels_last,
 seeded random weights; with ``--int8`` in the int8 PTQ tier, calibrated
@@ -25,8 +25,10 @@ samples, the ramp, dropped): whether the card's power limit holds the
 clock below its maximum under the kernel.
 
 With ``--train`` it profiles the training step instead: the shipped
-model (``BEVFusionConfig()``: sorted pillars) with seeded random f32
-weights under the bf16 policy, one warm-up and ``--requests`` timed steps
+model (``BEVFusionConfig()``: sorted pillars), or the model that
+``--config`` builds (e.g. ``configs/bevfusion_occ.py``, whose loss stage
+then holds the occupancy losses), with seeded random f32 weights under
+the bf16 policy, one warm-up and ``--requests`` timed steps
 of fresh synthetic batches (on the card before the timing) through
 ``make_train_step(bf16_policy(make_loss_fn_generic(...)))`` itself, given
 a ``mark`` that records a CUDA event after the forward, the loss (with
@@ -63,7 +65,9 @@ from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
                                                      random_train_batch)
 from omnihd_scenes_tpu_torch.tools.roofline import bound, conv_cost
 from omnihd_scenes_tpu_torch.train.amp import bf16_policy
-from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+from omnihd_scenes_tpu_torch.train.builder import (build_model_from_cfg,
+                                                   make_loss_fn_generic)
+from omnihd_scenes_tpu_torch.train.config import Config
 from omnihd_scenes_tpu_torch.train.loop import (batch_to, create_train_state,
                                                 make_train_step)
 from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
@@ -272,17 +276,21 @@ def kernel_lines(what, wall, kernels):
 
 def train_report(card, args):
     """Stage table and kernel profile of the b``args.batch`` train step."""
-    cfg = BEVFusionConfig()
-    model = BEVFusion(cfg)
+    if args.config:
+        model, mtype = build_model_from_cfg(Config.fromfile(args.config))
+    else:
+        model, mtype = BEVFusion(BEVFusionConfig()), 'bevfusion'
+    cfg = model.cfg
     model.load_state_dict(random_state_dict(cfg, args.seed))
     model.to('cuda', memory_format=torch.channels_last)
     state = create_train_state(model, lambda p: make_optimizer(
         p, make_lr_schedule(2e-4, 1000, warmup_iters=0)))
+    depth_range = getattr(cfg, 'fusion', cfg).lss.camera_depth_range
 
     def train_step(mark=None):
         return make_train_step(bf16_policy(make_loss_fn_generic(
-            model, 'bevfusion', cfg.pillars.anchors(),
-            camera_depth_range=cfg.lss.camera_depth_range, mark=mark)), mark)
+            model, mtype, cfg.pillars.anchors(),
+            camera_depth_range=depth_range, mark=mark)), mark)
 
     rng = np.random.RandomState(args.seed)
     batches = [batch_to(random_train_batch(rng, cfg, args.batch), 'cuda')
@@ -291,9 +299,9 @@ def train_report(card, args):
     marked = train_step(mark)
     runs = [stage_ms(lambda b=b: marked(state, b), mark)
             for b in batches[:args.requests + 1]][1:]
-    lines = [card, f'stage | mean ms | per step (b{args.batch} train step, '
-             f'bf16 policy, {args.requests} steps after a warm-up, CUDA '
-             f'events)']
+    lines = [card, f'stage | mean ms | per step (b{args.batch} {mtype} train '
+             f'step, bf16 policy, {args.requests} steps after a warm-up, '
+             f'CUDA events)']
     for name in runs[0]:
         ms = [r[name] for r in runs]
         lines.append(f'{name} | {np.mean(ms):.3f} | '
@@ -319,12 +327,17 @@ def main(argv=None):
                         'the slowest qconv launch runs back to back')
     parser.add_argument('--train', action='store_true',
                         help='profile the training step instead of serving')
+    parser.add_argument('--config',
+                        help='with --train: the config whose model to train '
+                        '(default: BEVFusionConfig())')
     parser.add_argument('--out', default='profiles/profile_components.txt')
     args = parser.parse_args(argv)
     if args.clocks and not args.int8:
         parser.error('--clocks needs --int8')
     if args.train and args.int8:
         parser.error('--train profiles the bf16 policy; no --int8')
+    if args.config and not args.train:
+        parser.error('--config needs --train')
     if not torch.cuda.is_available():
         raise SystemExit('profile_components needs a CUDA device')
 

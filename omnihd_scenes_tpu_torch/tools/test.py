@@ -1,15 +1,16 @@
 """Evaluation CLI (counterpart of ``omnihd_scenes_tpu/tools/test.py``):
 load a config and a checkpoint, run batched inference, write the
-NewScenes result JSON and/or run the devkit detection eval.
+NewScenes result JSON and/or run the devkit eval (detection, and
+occupancy for BEVFusion-OCC).
 
     python -m omnihd_scenes_tpu_torch.tools.test CONFIG CKPT_DIR_OR_FILE \\
-        [--eval] [--format-only] [--out-dir DIR] [--cfg-options k=v ...] \\
-        [--device cuda|cpu]
+        [--eval] [--format-only] [--bad-conditions] [--out-dir DIR] \\
+        [--cfg-options k=v ...] [--device cuda|cpu]
 
 It runs on one CUDA device unless ``--device cpu``.  With ``--eval`` the
-metrics are printed as JSON and written to ``<out_dir>/metrics.json``.
-``--int8``, ``--host-nms`` and ``--bad-conditions`` are not ported yet
-and are refused.
+metrics are printed as JSON and written to ``<out_dir>/metrics.json``;
+``--bad-conditions`` restricts both evals to rainy and night scenes.
+``--int8`` and ``--host-nms`` are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ import os.path as osp
 # Flags of the JAX CLI that wait for their ROADMAP items.
 UNPORTED_FLAGS = {
     'int8': 'the int8 PTQ tier of the test CLI (ROADMAP queue 1 item 3)',
-    'host_nms': 'the native host NMS (ROADMAP queue 1 item 3)',
-    'bad_conditions': 'the rainy/night eval slice (ROADMAP queue 1 item 3)'}
+    'host_nms': 'the native host NMS (ROADMAP queue 1 item 3)'}
 
 
 def parse_args(argv=None):
@@ -33,6 +33,8 @@ def parse_args(argv=None):
     p.add_argument('--eval', action='store_true',
                    help='run the devkit detection eval')
     p.add_argument('--format-only', action='store_true')
+    p.add_argument('--bad-conditions', action='store_true',
+                   help='evaluate only rainy/night scenes')
     p.add_argument('--out-dir')
     p.add_argument('--cfg-options', nargs='+')
     p.add_argument('--device', default='cuda',
@@ -90,6 +92,7 @@ def main(argv=None):
     if args.eval:
         metrics = evaluate_results(dataset, outputs, cfg.dataroot,
                                    cfg.version, cfg.eval_set, out_dir,
+                                   bad_conditions=args.bad_conditions,
                                    verbose=True)
         os.makedirs(out_dir, exist_ok=True)
         with open(osp.join(out_dir, 'metrics.json'), 'w') as f:

@@ -12,7 +12,10 @@ the config dumped beside it, seeding, resume:
 It runs on one CUDA device unless ``--device cpu``.  The steps,
 checkpoints (``<work_dir>/ckpts/ckpt_<epoch>.pt``), the JSON log
 (``<work_dir>/train.log.json``) and the periodic eval go through
-``train/loop.py:run_training``.  Pretrained-backbone and staged loading
+``train/loop.py:run_training``; a BEVFusion-OCC config
+(``model_type='bevfusion_mtl'``) adds the occupancy losses to the step
+and the occupancy metrics to the periodic eval.  Camera configs read JPEGs
+through OpenCV.  Pretrained-backbone and staged loading
 (``pretrained``, ``load_img_from``, ``load_lift_from``,
 ``load_pts_from``) are not ported and are refused when set.
 """

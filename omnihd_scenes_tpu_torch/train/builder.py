@@ -5,18 +5,22 @@ A config's ``model_type`` selects the family:
 
 - ``pointpillars`` / ``radarpillarnet``: single-modality pillar detectors
   (radar or LiDAR points);
-- ``lss`` / ``bevfusion``: the camera-only and the camera + radar fusion
-  detectors, with the depth-distribution loss when the batch has depth
-  targets.
+- ``lss`` / ``bevfusion`` / ``rcfusion``: the camera-only and the camera
+  + radar fusion detectors (RCFusion: ``rc_fusion='cross_attention'`` by
+  default), with the depth-distribution loss when the batch has depth
+  targets;
+- ``bevfusion_mtl``: BEVFusion-OCC, fusion + semantic occupancy, with
+  the occupancy losses when the batch has ``gt_occ``.
 
-``rcfusion``, ``bevfusion_mtl`` and ``bevformer`` are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+``bevformer`` is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 
 Batches are the JAX package's: ``points`` (B, P, D) and ``points_mask``
-for the point families and the fusion model; ``imgs`` (B, N, H, W, 3),
+for the point families and the fusion models; ``imgs`` (B, N, H, W, 3),
 ``img2lidar_rots`` / ``img2lidar_trans`` for the camera families;
 ``gt_boxes`` (B, G, 9), ``gt_labels``, ``gt_mask`` for training, and
-optionally ``depth_gaussian`` (B, N, fH, fW, D) with ``depth_min``.
+optionally ``depth_gaussian`` (B, N, fH, fW, D) with ``depth_min``, and
+``gt_occ`` (B, Dx, Dy, Dz).
 """
 
 from __future__ import annotations
@@ -28,22 +32,23 @@ import torch
 from torch.func import functional_call
 
 from omnihd_scenes_tpu_torch.config import (BEVFusionConfig, DecodeCfg,
-                                            LSSConfig, PointPillarsConfig)
+                                            LSSConfig, MTLConfig,
+                                            PointPillarsConfig)
 from omnihd_scenes_tpu_torch.models.anchor_head import (HeadLossConfig,
                                                         anchor_head_get_bboxes,
                                                         anchor_head_loss)
 from omnihd_scenes_tpu_torch.models.bevfusion import (BEVFusion,
                                                       depth_dist_loss)
 from omnihd_scenes_tpu_torch.models.detectors import PointPillars
+from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
+from omnihd_scenes_tpu_torch.models.occ_head import occ_head_loss
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 from omnihd_scenes_tpu_torch.weights import init_weights
 
 PILLAR_FAMILIES = ('pointpillars', 'radarpillarnet')
-CAMERA_FAMILIES = ('lss', 'bevfusion')
+CAMERA_FAMILIES = ('lss', 'bevfusion', 'rcfusion', 'bevfusion_mtl')
 FAMILIES = PILLAR_FAMILIES + CAMERA_FAMILIES
-UNPORTED = {'rcfusion': 'ROADMAP queue 1 item 5 (RCFusion)',
-            'bevfusion_mtl': 'ROADMAP queue 1 item 5 (MTL-OCC)',
-            'bevformer': 'ROADMAP queue 1 item 6 (BEVFormer-T)'}
+UNPORTED = {'bevformer': 'ROADMAP queue 1 item 6 (BEVFormer-T)'}
 
 
 def check_family(mtype: str) -> None:
@@ -80,11 +85,18 @@ def build_model_from_cfg(cfg) -> Tuple[torch.nn.Module, str]:
         return PointPillars(PointPillarsConfig(**mdict), dims), mtype
     lss_cfg = LSSConfig(**mdict.pop('lss', {}))
     pillars = PointPillarsConfig(**mdict.pop('pillars', {}))
+    occ = {k: mdict.pop(k) for k in ('occ_classes', 'occ_dz') if k in mdict}
+    task_w = mdict.pop('task_weights', (1.0, 1.0))
     if mtype == 'lss':
         mdict.setdefault('radar_stream', False)
         mdict.setdefault('lc_fusion', False)
         mdict.setdefault('se', False)
+    if mtype == 'rcfusion':
+        mdict.setdefault('rc_fusion', 'cross_attention')
     fcfg = BEVFusionConfig(lss=lss_cfg, pillars=pillars, **mdict)
+    if mtype == 'bevfusion_mtl':
+        return BEVFusionMTL(MTLConfig(fusion=fcfg, task_weights=tuple(task_w),
+                                      **occ), dims), mtype
     return BEVFusion(fcfg, dims), mtype
 
 
@@ -121,12 +133,17 @@ def forward(model, params: Optional[Mapping[str, torch.Tensor]], batch,
 def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
                          depth_loss_weight: float = 1.0,
                          camera_depth_range=(1.0, 60.0, 1.0),
+                         occ_weight: float = 1.0,
                          mark: Optional[Callable] = None) -> Callable:
     """``loss_fn(model, params, batch) -> (loss, aux)``: the anchor head's
     focal + smooth-L1 + direction losses (each sample's normalised by its
     positives, then the batch mean), plus, for the camera families,
     ``depth_loss_weight`` times the depth-distribution loss when the batch
-    has ``depth_gaussian``.
+    has ``depth_gaussian``, and for ``bevfusion_mtl`` ``occ_weight`` times
+    the occupancy losses when it has ``gt_occ`` (``loss_occ`` and
+    ``loss_ssc``, each sample's :func:`occ_head_loss`, then the batch
+    mean).  As in JAX, no caller passes ``occ_weight`` and the model's
+    ``task_weights`` are not applied.
 
     ``params`` maps the model's parameter names to the tensors the forward
     uses (``functional_call``; None: the model's own); the model's
@@ -136,7 +153,8 @@ def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
     """
     check_family(mtype)
     losses = DetectionLosses(anchors_np, depth_loss_weight,
-                             camera_depth_range)
+                             camera_depth_range,
+                             occ_weight if mtype == 'bevfusion_mtl' else None)
 
     def loss_fn(model, params: Optional[Mapping[str, torch.Tensor]], batch):
         out = forward(model, params, batch, mtype)
@@ -148,7 +166,8 @@ def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
 
 
 class DetectionLosses:
-    """``(outputs, batch) -> (total, aux)`` of the anchor families.
+    """``(outputs, batch) -> (total, aux)`` of the anchor families, with
+    the occupancy terms when ``occ_weight`` is not None.
 
     The loss terms are evaluated in at least f32: the outputs they read
     and the depth targets are upcast first (under the bf16 policy, f32
@@ -160,11 +179,12 @@ class DetectionLosses:
     """
 
     def __init__(self, anchors_np: np.ndarray, depth_loss_weight: float,
-                 camera_depth_range):
+                 camera_depth_range, occ_weight: Optional[float] = None):
         self.head_cfg = HeadLossConfig()
         self.anchors = torch.from_numpy(np.asarray(anchors_np, np.float32))
         self.depth_loss_weight = depth_loss_weight
         self.camera_depth_range = camera_depth_range
+        self.occ_weight = occ_weight
 
     @staticmethod
     def _upcast(t):
@@ -186,16 +206,26 @@ class DetectionLosses:
                                  batch['depth_min'], self.camera_depth_range)
             aux['loss_depth'] = dl
             total = total + self.depth_loss_weight * dl
+        if self.occ_weight is not None and 'gt_occ' in batch:
+            logits = up(out['occ_logits'])
+            per = [occ_head_loss(logits[i], batch['gt_occ'][i])
+                   for i in range(logits.shape[0])]
+            for k in ('loss_occ', 'loss_ssc'):
+                aux[k] = torch.stack([p[k] for p in per]).mean()
+            total = total + self.occ_weight * (aux['loss_occ']
+                                               + aux['loss_ssc'])
         return total, aux
 
 
 def make_predict_fn_generic(model, mtype: str, anchors_np: np.ndarray,
                             decode_cfg: Optional[DecodeCfg] = None
                             ) -> Callable:
-    """``predict(model, batch) -> (boxes (B, max_num, 9), scores, labels,
-    valid)``: the eval-mode forward, then decode + rotated NMS in f32 on
-    the model's device.  Batch entries may be NumPy arrays.  The JAX
-    package's ``host_nms`` (its native C++ host NMS) is not ported."""
+    """``predict(model, batch) -> ((boxes (B, max_num, 9), scores, labels,
+    valid), occ)``: the eval-mode forward, then decode + rotated NMS in f32
+    on the model's device; ``occ`` is the occupancy argmax (B, Dx, Dy, Dz)
+    for ``bevfusion_mtl`` and None for the other families.  Batch entries
+    may be NumPy arrays.  The JAX package's ``host_nms`` (its native C++
+    host NMS) is not ported."""
     check_family(mtype)
     decode_cfg = decode_cfg or DecodeCfg()
     anchors = torch.from_numpy(np.asarray(anchors_np, np.float32))
@@ -205,8 +235,10 @@ def make_predict_fn_generic(model, mtype: str, anchors_np: np.ndarray,
         model.eval()
         dev = next(model.parameters()).device
         out = model(*model_inputs(batch_to(batch, dev), mtype))
+        occ = (out['occ_logits'].argmax(-1) if mtype == 'bevfusion_mtl'
+               else None)
         return anchor_head_get_bboxes(
             out['cls_score'].float(), out['bbox_pred'].float(),
-            out['dir_pred'].float(), anchors.to(dev), decode_cfg)
+            out['dir_pred'].float(), anchors.to(dev), decode_cfg), occ
 
     return predict

@@ -40,8 +40,8 @@ def make_loss_fn(model):
 
 
 def make_predict_fn(model, decode_cfg: Optional[DecodeCfg] = None):
-    """``predict(model, batch) -> (boxes, scores, labels, valid)`` of a
-    PointPillars model."""
+    """``predict(model, batch) -> ((boxes, scores, labels, valid), None)``
+    of a PointPillars model."""
     return make_predict_fn_generic(model, 'pointpillars', model.cfg.anchors(),
                                    decode_cfg)
 

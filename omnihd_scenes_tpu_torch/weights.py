@@ -3,9 +3,13 @@
 :func:`flax_to_torch` turns flax ``{'params', 'batch_stats'}`` (NumPy or
 JAX arrays) into a ``state_dict`` of
 :class:`omnihd_scenes_tpu_torch.models.bevfusion.BEVFusion` (any of its
-ported configurations) or, given a ``PointPillarsConfig``, of
-:class:`omnihd_scenes_tpu_torch.models.detectors.PointPillars`;
-:func:`torch_to_flax` goes back.  Layouts: conv HWIO <-> OIHW;
+ported configurations, RCFusion's included), given an ``MTLConfig`` of
+:class:`omnihd_scenes_tpu_torch.models.mtl.BEVFusionMTL`, given a
+``PointPillarsConfig`` of
+:class:`omnihd_scenes_tpu_torch.models.detectors.PointPillars`, and given
+an :class:`OccHeadSpec` of a bare occupancy head of
+``models/occ_head.py``; :func:`torch_to_flax` goes back.  Layouts: conv
+HWIO <-> OIHW, 3D conv DHWIO <-> OIDHW;
 ConvTranspose (kh, kw, in, out) <-> (in, out, kh, kw) flipped in both
 spatial dims (flax's ``ConvTranspose`` does not transpose its kernel,
 torch's ``conv_transpose2d`` does); Dense (in, out) <-> (out, in); BatchNorm scale/bias/mean/var <->
@@ -26,19 +30,31 @@ in the port as ``<module>.<leaf>`` (``models/quant.py:quant_state``);
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple, Union
+import dataclasses
+from typing import Dict, Mapping, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from omnihd_scenes_tpu_torch.config import BEVFusionConfig, PointPillarsConfig
+from omnihd_scenes_tpu_torch.config import (BEVFusionConfig, MTLConfig,
+                                            PointPillarsConfig)
 from omnihd_scenes_tpu_torch.models.lss import ASPP
 from omnihd_scenes_tpu_torch.models.quant import QUANT_KEYS
 from omnihd_scenes_tpu_torch.models.resnet import ARCHS, Bottleneck
 
 FlaxPath = Tuple[str, ...]            # (collection, module, ..., leaf)
-ModelConfig = Union[BEVFusionConfig, PointPillarsConfig]
+
+
+class OccHeadSpec(NamedTuple):
+    """A bare occupancy head, the flax module at the top of its tree:
+    ``'2d'`` (``BEVOCCHead2D``) or ``'3d'`` (``BEVOCCHead3D``)."""
+
+    kind: str = '2d'
+
+
+ModelConfig = Union[BEVFusionConfig, MTLConfig, PointPillarsConfig,
+                    OccHeadSpec]
 
 
 class _NameMap:
@@ -64,6 +80,12 @@ class _NameMap:
         kind = 'ConvTranspose_0' if conv == 'deconv' else 'Conv_0'
         self.conv(f'{t}.{conv}', f + (kind,))
         self.bn(f'{t}.bn', f + ('BatchNorm_0',))
+
+    def prefixed(self, t: str, f: FlaxPath, pairs: Mapping[str, FlaxPath]):
+        """Another model's pairs under torch prefix ``t`` and flax module
+        path ``f``."""
+        for tkey, path in pairs.items():
+            self.pairs[f'{t}.{tkey}'] = (path[0],) + f + tuple(path[1:])
 
 
 def resnet_name_map(depth: int) -> Dict[str, FlaxPath]:
@@ -100,6 +122,12 @@ def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
     that build those modules."""
     if isinstance(cfg, PointPillarsConfig):
         return pointpillars_name_map(cfg)
+    if isinstance(cfg, MTLConfig):
+        return mtl_name_map(cfg)
+    if isinstance(cfg, OccHeadSpec):
+        m = _NameMap()
+        (_occ_head_2d if cfg.kind == '2d' else _occ_head_3d)(m, ())
+        return m.pairs
     m = _NameMap()
     for tkey, path in resnet_name_map(cfg.resnet_depth).items():
         m.pairs[f'resnet.{tkey}'] = (path[0], 'ResNet_0') + tuple(path[1:])
@@ -147,10 +175,71 @@ def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
     if cfg.radar_stream:
         _pillar_block(m, cfg.pillars)
     if cfg.lc_fusion and cfg.radar_stream:
-        m.conv_bn('fuse', ('ConvBNReLU_0',))
+        if cfg.rc_fusion == 'cross_attention':
+            cmf = ('CrossModalFusion_0',)
+            m.conv('fuse.att_img', cmf + ('att_img',))
+            m.conv('fuse.att_radar', cmf + ('att_radar',))
+            m.conv_bn('fuse.fuse', cmf + ('ConvBNReLU_0',))
+        else:
+            m.conv_bn('fuse', ('ConvBNReLU_0',))
         if cfg.se:
             m.conv('se.conv', ('SEBlock_0', 'Conv_0'), bias=True)
-    _head(m)
+    if cfg.with_head:
+        _head(m)
+    return m.pairs
+
+
+def _bev_encode_trunk(m: _NameMap, t: str, f: FlaxPath):
+    """``models/mtl.py:BevEncodeTrunk``; flax numbers its ConvBNReLUs and
+    BasicBlocks flat, in call order."""
+    m.conv_bn(f'{t}.stem', f + ('ConvBNReLU_0',))
+    for i in range(6):
+        t_blk = f'{t}.layer{i // 2 + 1}.{i % 2}'
+        blk = f + (f'BasicBlock_{i}',)
+        for c in range(2):
+            m.conv(f'{t_blk}.conv{c + 1}', blk + (f'Conv_{c}',))
+            m.bn(f'{t_blk}.bn{c + 1}', blk + (f'BatchNorm_{c}',))
+        if i in (2, 4):                  # the stride-2 blocks' shortcut
+            m.conv(f'{t_blk}.downsample.0', blk + ('Conv_2',))
+            m.bn(f'{t_blk}.downsample.1', blk + ('BatchNorm_2',))
+    m.conv_bn(f'{t}.up1', f + ('ConvBNReLU_1',))
+    m.conv_bn(f'{t}.up2', f + ('ConvBNReLU_2',))
+    m.conv(f'{t}.out', f + ('Conv_0',), bias=True)
+
+
+def _occ_head_2d(m: _NameMap, f: FlaxPath, t: str = ''):
+    for tk, fk in (('conv', 'Conv_0'), ('fc1', 'Dense_0'),
+                   ('fc2', 'Dense_1')):
+        m.conv(f'{t}{tk}', f + (fk,), bias=True)
+
+
+def _occ_head_3d(m: _NameMap, f: FlaxPath, t: str = ''):
+    for tk, fk in (('lift', 'Dense_0'), ('conv1', 'Conv_0'),
+                   ('conv2', 'Conv_1'), ('cls', 'Dense_1')):
+        m.conv(f'{t}{tk}', f + (fk,), bias=True)
+
+
+def mtl_name_map(cfg: MTLConfig) -> Dict[str, FlaxPath]:
+    """torch state_dict key -> flax (collection, *path) for BEVFusionMTL:
+    the fusion trunk under ``fusion``, the task trunks, ``det_head`` and
+    ``occ_head``."""
+    m = _NameMap()
+    fcfg = cfg.fusion
+    own_det_head = cfg.enable_det and cfg.trunk_mode != 'none'
+    if own_det_head:
+        fcfg = dataclasses.replace(fcfg, with_head=False)
+    m.prefixed('fusion', ('fusion',), name_map(fcfg))
+    if cfg.trunk_mode == 'shared':
+        _bev_encode_trunk(m, 'shared_trunk', ('shared_trunk',))
+    if own_det_head:
+        if cfg.trunk_mode == 'per_task':
+            _bev_encode_trunk(m, 'det_trunk', ('det_trunk',))
+        for i, name in enumerate(('conv_cls', 'conv_reg', 'conv_dir')):
+            m.conv(f'det_head.{name}', ('det_head', f'Conv_{i}'), bias=True)
+    if cfg.enable_occ:
+        if cfg.trunk_mode == 'per_task':
+            _bev_encode_trunk(m, 'occ_trunk', ('occ_trunk',))
+        _occ_head_2d(m, ('occ_head',), 'occ_head.')
     return m.pairs
 
 
@@ -195,6 +284,8 @@ def _flax_to_torch_layout(v: np.ndarray, path: FlaxPath) -> np.ndarray:
         return v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if v.ndim == 4:
         return v.transpose(3, 2, 0, 1)
+    if v.ndim == 5:
+        return v.transpose(4, 3, 0, 1, 2)
     return v.T if v.ndim == 2 else v
 
 
@@ -203,6 +294,8 @@ def _torch_to_flax_layout(v: np.ndarray, path: FlaxPath) -> np.ndarray:
         return v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     if v.ndim == 4:
         return v.transpose(2, 3, 1, 0)
+    if v.ndim == 5:
+        return v.transpose(2, 3, 4, 1, 0)
     return v.T if v.ndim == 2 else v
 
 

@@ -4,14 +4,19 @@
   ``configs/synthetic/`` (``_base_`` chains included) into the same dict
   as the JAX package's, and ``merge_from_options`` / ``dump`` agree;
 * ``build_model_from_cfg`` builds the pillar families, the camera-only
-  and the fusion model from the shipped configs, and refuses the
-  unported families by name;
+  and the fusion models (BEVFusion, RCFusion, BEVFusion-OCC) from the
+  shipped configs, and refuses BEVFormer by name;
 * ``tools.train`` then ``tools.test --eval`` run end to end with
   ``--device cpu`` on ``configs/synthetic/pointpillars_radar_synth.py``
   over a synthetic dataroot written without images: checkpoints, the JSON
   log, finite metrics; ``--resume-from`` picks up the step count;
-* the unported flags are refused, and a CUDA device that is not there is
-  an error, not a silent fallback.
+  ``--bad-conditions`` evaluates the rainy / night scenes;
+* the same on ``configs/synthetic/bevfusion_synth.py`` (BEVFusion-OCC:
+  cameras, radar, occupancy GT) over a dataroot with images: falling
+  occupancy losses, finite ``occ_IoU`` / ``occ_mIoU``, the val record
+  equal to the test CLI's metrics;
+* ``--int8`` and ``--host-nms`` are refused, and a CUDA device that is
+  not there is an error, not a silent fallback.
 """
 
 import json
@@ -26,8 +31,10 @@ from omnihd_scenes_tpu.train.config import Config as JaxConfig
 from omnihd_scenes_tpu_torch.devkit.converter import create_newscenes_infos
 from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
                                                       generate)
-from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+from omnihd_scenes_tpu_torch.models.bevfusion import (BEVFusion,
+                                                      CrossModalFusion)
 from omnihd_scenes_tpu_torch.models.detectors import PointPillars
+from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
 from omnihd_scenes_tpu_torch.tools import test as test_cli
 from omnihd_scenes_tpu_torch.tools import train as train_cli
 from omnihd_scenes_tpu_torch.train.builder import build_model_from_cfg
@@ -40,24 +47,25 @@ CONFIGS = sorted(str(p.relative_to(ROOT)) for p in
                  list((ROOT / 'configs').glob('*.py'))
                  + list((ROOT / 'configs' / 'synthetic').glob('*.py')))
 SYNTH = str(ROOT / 'configs/synthetic/pointpillars_radar_synth.py')
+MTL_SYNTH = str(ROOT / 'configs/synthetic/bevfusion_synth.py')
 BUILT = {'configs/pointpillars_radar.py': ('pointpillars', 13),
          'configs/radarpillarnet.py': ('radarpillarnet', 17),
          'configs/pointpillars_lidar.py': ('pointpillars', 9),
          'configs/synthetic/pointpillars_radar_synth.py': ('pointpillars',
                                                            13)}
-REFUSED = {'configs/rcfusion.py': 'RCFusion',
-           'configs/bevfusion_occ.py': 'MTL-OCC',
-           'configs/bevformer_t_r50.py': 'BEVFormer',
+FUSION = {'configs/rcfusion.py': ('rcfusion', BEVFusion),
+          'configs/bevfusion_occ.py': ('bevfusion_mtl', BEVFusionMTL),
+          'configs/synthetic/bevfusion_synth.py': ('bevfusion_mtl',
+                                                   BEVFusionMTL)}
+REFUSED = {'configs/bevformer_t_r50.py': 'BEVFormer',
            'configs/bevformer_t_r101.py': 'BEVFormer',
-           'configs/synthetic/bevfusion_synth.py': 'MTL-OCC',
            'configs/synthetic/bevformer_synth.py': 'BEVFormer'}
 
 
 def test_every_config_is_listed():
     assert len(CONFIGS) == 12
-    assert set(BUILT) | set(REFUSED) | {'configs/bevfusion.py',
-                                        'configs/lss_camera.py'} == set(
-        CONFIGS)
+    assert set(BUILT) | set(FUSION) | set(REFUSED) | {
+        'configs/bevfusion.py', 'configs/lss_camera.py'} == set(CONFIGS)
 
 
 @pytest.mark.parametrize('path', CONFIGS)
@@ -107,6 +115,20 @@ def test_fusion_and_camera_configs_build():
     model, mtype = build_model_from_cfg(Config.fromfile(
         str(ROOT / 'configs/lss_camera.py')))
     assert mtype == 'lss' and model.fuse is None
+
+
+@pytest.mark.parametrize('path', sorted(FUSION))
+def test_rcfusion_and_mtl_configs_build(path):
+    """RCFusion and BEVFusion-OCC, refused before their port, build with
+    their fuser and heads."""
+    model, mtype = build_model_from_cfg(Config.fromfile(str(ROOT / path)))
+    want_type, cls = FUSION[path]
+    assert mtype == want_type and isinstance(model, cls)
+    if mtype == 'rcfusion':
+        assert isinstance(model.fuse, CrossModalFusion)
+    else:
+        assert model.occ_head.fc2.out_features == 12 * 16
+        assert isinstance(model.fusion.fuse, torch.nn.Module)
 
 
 @pytest.mark.parametrize('path', sorted(REFUSED))
@@ -192,19 +214,96 @@ def test_resume(trained, dataroot, tmp_path):
     assert {'mode': 'resume', 'step': 6} in records
 
 
-@pytest.mark.parametrize('flag', ['--int8', '--host-nms',
-                                  '--bad-conditions'])
+@pytest.mark.parametrize('flag', ['--int8', '--host-nms'])
 def test_unported_test_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
         test_cli.parse_args([SYNTH, 'ckpt', '--eval', flag])
     assert 'not ported yet' in capsys.readouterr().err
 
 
-def test_camera_dataset_is_refused(dataroot, tmp_path):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        train_cli.main([str(ROOT / 'configs/lss_camera.py'), '--work-dir',
-                        str(tmp_path), '--device', 'cpu', '--cfg-options',
-                        *cfg_options(dataroot)])
+def test_bad_conditions_flag_evaluates(trained, dataroot, tmp_path):
+    """``--bad-conditions``, refused before its port: the detection eval
+    of the rainy / night val scenes (all of the synthetic val split)."""
+    work, _ = trained
+    assert test_cli.parse_args([SYNTH, 'ckpt', '--bad-conditions']
+                               ).bad_conditions
+    metrics = test_cli.main([SYNTH, os.path.join(work, 'ckpts'), '--eval',
+                             '--bad-conditions', '--out-dir',
+                             str(tmp_path), '--device', 'cpu',
+                             '--cfg-options', *cfg_options(dataroot)])
+    assert math.isfinite(metrics['mAP']) and math.isfinite(metrics['NOS'])
+
+
+@pytest.fixture(scope='module')
+def image_dataroot(tmp_path_factory):
+    """A synthetic dataroot with camera JPEGs (the port's generator, which
+    needs OpenCV for them) and its infos."""
+    pytest.importorskip('cv2')
+    root = str(tmp_path_factory.mktemp('cli_synth_images'))
+    generate(root, 'v1.0-mini', SyntheticConfig(), images=True)
+    create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
+                           max_sweeps=0)
+    return root
+
+
+def test_camera_dataset_is_refused(image_dataroot, tmp_path):
+    """The camera configs, refused before the camera data path was
+    ported, load: ``configs/lss_camera.py``'s dataset (``modality=
+    'camera'``; its depth GT off, the synthetic dataroot has none) reads
+    the synthetic JPEGs at the model's 544x960."""
+    from omnihd_scenes_tpu_torch.train.detection import build_datasets
+
+    cfg = Config.fromfile(str(ROOT / 'configs/lss_camera.py'))
+    cfg.merge_from_options(cfg_options(image_dataroot)
+                           + ['data.train.load_depth_gt=False'])
+    train_ds, _ = build_datasets(cfg)
+    sample = train_ds[0]
+    assert sample['imgs'].shape == (6, 544, 960, 3)
+    assert 'points' not in sample and 'gt_boxes' in sample
+
+
+@pytest.fixture(scope='module')
+def mtl_trained(image_dataroot, tmp_path_factory):
+    work = str(tmp_path_factory.mktemp('cli_mtl_work'))
+    state = train_cli.main([MTL_SYNTH, '--work-dir', work, '--device', 'cpu',
+                            '--cfg-options', 'eval_interval=1',
+                            *cfg_options(image_dataroot)])
+    return work, state
+
+
+def test_mtl_train_cli_logs_occupancy(mtl_trained):
+    work, state = mtl_trained
+    assert sorted(os.listdir(os.path.join(work, 'ckpts'))) == ['ckpt_1.pt']
+    records = [json.loads(line) for line in
+               open(os.path.join(work, 'train.log.json'))]
+    train = [r for r in records if r['mode'] == 'train']
+    assert len(train) == 6 and state.step == 6
+    for key in ('loss', 'loss_occ', 'loss_ssc', 'loss_cls'):
+        assert all(math.isfinite(r[key]) for r in train), key
+    for key in ('loss', 'loss_occ', 'loss_ssc'):
+        assert train[-1][key] < train[0][key], key
+    val = [r for r in records if r['mode'] == 'val']
+    assert len(val) == 1
+    assert math.isfinite(val[0]['occ_IoU'])
+    assert math.isfinite(val[0]['occ_mIoU'])
+
+
+def test_mtl_test_cli_evaluates_occupancy(mtl_trained, image_dataroot,
+                                          tmp_path):
+    work, _ = mtl_trained
+    out = str(tmp_path / 'test')
+    metrics = test_cli.main([MTL_SYNTH, os.path.join(work, 'ckpts'),
+                             '--eval', '--out-dir', out, '--device', 'cpu',
+                             '--cfg-options', *cfg_options(image_dataroot)])
+    assert json.load(open(os.path.join(out, 'metrics.json'))) == metrics
+    assert math.isfinite(metrics['occ_IoU'])
+    assert math.isfinite(metrics['occ_mIoU'])
+    assert {f'occ_cls_{i}' for i in range(1, 12)} <= set(metrics)
+    val = [json.loads(line) for line in
+           open(os.path.join(work, 'train.log.json'))
+           if '"val"' in line][0]
+    for key in ('mAP', 'NOS', 'occ_IoU', 'occ_mIoU'):
+        assert val[key] == pytest.approx(metrics[key], abs=1e-12), key
 
 
 def test_cuda_is_the_default_device(monkeypatch):

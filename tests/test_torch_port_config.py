@@ -16,6 +16,7 @@ from omnihd_scenes_tpu.models.bevfusion import (
 from omnihd_scenes_tpu.models.detectors import (
     PointPillarsConfig as JaxPointPillarsConfig)
 from omnihd_scenes_tpu.models.lss import LSSConfig as JaxLSSConfig
+from omnihd_scenes_tpu.models.mtl import MTLConfig as JaxMTLConfig
 from omnihd_scenes_tpu.train.torch_import import (
     resnet_name_map as jax_resnet_name_map)
 from omnihd_scenes_tpu.utils.rig import (
@@ -31,7 +32,8 @@ PACKAGE = pathlib.Path(__file__).resolve().parents[1] / \
 
 PAIRS = [(JaxLSSConfig, port.LSSConfig),
          (JaxPointPillarsConfig, port.PointPillarsConfig),
-         (JaxBEVFusionConfig, port.BEVFusionConfig)]
+         (JaxBEVFusionConfig, port.BEVFusionConfig),
+         (JaxMTLConfig, port.MTLConfig)]
 
 
 @pytest.mark.parametrize('jax_cls,port_cls', PAIRS,
@@ -82,6 +84,9 @@ def test_validation_matches():
     for cls in (JaxBEVFusionConfig, port.BEVFusionConfig):
         with pytest.raises(ValueError, match='remat_exclude'):
             cls(remat_exclude=('nope',))
+    for cls in (JaxMTLConfig, port.MTLConfig):
+        with pytest.raises(ValueError, match='trunk_mode'):
+            cls(trunk_mode='nope')
 
 
 def test_serving_config_is_the_bench_configuration():
@@ -92,8 +97,19 @@ def test_serving_config_is_the_bench_configuration():
         cfg, pillars=port.PointPillarsConfig()) == port.BEVFusionConfig()
 
 
+def test_rcfusion_option_builds():
+    """``rc_fusion='cross_attention'`` (RCFusion's fuser), refused until
+    its port, builds the cross-modal fuser in place of the concat conv."""
+    from omnihd_scenes_tpu_torch.models.bevfusion import CrossModalFusion
+
+    model = BEVFusion(dataclasses.replace(port.serving_config(),
+                                          rc_fusion='cross_attention'))
+    assert isinstance(model.fuse, CrossModalFusion)
+    assert model.fuse.fuse.conv.in_channels == 256 + 384
+
+
 @pytest.mark.parametrize('change', [
-    {'rc_fusion': 'cross_attention'}, {'stem_s2d': True},
+    {'rc_fusion': 'nope'}, {'stem_s2d': True},
     {'camera_stream': False},
     {'pillars': port.PointPillarsConfig(pillar_impl='dense_fold')},
     {'lss': port.LSSConfig(splat_mode='scatter')}, {'remat': True}])
@@ -115,12 +131,16 @@ def test_training_configuration_builds():
 def test_package_imports_without_jax():
     """Every module of the port imports with jax, flax, the JAX package,
     OpenCV and matplotlib blocked (the card's machine has neither of the
-    last two)."""
+    last two), the occupancy, multi-task, camera and depth modules
+    among them."""
     modules = sorted(
         'omnihd_scenes_tpu_torch.' + '.'.join(
             p.relative_to(PACKAGE).with_suffix('').parts)
         for p in PACKAGE.rglob('*.py'))
     modules = [m.removesuffix('.__init__') for m in modules]
+    assert {f'omnihd_scenes_tpu_torch.{m}' for m in (
+        'models.occ_head', 'models.mtl', 'ops.bilinear', 'eval.occupancy',
+        'data.image_loading', 'data.depth_loading')} <= set(modules)
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '
             '"omnihd_scenes_tpu", "cv2", "matplotlib"):\n'

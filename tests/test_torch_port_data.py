@@ -13,7 +13,8 @@ dataset: the generator, the info converter, the radar and LiDAR loaders,
   point shuffle and pad-or-drop) and ``TrainLoader`` / ``EvalLoader``
   batches over two epochs are bit-equal, JAX's radar sweeps on their
   NumPy path;
-* the unported camera options and the worker pool are refused.
+* the camera and occupancy options load what JAX's dataset loads;
+  training augmentation and the worker pool are refused.
 """
 
 import filecmp
@@ -241,10 +242,29 @@ def test_repeat_wrapper_matches(infos, jax_numpy_radar):
 @pytest.mark.parametrize('option', [
     {'modality': 'camera'}, {'use_camera': True}, {'load_depth_gt': True},
     {'load_occ': True}, {'aug': {'rot_scale_flip': {}}}])
-def test_camera_and_occupancy_options_are_refused(infos, option):
-    ann = os.path.join(infos['port'], 'synth_infos_temporal_train.pkl')
-    with pytest.raises(NotImplementedError, match='not ported'):
-        NewScenesDetDataset(ann_file=ann, **option)
+def test_camera_options_load_and_aug_is_refused(infos, option,
+                                                jax_numpy_radar):
+    """Training augmentation stays refused; the camera and occupancy
+    options, refused until the camera data path was ported, now give
+    samples bit-equal to JAX's (``load_depth_gt`` alone, without the
+    cameras, reads nothing, as in JAX;
+    ``tests/test_torch_port_camera_data.py`` holds the depth targets)."""
+    ann = 'synth_infos_temporal_train.pkl'
+    if 'aug' in option:
+        with pytest.raises(NotImplementedError, match='not ported'):
+            NewScenesDetDataset(ann_file=os.path.join(infos['port'], ann),
+                                **option)
+        return
+    kw = dict(max_points=300, max_gt=16, radar_sweeps=2, **option)
+    want_ds = JaxDataset(ann_file=os.path.join(infos['jax'], ann), **kw)
+    got_ds = NewScenesDetDataset(ann_file=os.path.join(infos['port'], ann),
+                                 **kw)
+    for i in (0, 5):
+        _assert_batches_equal(got_ds[i], want_ds[i])
+    keys = set(got_ds[0])
+    assert ('imgs' in keys) == ('use_camera' in option)
+    assert ('gt_occ' in keys) == ('load_occ' in option)
+    assert ('points' in keys) == (option.get('modality') != 'camera')
 
 
 def test_worker_pool_is_refused(infos):

@@ -1,5 +1,7 @@
 """The CUDA kernels (LSS sampling, int8 and bf16 3x3 convolution) against
-their plain PyTorch versions, on the card.  Every test here needs a CUDA
+their plain PyTorch versions, on the card, and small train steps (BEVFusion,
+the camera-only model, BEVFusion-OCC in each trunk mode, RCFusion, the
+pillar families) on the card against the CPU.  Every test here needs a CUDA
 device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -424,6 +426,48 @@ def _small_train_case(seed, camera_only=False):
     return cfg, sd, batch
 
 
+def _small_mtl_case(seed, mode, rc_fusion='concat'):
+    """``_small_train_case``'s model at a 16x16 BEV (1 m cells, so the
+    task trunks' stride-8 stage keeps 2x2 cells) as BEVFusion-OCC with
+    ``trunk_mode=mode`` (``mode`` None: the fusion model alone, with
+    ``rc_fusion``), and its batch with occupancy GT."""
+    import dataclasses
+
+    import numpy as np
+
+    from omnihd_scenes_tpu_torch import config as c
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_state_dict,
+                                                         random_train_batch)
+
+    base, _, _ = _small_train_case(seed)
+    cfg = dataclasses.replace(
+        base, rc_fusion=rc_fusion,
+        lss=dataclasses.replace(base.lss, grid=1.0),
+        pillars=dataclasses.replace(base.pillars, voxel_size=(0.5, 0.5, 8.0),
+                                    bev_hw=(32, 32), max_voxels=512))
+    if mode is not None:
+        cfg = c.MTLConfig(fusion=cfg, occ_dz=4, trunk_mode=mode)
+    sd = random_state_dict(cfg, seed)
+    for k in [k for k in sd if k.endswith('.running_mean')]:
+        sd[k[:-len('running_mean')] + 'bias'] += 4.0
+    batch = random_train_batch(np.random.RandomState(seed), cfg, 2,
+                               n_points=600, max_gt=8)
+    batch['gt_boxes'][..., :2] /= 5
+    return cfg, sd, batch
+
+
+@pytest.mark.parametrize('mode', ['none', 'per_task', 'shared'])
+def test_mtl_train_step_matches_the_cpu(dev, mode):
+    """BEVFusion-OCC in each trunk mode, occupancy losses included: the
+    same bounds, one LSS forward and one backward launch on the card."""
+    _train_step_on_both(dev, *_small_mtl_case(4, mode), 'bevfusion_mtl')
+
+
+def test_rcfusion_train_step_matches_the_cpu(dev):
+    _train_step_on_both(dev, *_small_mtl_case(5, None, 'cross_attention'),
+                        'rcfusion')
+
+
 def test_small_train_step_matches_the_cpu(dev):
     _train_step_on_both(dev, *_small_train_case(seed=1), 'bevfusion')
 
@@ -448,7 +492,9 @@ def test_pillar_families_on_the_card_equal_the_cpu(dev):
 
 
 def _train_step_on_both(dev, cfg, sd, batch, mtype):
+    from omnihd_scenes_tpu_torch.config import MTLConfig
     from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
     from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
     from omnihd_scenes_tpu_torch.train.loop import (create_train_state,
                                                     make_train_step)
@@ -460,7 +506,8 @@ def _train_step_on_both(dev, cfg, sd, batch, mtype):
     lr = 1e-3
     runs = {}
     for device in ('cpu', dev):
-        model = BEVFusion(cfg)
+        model = (BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig)
+                 else BEVFusion(cfg))
         model.load_state_dict(sd)
         model.to(device)
         state = create_train_state(model, lambda p: make_optimizer(
