@@ -163,6 +163,25 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    3 b4 bf16 requests of the serving configuration with the cross-modal
    fuser (ms, peak GiB, one LSS launch each), and 1 + 3 b4 bf16-policy
    steps of ``configs/rcfusion.py`` as phase 22.
+24. BEVFormer-T R50 streaming inference (``serve/predictor.py:
+   StreamPredictor``, seeded random weights with query-dependent
+   deformable offsets): (a) ``configs/synthetic/bevformer_synth.py``'s
+   model, f32, the GPU against the CPU over a 3-frame stream with a scene
+   boundary (the BEV within 1e-4 of max|ref|, decoded rows as multisets);
+   (b) ``configs/bevformer_t_r50.py`` at full width (BEV 160x240 x 256,
+   900 queries, 3 + 6 layers, 6 cameras at 544x960, R50 + one-level
+   FPN), one bf16 stream, 1 warm-up + 6 timed frames of fresh images with
+   the previous BEV carried on the card: ms per frame by CUDA events,
+   samples/s, peak GiB; the stage split by CUDA events on one more frame
+   (upload, backbone, FPN, encoder with its TSA / SCA / FFN, decoder,
+   branches, decode); multi-scale deformable attention (plain PyTorch,
+   ``F.grid_sample``) per call and per frame (3 TSA + 3 x 6 SCA + 6
+   decoder calls), each of its three shapes timed alone beside its byte
+   bound and ``F.grid_sample`` alone; the SCA cap: 0 hit queries dropped
+   on the ring rig at 0.375, the stream served at 0.375 beside 1.0; bf16
+   against an f32 stream on the same weights (BEV error, kept-box match);
+   (c) four scene-parallel bf16 streams, 1 + 3 frames, one stream at a
+   scene boundary mid-way: ms, samples/s, peak GiB in all and per stream.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -181,6 +200,7 @@ non-zero, without that line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import time
@@ -2183,6 +2203,586 @@ def phase_rcfusion(dev, card):
     return out
 
 
+BEVFORMER_SMALL = 'configs/synthetic/bevformer_synth.py'
+BEVFORMER_FULL = 'configs/bevformer_t_r50.py'
+BEVFORMER_TIMED = 6
+BEVFORMER_STREAMS = 4
+BEVFORMER_CAP = 0.375                     # the root bench's serving cap
+
+
+def _bevformer_cfg(path):
+    """The BEVFormerConfig that ``build_model_from_cfg`` builds from a
+    shipped config."""
+    from omnihd_scenes_tpu_torch.train.builder import build_model_from_cfg
+    from omnihd_scenes_tpu_torch.train.config import Config
+
+    model, mtype = build_model_from_cfg(Config.fromfile(path))
+    check(mtype == 'bevformer', f'{path} builds {mtype}')
+    return model.cfg
+
+
+def _run_stream(predictor, frames, has_prev, bev=None, timed=False):
+    """Frames through a StreamPredictor, each frame's BEV fed back on the
+    card.  Returns (the last frame's dets, its BEV, device ms per frame
+    when ``timed``, MSDA calls per frame, host ms to launch each frame
+    when ``timed``)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.ops.ms_deform_attn import (
+        multi_scale_deformable_attn as msda)
+
+    if bev is None:
+        bev = predictor.zero_bev(frames[0][0].shape[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms, calls, host = [], [], []
+    for frame, hp in zip(frames, has_prev):
+        msda.calls = 0
+        if timed:
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+        dets, bev = predictor(*frame, bev, hp)
+        if timed:
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        calls.append(msda.calls)
+    return dets, bev, ms, calls, host
+
+
+@contextlib.contextmanager
+def _decoder_positions_in_bf16(model):
+    """Control fault: each decoder layer samples the BEV at its reference
+    points rounded to bf16 (the port keeps sampling positions f32)."""
+    import torch
+
+    def pre(module, args):
+        return args[:2] + (args[2].to(torch.bfloat16).float(),) + args[3:]
+
+    handles = [layer.cross_attn.register_forward_pre_hook(pre) for layer in
+               model.pts_bbox_head.transformer.decoder.layers]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def _branches_in_fp8(model):
+    """Control fault: the class and box branches' weight matrices rounded
+    to float8 e4m3, scaled per matrix."""
+    import torch
+
+    head = model.pts_bbox_head
+    mats = [p for p in (*head.cls_branches.parameters(),
+                        *head.reg_branches.parameters()) if p.dim() == 2]
+    saved = [p.detach().clone() for p in mats]
+    with torch.no_grad():
+        for p in mats:
+            scale = p.float().abs().max() / 448
+            p.copy_((p.float() / scale).to(torch.float8_e4m3fn).float()
+                    * scale)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, w in zip(mats, saved):
+                p.copy_(w)
+
+
+# Faults that phase 24b's bf16-against-f32 check of the decoder layers must
+# see.  Its limit, HEAD_TOL, lies between the sound bf16 reading and the
+# controls': on one H100, 1.5e-2 against 6.5e-2 (fp8) and 1.6e-1 (PERF.md).
+BEVFORMER_CONTROLS = {'decoder positions in bf16': _decoder_positions_in_bf16,
+                      'branches in fp8': _branches_in_fp8}
+
+
+def _share(got, want):
+    """max|got - want| as a share of max|want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _stream_decoder(predictor, frames, has_prev, pre_hook=None):
+    """The stream through ``predictor`` -> the last frame's decoder inputs
+    (``args``), layer outputs (``hs``, B x L x nq x C) and references
+    into each layer (``refs``), the head's class scores and box codes of
+    every layer (``cls``, ``box``), decoded boxes and BEV.  ``pre_hook``
+    may replace the decoder's inputs."""
+    model = predictor.model
+    decoder = model.pts_bbox_head.transformer.decoder
+    seen = {}
+
+    def keep_decoder(module, args, out):
+        seen['args'], (seen['hs'], seen['refs']) = args, out
+
+    def keep_head(module, args, out):
+        seen['cls'], seen['box'] = out['all_cls_scores'], out['all_bbox_preds']
+
+    handles = [decoder.register_forward_hook(keep_decoder),
+               model.pts_bbox_head.register_forward_hook(keep_head)]
+    if pre_hook is not None:
+        handles.append(decoder.register_forward_pre_hook(pre_hook))
+    try:
+        seen['dets'], seen['bev'] = _run_stream(predictor, frames,
+                                                has_prev)[:2]
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def _decoder_layers_alone(model, reference, seen):
+    """Each decoder layer and branch pair of ``model`` on the inputs that
+    the f32 ``reference`` stream (``seen``) gave that layer -> the largest
+    shares of max|f32| over the layers of (the layer's output, the class
+    scores, the raw box codes).  Fed the same inputs, the layers do not
+    compound each other's rounding."""
+    import torch
+
+    head, ref_head = model.pts_bbox_head, reference.pts_bbox_head
+    dtype = head.bev_embedding.dtype
+    query, query_pos, bev, _, shapes, _ = seen['args']
+    hs, refs = seen['hs'], seen['refs']
+    errs = (0.0, 0.0, 0.0)
+    with torch.inference_mode():
+        for i, layer in enumerate(head.transformer.decoder.layers):
+            x = query if i == 0 else hs[:, i - 1]
+            out = layer(x.to(dtype), query_pos.to(dtype), bev.to(dtype),
+                        refs[:, i, :, None, :2], shapes)
+            h = hs[:, i]
+            pairs = ((out, h),
+                     (head.cls_branches[i](h.to(dtype)),
+                      ref_head.cls_branches[i](h)),
+                     (head.reg_branches[i](h.to(dtype)),
+                      ref_head.reg_branches[i](h)))
+            errs = tuple(max(e, _share(g, w))
+                         for e, (g, w) in zip(errs, pairs))
+    return errs
+
+
+def phase_bevformer_small(dev):
+    """(a) The synthetic config's model in f32 on the GPU against the CPU,
+    3 frames with a scene boundary, each side carrying its own BEV."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.serve.predictor import StreamPredictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_stream_frame)
+
+    cfg = _bevformer_cfg(BEVFORMER_SMALL)
+    sd = random_bevformer_state_dict(cfg, seed=24)
+    rng = np.random.RandomState(24)
+    frames = [random_stream_frame(rng, cfg, 2) for _ in range(3)]
+    has_prev = [np.array([False, False]), np.array([True, True]),
+                np.array([False, True])]
+    out = {}
+    for name, device in (('cpu', 'cpu'), ('gpu', dev)):
+        predictor = StreamPredictor(cfg, sd, device=device,
+                                    dtype=torch.float32)
+        bev, rows = None, []
+        for frame, hp in zip(frames, has_prev):
+            dets, bev = _run_stream(predictor, [frame], [hp], bev)[:2]
+            rows.append([t.cpu() for t in dets])
+        out[name] = (bev.cpu(), rows)
+    bev_err = float((out['gpu'][0] - out['cpu'][0]).abs().max()
+                    / out['cpu'][0].abs().max())
+    row_err = max(kept_row_distance(g, c, s)
+                  for g, c in zip(out['gpu'][1], out['cpu'][1])
+                  for s in range(2))
+    print(f'[24a BEVFormer small] {BEVFORMER_SMALL} f32, 2 streams x 3 '
+          f'frames (boundaries at frame 0 and, for stream 0, frame 2), GPU '
+          f'vs CPU: last BEV within {bev_err:.3e} of max|ref|, kept rows '
+          f'within {row_err:.3e} (limits 1e-4)')
+    check(bev_err <= 1e-4 and row_err <= 1e-4,
+          f'BEVFormer GPU vs CPU: BEV {bev_err:.3e}, rows {row_err:.3e}')
+
+
+class _StageEvents:
+    """CUDA events recorded before and after each named module's forward
+    (forward hooks): the device ms between each pair, summed per name."""
+
+    def __init__(self, modules):
+        import torch
+
+        self.events = {name: [] for name in modules}
+        self.handles = []
+        for name, mods in modules.items():
+            for m in mods:
+                self.handles.append(m.register_forward_pre_hook(
+                    lambda mod, args, name=name: self._hook(name)))
+                self.handles.append(m.register_forward_hook(
+                    lambda mod, args, out, name=name: self._hook(name)))
+        self._torch = torch
+
+    def _hook(self, name):
+        # A hook that returns a value replaces the module's inputs or
+        # outputs; this one returns None.
+        self.record(name)
+
+    def record(self, name):
+        e = self._torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events[name].append(e)
+        return e
+
+    def ms(self):
+        return {name: sum(ev[i].elapsed_time(ev[i + 1])
+                          for i in range(0, len(ev), 2))
+                for name, ev in self.events.items()}
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _msda_kind(value, shapes, loc):
+    """'TSA', 'SCA' or 'decoder' from a call's shapes."""
+    if loc.shape[4] == 8:
+        return 'SCA'
+    return 'TSA' if loc.shape[1] == value.shape[1] else 'decoder'
+
+
+def _staged_frame(predictor, frame, bev, hp, capture):
+    """One more frame with the stage events and each MSDA call between
+    two events; returns (stage ms, MSDA ms per kind, with ``capture`` a
+    copy of one call's inputs per kind)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer import attention
+
+    model = predictor.model
+    head = model.pts_bbox_head
+    layers = head.transformer.encoder.layers
+    stages = _StageEvents({
+        'backbone': [model.img_backbone], 'FPN': [model.img_neck],
+        'encoder': [head.transformer.encoder],
+        'TSA': [l.tsa for l in layers], 'SCA': [l.sca for l in layers],
+        'FFN': [l.ffn for l in layers],
+        'decoder': [head.transformer.decoder], 'head': [head],
+        '_frame': [], '_msda': []})
+    msda = attention.multi_scale_deformable_attn
+    calls, inputs = {}, {}
+
+    def timed_msda(value, shapes, loc, wgt, *args, **kw):
+        kind = _msda_kind(value, shapes, loc)
+        if capture and kind not in inputs:
+            inputs[kind] = (value.clone(), shapes, loc.clone(), wgt.clone())
+        start = stages.record('_msda')
+        out = msda(value, shapes, loc, wgt, *args, **kw)
+        calls.setdefault(kind, []).append((start, stages.record('_msda')))
+        return out
+
+    attention.multi_scale_deformable_attn = timed_msda
+    try:
+        torch.cuda.synchronize()
+        first = stages.record('_frame')
+        predictor(*frame, bev, hp)
+        last = stages.record('_frame')
+        torch.cuda.synchronize()
+    finally:
+        attention.multi_scale_deformable_attn = msda
+        stages.remove()
+    ms = stages.ms()
+    ev = stages.events
+    split = {
+        'upload': first.elapsed_time(ev['backbone'][0]),
+        'backbone': ms['backbone'], 'FPN': ms['FPN'],
+        'pre-encoder': ev['FPN'][-1].elapsed_time(ev['encoder'][0]),
+        'encoder': ms['encoder'], 'TSA': ms['TSA'], 'SCA': ms['SCA'],
+        'FFN': ms['FFN'], 'decoder': ms['decoder'],
+        'branches': ev['decoder'][-1].elapsed_time(ev['head'][-1]),
+        'decode': ev['head'][-1].elapsed_time(last),
+        'frame': first.elapsed_time(last)}
+    per_call = {k: [a.elapsed_time(b) for a, b in v]
+                for k, v in calls.items()}
+    return split, per_call, inputs
+
+
+def _msda_cost(value, shapes, loc, wgt):
+    """(operations, bytes) of one MSDA call: per sampled point 4 bilinear
+    taps of head_dim values and the weighted sum (10 f32 operations per
+    value); the value, the f32 locations and the weights read once, the
+    output written once."""
+    b, nq, nh, nl, p, _ = loc.shape
+    hd = value.shape[-1]
+    ops = 10 * b * nq * nh * nl * p * hd
+    nbytes = (value.numel() * value.element_size()
+              + loc.numel() * loc.element_size()
+              + wgt.numel() * wgt.element_size()
+              + b * nq * nh * hd * value.element_size())
+    return ops, nbytes
+
+
+def _grid_sample_ms(value, shapes, loc, wgt):
+    """``F.grid_sample`` alone on the same inputs: the sampling that the
+    plain MSDA does per level and chunk, without the weighted sum."""
+    import torch.nn.functional as F
+
+    from omnihd_scenes_tpu_torch.ops import ms_deform_attn as m
+
+    b, nq, nh, _, p, _ = loc.shape
+    hd = value.shape[-1]
+    chunk = max(256, m.CHUNK_ELEMENTS // max(b * nh * p * hd, 1))
+    levels = m._level_values(value, shapes)
+    grids = [[loc[:, s:s + chunk, :, lvl].float().permute(0, 2, 1, 3, 4)
+              .reshape(b * nh, -1, p, 2) * 2.0 - 1.0
+              for s in range(0, nq, chunk)] for lvl in range(len(levels))]
+
+    def run():
+        for v, gs in zip(levels, grids):
+            for g in gs:
+                F.grid_sample(v, g, mode='bilinear', padding_mode='zeros',
+                              align_corners=False)
+
+    return cuda_ms(run, iters=10, warmup=2)
+
+
+def _msda_table(inputs, per_call, calls_per_frame, card, label='24b MSDA'):
+    """Each MSDA shape alone: ms, the bound, plain F.grid_sample; printed
+    as one JSON line."""
+    from omnihd_scenes_tpu_torch.ops.ms_deform_attn import (
+        multi_scale_deformable_attn as msda)
+    from omnihd_scenes_tpu_torch.tools.roofline import bound
+
+    rows = {}
+    for kind in ('TSA', 'SCA', 'decoder'):
+        value, shapes, loc, wgt = inputs[kind]
+        ms = cuda_ms(lambda: msda(value, shapes, loc, wgt), iters=10,
+                     warmup=2)
+        ops, nbytes = _msda_cost(value, shapes, loc, wgt)
+        bound_ms, by = bound(ops, 'f32', nbytes)
+        rows[kind] = {
+            'value': list(value.shape), 'locations': list(loc.shape),
+            'dtype': str(value.dtype).replace('torch.', ''),
+            'calls_per_frame': len(per_call[kind]),
+            'in_frame_ms': [round(x, 4) for x in per_call[kind]],
+            'ms': ms, 'bound_ms': bound_ms, 'bound_by': by,
+            'grid_sample_ms': _grid_sample_ms(value, shapes, loc, wgt)}
+    total = sum(r['ms'] * r['calls_per_frame'] for r in rows.values())
+    print(f'[{label}] ' + json.dumps({'card': card,
+                                       'calls_per_frame': calls_per_frame,
+                                       'ms_per_frame_alone': total,
+                                       'shapes': rows}))
+    return rows
+
+
+def phase_bevformer_stream(dev, card):
+    """(b) Full width, one bf16 stream; (c) four streams."""
+    import dataclasses
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer import sca_overflow_for_rig
+    from omnihd_scenes_tpu_torch.serve.predictor import StreamPredictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_stream_frame)
+    from omnihd_scenes_tpu_torch.utils.rig import ring_rig_lidar2img
+
+    cfg = _bevformer_cfg(BEVFORMER_FULL)
+    t0 = time.perf_counter()
+    sd = random_bevformer_state_dict(cfg, seed=0)
+    predictor = StreamPredictor(cfg, sd, device=dev, dtype=torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(240)
+    n = 1 + BEVFORMER_TIMED
+    frames = [random_stream_frame(rng, cfg, 1) for _ in range(n)]
+    has_prev = [np.array([i > 0]) for i in range(n)]
+    want_calls = cfg.encoder_layers * (1 + cfg.num_cams) + cfg.decoder_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dets, bev, ms, calls, host = _run_stream(predictor, frames, has_prev,
+                                             timed=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    boxes, scores, labels, valid = dets
+    check(tuple(boxes.shape) == (1, 300, 9) and boxes.is_cuda
+          and bool(torch.isfinite(boxes).all())
+          and bool(torch.isfinite(scores).all()), 'BEVFormer decode')
+    check(tuple(bev.shape) == (1, cfg.bev_h * cfg.bev_w, cfg.embed_dims)
+          and bev.dtype == torch.bfloat16 and bev.is_cuda
+          and bool(torch.isfinite(bev).all()), 'BEVFormer BEV')
+    check(calls == [want_calls] * n,
+          f'MSDA calls per frame {calls}, not {want_calls}')
+    timed = ms[1:]
+    mean = float(np.mean(timed))
+    host_ms = float(np.mean(host[1:]))
+    print(f'[24b BEVFormer stream] {BEVFORMER_FULL} bf16, one stream, '
+          f'{BEVFORMER_TIMED} timed frames (+1 warm-up) of fresh images, '
+          f'previous BEV on the card: {mean:.2f} ms/frame by CUDA events '
+          f'({[round(x, 3) for x in timed]}), {1e3 / mean:.3f} samples/s, '
+          f'peak {peak:.2f} GiB allocated ({card}); MSDA calls per frame '
+          f'{calls[0]}; {int(valid.sum())} of 300 boxes in range; setup '
+          f'{setup_s:.1f} s')
+
+    # One frame whose inputs are already on the card, with PyTorch's
+    # synchronisation check set to raise: the forward and the decode never
+    # make the host wait for the card.
+    frame = [torch.from_numpy(x).to(dev)
+             for x in random_stream_frame(rng, cfg, 1)]
+    hp = torch.ones(1, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        predictor(*frame, bev, hp)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    del frame
+    # The first staged frame copies one call's inputs per MSDA shape (new
+    # allocations); the second, whose split is kept, allocates as the
+    # timed frames do.
+    inputs = _staged_frame(predictor, random_stream_frame(rng, cfg, 1), bev,
+                           np.array([True]), capture=True)[2]
+    split, per_call, _ = _staged_frame(
+        predictor, random_stream_frame(rng, cfg, 1), bev, np.array([True]),
+        capture=False)
+    print('[24b stage split] one more frame, ms by CUDA events (a stage\'s '
+          'time includes the card waiting for the host to launch it): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in split.items())
+          + f'; MSDA in the frame {sum(map(sum, per_call.values())):.3f} ms '
+          f'over {sum(map(len, per_call.values()))} calls; host time to '
+          f'launch a timed frame {host_ms:.2f} ms; a frame with its inputs '
+          f'on the card ran with no host synchronisation ({card})')
+    msda_rows = _msda_table(inputs, per_call, calls[0], card)
+    del inputs
+
+    l2i = ring_rig_lidar2img(img_hw=cfg.img_hw)
+    capped = dataclasses.replace(cfg, sca_query_cap=BEVFORMER_CAP)
+    overflow = sca_overflow_for_rig(capped, l2i)
+    check(overflow == 0, f'SCA cap {BEVFORMER_CAP} drops {overflow} hit '
+                         f'queries on the ring rig')
+    layers = predictor.model.pts_bbox_head.transformer.encoder.layers
+    for layer in layers:
+        layer.sca.query_cap = BEVFORMER_CAP
+    try:
+        cap_dets, cap_bev, cap_ms = _run_stream(predictor, frames,
+                                                has_prev, timed=True)[:3]
+    finally:
+        for layer in layers:
+            layer.sca.query_cap = cfg.sca_query_cap
+    cap_err = float((cap_bev.float() - bev.float()).abs().max()
+                    / bev.float().abs().max())
+    cap_match = box_match(cap_dets[0], cap_dets[2], cap_dets[3], boxes,
+                          labels, valid)
+    hits = sca_hits(cfg, l2i).tolist()
+    print(f'[24b SCA cap] ring rig, hit queries per camera {hits} of '
+          f'{cfg.bev_h * cfg.bev_w}; cap {BEVFORMER_CAP} '
+          f'(k = {int(np.ceil(cfg.bev_h * cfg.bev_w * BEVFORMER_CAP))}) '
+          f'drops {overflow}; served at {BEVFORMER_CAP}: '
+          f'{float(np.mean(cap_ms[1:])):.2f} ms/frame against '
+          f'{mean:.2f} at 1.0; last BEV within {cap_err:.3e} of max|1.0|, '
+          f'{cap_match:.4f} of its boxes matched (limits {HEAD_TOL}, '
+          f'{BOX_MATCH})')
+    check(cap_err <= HEAD_TOL and cap_match >= BOX_MATCH,
+          f'the stream served at cap {BEVFORMER_CAP} left the dense one: '
+          f'BEV {cap_err:.3e}, boxes {cap_match:.4f}')
+
+    reference = StreamPredictor(cfg, sd, device=dev, dtype=torch.float32)
+    ref = _stream_decoder(reference, frames, has_prev)
+    # The f32 decoder's own sensitivity: the same stream with only the
+    # decoder's BEV input rounded to bf16.
+    rounded = _stream_decoder(
+        reference, frames, has_prev,
+        lambda module, args: (args[:2] + (args[2].to(torch.bfloat16).float(),)
+                              + args[3:]))
+    got = _stream_decoder(predictor, frames, has_prev)
+    layer_errs = {'bf16': _decoder_layers_alone(predictor.model,
+                                                reference.model, ref)}
+    for name, fault in BEVFORMER_CONTROLS.items():
+        with fault(predictor.model):
+            layer_errs[name] = _decoder_layers_alone(predictor.model,
+                                                     reference.model, ref)
+    del reference
+    torch.cuda.empty_cache()
+    bev_err = _share(got['bev'], ref['bev'])
+    boxes, _, labels, valid = got['dets']
+    ref_boxes, _, ref_labels, ref_valid = ref['dets']
+    match = box_match(boxes, labels, valid, ref_boxes, ref_labels, ref_valid)
+
+    def first_last(run, key):
+        return ' / '.join(f'{_share(run[key][:, i], ref[key][:, i]):.3e}'
+                          for i in (0, -1))
+
+    print(f'[24b bf16 vs f32] after {n} frames, as shares of max|f32|: BEV '
+          f'{bev_err:.3e}; each decoder layer and its branches alone on the '
+          f'f32 stream\'s inputs, the largest over the layers of output / '
+          f'class scores / box codes: ' + ', '.join(
+              f'{name} ' + ' / '.join(f'{e:.3e}' for e in errs)
+              for name, errs in layer_errs.items())
+          + f' (limit {HEAD_TOL} on the BEV and the layers, which each '
+          f'control must exceed). Not checked: the streamed decoder\'s '
+          f'class scores and box codes at its first / last layer, bf16 '
+          f'{first_last(got, "cls")} and {first_last(got, "box")}, f32 with '
+          f'its BEV input rounded to bf16 {first_last(rounded, "cls")} and '
+          f'{first_last(rounded, "box")} (under random weights the '
+          f'reference refinement compounds a rounding from layer to layer); '
+          f'{match:.4f} of the {int(valid.sum())} bf16 boxes in range match '
+          f'an f32 box of the same label (rotated BEV IoU >= 0.5)')
+    check(bev_err <= HEAD_TOL and max(layer_errs['bf16']) <= HEAD_TOL,
+          f'bf16 stream against f32: BEV {bev_err:.3e}, decoder layers '
+          f'{layer_errs["bf16"]}')
+    for name in BEVFORMER_CONTROLS:
+        check(max(layer_errs[name]) > HEAD_TOL,
+              f'the control "{name}" reads {layer_errs[name]}, inside the '
+              f'limit {HEAD_TOL}: the check cannot see that fault')
+    del ref, rounded, got
+
+    b = BEVFORMER_STREAMS
+    frames = [random_stream_frame(rng, cfg, b) for _ in range(1 + N_TIMED)]
+    has_prev = [np.zeros(b, bool)] + [np.ones(b, bool)] * N_TIMED
+    has_prev[2] = np.array([True, False, True, True])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dets, bev4, ms4, calls4, host4 = _run_stream(predictor, frames,
+                                                 has_prev, timed=True)
+    peak4 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(tuple(dets[0].shape) == (b, 300, 9)
+          and bool(torch.isfinite(dets[0]).all())
+          and bool(torch.isfinite(bev4).all()), 'BEVFormer b4 outputs')
+    check(calls4 == [want_calls] * len(frames), f'b4 MSDA calls {calls4}')
+    mean4 = float(np.mean(ms4[1:]))
+    print(f'[24c BEVFormer streams] {b} scene-parallel bf16 streams, '
+          f'{N_TIMED} timed frames (+1 warm-up; stream 1 at a scene '
+          f'boundary in frame 2): {mean4:.2f} ms/frame '
+          f'({[round(x, 3) for x in ms4[1:]]}), {b * 1e3 / mean4:.3f} '
+          f'samples/s, peak {peak4:.2f} GiB allocated, {peak4 / b:.2f} GiB '
+          f'per stream; host time to launch a frame '
+          f'{float(np.mean(host4[1:])):.2f} ms ({card})')
+    # The MSDA table again with the root bench's plain init: zero offset
+    # and weight kernels, so each query samples the grid-init pattern
+    # around its reference with equal weights.
+    with torch.no_grad():
+        for name, p in predictor.model.named_parameters():
+            if name.endswith(('sampling_offsets.weight',
+                              'attention_weights.weight')):
+                p.zero_()
+    _, zero_calls, zero_inputs = _staged_frame(
+        predictor, random_stream_frame(rng, cfg, 1), bev, np.array([True]),
+        capture=True)
+    _msda_table(zero_inputs, zero_calls, calls[0], card,
+                '24b MSDA, zero offset and weight kernels')
+    del predictor, frames, zero_inputs
+    torch.cuda.empty_cache()
+    return {'b1_ms': mean, 'b1_peak': peak, 'b4_ms': mean4,
+            'b4_peak': peak4, 'split': split, 'msda': msda_rows}
+
+
+def sca_hits(cfg, lidar2img):
+    """Hit queries per camera of one rig (any z-anchor inside the image)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer.encoder import (
+        get_reference_points_3d, point_sampling)
+
+    ref = torch.from_numpy(get_reference_points_3d(
+        cfg.bev_h, cfg.bev_w, 4, cfg.pc_range[5] - cfg.pc_range[2]))
+    _, mask = point_sampling(ref, cfg.pc_range,
+                             torch.as_tensor(lidar2img)[None], cfg.img_hw)
+    return mask[0].any(-1).sum(-1)
+
+
 def main():
     card = phase_device()
     import torch
@@ -2232,6 +2832,8 @@ def main():
     mtl.update(_train_from_config(dev, card, 'configs/bevfusion_occ.py',
                                   '22 MTL train step'))
     rcf = phase_rcfusion(dev, card)
+    phase_bevformer_small(dev)
+    phase_bevformer_stream(dev, card)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or

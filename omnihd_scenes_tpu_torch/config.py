@@ -2,8 +2,9 @@
 
 The JAX dataclasses live in flax modules (``models/lss.py:35``,
 ``models/detectors.py:29``, ``models/bevfusion.py:69``,
-``models/mtl.py:83``, ``models/anchor_head.py:121``), so importing them
-would pull in flax.
+``models/mtl.py:83``, ``models/anchor_head.py:121``,
+``models/bevformer/detector.py:33``), so importing them would pull in
+flax.
 These copies keep the same fields, defaults and derived properties;
 ``tests/test_torch_port_config.py`` holds them equal field by field.
 
@@ -193,6 +194,41 @@ class MTLConfig:
         """The fusion trunk's pillar configuration (its anchors serve the
         detection head)."""
         return self.fusion.pillars
+
+
+@dataclass(frozen=True)
+class BEVFormerConfig:
+    """BEVFormer-T: ResNet + FPN image trunk, the temporal BEV encoder
+    (TSA, SCA, FFN) and the DETR decoder with its NMS-free head.
+
+    ``sca_query_cap`` < 1 serves the spatial cross-attention on a static
+    per-camera capacity of ``ceil(bev_h * bev_w * sca_query_cap)`` queries
+    (the reference's max_len rebatching); 1.0 is the masked dense form.
+    ``tsa_impl`` is kept so that configurations load, and changes nothing:
+    the port always computes the temporal self-attention as the gather
+    (grid_sample) form.  The JAX package's ``'windowed'`` dual is a TPU
+    formulation that equals the gather form while its overflow probe reads
+    0, so where JAX's probe passes, the port computes what JAX computes.
+    ``stage_with_dcn`` (R101-DCN) is refused by ``build_model_from_cfg``.
+    """
+
+    bev_h: int = 160
+    bev_w: int = 240
+    num_query: int = 900
+    num_classes: int = 4
+    embed_dims: int = 256
+    encoder_layers: int = 3
+    decoder_layers: int = 6
+    num_cams: int = 6
+    queue_length: int = 3
+    pc_range: Tuple[float, ...] = (-60, -40, -3.0, 60, 40, 5.0)
+    resnet_depth: int = 50
+    resnet_out_indices: Tuple[int, ...] = (3,)
+    stage_with_dcn: Tuple[bool, bool, bool, bool] = (False,) * 4
+    fpn_outs: int = 1
+    img_hw: Tuple[int, int] = (544, 960)
+    sca_query_cap: float = 1.0
+    tsa_impl: str = 'gather'
 
 
 class DecodeCfg(NamedTuple):

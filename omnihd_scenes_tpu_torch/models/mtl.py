@@ -30,7 +30,7 @@ from omnihd_scenes_tpu_torch.models.fpnc import resize_bilinear
 from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU
 from omnihd_scenes_tpu_torch.models.occ_head import BEVOCCHead2D
 from omnihd_scenes_tpu_torch.models.resnet import BasicBlock
-from omnihd_scenes_tpu_torch.ops.bilinear import bilinear_sample
+from omnihd_scenes_tpu_torch.ops.ms_deform_attn import bilinear_sample
 
 
 def bev_feature_slice(bev, src_grid, dst_grid):
@@ -51,7 +51,9 @@ def bev_feature_slice(bev, src_grid, dst_grid):
     px = (xs - sx0) * (1.0 / sdx) - 0.5
     py = (ys - sy0) * (1.0 / sdy) - 0.5
     gy, gx = torch.meshgrid(py, px, indexing='ij')
-    return bilinear_sample(bev, gx, gy).to(bev.dtype)
+    loc = torch.stack([gx, gy], -1).expand(bev.shape[0], h, w, 2)
+    out = bilinear_sample(bev.permute(0, 2, 3, 1), loc)     # (B, h, w, C)
+    return out.permute(0, 3, 1, 2).to(bev.dtype)
 
 
 def occupancy_shape(cfg: MTLConfig):

@@ -12,6 +12,12 @@ int8 PTQ tier (the ``bench.py --int8`` flow): :func:`calibrate` runs
 calibration then freeze and returns the quant state; ``Predictor(...,
 quant_state=state)`` serves int8, with every eligible 3x3 conv in the
 fused int8 kernel (``models/quant.py``).
+
+:class:`StreamPredictor` serves BEVFormer-T: one frame of B independent
+streams per call, the previous BEV carried from call to call (the
+counterpart of the JAX package's ``make_predict_fn_generic`` bevformer
+branch and ``make_predict_stream_batched``, ``train/builder.py:252-263,
+332-351``).
 """
 
 from __future__ import annotations
@@ -20,9 +26,12 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 
-from omnihd_scenes_tpu_torch.config import (BEVFusionConfig, DecodeCfg,
-                                            MTLConfig)
+from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
+                                            DecodeCfg, MTLConfig)
 from omnihd_scenes_tpu_torch.models.anchor_head import anchor_head_get_bboxes
+from omnihd_scenes_tpu_torch.models.bbox_coder import (NMSFreeCoderCfg,
+                                                       nms_free_decode)
+from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
 from omnihd_scenes_tpu_torch.models.quant import (load_quant_state,
@@ -114,3 +123,59 @@ def calibrate(cfg: BEVFusionConfig, state_dict: Mapping[str, torch.Tensor],
     set_mode(predictor.model, 'freeze')
     predictor.forward(*requests[-1])
     return quant_state(predictor.model)
+
+
+@torch.inference_mode()
+def predict_stream(model: BEVFormerDetector, imgs, can_bus, lidar2img,
+                   prev_bev, has_prev,
+                   coder_cfg: NMSFreeCoderCfg = NMSFreeCoderCfg()):
+    """One frame of B streams through ``model`` on its device and in its
+    dtype, then the NMS-free decode of the last decoder layer in f32.
+
+    imgs (B, N, H, W, 3); can_bus (B, 18) relative; lidar2img (B, N, 4,
+    4); prev_bev (B, bev_h * bev_w, C); has_prev (B,) bool; NumPy arrays
+    or tensors.  can_bus, lidar2img and every sampling position stay f32.
+    Returns ((boxes (B, max_num, 9), scores, labels, valid), bev_embed
+    (B, bev_h * bev_w, C)), all on the device: nothing is read back."""
+    model.eval()
+    p = model.pts_bbox_head.bev_embedding
+    dev, dtype = p.device, p.dtype
+    out = model.forward_stream(
+        _as_tensor(imgs, dev, dtype), _as_tensor(can_bus, dev, torch.float32),
+        _as_tensor(lidar2img, dev, torch.float32),
+        _as_tensor(prev_bev, dev, dtype), _as_tensor(has_prev, dev,
+                                                     torch.bool))
+    dets = nms_free_decode(out['all_cls_scores'][:, -1],
+                           out['all_bbox_preds'][:, -1], coder_cfg)
+    return dets, out['bev_embed']
+
+
+class StreamPredictor:
+    """``StreamPredictor(cfg, state_dict, device, dtype)(imgs, can_bus,
+    lidar2img, prev_bev, has_prev)`` -> ((boxes, scores, labels, valid),
+    bev_embed): :func:`predict_stream` on a ``BEVFormerDetector(cfg)``
+    with ``state_dict``, in ``dtype`` (bf16 on the card) with
+    channels_last images.  B = 1 is the latency mode; B > 1 serves B
+    independent streams per call (``has_prev`` per stream).  Pass the
+    returned ``bev_embed`` back as the next call's ``prev_bev`` and it
+    stays on the card; :meth:`zero_bev` is the state of a new stream."""
+
+    def __init__(self, cfg: BEVFormerConfig,
+                 state_dict: Mapping[str, torch.Tensor], device='cuda',
+                 dtype: torch.dtype = torch.bfloat16,
+                 coder_cfg: NMSFreeCoderCfg = NMSFreeCoderCfg()):
+        self.cfg, self.coder_cfg = cfg, coder_cfg
+        self.device, self.dtype = torch.device(device), dtype
+        model = BEVFormerDetector(cfg)
+        load_state_dict(model, state_dict)
+        self.model = model.to(device=self.device, dtype=dtype,
+                              memory_format=torch.channels_last).eval()
+
+    def zero_bev(self, batch: int) -> torch.Tensor:
+        cfg = self.cfg
+        return torch.zeros(batch, cfg.bev_h * cfg.bev_w, cfg.embed_dims,
+                           device=self.device, dtype=self.dtype)
+
+    def __call__(self, imgs, can_bus, lidar2img, prev_bev, has_prev):
+        return predict_stream(self.model, imgs, can_bus, lidar2img, prev_bev,
+                              has_prev, self.coder_cfg)

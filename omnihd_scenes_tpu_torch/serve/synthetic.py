@@ -9,10 +9,14 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-from omnihd_scenes_tpu_torch.config import BEVFusionConfig, MTLConfig
+from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
+                                            MTLConfig)
+from omnihd_scenes_tpu_torch.models.bevformer import (BEVFormerDetector,
+                                                      init_bevformer)
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL, occupancy_shape
-from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
+from omnihd_scenes_tpu_torch.utils.rig import (ring_rig_img2lidar,
+                                               ring_rig_lidar2img)
 from omnihd_scenes_tpu_torch.weights import init_weights
 
 N_POINTS = 40000
@@ -20,6 +24,9 @@ MAX_GT = 64
 # Occupancy GT shares: occupied voxels (classes 1..n_cls-1), unknown (255).
 OCC_OCCUPIED = 0.05
 OCC_UNKNOWN = 0.10
+# Spread of the seeded BEVFormer offset and weight kernels: offsets of
+# ~0.3 cells per unit of a LayerNormed 256-dim query.
+OFFSET_STD = 0.02
 
 Config = Union[BEVFusionConfig, MTLConfig]
 
@@ -110,3 +117,36 @@ def random_train_batch(rng: np.random.RandomState, cfg: Config,
         occ[hit] = rng.randint(1, mtl.occ_classes, int(hit.sum()))
         out['gt_occ'] = occ
     return out
+
+
+def random_bevformer_state_dict(cfg: BEVFormerConfig,
+                                seed: int) -> Dict[str, torch.Tensor]:
+    """A ``BEVFormerDetector(cfg)`` state_dict (CPU, f32) of flax's
+    initialisation drawn from ``seed``, with the deformable attentions'
+    offset and weight kernels drawn N(0, ``OFFSET_STD``) instead of zero,
+    so that, as in a trained model, where each query samples and how it
+    weighs its points depend on the query."""
+    gen = torch.Generator().manual_seed(seed)
+    model = init_bevformer(init_weights(BEVFormerDetector(cfg), gen), gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(('sampling_offsets.weight',
+                              'attention_weights.weight')):
+                p.copy_(torch.randn(p.shape, generator=gen) * OFFSET_STD)
+    return model.state_dict()
+
+
+def random_stream_frame(rng: np.random.RandomState, cfg: BEVFormerConfig,
+                        batch: int):
+    """One frame of ``batch`` streams for ``StreamPredictor``: N(0, 1)
+    images, a relative can_bus (a move of up to 1.5 m, a patch angle in
+    radians at ``[-2]`` and a turn of up to 3 degrees at ``[-1]``, as
+    ``StreamingEvalState`` gives them) and the ring rig's lidar2img."""
+    h, w = cfg.img_hw
+    imgs = rng.randn(batch, cfg.num_cams, h, w, 3).astype(np.float32)
+    can_bus = np.zeros((batch, 18), np.float32)
+    can_bus[:, :2] = rng.uniform(-1.5, 1.5, (batch, 2))
+    can_bus[:, -2] = rng.uniform(0.0, 2 * np.pi, batch)
+    can_bus[:, -1] = rng.uniform(-3.0, 3.0, batch)
+    l2i = np.tile(ring_rig_lidar2img(img_hw=(h, w))[None], (batch, 1, 1, 1))
+    return imgs, can_bus, l2i

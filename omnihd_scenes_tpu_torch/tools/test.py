@@ -1,7 +1,7 @@
 """Evaluation CLI (counterpart of ``omnihd_scenes_tpu/tools/test.py``):
-load a config and a checkpoint, run batched inference, write the
-NewScenes result JSON and/or run the devkit eval (detection, and
-occupancy for BEVFusion-OCC).
+load a config and a checkpoint, run batched inference (the streaming
+recurrence for BEVFormer), write the NewScenes result JSON and/or run the
+devkit eval (detection, and occupancy for BEVFusion-OCC).
 
     python -m omnihd_scenes_tpu_torch.tools.test CONFIG CKPT_DIR_OR_FILE \\
         [--eval] [--format-only] [--bad-conditions] [--out-dir DIR] \\
@@ -10,7 +10,12 @@ occupancy for BEVFusion-OCC).
 It runs on one CUDA device unless ``--device cpu``.  With ``--eval`` the
 metrics are printed as JSON and written to ``<out_dir>/metrics.json``;
 ``--bad-conditions`` restricts both evals to rainy and night scenes.
-``--int8`` and ``--host-nms`` are not ported yet and are refused.
+BEVFormer streams the dataset in order, one stream, or
+``data.samples_per_device`` scene-parallel streams; with
+``sca_query_cap < 1`` it first checks each distinct scene rig and warns
+loudly if the cap drops hit queries.  ``--int8`` is not ported yet and is
+refused; ``--host-nms`` is refused too, except for BEVFormer, whose
+NMS-free decode ignores it.
 """
 
 from __future__ import annotations
@@ -44,9 +49,56 @@ def parse_args(argv=None):
                        help=f'not ported yet: {what}')
     args = p.parse_args(argv)
     for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
+        if getattr(args, flag) and not (flag == 'host_nms'
+                                        and _is_bevformer(args.config)):
             p.error(f'--{flag.replace("_", "-")} is not ported yet: {what}')
     return args
+
+
+def _is_bevformer(config: str) -> bool:
+    from omnihd_scenes_tpu_torch.train.config import Config
+
+    return Config.fromfile(config).get('model_type') == 'bevformer'
+
+
+def sca_cap_preflight(model_cfg, dataset) -> int:
+    """Hit queries the static SCA cap drops, summed over the dataset's
+    distinct scene rigs (calibration is static within a scene); prints a
+    warning when it is not 0."""
+    from omnihd_scenes_tpu_torch.models.bevformer import sca_overflow_for_rig
+
+    checked, total = set(), 0
+    for info in dataset.infos:
+        scene = info.get('scene_token', '')
+        if scene not in checked:
+            checked.add(scene)
+            total += sca_overflow_for_rig(
+                model_cfg, dataset._load_camera(info)['lidar2img'])
+    if total > 0:
+        print(f'WARNING: sca_query_cap={model_cfg.sca_query_cap} DROPS '
+              f'{total} hit queries across {len(checked)} scene rigs -- '
+              f'results will NOT match the dense formulation. Raise '
+              f'sca_query_cap (1.0 = exact masked-dense) for this rig.')
+    return total
+
+
+def run_bevformer(args, cfg, model, dataset):
+    """The streaming eval's outputs (``data.samples_per_device``
+    scene-parallel streams, one by default)."""
+    from omnihd_scenes_tpu_torch.train.builder import make_predict_fn_generic
+    from omnihd_scenes_tpu_torch.train.eval_runner import (
+        run_streaming_inference_batched)
+
+    if args.host_nms:
+        print('--host-nms ignored: bevformer decode is NMS-free')
+    if model.cfg.sca_query_cap < 1.0:
+        sca_cap_preflight(model.cfg, dataset)
+    bev_shape = (model.cfg.bev_h * model.cfg.bev_w, model.cfg.embed_dims)
+    predict = make_predict_fn_generic(model, 'bevformer')
+    results = run_streaming_inference_batched(
+        predict, model, dataset, bev_shape,
+        int(cfg.data.get('samples_per_device', 1) or 1))
+    return {'bbox_results': results, 'occ_results': None}
 
 
 def main(argv=None):
@@ -79,10 +131,13 @@ def main(argv=None):
         params, make_lr_schedule(1e-3, 100, warmup_iters=10)))
     state = load_checkpoint(args.checkpoint, state)
 
-    predict_fn = make_predict_fn_generic(model, mtype,
-                                         anchors_for(model, mtype))
-    outputs = run_inference_generic(predict_fn, state.model, dataset,
-                                    cfg.data.samples_per_device)
+    if mtype == 'bevformer':
+        outputs = run_bevformer(args, cfg, state.model, dataset)
+    else:
+        predict_fn = make_predict_fn_generic(model, mtype,
+                                             anchors_for(model, mtype))
+        outputs = run_inference_generic(predict_fn, state.model, dataset,
+                                        cfg.data.samples_per_device)
 
     if args.format_only:
         path = dataset.format_results(outputs['bbox_results'], out_dir)

@@ -17,7 +17,8 @@ checkpoints (``<work_dir>/ckpts/ckpt_<epoch>.pt``), the JSON log
 and the occupancy metrics to the periodic eval.  Camera configs read JPEGs
 through OpenCV.  Pretrained-backbone and staged loading
 (``pretrained``, ``load_img_from``, ``load_lift_from``,
-``load_pts_from``) are not ported and are refused when set.
+``load_pts_from``) are not ported and are refused when set, as is
+BEVFormer-T training (its Hungarian-matched DETR loss).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ def main(argv=None):
     from omnihd_scenes_tpu_torch.train.amp import bf16_policy
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
                                                        build_model_from_cfg,
+                                                       check_trainable,
                                                        init_model,
                                                        make_loss_fn_generic,
                                                        make_predict_fn_generic)
@@ -81,6 +83,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_options)
+    check_trainable(cfg.get('model_type', 'pointpillars'))
     if args.work_dir:
         cfg.work_dir = args.work_dir
     unported = [k for k in ('pretrained', 'load_img_from', 'load_lift_from',

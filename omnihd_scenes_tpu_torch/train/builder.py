@@ -10,10 +10,12 @@ A config's ``model_type`` selects the family:
   default), with the depth-distribution loss when the batch has depth
   targets;
 - ``bevfusion_mtl``: BEVFusion-OCC, fusion + semantic occupancy, with
-  the occupancy losses when the batch has ``gt_occ``.
-
-``bevformer`` is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
+  the occupancy losses when the batch has ``gt_occ``;
+- ``bevformer``: BEVFormer-T, the temporal camera DETR detector, served
+  one frame per call (:func:`make_predict_fn_generic` gives the streaming
+  predict function).  Its loss waits for the training slice and raises
+  ``NotImplementedError`` naming its ROADMAP item; R101-DCN
+  (``stage_with_dcn``) is refused when built.
 
 Batches are the JAX package's: ``points`` (B, P, D) and ``points_mask``
 for the point families and the fusion models; ``imgs`` (B, N, H, W, 3),
@@ -25,38 +27,52 @@ optionally ``depth_gaussian`` (B, N, fH, fW, D) with ``depth_min``, and
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from omnihd_scenes_tpu_torch.config import (BEVFusionConfig, DecodeCfg,
-                                            LSSConfig, MTLConfig,
+from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
+                                            DecodeCfg, LSSConfig, MTLConfig,
                                             PointPillarsConfig)
 from omnihd_scenes_tpu_torch.models.anchor_head import (HeadLossConfig,
                                                         anchor_head_get_bboxes,
                                                         anchor_head_loss)
+from omnihd_scenes_tpu_torch.models.bbox_coder import NMSFreeCoderCfg
+from omnihd_scenes_tpu_torch.models.bevformer import (BEVFormerDetector,
+                                                      init_bevformer)
 from omnihd_scenes_tpu_torch.models.bevfusion import (BEVFusion,
                                                       depth_dist_loss)
 from omnihd_scenes_tpu_torch.models.detectors import PointPillars
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
 from omnihd_scenes_tpu_torch.models.occ_head import occ_head_loss
+from omnihd_scenes_tpu_torch.serve.predictor import predict_stream
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 from omnihd_scenes_tpu_torch.weights import init_weights
 
 PILLAR_FAMILIES = ('pointpillars', 'radarpillarnet')
 CAMERA_FAMILIES = ('lss', 'bevfusion', 'rcfusion', 'bevfusion_mtl')
-FAMILIES = PILLAR_FAMILIES + CAMERA_FAMILIES
-UNPORTED = {'bevformer': 'ROADMAP queue 1 item 6 (BEVFormer-T)'}
+ANCHOR_FAMILIES = PILLAR_FAMILIES + CAMERA_FAMILIES
+FAMILIES = ANCHOR_FAMILIES + ('bevformer',)
+# Families whose training is not ported yet.
+UNPORTED_TRAINING = {
+    'bevformer': 'BEVFormer-T training (Hungarian matching, the DETR loss, '
+                 'GridMask; ROADMAP queue 1 item 6)'}
 
 
 def check_family(mtype: str) -> None:
-    if mtype in UNPORTED:
-        raise NotImplementedError(f'model_type {mtype!r} is not ported yet: '
-                                  f'{UNPORTED[mtype]}')
     if mtype not in FAMILIES:
         raise ValueError(f'unknown model_type {mtype!r}')
+
+
+def check_trainable(mtype: str) -> None:
+    check_family(mtype)
+    if mtype in UNPORTED_TRAINING:
+        raise NotImplementedError(f'model_type {mtype!r}: '
+                                  f'{UNPORTED_TRAINING[mtype]} is not '
+                                  f'ported yet')
 
 
 def point_dim(ds_cfg: Mapping) -> int:
@@ -77,6 +93,8 @@ def build_model_from_cfg(cfg) -> Tuple[torch.nn.Module, str]:
     mtype = cfg.get('model_type', 'pointpillars')
     check_family(mtype)
     mdict = cfg.model.to_dict()
+    if mtype == 'bevformer':
+        return BEVFormerDetector(BEVFormerConfig(**mdict)), mtype
     train = cfg.get('data', {}).get('train', {})
     dims = point_dim(train) if train.get('modality') != 'camera' else 8
     if mtype in PILLAR_FAMILIES:
@@ -100,14 +118,19 @@ def build_model_from_cfg(cfg) -> Tuple[torch.nn.Module, str]:
     return BEVFusion(fcfg, dims), mtype
 
 
-# The JAX package's ``init_model``: seeded random weights, in place, from
-# an explicit ``torch.Generator``.
-init_model = init_weights
+def init_model(model, generator: torch.Generator):
+    """The JAX package's ``init_model``: seeded random weights, in place,
+    from an explicit ``torch.Generator`` (flax's initialisers)."""
+    init_weights(model, generator)
+    if isinstance(model, BEVFormerDetector):
+        init_bevformer(model, generator)
+    return model
 
 
 def anchors_for(model, mtype: str) -> np.ndarray:
     """(H, W, A, 9) anchor grid of an anchor-head family."""
-    check_family(mtype)
+    if mtype not in ANCHOR_FAMILIES:
+        raise ValueError(f'model_type {mtype!r} has no anchor head')
     if mtype in PILLAR_FAMILIES:
         return model.cfg.anchors()
     return model.cfg.pillars.anchors()
@@ -151,7 +174,7 @@ def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
     ``mark('forward')``, if given, is called between the forward and the
     loss (see :func:`train.loop.make_train_step`).
     """
-    check_family(mtype)
+    check_trainable(mtype)
     losses = DetectionLosses(anchors_np, depth_loss_weight,
                              camera_depth_range,
                              occ_weight if mtype == 'bevfusion_mtl' else None)
@@ -217,16 +240,25 @@ class DetectionLosses:
         return total, aux
 
 
-def make_predict_fn_generic(model, mtype: str, anchors_np: np.ndarray,
-                            decode_cfg: Optional[DecodeCfg] = None
+def make_predict_fn_generic(model, mtype: str,
+                            anchors_np: Optional[np.ndarray] = None,
+                            decode_cfg: Optional[DecodeCfg] = None,
+                            nms_free_cfg: Optional[NMSFreeCoderCfg] = None
                             ) -> Callable:
     """``predict(model, batch) -> ((boxes (B, max_num, 9), scores, labels,
     valid), occ)``: the eval-mode forward, then decode + rotated NMS in f32
     on the model's device; ``occ`` is the occupancy argmax (B, Dx, Dy, Dz)
     for ``bevfusion_mtl`` and None for the other families.  Batch entries
     may be NumPy arrays.  The JAX package's ``host_nms`` (its native C++
-    host NMS) is not ported."""
+    host NMS) is not ported.
+
+    For ``bevformer``: ``predict(model, imgs, can_bus, lidar2img,
+    prev_bev, has_prev) -> ((boxes, scores, labels, valid), bev_embed)``,
+    one frame of B streams (``serve/predictor.py:predict_stream``)."""
     check_family(mtype)
+    if mtype == 'bevformer':
+        return functools.partial(predict_stream,
+                                 coder_cfg=nms_free_cfg or NMSFreeCoderCfg())
     decode_cfg = decode_cfg or DecodeCfg()
     anchors = torch.from_numpy(np.asarray(anchors_np, np.float32))
 

@@ -12,6 +12,8 @@ from typing import Dict, List, Optional
 
 from omnihd_scenes_tpu_torch.config import DecodeCfg
 from omnihd_scenes_tpu_torch.data.dataset import NewScenesDetDataset
+from omnihd_scenes_tpu_torch.data.temporal_dataset import (
+    TemporalNewScenesDataset)
 from omnihd_scenes_tpu_torch.train.builder import (make_loss_fn_generic,
                                                    make_predict_fn_generic)
 from omnihd_scenes_tpu_torch.train.eval_runner import run_inference_generic
@@ -21,8 +23,7 @@ def build_dataset_single(ds_cfg, dataset_type: str = 'det'):
     kwargs = ds_cfg.to_dict() if hasattr(ds_cfg, 'to_dict') else dict(ds_cfg)
     kwargs.pop('wrapper', None)    # consumed by the caller (sampling.wrap_dataset)
     if dataset_type == 'temporal':
-        raise NotImplementedError('the temporal dataset is not ported yet '
-                                  '(ROADMAP queue 1 item 3)')
+        return TemporalNewScenesDataset(**kwargs)
     return NewScenesDetDataset(**kwargs)
 
 

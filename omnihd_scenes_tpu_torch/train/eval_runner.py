@@ -1,9 +1,16 @@
-"""Evaluation runner (counterpart of
-``omnihd_scenes_tpu/train/eval_runner.py``) for the anchor families:
-batched inference over a dataset, then the devkit detection eval and,
-for BEVFusion-OCC, the occupancy eval (reference
-``apis/od_occ_mtl_test.py:30-110``).  The streaming (BEVFormer) runners
-are not ported yet (ROADMAP queue 1 item 6).
+"""Evaluation runners (counterpart of
+``omnihd_scenes_tpu/train/eval_runner.py``): batched inference over a
+dataset for the anchor families, the streaming (temporal) inference of
+BEVFormer, one stream or B scene-parallel streams (reference
+``bevformer.py:270-306``), then the devkit detection eval and, for
+BEVFusion-OCC, the occupancy eval (reference
+``apis/od_occ_mtl_test.py:30-110``).
+
+The streaming runners keep each stream's previous BEV where the predict
+function leaves it (on the card for the port's); they read back only the
+decoded boxes.  The JAX package's probe of its windowed TSA dual is not
+ported: the port computes the gather form, which has no window to
+overflow.
 """
 
 from __future__ import annotations
@@ -11,8 +18,10 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+from omnihd_scenes_tpu_torch.data.temporal_dataset import StreamingEvalState
 from omnihd_scenes_tpu_torch.eval.occupancy import (evaluation_semantic,
                                                     summarize_occ_scores)
 
@@ -41,6 +50,64 @@ def run_inference_generic(predict_fn, model, dataset,
     return {'bbox_results': results,
             'occ_results': occ_results if occ_results[0] is not None
             else None}
+
+
+def run_streaming_inference(predict_stream, model, dataset,
+                            bev_shape) -> List[Dict]:
+    """BEVFormer's test-time recurrence over the dataset in (temporal)
+    order: :func:`run_streaming_inference_batched` with one stream."""
+    return run_streaming_inference_batched(predict_stream, model, dataset,
+                                           bev_shape, 1)
+
+
+def run_streaming_inference_batched(predict_stream, model, dataset,
+                                    bev_shape, batch_size: int
+                                    ) -> List[Dict]:
+    """Scene-parallel streaming eval, ``predict_stream(model, imgs,
+    can_bus, lidar2img, prev_bev, has_prev) -> (dets, bev)`` once per
+    step for all streams: ``batch_size`` independent streams,
+    each walking a contiguous block of the dataset (the reference's
+    rank-contiguous sampler layout turned into batch slots), one call per
+    step for all of them.  A stream past its block's end repeats the last
+    sample with a zero can_bus and no history, and its output is
+    dropped."""
+    n = len(dataset)
+    batch_size = max(1, min(batch_size, n))
+    per_slot = -(-n // batch_size)
+    streams = [StreamingEvalState(bev_shape) for _ in range(batch_size)]
+    results: List = [None] * n
+    dev = None                       # the device the BEVs come back on
+    for step in range(per_slot):
+        idxs, valid, imgs, cbs, l2is, hps = [], [], [], [], [], []
+        for s in range(batch_size):
+            idx = s * per_slot + step
+            ok = idx < n
+            use = idx if ok else n - 1
+            sample = dataset[use]
+            if ok:
+                cb, hp = streams[s].prepare(
+                    sample['can_bus'], dataset.infos[use]['scene_token'])
+            else:
+                cb, hp = sample['can_bus'] * 0.0, False
+            idxs.append(use)
+            valid.append(ok)
+            imgs.append(sample['imgs'])
+            cbs.append(cb)
+            l2is.append(sample['lidar2img'])
+            hps.append(hp)
+        prev = torch.stack([torch.as_tensor(st.prev_bev, device=dev)
+                            for st in streams])
+        dets, bev = predict_stream(model, np.stack(imgs), np.stack(cbs),
+                                   np.stack(l2is), prev, np.asarray(hps))
+        dev = bev.device
+        boxes, scores, labels, det_valid = (t.cpu().numpy() for t in dets)
+        for s in range(batch_size):
+            if valid[s]:
+                streams[s].update(bev[s])
+                results[idxs[s]] = {
+                    'boxes': boxes[s], 'scores': scores[s],
+                    'labels': labels[s], 'valid': det_valid[s]}
+    return results
 
 
 def bad_condition_scenes(dataset, dataroot: str, version: str) -> set:

@@ -1,6 +1,7 @@
 """Synthetic surround camera rig (counterpart of
 ``omnihd_scenes_tpu/utils/rig.py``): the geometry ``bench.py`` and the
-smoke test feed the LSS view transform.
+smoke test feed the LSS view transform (``ring_rig_img2lidar``) and
+BEVFormer's point sampling (``ring_rig_lidar2img``).
 
 Six pinhole cameras at the OmniHD-Scenes headings {0, +-55, +-125, 180}
 deg, each 1.5 m out from the origin along its heading and 1.6 m up,
@@ -29,6 +30,32 @@ def _yaw_mat(yaw_rad: float) -> np.ndarray:
     return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
 
 
+def _intrinsics(img_hw, focal_frac):
+    h, w = img_hw
+    return np.array([[focal_frac * w, 0.0, w / 2.0],
+                     [0.0, focal_frac * w, h / 2.0],
+                     [0.0, 0.0, 1.0]])
+
+
+def ring_rig_lidar2img(img_hw: Tuple[int, int] = (544, 960),
+                       yaws_deg: Sequence[float] = OMNIHD_CAMERA_YAWS,
+                       focal_frac: float = 0.8,
+                       cam_height: float = 1.6,
+                       cam_radius: float = 1.5) -> np.ndarray:
+    """(num_cam, 4, 4) float32 lidar2img of the same rig, the lidar frame
+    taken as the ego frame (x forward, y left, z up)."""
+    proj = np.eye(4)
+    proj[:3, :3] = _intrinsics(img_hw, focal_frac)
+    out = []
+    for yaw in yaws_deg:
+        cam2ego = np.eye(4)
+        cam2ego[:3, :3] = _yaw_mat(np.deg2rad(yaw)) @ _CAM_BASE
+        cam2ego[:3, 3] = _yaw_mat(np.deg2rad(yaw)) @ np.array(
+            [cam_radius, 0.0, cam_height])
+        out.append(proj @ np.linalg.inv(cam2ego))
+    return np.asarray(out, np.float32)
+
+
 def ring_rig_img2lidar(img_hw: Tuple[int, int] = (544, 960),
                        yaws_deg: Sequence[float] = OMNIHD_CAMERA_YAWS,
                        focal_frac: float = 0.8,
@@ -37,11 +64,7 @@ def ring_rig_img2lidar(img_hw: Tuple[int, int] = (544, 960),
     """(rots (N, 3, 3), trans (N, 3)) float32 in the LSS convention
     ``p_ego = rots @ (u*d, v*d, d) + trans`` (intrinsic inverse folded
     into the rotation)."""
-    h, w = img_hw
-    k = np.array([[focal_frac * w, 0.0, w / 2.0],
-                  [0.0, focal_frac * w, h / 2.0],
-                  [0.0, 0.0, 1.0]])
-    k_inv = np.linalg.inv(k)
+    k_inv = np.linalg.inv(_intrinsics(img_hw, focal_frac))
     rots, trans = [], []
     for yaw in yaws_deg:
         rot = _yaw_mat(np.deg2rad(yaw)) @ _CAM_BASE       # cam->ego

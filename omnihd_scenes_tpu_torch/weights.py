@@ -8,12 +8,18 @@ ported configurations, RCFusion's included), given an ``MTLConfig`` of
 ``PointPillarsConfig`` of
 :class:`omnihd_scenes_tpu_torch.models.detectors.PointPillars`, and given
 an :class:`OccHeadSpec` of a bare occupancy head of
-``models/occ_head.py``; :func:`torch_to_flax` goes back.  Layouts: conv
+``models/occ_head.py``, and given a ``BEVFormerConfig`` of
+:class:`omnihd_scenes_tpu_torch.models.bevformer.BEVFormerDetector`;
+:func:`torch_to_flax` goes back.  Layouts: conv
 HWIO <-> OIHW, 3D conv DHWIO <-> OIDHW;
 ConvTranspose (kh, kw, in, out) <-> (in, out, kh, kw) flipped in both
 spatial dims (flax's ``ConvTranspose`` does not transpose its kernel,
 torch's ``conv_transpose2d`` does); Dense (in, out) <-> (out, in); BatchNorm scale/bias/mean/var <->
-weight/bias/running_mean/running_var.  Each torch BatchNorm carries its
+weight/bias/running_mean/running_var; LayerNorm scale/bias <->
+weight/bias; flax ``MultiHeadDotProductAttention``'s query / key / value
+kernels (C, heads, head_dim) and biases (heads, head_dim) <-> ``Linear``
+(heads * head_dim, C) and (heads * head_dim,), its out kernel (heads,
+head_dim, C) <-> (C, heads * head_dim); embeddings as they are.  Each torch BatchNorm carries its
 flax module's epsilon (see ``models/layers.py``).  The ResNet part is the
 JAX package's ``train/torch_import.resnet_name_map``, restated here so
 the port imports nothing of the JAX package.
@@ -31,14 +37,15 @@ in the port as ``<module>.<leaf>`` (``models/quant.py:quant_state``);
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from omnihd_scenes_tpu_torch.config import (BEVFusionConfig, MTLConfig,
-                                            PointPillarsConfig)
+from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
+                                            MTLConfig, PointPillarsConfig)
+from omnihd_scenes_tpu_torch.models.bevformer.attention import NUM_HEADS
 from omnihd_scenes_tpu_torch.models.lss import ASPP
 from omnihd_scenes_tpu_torch.models.quant import QUANT_KEYS
 from omnihd_scenes_tpu_torch.models.resnet import ARCHS, Bottleneck
@@ -54,7 +61,8 @@ class OccHeadSpec(NamedTuple):
 
 
 ModelConfig = Union[BEVFusionConfig, MTLConfig, PointPillarsConfig,
-                    OccHeadSpec]
+                    OccHeadSpec, BEVFormerConfig]
+_MHA_PROJ = ('query', 'key', 'value', 'out')
 
 
 class _NameMap:
@@ -62,6 +70,9 @@ class _NameMap:
 
     def __init__(self):
         self.pairs: Dict[str, FlaxPath] = {}
+        # torch key -> heads, for flax arrays that split the features
+        # into (heads, head_dim)
+        self.heads: Dict[str, int] = {}
 
     def conv(self, t: str, f: FlaxPath, bias: bool = False):
         self.pairs[f'{t}.weight'] = ('params',) + f + ('kernel',)
@@ -80,6 +91,19 @@ class _NameMap:
         kind = 'ConvTranspose_0' if conv == 'deconv' else 'Conv_0'
         self.conv(f'{t}.{conv}', f + (kind,))
         self.bn(f'{t}.bn', f + ('BatchNorm_0',))
+
+    def mha(self, t: str, f: FlaxPath, heads: int):
+        """flax ``MultiHeadDotProductAttention``: per-head query / key /
+        value kernels and biases and out kernel; the out bias is (C,)."""
+        for name in _MHA_PROJ:
+            self.conv(f'{t}.{name}', f + (name,), bias=True)
+            self.heads[f'{t}.{name}.weight'] = heads
+            if name != 'out':
+                self.heads[f'{t}.{name}.bias'] = heads
+
+    def layer_norm(self, t: str, f: FlaxPath):
+        self.pairs[f'{t}.weight'] = ('params',) + f + ('scale',)
+        self.pairs[f'{t}.bias'] = ('params',) + f + ('bias',)
 
     def prefixed(self, t: str, f: FlaxPath, pairs: Mapping[str, FlaxPath]):
         """Another model's pairs under torch prefix ``t`` and flax module
@@ -124,6 +148,8 @@ def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
         return pointpillars_name_map(cfg)
     if isinstance(cfg, MTLConfig):
         return mtl_name_map(cfg)
+    if isinstance(cfg, BEVFormerConfig):
+        return _bevformer_map(cfg).pairs
     if isinstance(cfg, OccHeadSpec):
         m = _NameMap()
         (_occ_head_2d if cfg.kind == '2d' else _occ_head_3d)(m, ())
@@ -243,6 +269,87 @@ def mtl_name_map(cfg: MTLConfig) -> Dict[str, FlaxPath]:
     return m.pairs
 
 
+def _head_splits(cfg: ModelConfig) -> Dict[str, int]:
+    """torch key -> heads of the flax arrays that split their features
+    into (heads, head_dim) (BEVFormer's decoder self-attention)."""
+    return (_bevformer_map(cfg).heads if isinstance(cfg, BEVFormerConfig)
+            else {})
+
+
+def bevformer_name_map(cfg: BEVFormerConfig) -> Dict[str, FlaxPath]:
+    """torch state_dict key -> flax (collection, *path) for
+    BEVFormerDetector: ``img_backbone``, ``img_neck`` and
+    ``pts_bbox_head``; flax's ``nn.Sequential`` numbers its layers
+    ``layers_<i>``, as ``torch.nn.Sequential`` does."""
+    return _bevformer_map(cfg).pairs
+
+
+def _bevformer_map(cfg: BEVFormerConfig) -> _NameMap:
+    m = _NameMap()
+    m.prefixed('img_backbone', ('img_backbone',),
+               resnet_name_map(cfg.resnet_depth))
+    n_levels = len(cfg.resnet_out_indices)
+    for i in range(n_levels):
+        m.conv(f'img_neck.lateral_convs.{i}', ('img_neck', f'Conv_{i}'),
+               bias=True)
+        m.conv(f'img_neck.fpn_convs.{i}', ('img_neck', f'Conv_{n_levels + i}'),
+               bias=True)
+    t, f = 'pts_bbox_head', ('pts_bbox_head',)
+    for name in ('bev_embedding', 'query_embedding'):
+        m.pairs[f'{t}.{name}'] = ('params',) + f + (name,)
+    for name in ('row_embed', 'col_embed'):
+        m.pairs[f'{t}.positional_encoding.{name}'] = (
+            ('params',) + f + ('positional_encoding', name))
+    tt, tf = f'{t}.transformer', f + ('transformer',)
+    for name in ('cams_embeds', 'level_embeds'):
+        m.pairs[f'{tt}.{name}'] = ('params',) + tf + (name,)
+    for i in (0, 2):
+        m.conv(f'{tt}.can_bus_mlp.{i}', tf + ('can_bus_mlp', f'layers_{i}'),
+               bias=True)
+    m.conv(f'{tt}.reference_points_fc', tf + ('reference_points_fc',),
+           bias=True)
+
+    def deform(tk, fk, output_proj=True):
+        names = ('sampling_offsets', 'attention_weights', 'value_proj') \
+            + (('output_proj',) if output_proj else ())
+        for name in names:
+            m.conv(f'{tk}.{name}', fk + (name,), bias=True)
+
+    def norms_ffn(tk, fk):
+        for j in range(3):
+            m.layer_norm(f'{tk}.norm{j + 1}', fk + (f'LayerNorm_{j}',))
+        for j in range(2):
+            m.conv(f'{tk}.ffn.fc{j + 1}', fk + ('FFN_0', f'Dense_{j}'),
+                   bias=True)
+
+    for i in range(cfg.encoder_layers):
+        tk, fk = f'{tt}.encoder.layers.{i}', tf + ('encoder', f'layer_{i}')
+        deform(f'{tk}.tsa', fk + ('tsa',))
+        deform(f'{tk}.sca.deformable_attention',
+               fk + ('sca', 'deformable_attention'), output_proj=False)
+        m.conv(f'{tk}.sca.output_proj', fk + ('sca', 'output_proj'),
+               bias=True)
+        norms_ffn(tk, fk)
+    for i in range(cfg.decoder_layers):
+        tk, fk = f'{tt}.decoder.layers.{i}', tf + ('decoder', f'layer_{i}')
+        m.mha(f'{tk}.self_attn',
+              fk + ('self_attn', 'MultiHeadDotProductAttention_0'), NUM_HEADS)
+        deform(f'{tk}.cross_attn', fk + ('cross_attn',))
+        norms_ffn(tk, fk)
+    bf = f + ('branches',)
+    for lvl in range(cfg.decoder_layers):
+        for j in (0, 3, 6):
+            m.conv(f'{t}.cls_branches.{lvl}.{j}',
+                   bf + (f'cls_branches_{lvl}', f'layers_{j}'), bias=True)
+        for j in (1, 4):
+            m.layer_norm(f'{t}.cls_branches.{lvl}.{j}',
+                         bf + (f'cls_branches_{lvl}', f'layers_{j}'))
+        for j in (0, 2, 4):
+            m.conv(f'{t}.reg_branches.{lvl}.{j}',
+                   bf + (f'reg_branches_{lvl}', f'layers_{j}'), bias=True)
+    return m
+
+
 def _pillar_block(m: _NameMap, pc: PointPillarsConfig):
     """The pillar stream; flax keeps it at the top level of both
     PointPillars and BEVFusion."""
@@ -279,24 +386,39 @@ def _is_deconv(path: FlaxPath) -> bool:
     return path[-2].startswith('ConvTranspose')
 
 
-def _flax_to_torch_layout(v: np.ndarray, path: FlaxPath) -> np.ndarray:
+def _flax_to_torch_layout(v: np.ndarray, path: FlaxPath,
+                          heads: Optional[int] = None) -> np.ndarray:
+    """``heads``: the array splits its features into (heads, head_dim)."""
+    if heads:
+        if path[-1] == 'bias':
+            return v.reshape(-1)
+        if path[-2] == 'out':                     # (heads, head_dim, C)
+            return v.reshape(-1, v.shape[-1]).T
+        return v.reshape(v.shape[0], -1).T       # (C, heads, head_dim)
     if v.ndim == 4 and _is_deconv(path):
         return v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if v.ndim == 4:
         return v.transpose(3, 2, 0, 1)
     if v.ndim == 5:
         return v.transpose(4, 3, 0, 1, 2)
-    return v.T if v.ndim == 2 else v
+    return v.T if v.ndim == 2 and path[-1] == 'kernel' else v
 
 
-def _torch_to_flax_layout(v: np.ndarray, path: FlaxPath) -> np.ndarray:
+def _torch_to_flax_layout(v: np.ndarray, path: FlaxPath,
+                          heads: Optional[int] = None) -> np.ndarray:
+    if heads:
+        if path[-1] == 'bias':
+            return v.reshape(heads, -1)
+        if path[-2] == 'out':
+            return v.T.reshape(heads, -1, v.shape[0])
+        return v.T.reshape(v.shape[1], heads, -1)
     if v.ndim == 4 and _is_deconv(path):
         return v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     if v.ndim == 4:
         return v.transpose(2, 3, 1, 0)
     if v.ndim == 5:
         return v.transpose(2, 3, 4, 1, 0)
-    return v.T if v.ndim == 2 else v
+    return v.T if v.ndim == 2 and path[-1] == 'kernel' else v
 
 
 def flax_to_torch(variables, cfg: ModelConfig,
@@ -304,13 +426,15 @@ def flax_to_torch(variables, cfg: ModelConfig,
                   ) -> Dict[str, torch.Tensor]:
     """Flax ``{'params', 'batch_stats'}`` -> torch state_dict (f32)."""
     sd = {}
+    heads = _head_splits(cfg)
     for tkey, path in name_map(cfg).items():
         if path[0] not in collections:
             continue
         v = variables
         for k in path:
             v = v[k]
-        v = _flax_to_torch_layout(np.asarray(v, np.float32), path)
+        v = _flax_to_torch_layout(np.asarray(v, np.float32), path,
+                                  heads.get(tkey))
         sd[tkey] = torch.from_numpy(v.copy(order='C'))
     return sd
 
@@ -326,12 +450,14 @@ def flax_tree_to_torch(tree, cfg: ModelConfig,
 def torch_to_flax(state_dict, cfg: ModelConfig) -> Dict:
     """Torch state_dict -> flax ``{'params', 'batch_stats'}`` (NumPy)."""
     out: Dict = {}
+    heads = _head_splits(cfg)
     for tkey, path in name_map(cfg).items():
         v = state_dict[tkey].detach().cpu().float().numpy()
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _torch_to_flax_layout(v, path).copy(order='C')
+        node[path[-1]] = _torch_to_flax_layout(
+            v, path, heads.get(tkey)).copy(order='C')
     return out
 
 

@@ -4,8 +4,9 @@
   ``configs/synthetic/`` (``_base_`` chains included) into the same dict
   as the JAX package's, and ``merge_from_options`` / ``dump`` agree;
 * ``build_model_from_cfg`` builds the pillar families, the camera-only
-  and the fusion models (BEVFusion, RCFusion, BEVFusion-OCC) from the
-  shipped configs, and refuses BEVFormer by name;
+  and the fusion models (BEVFusion, RCFusion, BEVFusion-OCC) and
+  BEVFormer-T R50 from the shipped configs, and refuses R101-DCN naming
+  DCN (``tests/test_torch_port_temporal.py`` runs the BEVFormer eval);
 * ``tools.train`` then ``tools.test --eval`` run end to end with
   ``--device cpu`` on ``configs/synthetic/pointpillars_radar_synth.py``
   over a synthetic dataroot written without images: checkpoints, the JSON
@@ -15,8 +16,9 @@
   cameras, radar, occupancy GT) over a dataroot with images: falling
   occupancy losses, finite ``occ_IoU`` / ``occ_mIoU``, the val record
   equal to the test CLI's metrics;
-* ``--int8`` and ``--host-nms`` are refused, and a CUDA device that is
-  not there is an error, not a silent fallback.
+* ``--int8`` and ``--host-nms`` are refused (``--host-nms`` is ignored
+  for BEVFormer, whose decode is NMS-free), and a CUDA device that is not
+  there is an error, not a silent fallback.
 """
 
 import json
@@ -31,6 +33,7 @@ from omnihd_scenes_tpu.train.config import Config as JaxConfig
 from omnihd_scenes_tpu_torch.devkit.converter import create_newscenes_infos
 from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
                                                       generate)
+from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
 from omnihd_scenes_tpu_torch.models.bevfusion import (BEVFusion,
                                                       CrossModalFusion)
 from omnihd_scenes_tpu_torch.models.detectors import PointPillars
@@ -57,14 +60,18 @@ FUSION = {'configs/rcfusion.py': ('rcfusion', BEVFusion),
           'configs/bevfusion_occ.py': ('bevfusion_mtl', BEVFusionMTL),
           'configs/synthetic/bevfusion_synth.py': ('bevfusion_mtl',
                                                    BEVFusionMTL)}
-REFUSED = {'configs/bevformer_t_r50.py': 'BEVFormer',
-           'configs/bevformer_t_r101.py': 'BEVFormer',
-           'configs/synthetic/bevformer_synth.py': 'BEVFormer'}
+# BEVFormer-T: (BEV, embed dims, queries, encoder / decoder layers,
+# cameras, image, ResNet depth).
+BEVFORMER = {'configs/bevformer_t_r50.py': ((160, 240), 256, 900, (3, 6), 6,
+                                            (544, 960), 50),
+             'configs/synthetic/bevformer_synth.py': ((16, 24), 64, 32, (1, 2),
+                                                      6, (128, 192), 18)}
+REFUSED = {'configs/bevformer_t_r101.py': 'stage_with_dcn.*DCN'}
 
 
 def test_every_config_is_listed():
     assert len(CONFIGS) == 12
-    assert set(BUILT) | set(FUSION) | set(REFUSED) | {
+    assert set(BUILT) | set(FUSION) | set(BEVFORMER) | set(REFUSED) | {
         'configs/bevfusion.py', 'configs/lss_camera.py'} == set(CONFIGS)
 
 
@@ -131,10 +138,41 @@ def test_rcfusion_and_mtl_configs_build(path):
         assert isinstance(model.fusion.fuse, torch.nn.Module)
 
 
+@pytest.mark.parametrize('path', sorted(BEVFORMER))
+def test_bevformer_configs_build(path):
+    """BEVFormer-T, refused before its port, builds at the config's widths:
+    ResNet (frozen BN, stage 3 out) + a one-level FPN + the temporal
+    head."""
+    model, mtype = build_model_from_cfg(Config.fromfile(str(ROOT / path)))
+    assert mtype == 'bevformer' and isinstance(model, BEVFormerDetector)
+    bev, dims, queries, (n_enc, n_dec), cams, img_hw, depth = BEVFORMER[path]
+    cfg = model.cfg
+    assert ((cfg.bev_h, cfg.bev_w), cfg.embed_dims, cfg.num_query,
+            cfg.num_cams, cfg.img_hw, cfg.resnet_depth) == (
+        bev, dims, queries, cams, img_hw, depth)
+    head = model.pts_bbox_head
+    assert head.bev_embedding.shape == (bev[0] * bev[1], dims)
+    assert len(head.transformer.encoder.layers) == n_enc
+    assert len(head.transformer.decoder.layers) == n_dec
+    assert model.img_neck.lateral_convs[0].in_channels == (
+        2048 if depth == 50 else 512)
+    assert cfg.sca_query_cap == 1.0 and cfg.tsa_impl == 'gather'
+
+
 @pytest.mark.parametrize('path', sorted(REFUSED))
 def test_unported_families_are_refused(path):
+    """R101-DCN: its DCNv2 stages wait for their slice."""
     with pytest.raises(NotImplementedError, match=REFUSED[path]):
         build_model_from_cfg(Config.fromfile(str(ROOT / path)))
+
+
+def test_bevformer_training_is_refused(dataroot):
+    """The BEVFormer-T training slice (Hungarian matching, the DETR loss)
+    is not ported: ``tools.train`` refuses it by name."""
+    with pytest.raises(NotImplementedError, match='BEVFormer-T training'):
+        train_cli.main([str(ROOT / 'configs/synthetic/bevformer_synth.py'),
+                        '--device', 'cpu', '--cfg-options',
+                        *cfg_options(dataroot)])
 
 
 @pytest.fixture(scope='module')

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 
 from omnihd_scenes_tpu.models.anchor_head import DecodeCfg as JaxDecodeCfg
+from omnihd_scenes_tpu.models.bevformer.detector import (
+    BEVFormerConfig as JaxBEVFormerConfig)
 from omnihd_scenes_tpu.models.bevfusion import (
     BEVFusionConfig as JaxBEVFusionConfig)
 from omnihd_scenes_tpu.models.detectors import (
@@ -20,10 +22,12 @@ from omnihd_scenes_tpu.models.mtl import MTLConfig as JaxMTLConfig
 from omnihd_scenes_tpu.train.torch_import import (
     resnet_name_map as jax_resnet_name_map)
 from omnihd_scenes_tpu.utils.rig import (
-    ring_rig_img2lidar as jax_ring_rig_img2lidar)
+    ring_rig_img2lidar as jax_ring_rig_img2lidar,
+    ring_rig_lidar2img as jax_ring_rig_lidar2img)
 from omnihd_scenes_tpu_torch import config as port
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
-from omnihd_scenes_tpu_torch.utils.rig import ring_rig_img2lidar
+from omnihd_scenes_tpu_torch.utils.rig import (ring_rig_img2lidar,
+                                               ring_rig_lidar2img)
 from omnihd_scenes_tpu_torch.weights import resnet_name_map
 from tests.test_torch_port_weights import JAX_MINI_CFG, PORT_MINI_CFG
 
@@ -33,7 +37,8 @@ PACKAGE = pathlib.Path(__file__).resolve().parents[1] / \
 PAIRS = [(JaxLSSConfig, port.LSSConfig),
          (JaxPointPillarsConfig, port.PointPillarsConfig),
          (JaxBEVFusionConfig, port.BEVFusionConfig),
-         (JaxMTLConfig, port.MTLConfig)]
+         (JaxMTLConfig, port.MTLConfig),
+         (JaxBEVFormerConfig, port.BEVFormerConfig)]
 
 
 @pytest.mark.parametrize('jax_cls,port_cls', PAIRS,
@@ -66,8 +71,13 @@ def test_derived_properties(which):
 
 @pytest.mark.parametrize('img_hw', [(544, 960), (64, 112)])
 def test_ring_rig_matches_jax(img_hw):
-    for got, want in zip(ring_rig_img2lidar(img_hw=img_hw),
-                         jax_ring_rig_img2lidar(img_hw=img_hw)):
+    """Both forms of the rig: the LSS (rots, trans) and BEVFormer's
+    lidar2img."""
+    pairs = list(zip(ring_rig_img2lidar(img_hw=img_hw),
+                     jax_ring_rig_img2lidar(img_hw=img_hw)))
+    pairs.append((ring_rig_lidar2img(img_hw=img_hw),
+                  jax_ring_rig_lidar2img(img_hw=img_hw)))
+    for got, want in pairs:
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
 
@@ -139,8 +149,10 @@ def test_package_imports_without_jax():
         for p in PACKAGE.rglob('*.py'))
     modules = [m.removesuffix('.__init__') for m in modules]
     assert {f'omnihd_scenes_tpu_torch.{m}' for m in (
-        'models.occ_head', 'models.mtl', 'ops.bilinear', 'eval.occupancy',
-        'data.image_loading', 'data.depth_loading')} <= set(modules)
+        'models.occ_head', 'models.mtl', 'ops.ms_deform_attn',
+        'eval.occupancy', 'data.image_loading', 'data.depth_loading',
+        'models.bevformer.detector', 'data.temporal_dataset')} <= set(
+            modules)
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '
             '"omnihd_scenes_tpu", "cv2", "matplotlib"):\n'

@@ -749,3 +749,51 @@ def test_qconv2d_int8_on_the_card_equals_the_cpu(dev, dtype, stride,
         tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
         assert float((got - want).abs().max()) <= tol * float(
             want.abs().max())
+
+
+@pytest.mark.parametrize('shape', ['tsa', 'sca', 'multi_level'])
+def test_msda_on_the_card_equals_the_cpu(dev, shape):
+    """Multi-scale deformable attention (plain PyTorch, ``F.grid_sample``)
+    on the card against the same function on the CPU, in f32 with TF32
+    off (within 1e-5 of max|ref|), chunked and whole, and in bf16 (the
+    sampling positions f32 on both: within 1 bf16 ulp of the CPU's
+    result); its bilinear sampler at borders and outside the map too."""
+    from omnihd_scenes_tpu_torch.ops.ms_deform_attn import (
+        bilinear_sample, multi_scale_deformable_attn)
+
+    b, nq, p, shapes = {'tsa': (2, 3000, 4, ((40, 60),)),
+                        'sca': (1, 3000, 8, ((17, 30),)),
+                        'multi_level': (2, 500, 3, ((9, 13), (1, 5)))}[shape]
+    gen = torch.Generator().manual_seed(7)
+    s = sum(h * w for h, w in shapes)
+    value = torch.randn(b, s, 8, 32, generator=gen)
+    loc = torch.rand(b, nq, 8, len(shapes), p, 2, generator=gen) * 1.4 - 0.2
+    wgt = torch.softmax(torch.randn(b, nq, 8, len(shapes) * p,
+                                    generator=gen), -1).reshape(
+        b, nq, 8, len(shapes), p)
+    allow = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = multi_scale_deformable_attn(value, shapes, loc, wgt)
+        for chunk in (None, 700):
+            got = multi_scale_deformable_attn(
+                value.to(dev), shapes, loc.to(dev), wgt.to(dev),
+                query_chunk=chunk).cpu()
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+        v16, w16 = value.bfloat16(), wgt.bfloat16()
+        want16 = multi_scale_deformable_attn(v16, shapes, loc, w16).float()
+        got16 = multi_scale_deformable_attn(v16.to(dev), shapes, loc.to(dev),
+                                            w16.to(dev)).cpu().float()
+        assert float((got16 - want16).abs().max()) <= 2.0 ** -7 * float(
+            want16.abs().max())
+        h, w = shapes[0]
+        grid = value[:, :h * w, 0].reshape(b, h, w, 32)
+        pix = torch.rand(b, 500, 2, generator=gen) * torch.tensor(
+            [w + 2.0, h + 2.0]) - 1.5
+        torch.testing.assert_close(
+            bilinear_sample(grid.to(dev), pix.to(dev)).cpu(),
+            bilinear_sample(grid, pix), rtol=0, atol=1e-5)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
