@@ -182,12 +182,40 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    against an f32 stream on the same weights (BEV error, kept-box match);
    (c) four scene-parallel bf16 streams, 1 + 3 frames, one stream at a
    scene boundary mid-way: ms, samples/s, peak GiB in all and per stream.
+25. BEVFormer-T training: (a) one step of the synthetic config's model
+   (B=2 queues of 2 frames, 10 of 16 GTs) on the CPU in f64, then in f32
+   on the CPU and twice on the card, TF32 off, each f32 step taking the
+   f64 step's side at every ReLU and max-pool: the card's matches of
+   every decoder layer equal to the CPU's, its loss within 1e-5, each
+   gradient leaf within GRAD_SHARE of its max|CPU f32|, the two card runs
+   equal in matches and losses; printed beside it, the sides the CPU's
+   f32 step takes on its own and their cost against the f64 step; (b)
+   ``configs/bevformer_t_r50.py`` at full width under the bf16 policy
+   with AdamW + clip 35, B=1, 1 warm-up and 3 timed steps of fresh
+   ``random_queue_batch`` queues (40 of 128 GTs): ms per step by CUDA
+   events, samples/s, peak GiB, finite losses and parameters; the
+   split of one more step (history replay, last-frame forward, matching
+   with its host ms, loss, backward, optimizer); the host syncs of one
+   more step under ``torch.cuda.set_sync_debug_mode('warn')``: exactly
+   one, the matcher's copy of the costs;
+26. R101-DCN: (a) the synthetic model with DCNv2 on stages 3-4 and
+   offset-conv biases over +-2 pixels (taps leave the maps), f32: one
+   frame's BEV on the card within 1e-4 of max|CPU|, and one train step
+   held as in 25a; (b) ``configs/bevformer_t_r101.py`` at full width
+   (ResNet-101, 26 DCN layers, 6 x 864x1536), one bf16 stream of 1 + 6
+   frames: ms per frame, samples/s, peak GiB, a frame under
+   ``set_sync_debug_mode('error')``, the stage split with the DCN layers'
+   ms, and each DCN layer shape alone beside its bound (JSON); then the
+   frames, the split and the shapes again at the init's zero offset
+   convs.  No hand kernel lies on either path: phases 25 and 26 check
+   that none launched.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
 training phase's for the LSS backward, and for the LSS kernels also the
 camera-only path's (phase 18), BEVFusion-OCC's (phases 21-22) and
-RCFusion's (phase 23), error against the plain version, kernel / plain /
+RCFusion's (phase 23), 0 on BEVFormer-T's training run (phase 25b) and
+R101-DCN's stream (26b), error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
 bytes it must move, each needed input element read once and each output
@@ -2446,10 +2474,11 @@ def _msda_kind(value, shapes, loc):
     return 'TSA' if loc.shape[1] == value.shape[1] else 'decoder'
 
 
-def _staged_frame(predictor, frame, bev, hp, capture):
+def _staged_frame(predictor, frame, bev, hp, capture, extra=None):
     """One more frame with the stage events and each MSDA call between
     two events; returns (stage ms, MSDA ms per kind, with ``capture`` a
-    copy of one call's inputs per kind)."""
+    copy of one call's inputs per kind).  ``extra`` names more stages
+    (name -> modules), whose summed ms join the split."""
     import torch
 
     from omnihd_scenes_tpu_torch.models.bevformer import attention
@@ -2463,7 +2492,7 @@ def _staged_frame(predictor, frame, bev, hp, capture):
         'TSA': [l.tsa for l in layers], 'SCA': [l.sca for l in layers],
         'FFN': [l.ffn for l in layers],
         'decoder': [head.transformer.decoder], 'head': [head],
-        '_frame': [], '_msda': []})
+        **(extra or {}), '_frame': [], '_msda': []})
     msda = attention.multi_scale_deformable_attn
     calls, inputs = {}, {}
 
@@ -2496,6 +2525,7 @@ def _staged_frame(predictor, frame, bev, hp, capture):
         'FFN': ms['FFN'], 'decoder': ms['decoder'],
         'branches': ev['decoder'][-1].elapsed_time(ev['head'][-1]),
         'decode': ev['head'][-1].elapsed_time(last),
+        **{name: ms[name] for name in extra or {}},
         'frame': first.elapsed_time(last)}
     per_call = {k: [a.elapsed_time(b) for a, b in v]
                 for k, v in calls.items()}
@@ -2769,6 +2799,596 @@ def phase_bevformer_stream(dev, card):
             'b4_peak': peak4, 'split': split, 'msda': msda_rows}
 
 
+BEVFORMER_R101 = 'configs/bevformer_t_r101.py'
+DCN_STAGES = (False, False, True, True)
+QUEUE_GT = 40                  # valid GTs of 128 per full-width sample
+# Phases 25a / 26a hold each gradient leaf of the card's f32 step to the
+# CPU's f32 step within this share of the leaf's max|CPU|.  A ReLU input or
+# a max-pool window within an f32 rounding of its kink can fall on either
+# side in two f32 runs, and the side moves the gradient of everything
+# upstream: at 26a's weights the CPU's f32 step cuts ReLU units whose f64
+# input is ~1e-6, and its gradient then differs from the card's by 4.3e-2
+# of a leaf's max.  So both f32 steps take the side that the CPU's f64
+# step took at every ReLU and max-pool of the forward with gradients
+# (``_kink_sides``), and the phase prints how many sides the CPU's f32
+# step takes otherwise and what that costs.  The decoder self-attention's
+# key biases, whose gradient is 0 in exact arithmetic (the softmax removes
+# a bias common to every key), are held within 1e-6 of the gradient's
+# largest element instead.
+GRAD_SHARE = 1e-3
+
+
+def _kernel_launches():
+    """The launch count of every hand kernel's wrapper."""
+    from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample, lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
+
+    return {'lss_sample': lss_sample_bev, 'lss_sample_backward':
+            lss_sample_bev_backward, 'lss_sample_fields_in': lss_sample,
+            'qconv': qconv3x3, 'bconv': bconv3x3}
+
+
+def _zero_launches():
+    for fn in _kernel_launches().values():
+        fn.launches = 0
+
+
+def _read_launches():
+    return {name: fn.launches for name, fn in _kernel_launches().items()}
+
+
+class _MatchProbe:
+    """Wraps the DETR loss's matcher: CUDA events around each call, the
+    host ms of scipy's solve, and the matches (on the CPU)."""
+
+    def __init__(self, keep=False):
+        import torch
+
+        from omnihd_scenes_tpu_torch.models import hungarian
+        from omnihd_scenes_tpu_torch.models.bevformer import loss
+
+        self._torch, self._loss, self._hm = torch, loss, hungarian
+        self.keep, self.matches, self.events, self.host_ms = keep, [], [], []
+
+    def __enter__(self):
+        match, solve = self._loss.hungarian_match, self._hm.solve_host
+
+        def timed_match(*args, **kw):
+            start = self._event()
+            out = match(*args, **kw)
+            self.events.append((start, self._event()))
+            if self.keep:
+                self.matches.append(out[0].cpu())
+            return out
+
+        def timed_solve(cost):
+            t0 = time.perf_counter()
+            out = solve(cost)
+            self.host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self._saved = match, solve
+        self._loss.hungarian_match, self._hm.solve_host = (timed_match,
+                                                           timed_solve)
+        return self
+
+    def __exit__(self, *exc):
+        self._loss.hungarian_match, self._hm.solve_host = self._saved
+
+    def _event(self):
+        if not self._torch.cuda.is_available():
+            return None
+        e = self._torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+
+def _bevformer_train_state(cfg, sd, device, lr=2e-4):
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
+    from omnihd_scenes_tpu_torch.train.loop import create_train_state
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    model = BEVFormerDetector(cfg)
+    model.load_state_dict(sd)
+    model.to(device, memory_format=torch.channels_last)
+    return create_train_state(model, lambda p: make_optimizer(
+        p, make_lr_schedule(lr, 1000, warmup_iters=0), 0.01, 35.0))
+
+
+def _kink_sides(recorded=None):
+    """A TorchFunctionMode that, where autograd records, keeps the input of
+    each ``F.relu`` and the argmax of each ``F.max_pool2d`` in ``.sides``
+    (``recorded`` None), or imposes ``recorded``: a ReLU passes where the
+    recorded input was > 0, a max-pool reads the recorded argmax."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class KinkSides(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.sides, self.used = [] if recorded is None else recorded, 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func not in (F.relu, F.max_pool2d) or \
+                    not torch.is_grad_enabled():
+                return func(*args, **kwargs)
+            x = args[0]
+            if func is F.relu:
+                if recorded is None:
+                    self.sides.append(x.detach().cpu())
+                    return func(*args, **kwargs)
+                side = self.sides[self.used].to(x.device) > 0
+                self.used += 1
+                return torch.where(side, x, torch.zeros_like(x))
+            out, idx = func(*args, **{**kwargs, 'return_indices': True})
+            if recorded is None:
+                self.sides.append(idx.cpu())
+                return out
+            idx = self.sides[self.used].to(x.device)
+            self.used += 1
+            return x.flatten(2).gather(2, idx.flatten(2)).view_as(idx)
+
+    return KinkSides()
+
+
+def _bevformer_step_runs(dev, cfg, sd, batch):
+    """One train step of ``cfg``'s model from ``sd``: the CPU's in f64,
+    recording its kink sides; the CPU's in f32 as it falls, recording its
+    own; then the CPU's and twice the card's in f32 on the f64 step's
+    sides.  Each run: (loss, aux, matches per call, gradients, sides)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import make_train_step
+
+    out, exact = [], None
+    for where in ('cpu64', 'cpu', 'cpu', 'gpu', 'gpu'):
+        state = _bevformer_train_state(cfg, sd, dev if where == 'gpu'
+                                       else 'cpu')
+        b = batch
+        if where == 'cpu64':
+            state.model.double()
+            b = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+                 for k, v in batch.items()}
+        grads = {}
+        hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
+                 for k, p in state.model.named_parameters()]
+        sides = _kink_sides(exact if len(out) > 1 else None)
+        with _MatchProbe(keep=True) as probe, sides:
+            _, loss, aux = make_train_step(make_loss_fn_generic(
+                state.model, 'bevformer', None))(state, b)
+        for h in hooks:
+            h.remove()
+        if len(out) > 1:
+            check(sides.used == len(exact),
+                  f'{sides.used} kink sides imposed of {len(exact)}')
+        elif exact is None:
+            exact = sides.sides
+        out.append((float(loss), {k: float(v) for k, v in aux.items()},
+                    probe.matches, {k: v.to('cpu', torch.float64)
+                                    for k, v in grads.items()},
+                    sides.sides))
+    return out
+
+
+def _gaps(ref, grads):
+    """The worst leaf of ``grads`` against ``ref`` as a share of the
+    leaf's max|ref| (the zero-gradient key biases left out)."""
+    return max((float((grads[k] - g).abs().max() / g.abs().max()), k)
+               for k, g in ref.items()
+               if not k.endswith('self_attn.key.bias'))
+
+
+def _check_step_parity(tag, what, runs):
+    """Runs of ``_bevformer_step_runs``: the card's matches equal the
+    CPU's, its loss within 1e-5 of |loss|, each gradient leaf held to the
+    CPU's f32 step on the same kink sides as ``GRAD_SHARE`` says; the two
+    card runs equal in matches and losses (not in gradients:
+    ``F.grid_sample``'s backward adds with atomics)."""
+    exact, plain, (loss, aux, matches, cpu, _), *gpu = runs
+    top = max(float(g.abs().max()) for g in cpu.values())
+    worst = (0.0, '')
+    for g_loss, g_aux, g_matches, g_grads, _ in gpu:
+        check(len(g_matches) == len(matches) and all(
+            bool((a == b).all()) for a, b in zip(g_matches, matches)),
+              f'{tag}: GPU matches differ from the CPU\'s')
+        check(abs(g_loss - loss) <= 1e-5 * abs(loss),
+              f'{tag}: loss {g_loss} against {loss}')
+        for k, g in cpu.items():
+            err = float((g_grads[k] - g).abs().max())
+            if k.endswith('self_attn.key.bias'):
+                check(err <= 1e-6 * top, f'{tag}: {k} off by {err}')
+                continue
+            share = err / float(g.abs().max())
+            check(share <= GRAD_SHARE, f'{tag}: gradient leaf {k}: GPU '
+                  f'{share:.3e} of its max|CPU| off')
+            worst = max(worst, (share, k))
+    (l1, a1, m1, _, _), (l2, a2, m2, _, _) = gpu
+    same_aux = all(a1[k] == a2[k] for k in ('loss_cls', 'loss_bbox'))
+    check(l1 == l2 and same_aux and all(bool((a == b).all())
+                                        for a, b in zip(m1, m2)),
+          f'{tag}: two GPU steps differ ({l1} / {l2})')
+    # The CPU's f32 step as it falls: the ReLU units and max-pool outputs
+    # on the other side of the f64 step's, and the largest |f64 input|
+    # among those units.
+    relu = [(e > 0) != (p > 0) for e, p in zip(exact[4], plain[4])
+            if e.is_floating_point()]
+    cut = sum(int(m.sum()) for m in relu)
+    margin = max([float(e[m].abs().max()) for e, m in zip(
+        [e for e in exact[4] if e.is_floating_point()], relu) if m.any()],
+        default=0.0)
+    pools = sum(int((e != p).sum()) for e, p in zip(exact[4], plain[4])
+                if not e.is_floating_point())
+    n_layers = matches[0].shape[1]
+    plain_gap, on_sides, card_gap = (_gaps(exact[3], g) for g in (
+        plain[3], cpu, gpu[0][3]))
+    print(f'[{tag}] {what}: loss CPU {loss:.6f} / GPU {gpu[0][0]:.6f} '
+          f'(limit 1e-5 of |loss|); matches of all {n_layers} decoder '
+          f'layers equal on both devices and on two GPU runs, whose losses '
+          f'are bit-equal; on the f64 step\'s sides of {len(exact[4])} '
+          f'ReLUs and max-pools, the worst gradient leaf of the GPU\'s f32 '
+          f'step {worst[0]:.3e} of its max|CPU f32| ({worst[1]}; limit '
+          f'{GRAD_SHARE}); against the f64 step, the worst leaf of the '
+          f'GPU\'s f32 step {card_gap[0]:.3e} ({card_gap[1]}), of the CPU\'s '
+          f'{on_sides[0]:.3e} ({on_sides[1]}); the CPU\'s f32 step on its '
+          f'own sides: {cut} ReLU unit(s) on the other side of f64\'s '
+          f'(largest |f64 input| {margin:.3e}), {pools} max-pool output(s) '
+          f'from another input, worst leaf {plain_gap[0]:.3e} of its '
+          f'max|f64| ({plain_gap[1]})')
+
+
+def phase_bevformer_train_small(dev):
+    """(25a) One f32 train step of the synthetic config's model, GPU
+    against CPU."""
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_queue_batch)
+
+    cfg = _bevformer_cfg(BEVFORMER_SMALL)
+    sd = random_bevformer_state_dict(cfg, seed=25)
+    batch = random_queue_batch(np.random.RandomState(25), cfg, 2, n_gt=10,
+                               max_gt=16)
+    _zero_launches()
+    runs = _bevformer_step_runs(dev, cfg, sd, batch)
+    _check_step_parity('25a BEVFormer train small',
+                       f'{BEVFORMER_SMALL} f32, B=2, queue '
+                       f'{cfg.queue_length}, 10 of 16 GTs, TF32 off', runs)
+    check(not any(_read_launches().values()), 'a hand kernel launched')
+
+
+def _stage_split(marks, backbone_events, probe):
+    """The staged step's split (ms) from its CUDA events."""
+    start, forward, loss, backward, opt = (marks[k] for k in (
+        'start', 'forward', 'loss', 'backward', 'optimizer'))
+    last = backbone_events[-1]
+    match = sum(a.elapsed_time(b) for a, b in probe.events)
+    return {'history replay': start.elapsed_time(last),
+            'last-frame forward': last.elapsed_time(forward),
+            'matching': match,
+            'matching host (scipy)': sum(probe.host_ms),
+            'loss without matching': forward.elapsed_time(loss) - match,
+            'backward': loss.elapsed_time(backward),
+            'optimizer': backward.elapsed_time(opt),
+            'step': start.elapsed_time(opt)}
+
+
+def phase_bevformer_train(dev, card):
+    """(25b) configs/bevformer_t_r50.py at full width: bf16-policy steps."""
+    import warnings
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_queue_batch)
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import batch_to, make_train_step
+
+    cfg = _bevformer_cfg(BEVFORMER_FULL)
+    t0 = time.perf_counter()
+    state = _bevformer_train_state(cfg, random_bevformer_state_dict(cfg, 0),
+                                   dev)
+    setup_s = time.perf_counter() - t0
+    marks = {}
+
+    def mark(stage):
+        marks[stage] = torch.cuda.Event(enable_timing=True)
+        marks[stage].record()
+
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        state.model, 'bevformer', None, mark=mark)), mark=mark)
+    rng = np.random.RandomState(250)
+
+    def fresh_batch():
+        return batch_to(random_queue_batch(rng, cfg, 1, n_gt=QUEUE_GT), dev)
+
+    _zero_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms, losses = [], []
+    for i in range(1 + N_TIMED):
+        batch = fresh_batch()
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        start.record()
+        _, loss, aux = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append((float(loss), float(aux['loss_cls']),
+                       float(aux['loss_bbox']), float(aux['grad_norm'])))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(all(np.isfinite(x).all() for x in losses),
+          f'non-finite BEVFormer loss or gradient norm {losses}')
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.model.parameters()), 'non-finite parameters')
+    mean = float(np.mean(ms[1:]))
+
+    # One more step with the stage events: the backbone's forward pre-hook
+    # marks each frame's start, so its last call starts the last frame.
+    backbone_events = []
+
+    def frame_start(module, args):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        backbone_events.append(e)
+
+    hook = state.model.img_backbone.register_forward_pre_hook(frame_start)
+    batch = fresh_batch()
+    torch.cuda.synchronize()
+    mark('start')
+    try:
+        with _MatchProbe() as probe:
+            step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    check(len(backbone_events) == cfg.queue_length,
+          f'{len(backbone_events)} backbone calls for a queue of '
+          f'{cfg.queue_length}')
+    split = _stage_split(marks, backbone_events, probe)
+
+    # One more step with PyTorch's synchronisation check warning at each
+    # place the host waits for the card.
+    batch = fresh_batch()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if 'called a synchronizing CUDA operation' in str(w.message)]
+    launches = _read_launches()
+    print(f'[25b BEVFormer train] {BEVFORMER_FULL} at full width (R50 + '
+          f'FPN, 6 x {cfg.img_hw[0]}x{cfg.img_hw[1]}, BEV {cfg.bev_h}x'
+          f'{cfg.bev_w} x {cfg.embed_dims}, {cfg.num_query} queries, '
+          f'{cfg.encoder_layers} + {cfg.decoder_layers} layers, queue '
+          f'{cfg.queue_length}, B=1), bf16 policy, AdamW + clip 35, '
+          f'{N_TIMED} timed steps (+1 warm-up) of fresh queues with '
+          f'{QUEUE_GT} of 128 GTs: {mean:.2f} ms/step by CUDA events '
+          f'({[round(x, 3) for x in ms[1:]]}), {1e3 / mean:.3f} samples/s, '
+          f'peak {peak:.2f} GiB allocated ({card}); (loss, loss_cls, '
+          f'loss_bbox, grad_norm) per step '
+          f'{[tuple(round(v, 4) for v in x) for x in losses]}; setup '
+          f'{setup_s:.1f} s')
+    print('[25b stage split] one more step, ms by CUDA events (the matching '
+          'includes the card idle while the host solves): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in split.items())
+          + f'; {len(probe.events)} matcher call(s) for '
+          f'{cfg.decoder_layers} layers x 1 sample')
+    print(f'[25b host syncs] one more step under '
+          f'torch.cuda.set_sync_debug_mode(\'warn\'): {len(syncs)} '
+          f'synchronisation(s) {syncs} (expected 1: the matcher\'s copy of '
+          f'the costs to the host); hand-kernel launches {launches}')
+    check(len(probe.events) == 1, 'the matcher ran more than once a step')
+    check(len(syncs) == 1, f'{len(syncs)} host syncs in a step: {syncs}')
+    check(not any(launches.values()), f'a hand kernel launched: {launches}')
+    del state, batch
+    torch.cuda.empty_cache()
+    return {'ms': mean, 'peak': peak, 'split': split, 'launches': launches}
+
+
+def _dcn_config(path):
+    import dataclasses
+
+    cfg = _bevformer_cfg(path)
+    return dataclasses.replace(cfg, stage_with_dcn=DCN_STAGES)
+
+
+def phase_dcn_small(dev):
+    """(26a) The synthetic model with DCNv2 on stages 3-4, f32: one
+    frame's BEV and one train step, GPU against CPU."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.serve.predictor import StreamPredictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_queue_batch, random_stream_frame)
+
+    cfg = _dcn_config(BEVFORMER_SMALL)
+    sd = random_bevformer_state_dict(cfg, seed=26)
+    gen = torch.Generator().manual_seed(26)
+    for k in [k for k in sd if k.endswith('conv_offset.bias')]:
+        # Offsets of up to 2 pixels on 8x12 and 4x6 maps: taps leave them.
+        sd[k] = torch.rand(sd[k].shape, generator=gen) * 4 - 2
+    rng = np.random.RandomState(26)
+    frame = random_stream_frame(rng, cfg, 2)
+    bevs = []
+    _zero_launches()
+    for device in ('cpu', dev):
+        predictor = StreamPredictor(cfg, sd, device=device,
+                                    dtype=torch.float32)
+        bevs.append(_run_stream(predictor, [frame], [np.array([False, True])],
+                                predictor.zero_bev(2))[1].cpu())
+    bev_err = float((bevs[1] - bevs[0]).abs().max() / bevs[0].abs().max())
+    print(f'[26a R101-DCN small] {BEVFORMER_SMALL} with stage_with_dcn '
+          f'{DCN_STAGES}, offset-conv biases over +-2 pixels, f32, 2 '
+          f'streams: BEV GPU vs CPU within {bev_err:.3e} of max|ref| (limit '
+          f'1e-4)')
+    check(bev_err <= 1e-4, f'DCN BEVFormer GPU vs CPU: BEV {bev_err:.3e}')
+    batch = random_queue_batch(rng, cfg, 2, n_gt=10, max_gt=16)
+    _check_step_parity('26a R101-DCN train small',
+                       'the same model, one f32 step',
+                       _bevformer_step_runs(dev, cfg, sd, batch))
+    check(not any(_read_launches().values()), 'a hand kernel launched')
+
+
+def _dcn_cost(module, x):
+    """(operations, bytes) of one DeformConv call on x (B, C, H, W): the
+    offset conv's and the kernel's multiply-adds at the bf16 rate (the
+    sampling's ~9 operations per tap and channel add under 2 %); x and the
+    weights read once, the output written once."""
+    b, c, h, w = x.shape
+    s = module.stride
+    oh, ow = -(-h // s), -(-w // s)
+    f = module.weight.shape[0]
+    ops = 2 * 9 * c * (27 + f) * b * oh * ow
+    nbytes = (x.numel() + module.weight.numel()
+              + module.conv_offset.weight.numel() + 27
+              + b * f * oh * ow) * x.element_size()
+    return ops, nbytes
+
+
+def phase_r101_stream(dev, card):
+    """(26b) configs/bevformer_t_r101.py at full width, one bf16 stream."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.dcn import DeformConv
+    from omnihd_scenes_tpu_torch.serve.predictor import StreamPredictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        DCN_OFFSET_STD, random_bevformer_state_dict, random_stream_frame)
+
+    cfg = _bevformer_cfg(BEVFORMER_R101)
+    check(cfg.stage_with_dcn == DCN_STAGES and cfg.resnet_depth == 101,
+          f'{BEVFORMER_R101}: {cfg.resnet_depth} {cfg.stage_with_dcn}')
+    t0 = time.perf_counter()
+    predictor = StreamPredictor(cfg, random_bevformer_state_dict(cfg, 0),
+                                device=dev, dtype=torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    dcn = [m for m in predictor.model.modules() if isinstance(m, DeformConv)]
+    check(len(dcn) == 26, f'{len(dcn)} DCN layers, not 23 + 3')
+    rng = np.random.RandomState(260)
+    n = 1 + BEVFORMER_TIMED
+    frames = [random_stream_frame(rng, cfg, 1) for _ in range(n)]
+    has_prev = [np.array([i > 0]) for i in range(n)]
+    _zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dets, bev, ms, _, host = _run_stream(predictor, frames, has_prev,
+                                         timed=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    boxes, scores, _, valid = dets
+    check(tuple(boxes.shape) == (1, 300, 9)
+          and bool(torch.isfinite(boxes).all())
+          and bool(torch.isfinite(scores).all())
+          and bool(torch.isfinite(bev).all()), 'R101-DCN outputs')
+    mean = float(np.mean(ms[1:]))
+    frame = [torch.from_numpy(x).to(dev)
+             for x in random_stream_frame(rng, cfg, 1)]
+    hp = torch.ones(1, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        predictor(*frame, bev, hp)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    del frame
+    split = _staged_frame(predictor, random_stream_frame(rng, cfg, 1), bev,
+                          np.array([True]), capture=False,
+                          extra={'DCN layers': dcn})[0]
+    print(f'[26b R101-DCN stream] {BEVFORMER_R101} at full width (ResNet-101 '
+          f'with DCNv2 on stages 3-4, 6 x {cfg.img_hw[0]}x{cfg.img_hw[1]}, '
+          f'BEV {cfg.bev_h}x{cfg.bev_w} x {cfg.embed_dims}), bf16, one '
+          f'stream, {BEVFORMER_TIMED} timed frames (+1 warm-up): '
+          f'{mean:.2f} ms/frame by CUDA events '
+          f'({[round(x, 3) for x in ms[1:]]}), {1e3 / mean:.3f} samples/s, '
+          f'peak {peak:.2f} GiB allocated '
+          f'({card}); host time to launch a frame '
+          f'{float(np.mean(host[1:])):.2f} ms; {int(valid.sum())} of 300 '
+          f'boxes in range; a frame with its inputs on the card ran with no '
+          f'host synchronisation; setup {setup_s:.1f} s')
+    print('[26b stage split] one more frame, ms by CUDA events: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in split.items()))
+
+    rows = _dcn_shapes(predictor, dcn, random_stream_frame(rng, cfg, 1), bev,
+                       card, f'offset convs N(0, {DCN_OFFSET_STD})')
+    # The frame and the shapes again at the init's zero offset convs (the
+    # JAX package's DeformConv, mmcv's): every tap on its grid point.
+    with torch.no_grad():
+        for m in dcn:
+            m.conv_offset.weight.zero_()
+            m.conv_offset.bias.zero_()
+    zero_ms = _run_stream(predictor, frames, has_prev, timed=True)[2]
+    zero_mean = float(np.mean(zero_ms[1:]))
+    zero_split = _staged_frame(predictor, random_stream_frame(rng, cfg, 1),
+                               bev, np.array([True]), capture=False,
+                               extra={'DCN layers': dcn})[0]
+    print(f'[26b zero offsets] the same stream at zero offset-conv kernels: '
+          f'{zero_mean:.2f} ms/frame by CUDA events '
+          f'({[round(x, 3) for x in zero_ms[1:]]}) against {mean:.2f} at '
+          f'N(0, {DCN_OFFSET_STD}); one more frame: backbone '
+          f'{zero_split["backbone"]:.3f} ms, DCN layers '
+          f'{zero_split["DCN layers"]:.3f}, frame {zero_split["frame"]:.3f} '
+          f'({card})')
+    zero_rows = _dcn_shapes(predictor, dcn, random_stream_frame(rng, cfg, 1),
+                            bev, card, 'zero offset convs')
+    launches = _read_launches()
+    print(f'[26b launches] hand-kernel launches {launches}')
+    check(not any(launches.values()), f'a hand kernel launched: {launches}')
+    del predictor
+    torch.cuda.empty_cache()
+    return {'ms': mean, 'peak': peak, 'split': split, 'dcn': rows,
+            'zero_ms': zero_mean, 'zero_dcn': zero_rows,
+            'launches': launches}
+
+
+def _dcn_shapes(predictor, dcn, frame, bev, card, label):
+    """Each DCN layer shape of ``dcn`` alone on the input that one more
+    frame gave it: ms by CUDA events beside the bound of
+    ``tools/roofline.py`` (one JSON line)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.tools.roofline import bound
+
+    seen = {}
+
+    def keep(module, args):
+        key = (tuple(args[0].shape), module.stride, module.weight.shape[0])
+        seen.setdefault(key, (module, args[0].clone()))
+
+    hooks = [m.register_forward_pre_hook(keep) for m in dcn]
+    try:
+        predictor(*frame, bev, np.array([True]))
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    with torch.inference_mode():
+        for (shape, stride, f), (module, x) in seen.items():
+            t = cuda_ms(lambda: module(x), iters=10, warmup=2)
+            ops, nbytes = _dcn_cost(module, x)
+            bound_ms, by = bound(ops, 'bf16', nbytes)
+            layers = sum(1 for m in dcn if m.stride == stride
+                         and m.weight.shape[0] == f)
+            rows.append({'input': list(shape), 'stride': stride,
+                         'out_channels': f, 'ms': t, 'bound_ms': bound_ms,
+                         'bound_by': by, 'share': bound_ms / t,
+                         'layers_of_this_kind': layers})
+    print(f'[26b DCN shapes, {label}] '
+          + json.dumps({'card': card, 'rows': rows}))
+    return rows
+
+
 def sca_hits(cfg, lidar2img):
     """Hit queries per camera of one rig (any z-anchor inside the image)."""
     import torch
@@ -2834,6 +3454,10 @@ def main():
     rcf = phase_rcfusion(dev, card)
     phase_bevformer_small(dev)
     phase_bevformer_stream(dev, card)
+    phase_bevformer_train_small(dev)
+    bevformer_train = phase_bevformer_train(dev, card)
+    phase_dcn_small(dev)
+    r101 = phase_r101_stream(dev, card)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -2854,11 +3478,17 @@ def main():
     # N_TIMED steps) and each path's first b4 request.
     paths = {'launches_lss_camera': dict(cam, request=cam['infer']),
              'launches_mtl': mtl, 'launches_rcfusion': rcf}
-    extra = {'lss_sample': {}, 'lss_sample_backward': {}}
+    extra = {name: {} for name in rows}
     for key, p in paths.items():
         extra['lss_sample'][key] = {'train_b4': p['train_fwd'],
                                     'request_b4': p['request']}
         extra['lss_sample_backward'][key] = {'train_b4': p['train_back']}
+    # BEVFormer-T's training run (phase 25b) and R101-DCN's stream (26b)
+    # launch no hand kernel: their paths hold none.
+    for name in rows:
+        extra[name]['launches_bevformer_train'] = \
+            bevformer_train['launches'][name]
+        extra[name]['launches_r101_dcn_stream'] = r101['launches'][name]
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'{CSRC}{src}.cu',
         'replaces': KERNEL_REPLACES[name][0],

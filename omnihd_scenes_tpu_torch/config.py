@@ -209,7 +209,8 @@ class BEVFormerConfig:
     (grid_sample) form.  The JAX package's ``'windowed'`` dual is a TPU
     formulation that equals the gather form while its overflow probe reads
     0, so where JAX's probe passes, the port computes what JAX computes.
-    ``stage_with_dcn`` (R101-DCN) is refused by ``build_model_from_cfg``.
+    ``stage_with_dcn`` puts DCNv2 on the ResNet stages it marks (R101-DCN:
+    stages 3-4).
     """
 
     bev_h: int = 160

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from omnihd_scenes_tpu_torch.ops.ms_deform_attn import (
-    multi_scale_deformable_attn)
+    at_least_f32, multi_scale_deformable_attn)
 
 Shapes = Sequence[Tuple[int, int]]
 # The head count of every BEVFormer attention (the JAX package's modules
@@ -74,9 +74,11 @@ def _normalizer(spatial_shapes: Tuple[Tuple[int, int], ...],
     """(L, 2) reciprocal (W, H) per level: the jitted JAX package divides
     the offsets by (W, H) as a multiply by the f32 reciprocal.  Made once
     per device: a copy from host memory would make the host wait for the
-    card at every call."""
-    return torch.tensor([[1.0 / w, 1.0 / h] for h, w in spatial_shapes],
-                        dtype=torch.float32, device=device)
+    card at every call.  Made outside inference mode, so that a training
+    step may use it after a served frame made it."""
+    with torch.inference_mode(False):
+        return torch.tensor([[1.0 / w, 1.0 / h] for h, w in spatial_shapes],
+                            dtype=torch.float32, device=device)
 
 
 def _softmax_weights(weights, shape):
@@ -118,7 +120,7 @@ class TemporalSelfAttention(nn.Module):
         nh, nl, np_, nque = (self.num_heads, self.num_levels,
                              self.num_points, self.num_bev_queue)
         q2 = torch.cat([value[:, 0], query], -1)            # (B, nq, 2C)
-        offsets = self.sampling_offsets(q2).float().reshape(
+        offsets = at_least_f32(self.sampling_offsets(q2)).reshape(
             b, nq, nh, nque, nl, np_, 2)
         weights = self.attention_weights(q2).reshape(b, nq, nh, nque,
                                                      nl * np_)
@@ -160,7 +162,7 @@ class MSDeformableAttention3D(nn.Module):
         num_z, 2) f32 normalised -> (B, nq, C)."""
         b, nq, c = query.shape
         nh, nl, np_ = self.num_heads, self.num_levels, self.num_points
-        offsets = self.sampling_offsets(query).float().reshape(
+        offsets = at_least_f32(self.sampling_offsets(query)).reshape(
             b, nq, nh, nl, np_, 2)
         weights = _softmax_weights(self.attention_weights(query),
                                    (b, nq, nh, nl, np_))
@@ -275,7 +277,7 @@ class CustomMSDeformableAttention(nn.Module):
         if query_pos is not None:
             query = query + query_pos
         nh, nl, np_ = self.num_heads, self.num_levels, self.num_points
-        offsets = self.sampling_offsets(query).float().reshape(
+        offsets = at_least_f32(self.sampling_offsets(query)).reshape(
             b, nq, nh, nl, np_, 2)
         weights = _softmax_weights(self.attention_weights(query),
                                    (b, nq, nh, nl, np_))

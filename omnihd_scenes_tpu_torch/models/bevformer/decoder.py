@@ -16,6 +16,7 @@ from torch import nn
 from omnihd_scenes_tpu_torch.models.bevformer.attention import (
     NUM_HEADS, CustomMSDeformableAttention, MultiheadAttention)
 from omnihd_scenes_tpu_torch.models.bevformer.encoder import FFN, LN_EPS
+from omnihd_scenes_tpu_torch.ops.ms_deform_attn import at_least_f32
 
 
 def inverse_sigmoid(x, eps: float = 1e-5):
@@ -70,7 +71,7 @@ class DetectionTransformerDecoder(nn.Module):
             output = layer(output, query_pos, bev_value,
                            reference_points[:, :, None, :2],
                            bev_spatial_shapes)
-            tmp = reg_branch_fn(i, output).float()
+            tmp = at_least_f32(reg_branch_fn(i, output))
             reference_points = torch.cat([
                 torch.sigmoid(tmp[..., 0:2]
                               + inverse_sigmoid(reference_points[..., 0:2])),

@@ -12,13 +12,21 @@
 
 B independent streams run as one batch (the JAX package writes one
 sample and vmaps); ``has_prev`` is a bool tensor per stream, applied with
-``torch.where``, so no device value is read back to the host.  GridMask
-(training augmentation) and the JAX package's TPU memory estimates
-(``estimate_stream_batch_hbm_gb``, ``check_stream_batch_fits``, calibrated
-on a TPU) are not ported.
+``torch.where``, so no device value is read back to the host.  The
+backbone's ``stage_with_dcn`` stages run DCNv2 (R101-DCN).
+
+:func:`grid_mask` is the GridMask augmentation (reference
+``models/utils/grid_mask.py``), its random draws
+(:func:`grid_mask_draws`, from a ``torch.Generator``) apart from the
+mask.  As in the JAX package, which defines it and never calls it, no
+training step applies it (ROADMAP queue 3 item 15, mirrored).  The JAX
+package's TPU memory estimates (``estimate_stream_batch_hbm_gb``,
+``check_stream_batch_fits``, calibrated on a TPU) are not ported.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,18 +42,55 @@ from omnihd_scenes_tpu_torch.models.fpnc import FPN
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
 
 
+class GridMaskDraws(NamedTuple):
+    """The random draws of one GridMask: the grid period ``d`` in [2,
+    max_d), the offsets in [0, max_d) and whether the mask applies."""
+
+    d: int
+    off_x: int
+    off_y: int
+    apply: bool
+
+
+def grid_mask_draws(h: int, w: int, generator: torch.Generator,
+                    max_d: Optional[int] = None,
+                    prob: float = 0.7) -> GridMaskDraws:
+    """GridMask's draws for (h, w) images (the JAX package draws them
+    from a ``jax.random`` key; the streams differ, the ranges do not)."""
+    if max_d is None:
+        max_d = max(min(h, w) // 2, 3)
+    d, off_x, off_y = (int(torch.randint(lo, max_d, (), generator=generator))
+                       for lo in (2, 0, 0))
+    apply = bool(torch.rand((), generator=generator) < prob)
+    return GridMaskDraws(d, off_x, off_y, apply)
+
+
+def grid_mask(imgs: torch.Tensor, draws: GridMaskDraws,
+              ratio: float = 0.5) -> torch.Tensor:
+    """GridMask (reference ``models/utils/grid_mask.py``): the images
+    (..., H, W, C) times a square grid of masked patches, the same for
+    every view: a pixel is kept where its row or column lies at least
+    ``max(int(d * ratio), 1)`` into its period."""
+    h, w = imgs.shape[-3], imgs.shape[-2]
+    keep_len = max(int(draws.d * ratio), 1)
+    dev = imgs.device
+    ys = (torch.arange(h, device=dev) + draws.off_y) % draws.d
+    xs = (torch.arange(w, device=dev) + draws.off_x) % draws.d
+    mask = (ys[:, None] >= keep_len) | (xs[None, :] >= keep_len)
+    if not draws.apply:
+        mask = torch.ones_like(mask)
+    return imgs * mask[..., None].to(imgs.dtype)
+
+
 class BEVFormerDetector(nn.Module):
     """ResNet (frozen BN) + FPN + :class:`BEVFormerHead`."""
 
     def __init__(self, cfg: BEVFormerConfig = BEVFormerConfig()):
         super().__init__()
-        if any(cfg.stage_with_dcn):
-            raise NotImplementedError(
-                'stage_with_dcn (DCNv2, the R101-DCN backbone) is not ported '
-                'yet: ROADMAP queue 1 item 6, R101-DCN')
         self.cfg = cfg
         self.img_backbone = ResNet(cfg.resnet_depth, cfg.resnet_out_indices,
-                                   frozen_bn=True)
+                                   frozen_bn=True,
+                                   stage_with_dcn=cfg.stage_with_dcn)
         self.img_neck = FPN(self.img_backbone.out_channels, cfg.embed_dims)
         self.pts_bbox_head = BEVFormerHead(
             bev_h=cfg.bev_h, bev_w=cfg.bev_w, num_query=cfg.num_query,

@@ -150,8 +150,9 @@ class BEVFormerEncoder(nn.Module):
         b = bev_query.shape[0]
         dev = bev_query.device
         if dev not in self._refs:
-            self._refs[dev] = tuple(torch.from_numpy(r).to(dev)
-                                    for r in self._ref_np)
+            with torch.inference_mode(False):   # serving and training share it
+                self._refs[dev] = tuple(torch.from_numpy(r).to(dev)
+                                        for r in self._ref_np)
         ref_3d, ref_2d = self._refs[dev]
         reference_points_cam, bev_mask = point_sampling(
             ref_3d, self.pc_range, lidar2img, img_hw)

@@ -10,8 +10,7 @@
   rescaled to pc_range; the 10-dim code (cx, cy, w, l, cz, h, sin, cos,
   vx, vy) that ``models/bbox_coder.py`` decodes.
 
-The Hungarian-matched loss (``bevformer_head_loss``) belongs to the
-training slice and is not ported yet.
+The Hungarian-matched loss (``bevformer_head_loss``) is in ``loss.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from omnihd_scenes_tpu_torch.models.bevformer.decoder import inverse_sigmoid
 from omnihd_scenes_tpu_torch.models.bevformer.encoder import LN_EPS
 from omnihd_scenes_tpu_torch.models.bevformer.transformer import (
     PerceptionTransformer)
+from omnihd_scenes_tpu_torch.ops.ms_deform_attn import at_least_f32
 
 
 class LearnedPositionalEncoding(nn.Module):
@@ -102,7 +102,7 @@ class BEVFormerHead(nn.Module):
                 has_prev=None):
         """-> {'bev_embed' (B, nq_bev, C), 'all_cls_scores' (B, L, nq,
         num_classes), 'all_bbox_preds' (B, L, nq, 10)}; the scores and
-        boxes in f32."""
+        boxes in at least f32."""
         bev_embed, hs, refs = self.transformer(
             mlvl_feats, self.bev_embedding, self.query_embedding,
             self.positional_encoding(), can_bus, lidar2img, img_hw,
@@ -111,8 +111,8 @@ class BEVFormerHead(nn.Module):
         all_cls, all_coords = [], []
         for lvl in range(hs.shape[1]):
             ref = inverse_sigmoid(refs[:, lvl])
-            all_cls.append(self.cls_branches[lvl](hs[:, lvl]).float())
-            tmp = self.reg_branches[lvl](hs[:, lvl]).float()
+            all_cls.append(at_least_f32(self.cls_branches[lvl](hs[:, lvl])))
+            tmp = at_least_f32(self.reg_branches[lvl](hs[:, lvl]))
             xy = torch.sigmoid(tmp[..., 0:2] + ref[..., 0:2])
             z = torch.sigmoid(tmp[..., 4:5] + ref[..., 2:3])
             all_coords.append(torch.cat([

@@ -31,7 +31,8 @@ from torch import nn
 from omnihd_scenes_tpu_torch.models.bevformer.decoder import (
     DetectionTransformerDecoder)
 from omnihd_scenes_tpu_torch.models.bevformer.encoder import BEVFormerEncoder
-from omnihd_scenes_tpu_torch.ops.ms_deform_attn import bilinear_sample
+from omnihd_scenes_tpu_torch.ops.ms_deform_attn import (at_least_f32,
+                                                    bilinear_sample)
 
 
 def compute_bev_shift(can_bus: torch.Tensor,
@@ -153,7 +154,7 @@ class PerceptionTransformer(nn.Module):
         b = bev_embed.shape[0]
         query_pos, query = object_query_embed.chunk(2, -1)
         reference_points = torch.sigmoid(
-            self.reference_points_fc(query_pos).float())
+            at_least_f32(self.reference_points_fc(query_pos)))
         hs, refs = self.decoder(
             query.expand(b, *query.shape), query_pos.expand(b, *query.shape),
             bev_embed, reference_points.expand(b, *reference_points.shape),

@@ -5,7 +5,10 @@ package's ``train/torch_import.resnet_name_map`` maps it onto the flax
 tree.  With ``frozen_bn`` (the reference's ``norm_eval=True``, the JAX
 ``ResNet.frozen_bn``) every BatchNorm runs on its running statistics in
 training as in eval and never updates them; their scale and bias still
-train.  The space-to-depth stem and DCN stages are not ported yet.
+train.  ``stage_with_dcn`` puts DCNv2 (``models/dcn.py:DeformConv``)
+on the 3x3 convs of a stage's blocks (the reference's R101-DCN), with the
+stride on the deformable conv; the module keeps its conv's name.  The
+space-to-depth stem is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +18,16 @@ from typing import Sequence, Tuple
 import torch.nn.functional as F
 from torch import nn
 
+from omnihd_scenes_tpu_torch.models.dcn import DeformConv
 from omnihd_scenes_tpu_torch.models.layers import FLAX_BN_EPS, BatchNorm
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
+
+
+def _conv3x3(in_channels, out_channels, stride, dcn):
+    if dcn:
+        return DeformConv(in_channels, out_channels, stride=stride)
+    return QConv2d(in_channels, out_channels, 3, stride=stride, padding=1,
+                   bias=False)
 
 
 def _downsample(in_channels, out_channels, stride, frozen):
@@ -29,12 +40,11 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
-                 frozen: bool = False):
+                 frozen: bool = False, dcn: bool = False):
         super().__init__()
-        self.conv1 = QConv2d(in_channels, planes, 3, stride=stride,
-                             padding=1, bias=False)
+        self.conv1 = _conv3x3(in_channels, planes, stride, dcn)
         self.bn1 = BatchNorm(planes, FLAX_BN_EPS, frozen)
-        self.conv2 = QConv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = _conv3x3(planes, planes, 1, dcn)
         self.bn2 = BatchNorm(planes, FLAX_BN_EPS, frozen)
         self.downsample = (_downsample(in_channels, planes, stride, frozen)
                            if stride != 1 or in_channels != planes else None)
@@ -50,13 +60,12 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
-                 frozen: bool = False):
+                 frozen: bool = False, dcn: bool = False):
         super().__init__()
         out_channels = planes * self.expansion
         self.conv1 = QConv2d(in_channels, planes, 1, bias=False)
         self.bn1 = BatchNorm(planes, FLAX_BN_EPS, frozen)
-        self.conv2 = QConv2d(planes, planes, 3, stride=stride, padding=1,
-                             bias=False)
+        self.conv2 = _conv3x3(planes, planes, stride, dcn)
         self.bn2 = BatchNorm(planes, FLAX_BN_EPS, frozen)
         self.conv3 = QConv2d(planes, out_channels, 1, bias=False)
         self.bn3 = BatchNorm(out_channels, FLAX_BN_EPS, frozen)
@@ -85,10 +94,12 @@ class ResNet(nn.Module):
     """Multi-stage ResNet; returns the features of ``out_indices``."""
 
     def __init__(self, depth: int = 50, out_indices: Sequence[int] = (1, 2, 3),
-                 frozen_bn: bool = True):
+                 frozen_bn: bool = True,
+                 stage_with_dcn: Sequence[bool] = (False,) * 4):
         super().__init__()
         block, stage_blocks = ARCHS[depth]
         self.out_indices = tuple(out_indices)
+        self.stage_with_dcn = tuple(stage_with_dcn)
         self.conv1 = QConv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64, FLAX_BN_EPS, frozen_bn)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -100,7 +111,8 @@ class ResNet(nn.Module):
             for j in range(n_blocks):
                 layers.append(block(in_channels, planes,
                                     stride=2 if s > 0 and j == 0 else 1,
-                                    frozen=frozen_bn))
+                                    frozen=frozen_bn,
+                                    dcn=self.stage_with_dcn[s]))
                 in_channels = planes * block.expansion
             self.add_module(f'layer{s + 1}', nn.Sequential(*layers))
             self.stage_channels.append(in_channels)

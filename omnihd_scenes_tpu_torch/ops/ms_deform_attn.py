@@ -12,7 +12,8 @@ over levels and points.  The JAX package's patch-gather form
 duals are TPU formulations and are not carried over.
 
 :func:`multi_scale_deformable_attn` samples with ``F.grid_sample``, one
-call per level and query chunk, in f32 whatever the value's dtype, so the
+call per level and query chunk, in f32 whatever the value's dtype (f64
+when the value or the locations are f64), so the
 sampling positions keep f32 precision in the bf16 path (a bf16 location
 in [0, 1] is off by up to about one cell of a 240-cell map).  It is not a
 hand kernel: the BEVFormer path runs it as plain PyTorch until a profile
@@ -35,6 +36,11 @@ import torch.nn.functional as F
 # of one query chunk is kept under this many elements (256 MB), the
 # bound of the JAX package's chunking (``ops/ms_deform_attn.py:361``).
 CHUNK_ELEMENTS = 64_000_000
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or in its own dtype where that is wider (f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def bilinear_sample(value: torch.Tensor, loc_xy: torch.Tensor) -> torch.Tensor:
@@ -69,12 +75,14 @@ def bilinear_sample(value: torch.Tensor, loc_xy: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _level_values(value, spatial_shapes):
-    """(B, S, heads, hd) -> per level (B * heads, hd, H, W) in f32."""
+def _level_values(value, spatial_shapes, dtype=None):
+    """(B, S, heads, hd) -> per level (B * heads, hd, H, W) in ``dtype``
+    (default: at least f32)."""
     b, _, nh, hd = value.shape
+    dtype = dtype or torch.promote_types(value.dtype, torch.float32)
     out, start = [], 0
     for h, w in spatial_shapes:
-        v = value[:, start:start + h * w].float()
+        v = value[:, start:start + h * w].to(dtype)
         start += h * w
         out.append(v.permute(0, 2, 3, 1).reshape(b * nh, hd, h, w))
     return out
@@ -82,15 +90,16 @@ def _level_values(value, spatial_shapes):
 
 def _sample_chunk(levels, loc, weights):
     """One query chunk: loc (B, q, heads, L, P, 2), weights (B, q, heads,
-    L, P) -> (B * heads, hd, q) f32."""
+    L, P) -> (B * heads, hd, q) in the levels' dtype."""
     b, q, nh, _, p, _ = loc.shape
+    dtype = levels[0].dtype
     acc = 0.0
     for lvl, v in enumerate(levels):
-        grid = loc[:, :, :, lvl].float().permute(0, 2, 1, 3, 4).reshape(
+        grid = loc[:, :, :, lvl].to(dtype).permute(0, 2, 1, 3, 4).reshape(
             b * nh, q, p, 2) * 2.0 - 1.0
         taps = F.grid_sample(v, grid, mode='bilinear', padding_mode='zeros',
                              align_corners=False)       # (B*nh, hd, q, P)
-        wgt = weights[:, :, :, lvl].float().permute(0, 2, 1, 3).reshape(
+        wgt = weights[:, :, :, lvl].to(dtype).permute(0, 2, 1, 3).reshape(
             b * nh, 1, q, p)
         acc = acc + (taps * wgt).sum(-1)
     return acc
@@ -122,7 +131,9 @@ def multi_scale_deformable_attn(value: torch.Tensor,
     hd = value.shape[-1]
     if query_chunk is None:
         query_chunk = max(256, CHUNK_ELEMENTS // max(b * nh * p * hd, 1))
-    levels = _level_values(value, spatial_shapes)
+    levels = _level_values(value, spatial_shapes, torch.promote_types(
+        torch.promote_types(value.dtype, sampling_locations.dtype),
+        torch.float32))
     out = torch.cat([
         _sample_chunk(levels, sampling_locations[:, s:s + query_chunk],
                       attention_weights[:, s:s + query_chunk])

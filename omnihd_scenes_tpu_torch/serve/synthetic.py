@@ -21,12 +21,17 @@ from omnihd_scenes_tpu_torch.weights import init_weights
 
 N_POINTS = 40000
 MAX_GT = 64
+# The temporal dataset's GT padding (``NewScenesDetDataset.max_gt``).
+QUEUE_MAX_GT = 128
 # Occupancy GT shares: occupied voxels (classes 1..n_cls-1), unknown (255).
 OCC_OCCUPIED = 0.05
 OCC_UNKNOWN = 0.10
 # Spread of the seeded BEVFormer offset and weight kernels: offsets of
 # ~0.3 cells per unit of a LayerNormed 256-dim query.
 OFFSET_STD = 0.02
+# Spread of the seeded DCNv2 offset-conv kernels: offsets and mask logits
+# of ~0.5 (pixels) over a 3x3 window of 256 channels of unit activations.
+DCN_OFFSET_STD = 0.01
 
 Config = Union[BEVFusionConfig, MTLConfig]
 
@@ -125,7 +130,8 @@ def random_bevformer_state_dict(cfg: BEVFormerConfig,
     initialisation drawn from ``seed``, with the deformable attentions'
     offset and weight kernels drawn N(0, ``OFFSET_STD``) instead of zero,
     so that, as in a trained model, where each query samples and how it
-    weighs its points depend on the query."""
+    weighs its points depend on the query; likewise the DCNv2 offset
+    convs' kernels (R101-DCN), N(0, ``DCN_OFFSET_STD``)."""
     gen = torch.Generator().manual_seed(seed)
     model = init_bevformer(init_weights(BEVFormerDetector(cfg), gen), gen)
     with torch.no_grad():
@@ -133,6 +139,8 @@ def random_bevformer_state_dict(cfg: BEVFormerConfig,
             if name.endswith(('sampling_offsets.weight',
                               'attention_weights.weight')):
                 p.copy_(torch.randn(p.shape, generator=gen) * OFFSET_STD)
+            elif name.endswith('conv_offset.weight'):
+                p.copy_(torch.randn(p.shape, generator=gen) * DCN_OFFSET_STD)
     return model.state_dict()
 
 
@@ -150,3 +158,46 @@ def random_stream_frame(rng: np.random.RandomState, cfg: BEVFormerConfig,
     can_bus[:, -1] = rng.uniform(-3.0, 3.0, batch)
     l2i = np.tile(ring_rig_lidar2img(img_hw=(h, w))[None], (batch, 1, 1, 1))
     return imgs, can_bus, l2i
+
+
+def random_queue_batch(rng: np.random.RandomState, cfg: BEVFormerConfig,
+                       batch: int, n_gt: int = 40,
+                       max_gt: int = QUEUE_MAX_GT) -> Dict[str, np.ndarray]:
+    """A BEVFormer training batch of ``batch`` frame queues of
+    ``cfg.queue_length`` frames, as the temporal dataset's queue mode
+    gives them: N(0, 1) images; the relative can_bus of ``union2one``
+    (the first frame of a queue starts its scene: no move; the others a
+    move of up to 1.5 m and a turn of up to 3 degrees; the patch angle in
+    radians at ``[-2]``); the ring rig's lidar2img for every frame;
+    ``has_prev`` false for the first frame only; ``n_gt`` valid GT boxes
+    per sample, centres inside ``pc_range`` with a 2 m margin, sizes 0.5-4
+    m, yaw over a turn, velocities up to 5 m/s, labels over the classes,
+    padded with zeros to ``max_gt``."""
+    q, h, w = cfg.queue_length, *cfg.img_hw
+    imgs = rng.randn(batch, q, cfg.num_cams, h, w, 3).astype(np.float32)
+    can_bus = np.zeros((batch, q, 18), np.float32)
+    can_bus[:, :, -2] = rng.uniform(0.0, 2 * np.pi, (batch, q))
+    can_bus[:, 1:, :2] = rng.uniform(-1.5, 1.5, (batch, q - 1, 2))
+    can_bus[:, 1:, -1] = rng.uniform(-3.0, 3.0, (batch, q - 1))
+    l2i = np.tile(ring_rig_lidar2img(img_hw=(h, w))[None, None],
+                  (batch, q, 1, 1, 1))
+    has_prev = np.ones((batch, q), bool)
+    has_prev[:, 0] = False
+    x0, y0, z0, x1, y1, z1 = cfg.pc_range
+    size = rng.uniform(0.5, 4.0, (batch, n_gt, 3))
+    valid = np.concatenate([
+        rng.uniform(x0 + 2, x1 - 2, (batch, n_gt, 1)),
+        rng.uniform(y0 + 2, y1 - 2, (batch, n_gt, 1)),
+        rng.uniform(z0, z1 - size[..., 2:3]),
+        size,
+        rng.uniform(-np.pi, np.pi, (batch, n_gt, 1)),
+        rng.uniform(-5.0, 5.0, (batch, n_gt, 2))], -1)
+    gt_boxes = np.zeros((batch, max_gt, 9), np.float32)
+    gt_boxes[:, :n_gt] = valid
+    gt_labels = np.zeros((batch, max_gt), np.int32)
+    gt_labels[:, :n_gt] = rng.randint(0, cfg.num_classes, (batch, n_gt))
+    gt_mask = np.zeros((batch, max_gt), bool)
+    gt_mask[:, :n_gt] = True
+    return {'imgs': imgs, 'can_bus': can_bus, 'lidar2img': l2i,
+            'has_prev': has_prev, 'gt_boxes': gt_boxes,
+            'gt_labels': gt_labels, 'gt_mask': gt_mask}

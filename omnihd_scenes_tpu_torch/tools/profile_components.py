@@ -27,7 +27,10 @@ clock below its maximum under the kernel.
 With ``--train`` it profiles the training step instead: the shipped
 model (``BEVFusionConfig()``: sorted pillars), or the model that
 ``--config`` builds (e.g. ``configs/bevfusion_occ.py``, whose loss stage
-then holds the occupancy losses), with seeded random f32 weights under
+then holds the occupancy losses; ``configs/bevformer_t_r50.py`` with
+``--batch 1``, frame queues of ``random_queue_batch``, whose forward
+stage holds the history replay and whose loss stage the matcher's host
+round trip), with seeded random f32 weights under
 the bf16 policy, one warm-up and ``--requests`` timed steps
 of fresh synthetic batches (on the card before the timing) through
 ``make_train_step(bf16_policy(make_loss_fn_generic(...)))`` itself, given
@@ -60,9 +63,9 @@ from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
 from omnihd_scenes_tpu_torch.serve.predictor import (Predictor, _as_tensor,
                                                      calibrate)
-from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
-                                                     random_state_dict,
-                                                     random_train_batch)
+from omnihd_scenes_tpu_torch.serve.synthetic import (
+    random_bevformer_state_dict, random_queue_batch, random_request,
+    random_state_dict, random_train_batch)
 from omnihd_scenes_tpu_torch.tools.roofline import bound, conv_cost
 from omnihd_scenes_tpu_torch.train.amp import bf16_policy
 from omnihd_scenes_tpu_torch.train.builder import (build_model_from_cfg,
@@ -281,19 +284,25 @@ def train_report(card, args):
     else:
         model, mtype = BEVFusion(BEVFusionConfig()), 'bevfusion'
     cfg = model.cfg
-    model.load_state_dict(random_state_dict(cfg, args.seed))
+    if mtype == 'bevformer':               # queues, the DETR loss
+        model.load_state_dict(random_bevformer_state_dict(cfg, args.seed))
+        loss_kw, draw = {'anchors_np': None}, random_queue_batch
+    else:
+        model.load_state_dict(random_state_dict(cfg, args.seed))
+        loss_kw = {'anchors_np': cfg.pillars.anchors(),
+                   'camera_depth_range': getattr(
+                       cfg, 'fusion', cfg).lss.camera_depth_range}
+        draw = random_train_batch
     model.to('cuda', memory_format=torch.channels_last)
     state = create_train_state(model, lambda p: make_optimizer(
         p, make_lr_schedule(2e-4, 1000, warmup_iters=0)))
-    depth_range = getattr(cfg, 'fusion', cfg).lss.camera_depth_range
 
     def train_step(mark=None):
         return make_train_step(bf16_policy(make_loss_fn_generic(
-            model, mtype, cfg.pillars.anchors(),
-            camera_depth_range=depth_range, mark=mark)), mark)
+            model, mtype, mark=mark, **loss_kw)), mark)
 
     rng = np.random.RandomState(args.seed)
-    batches = [batch_to(random_train_batch(rng, cfg, args.batch), 'cuda')
+    batches = [batch_to(draw(rng, cfg, args.batch), 'cuda')
                for _ in range(args.requests + 2)]
     mark = StageMarks()
     marked = train_step(mark)

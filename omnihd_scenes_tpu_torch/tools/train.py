@@ -14,11 +14,14 @@ checkpoints (``<work_dir>/ckpts/ckpt_<epoch>.pt``), the JSON log
 (``<work_dir>/train.log.json``) and the periodic eval go through
 ``train/loop.py:run_training``; a BEVFusion-OCC config
 (``model_type='bevfusion_mtl'``) adds the occupancy losses to the step
-and the occupancy metrics to the periodic eval.  Camera configs read JPEGs
+and the occupancy metrics to the periodic eval.  A BEVFormer-T config
+(``model_type='bevformer'``, ``dataset_type='temporal'``) trains on the
+temporal dataset's frame queues with the Hungarian-matched DETR loss and,
+as in the JAX package, skips the periodic eval: ``tools.test --eval``
+streams the val split from the checkpoint.  Camera configs read JPEGs
 through OpenCV.  Pretrained-backbone and staged loading
 (``pretrained``, ``load_img_from``, ``load_lift_from``,
-``load_pts_from``) are not ported and are refused when set, as is
-BEVFormer-T training (its Hungarian-matched DETR loss).
+``load_pts_from``) are not ported and are refused when set.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ def main(argv=None):
     from omnihd_scenes_tpu_torch.train.amp import bf16_policy
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
                                                        build_model_from_cfg,
-                                                       check_trainable,
+                                                       check_family,
                                                        init_model,
                                                        make_loss_fn_generic,
                                                        make_predict_fn_generic)
@@ -83,7 +86,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_options)
-    check_trainable(cfg.get('model_type', 'pointpillars'))
+    check_family(cfg.get('model_type', 'pointpillars'))
     if args.work_dir:
         cfg.work_dir = args.work_dir
     unported = [k for k in ('pretrained', 'load_img_from', 'load_lift_from',
@@ -146,7 +149,7 @@ def main(argv=None):
     train_step = make_train_step(loss_fn)
 
     eval_fn = None
-    if not args.no_validate:
+    if not args.no_validate and mtype != 'bevformer':
         predict_fn = make_predict_fn_generic(model, mtype, anchors_np)
 
         def eval_fn(state):

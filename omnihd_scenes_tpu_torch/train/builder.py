@@ -11,18 +11,19 @@ A config's ``model_type`` selects the family:
   targets;
 - ``bevfusion_mtl``: BEVFusion-OCC, fusion + semantic occupancy, with
   the occupancy losses when the batch has ``gt_occ``;
-- ``bevformer``: BEVFormer-T, the temporal camera DETR detector, served
-  one frame per call (:func:`make_predict_fn_generic` gives the streaming
-  predict function).  Its loss waits for the training slice and raises
-  ``NotImplementedError`` naming its ROADMAP item; R101-DCN
-  (``stage_with_dcn``) is refused when built.
+- ``bevformer``: BEVFormer-T (R50, or R101 with DCNv2 stages), the
+  temporal camera DETR detector: trained on frame queues with the
+  Hungarian-matched loss, served one frame per call
+  (:func:`make_predict_fn_generic` gives the streaming predict function).
 
 Batches are the JAX package's: ``points`` (B, P, D) and ``points_mask``
 for the point families and the fusion models; ``imgs`` (B, N, H, W, 3),
 ``img2lidar_rots`` / ``img2lidar_trans`` for the camera families;
 ``gt_boxes`` (B, G, 9), ``gt_labels``, ``gt_mask`` for training, and
 optionally ``depth_gaussian`` (B, N, fH, fW, D) with ``depth_min``, and
-``gt_occ`` (B, Dx, Dy, Dz).
+``gt_occ`` (B, Dx, Dy, Dz).  A BEVFormer batch is a queue per sample:
+``imgs`` (B, Q, N, H, W, 3), ``can_bus`` (B, Q, 18) relative,
+``lidar2img`` (B, Q, N, 4, 4) and ``has_prev`` (B, Q) bool.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from omnihd_scenes_tpu_torch.models.anchor_head import (HeadLossConfig,
                                                         anchor_head_loss)
 from omnihd_scenes_tpu_torch.models.bbox_coder import NMSFreeCoderCfg
 from omnihd_scenes_tpu_torch.models.bevformer import (BEVFormerDetector,
+                                                      DETRLossCfg,
+                                                      bevformer_head_loss,
                                                       init_bevformer)
 from omnihd_scenes_tpu_torch.models.bevfusion import (BEVFusion,
                                                       depth_dist_loss)
@@ -56,23 +59,11 @@ PILLAR_FAMILIES = ('pointpillars', 'radarpillarnet')
 CAMERA_FAMILIES = ('lss', 'bevfusion', 'rcfusion', 'bevfusion_mtl')
 ANCHOR_FAMILIES = PILLAR_FAMILIES + CAMERA_FAMILIES
 FAMILIES = ANCHOR_FAMILIES + ('bevformer',)
-# Families whose training is not ported yet.
-UNPORTED_TRAINING = {
-    'bevformer': 'BEVFormer-T training (Hungarian matching, the DETR loss, '
-                 'GridMask; ROADMAP queue 1 item 6)'}
 
 
 def check_family(mtype: str) -> None:
     if mtype not in FAMILIES:
         raise ValueError(f'unknown model_type {mtype!r}')
-
-
-def check_trainable(mtype: str) -> None:
-    check_family(mtype)
-    if mtype in UNPORTED_TRAINING:
-        raise NotImplementedError(f'model_type {mtype!r}: '
-                                  f'{UNPORTED_TRAINING[mtype]} is not '
-                                  f'ported yet')
 
 
 def point_dim(ds_cfg: Mapping) -> int:
@@ -127,10 +118,12 @@ def init_model(model, generator: torch.Generator):
     return model
 
 
-def anchors_for(model, mtype: str) -> np.ndarray:
-    """(H, W, A, 9) anchor grid of an anchor-head family."""
-    if mtype not in ANCHOR_FAMILIES:
-        raise ValueError(f'model_type {mtype!r} has no anchor head')
+def anchors_for(model, mtype: str) -> Optional[np.ndarray]:
+    """(H, W, A, 9) anchor grid of an anchor-head family (None for the
+    DETR head)."""
+    check_family(mtype)
+    if mtype == 'bevformer':
+        return None
     if mtype in PILLAR_FAMILIES:
         return model.cfg.anchors()
     return model.cfg.pillars.anchors()
@@ -140,6 +133,9 @@ def model_inputs(batch: Mapping, mtype: str) -> tuple:
     """The model's positional inputs from a batch (``_model_inputs``)."""
     if mtype in PILLAR_FAMILIES:
         return batch['points'], batch['points_mask']
+    if mtype == 'bevformer':
+        return (batch['imgs'], batch['can_bus'], batch['lidar2img'],
+                batch['has_prev'])
     return (batch.get('points'), batch.get('points_mask'), batch['imgs'],
             batch['img2lidar_rots'], batch['img2lidar_trans'])
 
@@ -153,7 +149,7 @@ def forward(model, params: Optional[Mapping[str, torch.Tensor]], batch,
             else functional_call(model, dict(params), inputs))
 
 
-def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
+def make_loss_fn_generic(model, mtype: str, anchors_np: Optional[np.ndarray],
                          depth_loss_weight: float = 1.0,
                          camera_depth_range=(1.0, 60.0, 1.0),
                          occ_weight: float = 1.0,
@@ -168,13 +164,24 @@ def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
     mean).  As in JAX, no caller passes ``occ_weight`` and the model's
     ``task_weights`` are not applied.
 
+    For ``bevformer`` (``anchors_np`` None): the queue forward (history
+    frames without gradients), then :func:`bevformer_head_loss` per
+    sample; the loss is the mean of the samples' totals and ``aux`` holds
+    the last decoder layer's ``loss_cls`` / ``loss_bbox``, each the mean
+    over samples, as in the JAX package.  The loss reads the head's
+    outputs in at least f32 (under the bf16 policy the GT boxes arrive in
+    bf16 and are upcast before they are coded).  The matching makes one
+    host round trip per call, whatever the batch and the decoder depth.
+
     ``params`` maps the model's parameter names to the tensors the forward
     uses (``functional_call``; None: the model's own); the model's
     BatchNorm buffers are updated in place when it is in train mode.
     ``mark('forward')``, if given, is called between the forward and the
     loss (see :func:`train.loop.make_train_step`).
     """
-    check_trainable(mtype)
+    check_family(mtype)
+    if mtype == 'bevformer':
+        return _bevformer_loss_fn(mark)
     losses = DetectionLosses(anchors_np, depth_loss_weight,
                              camera_depth_range,
                              occ_weight if mtype == 'bevfusion_mtl' else None)
@@ -184,6 +191,23 @@ def make_loss_fn_generic(model, mtype: str, anchors_np: np.ndarray,
         if mark is not None:
             mark('forward')
         return losses(out, batch)
+
+    return loss_fn
+
+
+def _bevformer_loss_fn(mark: Optional[Callable]) -> Callable:
+    cfg = DETRLossCfg()
+    up = DetectionLosses._upcast
+
+    def loss_fn(model, params: Optional[Mapping[str, torch.Tensor]], batch):
+        out = forward(model, params, batch, 'bevformer')
+        if mark is not None:
+            mark('forward')
+        losses = bevformer_head_loss(
+            up(out['all_cls_scores']), up(out['all_bbox_preds']),
+            batch['gt_boxes'], batch['gt_labels'], batch['gt_mask'], cfg)
+        aux = {k: losses[k].mean() for k in ('loss_cls', 'loss_bbox')}
+        return losses['total'].mean(), aux
 
     return loss_fn
 

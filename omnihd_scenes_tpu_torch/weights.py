@@ -46,6 +46,7 @@ from torch import nn
 from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
                                             MTLConfig, PointPillarsConfig)
 from omnihd_scenes_tpu_torch.models.bevformer.attention import NUM_HEADS
+from omnihd_scenes_tpu_torch.models.dcn import DeformConv
 from omnihd_scenes_tpu_torch.models.lss import ASPP
 from omnihd_scenes_tpu_torch.models.quant import QUANT_KEYS
 from omnihd_scenes_tpu_torch.models.resnet import ARCHS, Bottleneck
@@ -112,13 +113,16 @@ class _NameMap:
             self.pairs[f'{t}.{tkey}'] = (path[0],) + f + tuple(path[1:])
 
 
-def resnet_name_map(depth: int) -> Dict[str, FlaxPath]:
+def resnet_name_map(depth: int, stage_with_dcn: Tuple[bool, ...] = (False,)
+                    * 4) -> Dict[str, FlaxPath]:
     """torchvision ResNet key -> flax (collection, *path).
 
     Flax numbers the blocks flat: ``layer{s}.{j}`` is block
     ``sum(blocks[:s-1]) + j``; within a block conv/bn ``c`` is
     ``Conv_{c-1}`` / ``BatchNorm_{c-1}`` and the downsample pair is
-    declared last.
+    declared last.  In a ``stage_with_dcn`` stage the 3x3 convs are flax
+    ``DeformConv`` modules, numbered apart from the plain convs: the
+    kernel, as a conv's, and ``conv_offset`` (kernel and bias).
     """
     block, stage_blocks = ARCHS[depth]
     n_convs = 3 if block is Bottleneck else 2
@@ -129,11 +133,20 @@ def resnet_name_map(depth: int) -> Dict[str, FlaxPath]:
     for s, n_blocks in enumerate(stage_blocks):
         for j in range(n_blocks):
             t, f = f'layer{s + 1}.{j}', (f'{block.__name__}_{idx}',)
+            n_deform = n_plain = 0
             for c in range(n_convs):
-                m.conv(f'{t}.conv{c + 1}', f + (f'Conv_{c}',))
+                if stage_with_dcn[s] and (block is not Bottleneck or c == 1):
+                    d = f + (f'DeformConv_{n_deform}',)
+                    m.conv(f'{t}.conv{c + 1}', d)
+                    m.conv(f'{t}.conv{c + 1}.conv_offset',
+                           d + ('conv_offset',), bias=True)
+                    n_deform += 1
+                else:
+                    m.conv(f'{t}.conv{c + 1}', f + (f'Conv_{n_plain}',))
+                    n_plain += 1
                 m.bn(f'{t}.bn{c + 1}', f + (f'BatchNorm_{c}',))
             if j == 0 and (s > 0 or block is Bottleneck):
-                m.conv(f'{t}.downsample.0', f + (f'Conv_{n_convs}',))
+                m.conv(f'{t}.downsample.0', f + (f'Conv_{n_plain}',))
                 m.bn(f'{t}.downsample.1', f + (f'BatchNorm_{n_convs}',))
             idx += 1
     return m.pairs
@@ -287,7 +300,7 @@ def bevformer_name_map(cfg: BEVFormerConfig) -> Dict[str, FlaxPath]:
 def _bevformer_map(cfg: BEVFormerConfig) -> _NameMap:
     m = _NameMap()
     m.prefixed('img_backbone', ('img_backbone',),
-               resnet_name_map(cfg.resnet_depth))
+               resnet_name_map(cfg.resnet_depth, cfg.stage_with_dcn))
     n_levels = len(cfg.resnet_out_indices)
     for i in range(n_levels):
         m.conv(f'img_neck.lateral_convs.{i}', ('img_neck', f'Conv_{i}'),
@@ -531,9 +544,14 @@ def load_state_dict(model: nn.Module, state_dict) -> None:
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator`` (on the CPU): LeCun-normal conv
     and linear weights (flax's default init), zero biases, identity
-    BatchNorms."""
+    BatchNorms; DCNv2 kernels He-normal and their offset convs zero (the
+    JAX package's ``DeformConv``)."""
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(module, DeformConv):
+            w = module.weight
+            w.copy_(torch.randn(w.shape, generator=generator)
+                    * (2.0 / w[0].numel()) ** 0.5)
+        elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = module.weight
             if isinstance(module, nn.ConvTranspose2d):
                 fan_in = w.shape[0] * w[0, 0].numel()
@@ -545,4 +563,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 module.bias.zero_()
         elif isinstance(module, nn.modules.batchnorm._BatchNorm):
             module.reset_parameters()
+    for module in model.modules():
+        if isinstance(module, DeformConv):
+            module.conv_offset.weight.zero_()
+            module.conv_offset.bias.zero_()
     return model

@@ -5,8 +5,13 @@
   as the JAX package's, and ``merge_from_options`` / ``dump`` agree;
 * ``build_model_from_cfg`` builds the pillar families, the camera-only
   and the fusion models (BEVFusion, RCFusion, BEVFusion-OCC) and
-  BEVFormer-T R50 from the shipped configs, and refuses R101-DCN naming
-  DCN (``tests/test_torch_port_temporal.py`` runs the BEVFormer eval);
+  BEVFormer-T, R50 and R101-DCN, from the shipped configs; R101-DCN's
+  backbone serves a frame (``tests/test_torch_port_temporal.py`` runs the
+  BEVFormer eval);
+* ``tools.train configs/synthetic/bevformer_synth.py`` trains BEVFormer-T
+  on a dataroot with images (frame queues, the Hungarian-matched loss, no
+  periodic eval) and ``tools.test --eval`` streams the val split from its
+  checkpoint;
 * ``tools.train`` then ``tools.test --eval`` run end to end with
   ``--device cpu`` on ``configs/synthetic/pointpillars_radar_synth.py``
   over a synthetic dataroot written without images: checkpoints, the JSON
@@ -21,11 +26,13 @@
   there is an error, not a silent fallback.
 """
 
+import dataclasses
 import json
 import math
 import os
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -64,14 +71,18 @@ FUSION = {'configs/rcfusion.py': ('rcfusion', BEVFusion),
 # cameras, image, ResNet depth).
 BEVFORMER = {'configs/bevformer_t_r50.py': ((160, 240), 256, 900, (3, 6), 6,
                                             (544, 960), 50),
+             'configs/bevformer_t_r101.py': ((160, 240), 256, 900, (3, 6), 6,
+                                             (864, 1536), 101),
              'configs/synthetic/bevformer_synth.py': ((16, 24), 64, 32, (1, 2),
                                                       6, (128, 192), 18)}
-REFUSED = {'configs/bevformer_t_r101.py': 'stage_with_dcn.*DCN'}
+# R101-DCN, refused until DCNv2 was ported: its ``stage_with_dcn``.
+DCN_CONFIGS = {'configs/bevformer_t_r101.py': (False, False, True, True)}
+BEVFORMER_SYNTH = str(ROOT / 'configs/synthetic/bevformer_synth.py')
 
 
 def test_every_config_is_listed():
     assert len(CONFIGS) == 12
-    assert set(BUILT) | set(FUSION) | set(BEVFORMER) | set(REFUSED) | {
+    assert set(BUILT) | set(FUSION) | set(BEVFORMER) | set(DCN_CONFIGS) | {
         'configs/bevfusion.py', 'configs/lss_camera.py'} == set(CONFIGS)
 
 
@@ -155,24 +166,66 @@ def test_bevformer_configs_build(path):
     assert len(head.transformer.encoder.layers) == n_enc
     assert len(head.transformer.decoder.layers) == n_dec
     assert model.img_neck.lateral_convs[0].in_channels == (
-        2048 if depth == 50 else 512)
+        512 if depth == 18 else 2048)
     assert cfg.sca_query_cap == 1.0 and cfg.tsa_impl == 'gather'
 
 
-@pytest.mark.parametrize('path', sorted(REFUSED))
+@pytest.mark.parametrize('path', sorted(DCN_CONFIGS))
 def test_unported_families_are_refused(path):
-    """R101-DCN: its DCNv2 stages wait for their slice."""
-    with pytest.raises(NotImplementedError, match=REFUSED[path]):
-        build_model_from_cfg(Config.fromfile(str(ROOT / path)))
+    """Named for the refusal it pinned until DCNv2 was ported.  R101-DCN
+    builds: ResNet-101 with a ``DeformConv`` as the 3x3 conv of every
+    block of the stages its ``stage_with_dcn`` marks (23 + 3), and serves
+    one frame through ``StreamPredictor`` on the CPU with that backbone
+    (the head cut to a test's size, the image to 64x96)."""
+    from omnihd_scenes_tpu_torch.models.dcn import DeformConv
+    from omnihd_scenes_tpu_torch.serve.predictor import StreamPredictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_stream_frame)
+
+    model, mtype = build_model_from_cfg(Config.fromfile(str(ROOT / path)))
+    cfg = model.cfg
+    assert mtype == 'bevformer' and cfg.stage_with_dcn == DCN_CONFIGS[path]
+    for s, dcn in enumerate(cfg.stage_with_dcn):
+        layer = getattr(model.img_backbone, f'layer{s + 1}')
+        assert all(isinstance(b.conv2, DeformConv) == dcn for b in layer)
+    assert len(model.img_backbone.layer3) == 23
+    small = dataclasses.replace(cfg, bev_h=8, bev_w=12, num_query=16,
+                                embed_dims=32, encoder_layers=1,
+                                decoder_layers=1, num_cams=2,
+                                img_hw=(64, 96))
+    predictor = StreamPredictor(small, random_bevformer_state_dict(small, 1),
+                                device='cpu', dtype=torch.float32)
+    frame = random_stream_frame(np.random.RandomState(0), small, 1)
+    (boxes, scores, _, _), bev = predictor(*frame, predictor.zero_bev(1),
+                                           np.array([False]))
+    assert boxes.shape == (1, 300, 9) and bool(torch.isfinite(boxes).all())
+    assert bool(torch.isfinite(bev).all()) and bev.shape == (1, 96, 32)
 
 
-def test_bevformer_training_is_refused(dataroot):
-    """The BEVFormer-T training slice (Hungarian matching, the DETR loss)
-    is not ported: ``tools.train`` refuses it by name."""
-    with pytest.raises(NotImplementedError, match='BEVFormer-T training'):
-        train_cli.main([str(ROOT / 'configs/synthetic/bevformer_synth.py'),
-                        '--device', 'cpu', '--cfg-options',
-                        *cfg_options(dataroot)])
+def test_bevformer_training_is_refused(image_dataroot, tmp_path):
+    """Named for the refusal it pinned until its port.  BEVFormer-T
+    training runs: ``tools.train`` takes its steps on the temporal
+    dataset's frame queues (finite losses, no periodic eval, as in the JAX
+    package), writes a checkpoint, and ``tools.test --eval`` streams the
+    val split from it."""
+    work = str(tmp_path / 'work')
+    state = train_cli.main([BEVFORMER_SYNTH, '--work-dir', work, '--device',
+                            'cpu', '--cfg-options',
+                            *cfg_options(image_dataroot)])
+    records = [json.loads(line) for line in
+               open(os.path.join(work, 'train.log.json'))]
+    train = [r for r in records if r['mode'] == 'train']
+    assert len(train) == state.step == 6
+    for key in ('loss', 'loss_cls', 'loss_bbox', 'grad_norm'):
+        assert all(math.isfinite(r[key]) for r in train), key
+    assert not [r for r in records if r['mode'] == 'val']
+    assert os.listdir(os.path.join(work, 'ckpts')) == ['ckpt_1.pt']
+    out = str(tmp_path / 'test')
+    metrics = test_cli.main([BEVFORMER_SYNTH, os.path.join(work, 'ckpts'),
+                             '--eval', '--out-dir', out, '--device', 'cpu',
+                             '--cfg-options', *cfg_options(image_dataroot)])
+    assert math.isfinite(metrics['mAP']) and math.isfinite(metrics['NOS'])
+    assert json.load(open(os.path.join(out, 'metrics.json'))) == metrics
 
 
 @pytest.fixture(scope='module')

@@ -151,7 +151,8 @@ def test_package_imports_without_jax():
     assert {f'omnihd_scenes_tpu_torch.{m}' for m in (
         'models.occ_head', 'models.mtl', 'ops.ms_deform_attn',
         'eval.occupancy', 'data.image_loading', 'data.depth_loading',
-        'models.bevformer.detector', 'data.temporal_dataset')} <= set(
+        'models.bevformer.detector', 'data.temporal_dataset',
+        'models.bevformer.loss', 'models.hungarian', 'models.dcn')} <= set(
             modules)
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '
