@@ -208,13 +208,41 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ms, and each DCN layer shape alone beside its bound (JSON); then the
    frames, the split and the shapes again at the init's zero offset
    convs.  No hand kernel lies on either path: phases 25 and 26 check
-   that none launched.
+   that none launched.  26a also holds one DCN layer with zero offset
+   convs (every tap on a texel centre): its offset-conv gradient on the
+   card equals the CPU port's (both the floor side) within GRAD_SHARE;
+27. augmented BEVFusion training at full width: ``configs/bevfusion.py``'s
+   model, b4 under the bf16 policy, 1 warm-up + 3 timed steps, each
+   sample through the port's ``photometric_distortion`` and
+   ``global_rot_scale_trans_image`` with the draws forced over the
+   rotation range's two ends and flip_dx / flip_dy on and off (the
+   augmented geometry: ``img2lidar`` recomputed in f64); on that geometry
+   the fused LSS kernel's dumped (j, i, kd) against the plain fields
+   under phase 3's rule, its f32 / bf16 output against the plain gather,
+   and the backward against its plain version at phase 12's tolerance;
+   then the steps as phase 15 (ms, peak GiB, finite losses, one LSS
+   forward and one backward launch per step), and one more step through
+   ``train/loop.py:run_training`` (the pinned prefetch on a side stream)
+   under ``set_sync_debug_mode('warn')``: exactly one host sync, in the
+   logger's read of the step's scalars (``loop.py:_read_scalars``);
+28. the host feed and staged weights: on an image-less synthetic dataroot
+   the radar pillar config's ``TrainLoader`` inline, with 2 workers and
+   with 2 workers + the pinned prefetch: samples/s of each, the host's
+   cores, the radar decode ms per sweep native and NumPy over alternating
+   timed passes, the library's build outside them (rows within
+   1e-6 of a row's largest value), pooled batches bit-equal to inline
+   ones without ``aug``; ``tools.train configs/pointpillars_radar.py`` as
+   a subprocess with 2 workers and the points' ``rot_scale_flip`` (exit
+   0, finite losses); its checkpoint through ``load_pts_from`` into
+   ``configs/bevfusion.py``'s model on the card (every loaded tensor
+   equal, the count printed) and one b4 bf16-policy step.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
 training phase's for the LSS backward, and for the LSS kernels also the
 camera-only path's (phase 18), BEVFusion-OCC's (phases 21-22) and
-RCFusion's (phase 23), 0 on BEVFormer-T's training run (phase 25b) and
+RCFusion's (phase 23) and the augmented training's (phase 27,
+``launches_aug_train``), 0 on BEVFormer-T's training run (phase 25b) and
 R101-DCN's stream (26b), error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
@@ -1517,13 +1545,15 @@ def phase_small_train(dev):
 
 
 def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
-                label='15 train step', falling=False):
+                label='15 train step', falling=False, augment=None):
     """Full-width training under the bf16 policy at ``batch`` (the fusion
     model of ``configs/bevfusion.py``, or ``cfg`` of family ``mtype``):
     1 warm-up and N_TIMED timed steps; with ``falling``, the total loss
     and the occupancy losses (BEVFusion-OCC) must fall from the first step
-    to the last.  Returns (ms per step, (LSS backward launches, the LSS
-    forward's))."""
+    to the last.  ``augment(numpy batch) -> numpy batch`` augments each
+    batch; then one more step runs through ``run_training`` under
+    ``set_sync_debug_mode('warn')`` and its host syncs are counted.
+    Returns (ms per step, (LSS backward launches, the LSS forward's))."""
     import torch
 
     from omnihd_scenes_tpu_torch.config import BEVFusionConfig
@@ -1539,11 +1569,15 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     rng = np.random.RandomState(100 + batch)
     t0 = time.perf_counter()
     batches = []
-    for _ in range(1 + N_TIMED):
+    for _ in range(1 + N_TIMED + (augment is not None)):
         b = random_train_batch(rng, cfg, batch)
         if not fcfg.radar_stream:
             del b['points'], b['points_mask']
-        batches.append(batch_to(b, dev))
+        if augment is not None:
+            b = augment(b)
+        batches.append(b)
+    host_batch = batches.pop() if augment is not None else None
+    batches = [batch_to(b, dev) for b in batches]
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     state = _train_state(cfg, state_dict, dev, lr=2e-4)
@@ -1602,9 +1636,56 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     if occ_losses[0]:
         rounded = [{k: round(v, 4) for k, v in o.items()} for o in occ_losses]
         print(f'[{label}] occupancy losses per step {rounded}')
+    if host_batch is not None:
+        syncs, logger = _run_training_syncs(state, step, host_batch)
+        print(f'[{label}] one more step through run_training (pinned '
+              f'prefetch on a side stream, log_interval 1) under '
+              f'set_sync_debug_mode(\'warn\'): {len(syncs)} host sync(s)'
+              + ''.join(f'\n[{label}]   sync at {f}:{n}' for f, n in syncs)
+              + f' (expected 1: the logger\'s copy in '
+              f'{logger.__module__}.{logger.__name__})')
+        check(len(syncs) == 1, f'{len(syncs)} host syncs in a run_training '
+              f'step: {syncs}')
+        check(_in_function(syncs[0], logger),
+              f'the run_training step synced at {syncs[0]}, not in {logger}')
     del state, step, batches
     torch.cuda.empty_cache()
     return ms, launches
+
+
+def _run_training_syncs(state, step, host_batch):
+    """One step of ``run_training`` on a host (NumPy) batch under
+    ``set_sync_debug_mode('warn')`` -> ([(file, line) of each host sync],
+    the logger's one-copy read of the step's scalars, where the single
+    expected sync lies)."""
+    import warnings
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.train.loop import _read_scalars, run_training
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            run_training(state, step, [host_batch], 1, log_interval=1)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+    return [(w.filename, w.lineno) for w in caught
+            if 'called a synchronizing CUDA operation' in str(w.message)
+            ], _read_scalars
+
+
+def _in_function(where, fn):
+    """Whether ``where`` = (file, line) lies in ``fn``'s source lines."""
+    import inspect
+    import os
+
+    lines, first = inspect.getsourcelines(fn)
+    return (os.path.samefile(where[0], inspect.getsourcefile(fn))
+            and first <= where[1] < first + len(lines))
 
 
 PILLAR_CONFIGS = ('configs/pointpillars_radar.py', 'configs/radarpillarnet.py',
@@ -3240,7 +3321,43 @@ def phase_dcn_small(dev):
     _check_step_parity('26a R101-DCN train small',
                        'the same model, one f32 step',
                        _bevformer_step_runs(dev, cfg, sd, batch))
+    _dcn_zero_offset_gradient(dev)
     check(not any(_read_launches().values()), 'a hand kernel launched')
+
+
+def _dcn_zero_offset_gradient(dev):
+    """One DCN layer with zero offset convs (every tap on a texel centre,
+    ROADMAP queue 3 item 17): the offset conv's f32 gradient on the card
+    against the CPU port's, both taking the floor side."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.dcn import DeformConv
+
+    gen = torch.Generator().manual_seed(260)
+    x = torch.randn(2, 64, 17, 30, generator=gen)
+    cot = torch.randn(2, 64, 9, 15, generator=gen)
+    layer = DeformConv(64, 64, stride=2)
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn(layer.weight.shape, generator=gen)
+                           * 0.05)
+    grads = []
+    for device in ('cpu', dev):
+        m = layer.to(device)
+        for p in m.parameters():
+            p.grad = None
+        (m(x.to(device)) * cot.to(device)).sum().backward()
+        grads.append({k: p.grad.detach().cpu().clone()
+                      for k, p in m.named_parameters()
+                      if k.startswith('conv_offset')})
+    shares = {k: float((grads[1][k] - v).abs().max() / v.abs().max())
+              for k, v in grads[0].items()}
+    print(f'[26a DCN zero offsets] DeformConv 64 -> 64, stride 2, on '
+          f'2x64x17x30, offset conv zero (every tap on a texel centre): '
+          f'offset-conv gradient GPU vs CPU '
+          + ', '.join(f'{k} {v:.3e}' for k, v in shares.items())
+          + f' of max|CPU| (limit {GRAD_SHARE})')
+    check(all(v <= GRAD_SHARE for v in shares.values()),
+          f'DCN offset-conv gradient at texel centres GPU vs CPU {shares}')
 
 
 def _dcn_cost(module, x):
@@ -3389,6 +3506,314 @@ def _dcn_shapes(predictor, dcn, frame, bev, card, label):
     return rows
 
 
+# Phase 27: per sample of a b4 batch, the image rot-scale-flip's forced
+# draws: (rotation in degrees, flip_dx, flip_dy) -- the rotation range's
+# two ends, and each flip on and off.
+AUG_DRAWS = ((22.5, 1.0, 0.0), (-22.5, 0.0, 1.0), (22.5, 1.0, 1.0),
+             (-22.5, 0.0, 0.0))
+
+
+def augment_batch(batch, rng):
+    """A ``random_train_batch`` through the port's augmentation: each
+    sample's images through ``photometric_distortion``, its GT, points and
+    camera geometry through ``global_rot_scale_trans_image`` with the
+    draws of ``AUG_DRAWS``, ``img2lidar`` recomputed in f64 as the
+    dataset does."""
+    from omnihd_scenes_tpu_torch.data import augmentation as A
+
+    out = {k: v.copy() for k, v in batch.items()}
+    for s in range(len(batch['imgs'])):
+        img2lidar = np.tile(np.eye(4), (len(batch['imgs'][s]), 1, 1))
+        img2lidar[:, :3, :3] = batch['img2lidar_rots'][s]
+        img2lidar[:, :3, 3] = batch['img2lidar_trans'][s]
+        l2i = np.linalg.inv(img2lidar).astype(np.float32)
+        out['imgs'][s] = A.photometric_distortion(batch['imgs'][s], rng)
+        rot, flip_dx, flip_dy = AUG_DRAWS[s % len(AUG_DRAWS)]
+        boxes, l2i, pts, _ = A.global_rot_scale_trans_image(
+            batch['gt_boxes'][s], l2i, rng, points=batch['points'][s],
+            vel_dims=(3, 5), rot_range=(rot, rot), flip_dx_ratio=flip_dx,
+            flip_dy_ratio=flip_dy)
+        out['gt_boxes'][s], out['points'][s] = boxes, pts
+        inv = np.linalg.inv(l2i.astype(np.float64))
+        out['img2lidar_rots'][s] = inv[:, :3, :3]
+        out['img2lidar_trans'][s] = inv[:, :3, 3]
+    return out
+
+
+def phase_aug_kernels(dev, batch):
+    """(27) The LSS kernels on the augmented geometry of ``batch``: the
+    fused kernel's dumped fields against the plain fields (phase 3's
+    rule), its output against the plain gather, the backward against its
+    plain version (phase 12's tolerance)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        cell_indices, gather_cells, geometry_fields, lss_sample_bev,
+        lss_sample_bev_backward, lss_sample_bev_backward_reference)
+    from omnihd_scenes_tpu_torch.ops.lss_project import (_Geom,
+                                                         camera_geometry,
+                                                         check_rotations)
+
+    lss = BEVFusionConfig().lss
+    nx, ny, nz = lss.bev_nx
+    g = _Geom(lss.final_dim, lss.feat_hw, lss.camera_depth_range,
+              lss.pc_range[:3], (lss.grid,) * 3, (nx, ny, nz))
+    sx = lss.cam_solve_x
+    rots, trans = (torch.from_numpy(batch[k]).to(dev)
+                   for k in ('img2lidar_rots', 'img2lidar_trans'))
+    check_rotations(rots.cpu())
+    minv, mt = (t.contiguous() for t in camera_geometry(rots, trans))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    b = len(rots)
+    shape = (b, len(sx)) + tuple(lss.feat_hw)
+    feat = torch.randn(shape + (lss.camC,), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    depth = torch.softmax(torch.randn(shape + (lss.depth_bins,),
+                                      generator=gen, device=dev),
+                          -1).to(torch.bfloat16)
+    out32, idx = lss_sample_bev(feat, depth, minv, mt, g, sx,
+                                out_dtype=torch.float32, dump=True)
+    out16 = lss_sample_bev(feat, depth, minv, mt, g, sx,
+                           out_dtype=torch.bfloat16)
+    want_idx = cell_indices(*geometry_fields(minv, mt, g, sx), sx, g.ny,
+                            g.nx, lss.depth_bins)
+    differ, total = _index_differences(idx, want_idx, '27 aug')
+    per_sample = [sum(int((a[s] != w[s]).sum()) for a, w in zip(idx,
+                                                                 want_idx))
+                  for s in range(b)]
+    ref = gather_cells(feat, depth, *(idx if differ else want_idx),
+                       torch.float32)
+    torch.cuda.synchronize()
+    err, tol = _check_against(out32, out16, ref, 'fused kernel vs plain on '
+                              'the augmented geometry')
+    grad = torch.randn((b, g.ny, g.nx, g.nz, lss.camC), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    args = (grad, feat, depth, minv, mt, g, sx)
+    got = lss_sample_bev_backward(*args)
+    want = lss_sample_bev_backward_reference(*args)
+    rel = []
+    for name, a, w in zip(('dfeat', 'ddepth'), got, want):
+        check(a.dtype == w.dtype and _backward_tolerance(a, w),
+              f'27 backward {name} off the plain version on the augmented '
+              f'geometry')
+        rel.append(float((a.float() - w.float()).abs().max())
+                   / float(w.float().abs().max()))
+    dets = np.linalg.det(batch['img2lidar_rots'].astype(np.float64))
+    print(f'[27 aug kernels] b{b} bf16, draws (rot deg, flip_dx, flip_dy) '
+          f'{list(AUG_DRAWS)[:b]}, det(img2lidar) signs per sample '
+          f'{[int(np.sign(d).sum()) for d in dets]}: fused kernel indices '
+          f'differing per sample {per_sample} of {total // b} entries each '
+          f'(phase 3 rule); output max|d| {err:.3e} (tol {tol:.3e}), bf16 '
+          f'within 1 ulp; backward dfeat {rel[0]:.3e}, ddepth {rel[1]:.3e} '
+          f'of max|ref| (phase 12 tolerance)')
+    del out32, out16, idx, want_idx, ref, got, want, feat, depth, grad
+    torch.cuda.empty_cache()
+
+
+def phase_aug_train(dev, card):
+    """(27) Augmented BEVFusion training at full width; returns the LSS
+    (backward, forward) launches of its steps."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_state_dict,
+                                                         random_train_batch)
+
+    cfg = BEVFusionConfig()
+    rng = np.random.RandomState(270)
+    t0 = time.perf_counter()
+    probe = augment_batch(random_train_batch(rng, cfg, BATCH), rng)
+    aug_s = time.perf_counter() - t0
+    print(f'[27 aug] one b{BATCH} batch augmented on the host in '
+          f'{aug_s:.2f} s (photometric jitter of 6 x 544x960 images and '
+          f'the image rot-scale-flip per sample)')
+    phase_aug_kernels(dev, probe)
+    del probe
+    sd = random_state_dict(cfg, seed=0)
+    _, launches = phase_train(dev, card, BATCH, sd, label='27 aug train',
+                              augment=lambda b: augment_batch(b, rng))
+    del sd
+    torch.cuda.empty_cache()
+    return launches
+
+
+DECODE_ROUNDS = 6
+
+
+def phase_host_feed(dev, card):
+    """(28) The host feed and staged weights (see the module docstring)."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+    from omnihd_scenes_tpu_torch.data import native
+    from omnihd_scenes_tpu_torch.data.loader import TrainLoader
+    from omnihd_scenes_tpu_torch.data.prefetch import prefetch
+    from omnihd_scenes_tpu_torch.data.radar_loading import load_radar_sweep
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
+                                                          generate)
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_train_batch
+    from omnihd_scenes_tpu_torch.train import ckpt_remap
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.config import Config
+    from omnihd_scenes_tpu_torch.train.detection import build_datasets
+    from omnihd_scenes_tpu_torch.train.loop import (batch_to, checkpoint_file,
+                                                    create_train_state,
+                                                    make_train_step)
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+    from omnihd_scenes_tpu_torch.train.torch_import import load_state_dict
+    from omnihd_scenes_tpu_torch.weights import init_weights
+
+    config = 'configs/pointpillars_radar.py'
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'synth')
+        generate(root, 'v1.0-mini', SyntheticConfig(
+            n_scenes=4, samples_per_scene=12, n_radar_points=1000),
+            images=False)
+        create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
+                               max_sweeps=0)
+        opts = [f'dataroot={root}',
+                f'data.train.ann_file={root}/synth_infos_temporal_train.pkl',
+                f'data.val.ann_file={root}/synth_infos_temporal_val.pkl']
+        cfg = Config.fromfile(config)
+        # No shuffle and room for every point: the dataset draws nothing
+        # from its rng, so pooled batches can be held to inline ones.
+        cfg.merge_from_options(opts + ['data.train.point_shuffle=False'])
+        train_ds, _ = build_datasets(cfg)
+        bs = cfg.data.samples_per_device
+
+        # Native vs NumPy radar decode, per sweep: the library's build
+        # timed apart, one untimed pass of each (file cache), then
+        # DECODE_ROUNDS timed passes of each, the order swapped each round.
+        t0 = time.perf_counter()
+        native.get_lib()
+        build_s = time.perf_counter() - t0
+        sweeps = [(key, sw) for info in train_ds.infos
+                  for key, sws in info['radars'].items() for sw in sws]
+        rows = {use_native: [load_radar_sweep(sw, key, use_native=use_native)
+                             for key, sw in sweeps]
+                for use_native in (True, False)}
+        ms = {True: [], False: []}
+        for r in range(DECODE_ROUNDS):
+            for use_native in ((True, False) if r % 2 == 0
+                               else (False, True)):
+                t0 = time.perf_counter()
+                for key, sw in sweeps:
+                    load_radar_sweep(sw, key, use_native=use_native)
+                ms[use_native].append((time.perf_counter() - t0) * 1e3
+                                      / len(sweeps))
+        worst = 0.0
+        for a, b in zip(rows[True], rows[False]):
+            worst = max(worst, float(np.abs(a - b).max())
+                        / max(1.0, float(np.abs(b).max())))
+        check(worst <= 1e-6, f'native radar rows off NumPy by {worst:.3e}')
+
+        def epoch_rate(loader, feed=None, epochs=4):
+            """Samples/s over epochs 1.. (epoch 0 warms the pool and the
+            pinned allocator) and epoch 1's batches."""
+            batches = []
+            for epoch in range(epochs):
+                if epoch == 1:
+                    t0 = time.perf_counter()
+                loader.set_epoch(epoch)
+                it = iter(loader) if feed is None else feed(iter(loader))
+                batches.append(list(it))
+                if feed is not None:
+                    torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            return (epochs - 1) * len(loader) * bs / seconds, batches[1]
+
+        rates = {}
+        inline = TrainLoader(train_ds, bs, seed=3)
+        rates['inline'], want = epoch_rate(inline)
+        for name, feed in (('2 workers', None), ('2 workers + pinned '
+                                                 'prefetch', lambda it:
+                                                 prefetch(it, device=dev))):
+            loader = TrainLoader(train_ds, bs, seed=3, num_workers=2)
+            try:
+                rates[name], got = epoch_rate(loader, feed)
+            finally:
+                loader.close()
+            for g, w in zip(got, want, strict=True):
+                for k, v in w.items():
+                    gv = g[k].cpu().numpy() if torch.is_tensor(g[k]) else g[k]
+                    check(np.array_equal(gv, v), f'28 {name}: batch {k} '
+                          f'differs from the inline loader')
+        print(f'[28 host feed] {config} on a synthetic dataroot '
+              f'({len(train_ds)} train samples, {len(sweeps)} radar sweeps, '
+              f'b{bs}), os.cpu_count() {os.cpu_count()}: samples/s '
+              + ', '.join(f'{k} {v:.2f}' for k, v in rates.items())
+              + f' (epochs 2-4 of each); pooled batches bit-equal to '
+              f'inline; radar decode ms per sweep, median of '
+              f'{DECODE_ROUNDS} passes (order swapped each pass) native '
+              f'{np.median(ms[True]):.3f} {[round(x, 3) for x in ms[True]]}, '
+              f'NumPy {np.median(ms[False]):.3f} '
+              f'{[round(x, 3) for x in ms[False]]}, rows within '
+              f'{worst:.2e} of a row\'s max; the native library built in '
+              f'{build_s:.2f} s, outside the timed passes ({card})')
+
+        work = os.path.join(tmp, 'work')
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'omnihd_scenes_tpu_torch.tools.train',
+             config, '--work-dir', work, '--no-validate', '--cfg-options',
+             *opts, 'total_epochs=1', 'data.workers_per_device=2',
+             "data.train.aug={'rot_scale_flip': {}}"],
+            capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f'tools.train exited {proc.returncode}: '
+              f'{proc.stderr[-2000:]}')
+        with open(os.path.join(work, 'train.log.json')) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r['loss'] for r in records if r['mode'] == 'train']
+        check(losses and all(np.isfinite(losses)), f'losses {losses}')
+        print(f'[28 tools.train] {config}, 2 workers, aug rot_scale_flip: '
+              f'exit 0 in {seconds:.1f} s (whole process), losses {losses}')
+
+        source = load_state_dict(checkpoint_file(os.path.join(work,
+                                                              'ckpts')))
+    bcfg = BEVFusionConfig()
+    model = BEVFusion(bcfg)
+    init_weights(model, torch.Generator().manual_seed(28))
+    model.to(dev)
+    merged, rep = ckpt_remap.load_pts_from(dict(model.named_parameters()),
+                                           source, verbose=False)
+    with torch.no_grad():
+        for k in rep['loaded']:
+            model.get_parameter(k).copy_(merged[k])
+    check(all(torch.equal(model.get_parameter(k), source[k].to(dev))
+              for k in rep['loaded']), 'a loaded tensor differs on the card')
+    check(len(rep['loaded']) > 0, 'load_pts_from loaded nothing')
+    model.to(memory_format=torch.channels_last)
+    state = create_train_state(model, lambda p: make_optimizer(
+        p, make_lr_schedule(2e-4, 1000, warmup_iters=0)))
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        model, 'bevfusion', bcfg.pillars.anchors(),
+        camera_depth_range=bcfg.lss.camera_depth_range)))
+    batch = batch_to(random_train_batch(np.random.RandomState(28), bcfg,
+                                        BATCH), dev)
+    _, loss, _ = step(state, batch)
+    loss = float(loss)
+    check(np.isfinite(loss), f'step after load_pts_from: loss {loss}')
+    print(f'[28 load_pts_from] its checkpoint into configs/bevfusion.py\'s '
+          f'model on the card: {len(rep["loaded"])} tensors loaded, each '
+          f'equal on the card; {len(rep["skipped"])} skipped, '
+          f'{len(rep["mismatched"])} mismatched, {len(rep["missing"])} left '
+          f'at init; one b{BATCH} bf16-policy step: loss {loss:.4f}')
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+
+
 def sca_hits(cfg, lidar2img):
     """Hit queries per camera of one rig (any z-anchor inside the image)."""
     import torch
@@ -3458,6 +3883,8 @@ def main():
     bevformer_train = phase_bevformer_train(dev, card)
     phase_dcn_small(dev)
     r101 = phase_r101_stream(dev, card)
+    aug_back, aug_fwd = phase_aug_train(dev, card)
+    phase_host_feed(dev, card)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -3483,6 +3910,9 @@ def main():
         extra['lss_sample'][key] = {'train_b4': p['train_fwd'],
                                     'request_b4': p['request']}
         extra['lss_sample_backward'][key] = {'train_b4': p['train_back']}
+    extra['lss_sample']['launches_aug_train'] = {'train_b4': aug_fwd}
+    extra['lss_sample_backward']['launches_aug_train'] = {
+        'train_b4': aug_back}
     # BEVFormer-T's training run (phase 25b) and R101-DCN's stream (26b)
     # launch no hand kernel: their paths hold none.
     for name in rows:

@@ -15,9 +15,9 @@ Restated from ``omnihd_scenes_tpu/data/dataset.py``: the point-cloud
 modalities (``'radar'``, ``'lidar'``), ``modality='camera'`` (no points),
 the cameras (``use_camera``; ``data/image_loading.py``, which needs
 OpenCV), their depth targets (``load_depth_gt``) and the occupancy GT
-(``load_occ``), with the same seeded ``RandomState`` draws, hence the same
-samples bit for bit.  Training augmentation (``aug``) is not ported yet
-and is refused.
+(``load_occ``), and the training augmentation (``aug``,
+``data/augmentation.py``), with the same seeded ``RandomState`` draws in
+the same order, hence the same samples bit for bit.
 """
 
 from __future__ import annotations
@@ -76,10 +76,6 @@ class NewScenesDetDataset:
                  occ_downsample: Sequence[int] = (1, 1, 1),
                  aug: Optional[Dict] = None,
                  seed: int = 0):
-        if aug:
-            raise NotImplementedError(
-                "not ported yet: ['aug'] (ROADMAP queue 1 item 3: training "
-                "augmentation)")
         if modality not in ('radar', 'lidar', 'camera'):
             raise ValueError(f'unknown modality {modality!r}')
         self.infos = load_infos(ann_file)
@@ -261,6 +257,63 @@ class NewScenesDetDataset:
         if not self.test_mode:
             boxes, labels, mask = self._load_annotations(info)
             sample.update(gt_boxes=boxes, gt_labels=labels, gt_mask=mask)
+            if self.aug:
+                sample = self._apply_aug(sample)
+        return sample
+
+    def _apply_aug(self, sample: Dict) -> Dict:
+        """Training augmentations keeping GT / points / camera geometry
+        consistent (reference pipeline modules cited per function), in
+        the JAX package's order and ``self.rng`` consumption."""
+        from omnihd_scenes_tpu_torch.data import augmentation as A
+
+        aug = self.aug
+        geom_dirty = False
+        if aug.get('photometric') and 'imgs' in sample:
+            # 'photometric': True -> per-sample draws (multi-view
+            # consistent); 'per_view' -> the reference's per-view redraw.
+            sample['imgs'] = A.photometric_distortion(
+                sample['imgs'], self.rng,
+                per_view=aug.get('photometric') == 'per_view')
+        if aug.get('crop_resize_flip') and 'imgs' in sample:
+            params = A.sample_crop_resize_flip(
+                self.rng, aug['crop_resize_flip'],
+                training=not self.test_mode)
+            sample['imgs'], sample['lidar2img'] = \
+                A.crop_resize_flip_images(sample['imgs'],
+                                          sample['lidar2img'], *params)
+            geom_dirty = True
+        if aug.get('rot_scale_flip_image') is not None and \
+                'lidar2img' in sample:
+            vel_dims = (3, 5) if self.modality == 'radar' else None
+            kw = dict(aug['rot_scale_flip_image']) \
+                if isinstance(aug['rot_scale_flip_image'], dict) else {}
+            boxes, l2i, pts, _ = A.global_rot_scale_trans_image(
+                sample['gt_boxes'], sample['lidar2img'], self.rng,
+                points=sample.get('points'), vel_dims=vel_dims, **kw)
+            sample['gt_boxes'] = boxes
+            sample['lidar2img'] = l2i
+            if pts is not None:
+                sample['points'] = pts
+            geom_dirty = True
+        if aug.get('rot_scale_flip') is not None and 'points' in sample \
+                and 'imgs' not in sample:
+            vel_dims = (3, 5) if self.modality == 'radar' else None
+            kw = dict(aug['rot_scale_flip']) \
+                if isinstance(aug['rot_scale_flip'], dict) else {}
+            flip_ratio = kw.pop('flip_ratio', 0.5)
+            pts, boxes, _, _ = A.global_rot_scale_trans(
+                sample['points'], sample['gt_boxes'], self.rng,
+                vel_dims=vel_dims, **kw)
+            pts, boxes, _ = A.random_flip_3d(pts, boxes, self.rng,
+                                             flip_ratio=flip_ratio,
+                                             vel_dims=vel_dims)
+            sample['points'] = pts.astype(np.float32)
+            sample['gt_boxes'] = boxes.astype(np.float32)
+        if geom_dirty and 'img2lidar_rots' in sample:
+            inv = np.linalg.inv(sample['lidar2img'].astype(np.float64))
+            sample['img2lidar_rots'] = inv[:, :3, :3].astype(np.float32)
+            sample['img2lidar_trans'] = inv[:, :3, 3].astype(np.float32)
         return sample
 
     # -- result formatting / evaluation -------------------------------------

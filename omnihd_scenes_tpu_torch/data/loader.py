@@ -11,7 +11,7 @@ contiguous-block rule per process.
 
 Restated from ``omnihd_scenes_tpu/data/loader.py``: the same seeded epoch
 order and padding, hence the same batches; batches are NumPy dicts, which
-``train/loop.py:batch_to`` moves to the device.
+``data/prefetch.py`` (or ``train/loop.py:batch_to``) moves to the device.
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ class TrainLoader:
 
     ``group_flags`` switches to the reference's group-aware shuffle
     (``DistributedGroupSampler`` semantics: group-pure batches).
-    ``num_workers > 0`` (the JAX package's spawn-process worker pool,
-    reference ``workers_per_gpu``) is refused: samples are prepared
-    inline.
+    ``num_workers > 0`` prepares samples in that many spawn processes
+    (``data/worker_pool.py``; reference ``workers_per_gpu``,
+    ``datasets/builder.py:72-103``); :meth:`close` stops them.
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
@@ -45,10 +45,12 @@ class TrainLoader:
         self.epoch = 0
         self.group_flags = (None if group_flags is None
                             else np.asarray(group_flags))
+        self._pool = None
         if num_workers > 0:
-            raise NotImplementedError(
-                'num_workers > 0 (the worker pool) is not ported yet '
-                '(ROADMAP queue 1 item 3: worker pool and host feed)')
+            from omnihd_scenes_tpu_torch.data.worker_pool import WorkerPool
+
+            self._pool = WorkerPool(dataset, num_workers,
+                                    window=max(16, 2 * batch_size))
 
     def __len__(self):
         if self.group_flags is not None and self.shuffle:
@@ -82,12 +84,23 @@ class TrainLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self._epoch_order()
+        if self._pool is not None:
+            batch: List = []
+            for s in self._pool.imap(order):
+                batch.append(s)
+                if len(batch) == self.batch_size:
+                    yield _stack(batch)
+                    batch = []
+            return
         for i in range(0, len(order), self.batch_size):
             idxs = order[i:i + self.batch_size]
             yield _stack([self.dataset[int(j)] for j in idxs])
 
     def close(self):
-        """Nothing to release: samples are prepared inline."""
+        """Stop the worker processes, if any."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
 
 class EvalLoader:

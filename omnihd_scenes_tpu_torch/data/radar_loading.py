@@ -19,9 +19,12 @@ range-cropped, and padded/dropped to a static ``max_num`` buffer (the
 reference's own ``_pad_or_drop``, ``loading.py:178-207``).
 Host-side NumPy: this runs in the input pipeline, not on device.
 
-Restated from ``omnihd_scenes_tpu/data/radar_loading.py`` on its NumPy
-path (``use_native=False``); the JAX package's native C++ sweep loader
-(``data/native.py``) is not carried over.
+Restated from ``omnihd_scenes_tpu/data/radar_loading.py``: a sweep
+decodes through the native C++ loader (``data/native.py``, the default, as
+in JAX) or, with ``use_native=False``, through NumPy.  Unlike JAX, a
+native library that cannot be built or loaded raises instead of falling
+back.  The two paths agree within 1e-6 of a row's largest value: the C++
+computes in f64 where NumPy's trigonometry runs on f32 arrays.
 """
 
 from __future__ import annotations
@@ -43,10 +46,23 @@ def _load_points(path: str) -> np.ndarray:
 
 
 def load_radar_sweep(sweep: Dict, key: str, load_dim: int = 8,
-                     ref_ts: float = None) -> np.ndarray:
-    """One sensor sweep -> (N, 10) compensated points in the lidar frame."""
+                     ref_ts: float = None,
+                     use_native: bool = True) -> np.ndarray:
+    """One sensor sweep -> (N, 10) compensated points in the lidar frame
+    (native for 8-float rows unless ``use_native=False``)."""
     ts = float(ref_ts if ref_ts is not None
                else int(sweep['timestamp']) * 1e-6)
+    if use_native and load_dim == 8:
+        from omnihd_scenes_tpu_torch.data import native
+
+        s2e_rot = Quaternion(sweep['sensor2ego_rotation']).rotation_matrix
+        return native.radar_sweep_native(
+            sweep['data_path'], np.linalg.inv(s2e_rot),
+            np.asarray(sweep['sensor2lidar_rotation']),
+            np.asarray(sweep['sensor2lidar_translation']),
+            np.asarray(sweep['ego_velocity']),
+            ts - int(sweep['timestamp']) * 1e-6, RADAR_ID[key])
+
     pts = _load_points(sweep['data_path']).reshape(-1, load_dim).copy()
     timestamp = int(sweep['timestamp']) * 1e-6
     time_diff = np.full((pts.shape[0], 1), ts - timestamp)

@@ -49,21 +49,32 @@ def bilinear_sample(value: torch.Tensor, loc_xy: torch.Tensor) -> torch.Tensor:
     (B, ..., C) in the promoted dtype of value and locations.
 
     The JAX package's form: one 2x2 patch per location whose anchor is
-    clipped into the map, weighted by the tent formula ``relu(1 - |x -
-    X|) * relu(1 - |y - Y|)`` at the patch's absolute coordinates, so each
-    in-map tap of the support is covered and out-of-map taps weigh 0.  A
-    map of height or width 1 is padded with zeros to 2 first.
+    clipped into the map, so each in-map tap of the support is covered and
+    out-of-map taps weigh 0.  A map of height or width 1 is padded with
+    zeros to 2 first.  A patch column X weighs ``1 - f`` where X is
+    ``floor(x)``, ``f`` where X is ``floor(x) + 1`` and 0 elsewhere, with
+    ``f = x - floor(x)`` (rows alike): JAX's tent ``relu(1 - |x - X|)`` in
+    value, but with the floor-side derivative at a tap exactly on a texel
+    centre, the side ``F.grid_sample`` and mmcv's kernels take (JAX's tent
+    takes neither side there; ROADMAP queue 3 item 17).
     """
     b, h, w, c = value.shape
     if h < 2 or w < 2:
         value = F.pad(value, (0, 0, 0, max(0, 2 - w), 0, max(0, 2 - h)))
         h, w = max(h, 2), max(w, 2)
     x, y = loc_xy[..., 0], loc_xy[..., 1]
-    ys = torch.floor(y).clamp(0, h - 2).long()
-    xs = torch.floor(x).clamp(0, w - 2).long()
+    x0, y0 = torch.floor(x), torch.floor(y)
+    ys = y0.clamp(0, h - 2).long()
+    xs = x0.clamp(0, w - 2).long()
     offs = torch.arange(2, device=value.device)
-    wx = (1.0 - (x[..., None] - (xs[..., None] + offs)).abs()).clamp(min=0.0)
-    wy = (1.0 - (y[..., None] - (ys[..., None] + offs)).abs()).clamp(min=0.0)
+
+    def weights(t, t0, start):
+        frac = (t - t0)[..., None]
+        col = start[..., None] + offs - t0.long()[..., None]   # X - floor(t)
+        return torch.where(col == 0, 1.0 - frac,
+                           torch.where(col == 1, frac, 0.0))
+
+    wx, wy = weights(x, x0, xs), weights(y, y0, ys)
     flat = value.reshape(b, h * w, c)
     out = 0.0
     for a in range(2):

@@ -19,9 +19,14 @@ and the occupancy metrics to the periodic eval.  A BEVFormer-T config
 temporal dataset's frame queues with the Hungarian-matched DETR loss and,
 as in the JAX package, skips the periodic eval: ``tools.test --eval``
 streams the val split from the checkpoint.  Camera configs read JPEGs
-through OpenCV.  Pretrained-backbone and staged loading
-(``pretrained``, ``load_img_from``, ``load_lift_from``,
-``load_pts_from``) are not ported and are refused when set.
+through OpenCV.  ``data.workers_per_device`` (or ``workers_per_gpu``)
+prepares samples in that many spawn processes (``data/worker_pool.py``).
+Pretrained and staged weights apply after the model is built, unless
+``--resume-from`` restores a checkpoint, which takes precedence as in the
+JAX package: ``pretrained`` / ``load_img_from`` through
+``train/torch_import.py``, then ``load_lift_from`` / ``load_pts_from``
+(a checkpoint of the port, file or directory) through
+``train/ckpt_remap.py``; each logs ``{'mode': key, 'loaded': ...}``.
 """
 
 from __future__ import annotations
@@ -89,12 +94,6 @@ def main(argv=None):
     check_family(cfg.get('model_type', 'pointpillars'))
     if args.work_dir:
         cfg.work_dir = args.work_dir
-    unported = [k for k in ('pretrained', 'load_img_from', 'load_lift_from',
-                            'load_pts_from')
-                if cfg.get(k) or cfg.model.get(k)]
-    if unported and not args.resume_from:
-        raise NotImplementedError(f'not ported yet: {unported} (pretrained '
-                                  f'and staged weight loading)')
     os.makedirs(cfg.work_dir, exist_ok=True)
     cfg.dump(osp.join(cfg.work_dir, 'config.py'))
 
@@ -139,6 +138,8 @@ def main(argv=None):
     if args.resume_from:
         state = load_checkpoint(args.resume_from, state)
         logger.log({'mode': 'resume', 'step': int(state.step)})
+    else:
+        apply_staged_weights(cfg, model, logger)
 
     anchors_np = anchors_for(model, mtype)
     loss_fn = make_loss_fn_generic(
@@ -160,15 +161,51 @@ def main(argv=None):
                 osp.join(cfg.work_dir, 'eval'))
 
     t0 = time.time()
-    state = run_training(
-        state, train_step, train_loader, cfg.total_epochs, logger=logger,
-        log_interval=cfg.get('log_interval', 50),
-        ckpt_dir=osp.join(cfg.work_dir, 'ckpts'),
-        ckpt_interval=cfg.get('ckpt_interval', 1),
-        eval_fn=eval_fn, eval_interval=cfg.get('eval_interval', 1))
+    try:
+        state = run_training(
+            state, train_step, train_loader, cfg.total_epochs, logger=logger,
+            log_interval=cfg.get('log_interval', 50),
+            ckpt_dir=osp.join(cfg.work_dir, 'ckpts'),
+            ckpt_interval=cfg.get('ckpt_interval', 1),
+            eval_fn=eval_fn, eval_interval=cfg.get('eval_interval', 1))
+    finally:
+        train_loader.close()
     logger.log({'mode': 'done', 'wall_time': time.time() - t0,
                 'final_step': int(state.step)})
     return state
+
+
+@torch.no_grad()
+def apply_staged_weights(cfg, model, logger) -> None:
+    """``pretrained`` / ``load_img_from``, then ``load_lift_from`` /
+    ``load_pts_from``, into ``model`` (JAX ``tools/train.py:115-154``)."""
+    from omnihd_scenes_tpu_torch.train import ckpt_remap
+    from omnihd_scenes_tpu_torch.train.loop import checkpoint_file
+    from omnihd_scenes_tpu_torch.train.torch_import import (apply_pretrained,
+                                                            load_state_dict)
+
+    pretrained = cfg.get('pretrained', cfg.model.get('pretrained'))
+    load_img_from = cfg.get('load_img_from')
+    if pretrained or load_img_from:
+        merged, reports = apply_pretrained(
+            model.state_dict(), pretrained=pretrained,
+            load_img_from=load_img_from,
+            resnet_depth=cfg.model.get('resnet_depth'))
+        model.load_state_dict(merged)
+        for key, rep in reports.items():
+            logger.log({'mode': key, 'loaded': len(rep['loaded']),
+                        'missing': len(rep.get('missing', ())),
+                        'mismatched': len(rep.get('mismatched', ())),
+                        'skipped': len(rep.get('skipped', ()))})
+    for key in ('load_lift_from', 'load_pts_from'):
+        path = cfg.get(key)
+        if path:
+            source = load_state_dict(checkpoint_file(path))
+            merged, report = getattr(ckpt_remap, key)(
+                dict(model.named_parameters()), source)
+            for name in report['loaded']:
+                model.get_parameter(name).copy_(merged[name])
+            logger.log({'mode': key, 'loaded': len(report['loaded'])})
 
 
 if __name__ == '__main__':

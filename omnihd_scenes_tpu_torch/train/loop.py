@@ -7,10 +7,13 @@ dataloaders, the optimizer and lr/ckpt/log hooks; the JAX package jits one
 forward, loss, ``backward``, then the optimizer's clip + AdamW, with
 BatchNorm's running statistics updated in the model's buffers.
 Checkpoints are ``torch.save`` files, ``ckpt_<step>.pt``, the last
-``max_keep`` kept.  The loop reads the loss back from the device only at
-the log interval and at the end of an epoch (the reference's
-``GradChecker`` becomes that finite-loss guard), so the host never waits
-for the device inside a step.
+``max_keep`` kept.  The loop takes batches through ``data/prefetch.py``
+(a background thread; on a CUDA device also the pinned upload on a side
+stream) and reads the loss and the step's other scalars back from the
+device in one copy, only at the log interval and at the end of an epoch
+that did not end on a logged step (the reference's ``GradChecker`` becomes
+that finite-loss guard), so the host never waits for the device inside a
+step.
 """
 
 from __future__ import annotations
@@ -57,13 +60,26 @@ def batch_to(batch: Mapping, device) -> Dict:
     return out
 
 
-def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None):
+def _global_norm(grads) -> torch.Tensor:
+    """sqrt(sum |g|^2) over ``grads``, in at least f32."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.to(torch.promote_types(g.dtype,
+                                                           torch.float32)))
+         for g in grads]))
+
+
+def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None,
+                    check_unused_params: bool = False):
     """``train_step(state, batch) -> (state, loss, aux)``.
 
     ``loss_fn(model, params, batch) -> (loss, aux)`` with ``params`` the
     model's parameters by name (:func:`train.builder.make_loss_fn_generic`,
     optionally under :func:`train.amp.bf16_policy`).  ``aux`` gains
-    ``grad_norm``, the gradients' global norm before clipping.  Everything
+    ``grad_norm``, the gradients' global norm before clipping, and with
+    ``check_unused_params`` one ``gnorm/<name>`` per top-level module: the
+    global norm of its parameters' gradients (the reference's
+    ``GradChecker`` warned on parameters with no gradient; a norm that
+    stays 0 says the same; JAX ``train/loop.py:45-78``).  Everything
     returned stays on the device.  ``mark(stage)``, if given, is called
     after the loss, the backward and the optimizer (the stage profiler
     records a CUDA event there).
@@ -85,6 +101,12 @@ def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params.values()]
         aux = {k: v.detach() for k, v in aux.items()}
+        if check_unused_params:
+            groups: Dict[str, list] = {}
+            for name, g in zip(params, grads):
+                groups.setdefault(name.split('.')[0], []).append(g)
+            for top, gs in groups.items():
+                aux[f'gnorm/{top}'] = _global_norm(gs)
         aux['grad_norm'] = state.optimizer.step(grads)
         for p in params.values():
             p.grad = None
@@ -122,20 +144,26 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
     return path
 
 
-def load_checkpoint(ckpt_dir: str, state: TrainState,
-                    step: Optional[int] = None) -> TrainState:
-    """Restore ``state`` in place from a checkpoint file, or from the
-    newest ``ckpt_<N>.pt`` of a directory (``step=N`` picks one)."""
+def checkpoint_file(ckpt_dir: str, step: Optional[int] = None) -> str:
+    """A checkpoint file itself, or the newest ``ckpt_<N>.pt`` of a
+    directory (``step=N`` picks one)."""
     if os.path.isfile(ckpt_dir):
         if step is not None:
             raise ValueError(f'{ckpt_dir} is itself a checkpoint; step={step} '
                              f'cannot also be applied')
-        path = ckpt_dir
-    else:
-        steps = _ckpt_steps(ckpt_dir)
-        if not steps:
-            raise FileNotFoundError(f'no checkpoints in {ckpt_dir}')
-        path = os.path.join(ckpt_dir, f'ckpt_{steps[-1] if step is None else step}.pt')
+        return ckpt_dir
+    steps = _ckpt_steps(ckpt_dir)
+    if not steps:
+        raise FileNotFoundError(f'no checkpoints in {ckpt_dir}')
+    return os.path.join(ckpt_dir,
+                        f'ckpt_{steps[-1] if step is None else step}.pt')
+
+
+def load_checkpoint(ckpt_dir: str, state: TrainState,
+                    step: Optional[int] = None) -> TrainState:
+    """Restore ``state`` in place from a checkpoint file, or from the
+    newest ``ckpt_<N>.pt`` of a directory (``step=N`` picks one)."""
+    path = checkpoint_file(ckpt_dir, step)
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
     state.model.load_state_dict(payload['model'])
@@ -168,11 +196,18 @@ class JsonLogger:
                   flush=True)
 
 
-def _check_finite(loss, where: str) -> float:
-    value = float(loss)
+def _check_finite(value: float, where: str) -> float:
     if not np.isfinite(value):
         raise FloatingPointError(f'non-finite loss at {where}')
     return value
+
+
+def _read_scalars(loss, aux) -> Dict[str, float]:
+    """The loss and the step's scalars in one device-to-host copy."""
+    keys = ['loss', *aux]
+    values = torch.stack([v.detach().double().reshape(())
+                          for v in (loss, *aux.values())]).tolist()
+    return dict(zip(keys, values))
 
 
 def run_training(state: TrainState, train_step, train_loader,
@@ -181,26 +216,34 @@ def run_training(state: TrainState, train_step, train_loader,
                  ckpt_interval: int = 1, eval_fn: Optional[Callable] = None,
                  eval_interval: int = 1) -> TrainState:
     """Epoch-based runner over an iterable of batches (dicts of arrays or
-    tensors); ``train_loader.set_epoch(epoch)`` is called if it exists."""
+    tensors); ``train_loader.set_epoch(epoch)`` is called if it exists.
+    Batches go through :func:`data.prefetch.prefetch` toward the model's
+    device, as in JAX ``loop.py:174-183``."""
+    from omnihd_scenes_tpu_torch.data.prefetch import prefetch
+
+    device = next(state.model.parameters()).device
     for epoch in range(num_epochs):
         if hasattr(train_loader, 'set_epoch'):
             train_loader.set_epoch(epoch)
         t0 = time.time()
         loss = None
-        for it, batch in enumerate(train_loader):
+        checked = False
+        for it, batch in enumerate(prefetch(iter(train_loader),
+                                            device=device)):
             state, loss, aux = train_step(state, batch)
-            if it % log_interval == 0:
-                loss_v = _check_finite(loss, f'epoch {epoch} iter {it}')
+            checked = it % log_interval == 0
+            if checked:
+                rec = _read_scalars(loss, aux)
+                _check_finite(rec['loss'], f'epoch {epoch} iter {it}')
                 if logger:
-                    rec = {'mode': 'train', 'epoch': epoch, 'iter': it,
-                           'loss': loss_v, 'time': time.time() - t0}
-                    rec.update({k: float(v) for k, v in aux.items()})
-                    logger.log(rec)
+                    logger.log({'mode': 'train', 'epoch': epoch, 'iter': it,
+                                'loss': rec.pop('loss'),
+                                'time': time.time() - t0, **rec})
                     t0 = time.time()
         # A non-finite loss after the last logged step must not reach the
         # checkpoint (rotation could evict the last good one).
-        if loss is not None:
-            _check_finite(loss, f'end of epoch {epoch}')
+        if loss is not None and not checked:
+            _check_finite(float(loss), f'end of epoch {epoch}')
         if ckpt_dir and (epoch + 1) % ckpt_interval == 0:
             save_checkpoint(ckpt_dir, state, epoch + 1)
         if eval_fn and (epoch + 1) % eval_interval == 0:

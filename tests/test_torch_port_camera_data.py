@@ -16,6 +16,7 @@ occupancy GT (needs OpenCV, as the camera loaders do):
 * without OpenCV the loader says that it needs it.
 """
 
+import functools
 import os
 import pickle
 import subprocess
@@ -45,6 +46,8 @@ from omnihd_scenes_tpu.train.eval_runner import (  # noqa: E402
     evaluate_results as jax_evaluate_results)
 from omnihd_scenes_tpu_torch.data import depth_loading  # noqa: E402
 from omnihd_scenes_tpu_torch.data import image_loading  # noqa: E402
+from omnihd_scenes_tpu_torch.data import (  # noqa: E402
+    radar_loading as port_radar_loading)
 from omnihd_scenes_tpu_torch.data.dataset import (  # noqa: E402
     NewScenesDetDataset)
 from omnihd_scenes_tpu_torch.data.loader import (  # noqa: E402
@@ -83,9 +86,14 @@ def dataroot(tmp_path_factory):
 
 @pytest.fixture()
 def jax_numpy_radar(monkeypatch):
-    """JAX's radar sweeps on their NumPy path (``use_native=False``)."""
+    """Both packages' radar sweeps on their NumPy path (``use_native=
+    False``); ``tests/test_torch_port_host_feed.py`` holds the native
+    paths to each other."""
     monkeypatch.setattr(jax_native, 'radar_sweep_native',
                         lambda *a, **k: None)
+    monkeypatch.setattr(port_radar_loading, 'load_radar_sweep',
+                        functools.partial(port_radar_loading.load_radar_sweep,
+                                          use_native=False))
 
 
 CAMERA = dict(use_camera=True, load_depth_gt=True, load_occ=True,

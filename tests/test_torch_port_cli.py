@@ -21,6 +21,8 @@
   cameras, radar, occupancy GT) over a dataroot with images: falling
   occupancy losses, finite ``occ_IoU`` / ``occ_mIoU``, the val record
   equal to the test CLI's metrics;
+* ``tools.train`` with ``aug``, ``data.workers_per_device=2`` and
+  ``load_pts_from``, and ``--resume-from`` taking precedence over it;
 * ``--int8`` and ``--host-nms`` are refused (``--host-nms`` is ignored
   for BEVFormer, whose decode is NMS-free), and a CUDA device that is not
   there is an error, not a silent fallback.
@@ -303,6 +305,39 @@ def test_resume(trained, dataroot, tmp_path):
     records = [json.loads(line) for line in
                open(tmp_path / 'train.log.json')]
     assert {'mode': 'resume', 'step': 6} in records
+
+
+def test_train_cli_aug_workers_and_load_pts_from(trained, dataroot,
+                                                 tmp_path):
+    """``tools.train`` with the points' ``rot_scale_flip``, two spawn
+    workers and ``load_pts_from`` the trained checkpoints: every parameter
+    loads, the losses are finite, the log says so; ``--resume-from``
+    takes precedence over the staged load, as in the JAX package."""
+    work, _ = trained
+    ckpts = os.path.join(work, 'ckpts')
+    opts = ['total_epochs=1', 'data.workers_per_device=2',
+            "data.train.aug={'rot_scale_flip': {}}",
+            f'load_pts_from={ckpts}', *cfg_options(dataroot)]
+    state = train_cli.main([SYNTH, '--work-dir', str(tmp_path / 'staged'),
+                            '--device', 'cpu', '--no-validate',
+                            '--cfg-options', *opts])
+    records = [json.loads(line) for line in
+               open(tmp_path / 'staged' / 'train.log.json')]
+    n_params = len(list(state.model.parameters()))
+    assert [r for r in records if r['mode'] == 'load_pts_from'] == [
+        {'mode': 'load_pts_from', 'loaded': n_params}]
+    train = [r for r in records if r['mode'] == 'train']
+    assert len(train) == 3 and all(math.isfinite(r['loss']) for r in train)
+    assert records[-1]['mode'] == 'done'
+
+    state = train_cli.main([SYNTH, '--work-dir', str(tmp_path / 'resumed'),
+                            '--device', 'cpu', '--no-validate',
+                            '--resume-from', ckpts, '--cfg-options', *opts])
+    records = [json.loads(line) for line in
+               open(tmp_path / 'resumed' / 'train.log.json')]
+    assert {'mode': 'resume', 'step': 6} in records
+    assert not [r for r in records if r['mode'] == 'load_pts_from']
+    assert state.step == 6 + 3
 
 
 @pytest.mark.parametrize('flag', ['--int8', '--host-nms'])

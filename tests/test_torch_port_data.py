@@ -6,18 +6,21 @@ dataset: the generator, the info converter, the radar and LiDAR loaders,
   camera JPEGs byte for byte; with ``images=False`` the same files less
   the JPEGs;
 * ``create_newscenes_infos`` writes the same infos;
-* the radar sweep loader is bit-equal to JAX's NumPy path
-  (``use_native=False``) and within 1e-6 of its default (the native C++
-  path);
+* the radar sweep loader's NumPy path is bit-equal to JAX's
+  (``use_native=False``), and its default (the native C++ path) within
+  1e-6 of JAX's default;
 * dataset samples (radar and LiDAR, train and test mode, with the seeded
   point shuffle and pad-or-drop) and ``TrainLoader`` / ``EvalLoader``
-  batches over two epochs are bit-equal, JAX's radar sweeps on their
-  NumPy path;
-* the camera and occupancy options load what JAX's dataset loads;
-  training augmentation and the worker pool are refused.
+  batches over two epochs are bit-equal, both packages' radar sweeps on
+  their NumPy path;
+* the camera and occupancy options and the points' training augmentation
+  load what JAX's dataset loads; ``TrainLoader(num_workers=2)`` gives the
+  inline batches (``tests/test_torch_port_host_feed.py`` holds the pool,
+  ``tests/test_torch_port_augmentation.py`` the augmentation).
 """
 
 import filecmp
+import functools
 import os
 import pickle
 
@@ -35,6 +38,7 @@ from omnihd_scenes_tpu.devkit.converter import (
     create_newscenes_infos as jax_create_infos)
 from omnihd_scenes_tpu.devkit.synthetic import (
     SyntheticConfig as JaxSyntheticConfig, generate as jax_generate)
+from omnihd_scenes_tpu_torch.data import radar_loading as port_radar_loading
 from omnihd_scenes_tpu_torch.data.dataset import NewScenesDetDataset
 from omnihd_scenes_tpu_torch.data.loader import EvalLoader, TrainLoader
 from omnihd_scenes_tpu_torch.data.radar_loading import load_radar_sweep
@@ -126,9 +130,14 @@ def test_converter_writes_the_same_infos(infos, split):
 
 @pytest.fixture()
 def jax_numpy_radar(monkeypatch):
-    """JAX's radar sweeps on their NumPy path (``use_native=False``)."""
+    """Both packages' radar sweeps on their NumPy path (``use_native=
+    False``); ``tests/test_torch_port_host_feed.py`` holds the native
+    paths to each other."""
     monkeypatch.setattr(jax_native, 'radar_sweep_native',
                         lambda *a, **k: None)
+    monkeypatch.setattr(port_radar_loading, 'load_radar_sweep',
+                        functools.partial(port_radar_loading.load_radar_sweep,
+                                          use_native=False))
 
 
 def _sweeps(infos):
@@ -142,7 +151,7 @@ def _sweeps(infos):
 def test_radar_sweep_bit_equal_to_the_numpy_path(infos):
     for key, sweep in _sweeps(infos):
         want = jax_load_radar_sweep(sweep, key, use_native=False)
-        got = load_radar_sweep(sweep, key)
+        got = load_radar_sweep(sweep, key, use_native=False)
         assert got.dtype == want.dtype and len(got) > 0
         np.testing.assert_array_equal(got, want)
 
@@ -244,17 +253,12 @@ def test_repeat_wrapper_matches(infos, jax_numpy_radar):
     {'load_occ': True}, {'aug': {'rot_scale_flip': {}}}])
 def test_camera_options_load_and_aug_is_refused(infos, option,
                                                 jax_numpy_radar):
-    """Training augmentation stays refused; the camera and occupancy
-    options, refused until the camera data path was ported, now give
-    samples bit-equal to JAX's (``load_depth_gt`` alone, without the
-    cameras, reads nothing, as in JAX;
-    ``tests/test_torch_port_camera_data.py`` holds the depth targets)."""
+    """The camera and occupancy options and training augmentation, each
+    refused until its part was ported, now give samples bit-equal to
+    JAX's (``load_depth_gt`` alone, without the cameras, reads nothing,
+    as in JAX; ``tests/test_torch_port_camera_data.py`` holds the depth
+    targets; the points' ``rot_scale_flip`` draws from the seeded rng)."""
     ann = 'synth_infos_temporal_train.pkl'
-    if 'aug' in option:
-        with pytest.raises(NotImplementedError, match='not ported'):
-            NewScenesDetDataset(ann_file=os.path.join(infos['port'], ann),
-                                **option)
-        return
     kw = dict(max_points=300, max_gt=16, radar_sweeps=2, **option)
     want_ds = JaxDataset(ann_file=os.path.join(infos['jax'], ann), **kw)
     got_ds = NewScenesDetDataset(ann_file=os.path.join(infos['port'], ann),
@@ -268,6 +272,18 @@ def test_camera_options_load_and_aug_is_refused(infos, option,
 
 
 def test_worker_pool_is_refused(infos):
-    _, ds = _datasets(infos, 'radar-train')
-    with pytest.raises(NotImplementedError, match='worker pool'):
-        TrainLoader(ds, 2, num_workers=2)
+    """The worker pool, refused until it was ported, gives the inline
+    loader's batches (a dataset that draws nothing from its rng: room for
+    every point and no shuffle, since the pool reseeds each worker's)."""
+    ds = NewScenesDetDataset(
+        ann_file=os.path.join(infos['port'], 'synth_infos_temporal_train.pkl'),
+        modality='radar', max_points=4000, max_gt=16, radar_sweeps=3)
+    pooled = TrainLoader(ds, 2, seed=4, num_workers=2)
+    try:
+        got = list(pooled)
+    finally:
+        pooled.close()
+    want = list(TrainLoader(ds, 2, seed=4))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        _assert_batches_equal(g, w)
