@@ -236,13 +236,44 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    0, finite losses); its checkpoint through ``load_pts_from`` into
    ``configs/bevfusion.py``'s model on the card (every loaded tensor
    equal, the count printed) and one b4 bf16-policy step.
+29. the scatter splat (``splat_mode='scatter'``, plain ``index_add_``,
+   no LSS kernel): small f32 on the card against the CPU (1e-4 of
+   max|ref|) with the difference of two card runs printed; the serving
+   configuration in scatter mode, b4 bf16, 1 + 3 requests (ms, peak GiB,
+   B splats and no LSS launch a request); the b4 view transform alone
+   (frustum ids, their share, and ``lss_splat``) beside its byte bound
+   and the sampling kernel on the same inputs (printed, not checked),
+   two runs' difference; ``configs/bevfusion.py`` in scatter mode, 1 + 3
+   b4 bf16-policy steps as phase 15, no LSS launch;
+30. ``pillar_impl='dense_fold'`` against ``'dense'`` serving, b4 bf16 on
+   the same weights, alternating over 1 + 3 requests: ms of each, the
+   pillar canvas and head maps within HEAD_TOL of max|dense|;
+31. the s2d stem: 1 + 3 b4 bf16 requests of host-packed images (ms,
+   peak), the head maps within HEAD_TOL of the standard stem's on the
+   unpacked request; int8 + s2d: calibrate on a packed request (the stem
+   keeps act_amax only), 1 + 3 requests, qconv once per eligible layer;
+32. remat on ``configs/bevfusion.py``: cold b4 bf16-policy first steps
+   plain / remat / plain / remat from the same weights and batch (ms,
+   peak; running statistics within the plain runs' rounding, so a
+   second update on recomputation fails; LSS forward twice, backward
+   once a remat step), b2 f32 gradients of remat within GRAD_SHARE of
+   each leaf's max|plain|, then warm remat steps at b4 (with the sync
+   check of phase 27) and b8;
+33. BEVFusion-OCC in int8 (``bench.py --mtl --int8``): calibrate, 1 + 3
+   b4 requests (qconv once per eligible layer, the occupancy argmax on
+   the card), phase 11's checks against bf16 and the share of equal
+   occupancy voxels printed.  Phase 19 also runs ``tools.test --int8
+   --eval`` (exit 0, finite metrics, the calibration line).
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
 training phase's for the LSS backward, and for the LSS kernels also the
 camera-only path's (phase 18), BEVFusion-OCC's (phases 21-22) and
 RCFusion's (phase 23) and the augmented training's (phase 27,
-``launches_aug_train``), 0 on BEVFormer-T's training run (phase 25b) and
+``launches_aug_train``), the scatter path's (29, ``launches_scatter``,
+which must be 0), dense_fold's (30), s2d's and int8 + s2d's (31, qconv
+too), the remat training run's (32) and BEVFusion-OCC int8's (33, qconv
+too), 0 on BEVFormer-T's training run (phase 25b) and
 R101-DCN's stream (26b), error against the plain version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
@@ -1186,7 +1217,7 @@ def phase_int8_exact(int8, request):
     check(not inexact, f'int8 convs not exact: {inexact}')
 
 
-def phase_int8_vs_bf16(bf16, int8, request):
+def phase_int8_vs_bf16(bf16, int8, request, label='11 int8 vs bf16'):
     import torch
 
     from omnihd_scenes_tpu_torch.models.anchor_head import (
@@ -1203,7 +1234,7 @@ def phase_int8_vs_bf16(bf16, int8, request):
         anchor_head_get_bboxes(*(out[k] for k in keys[1:]), bf16.anchors)
         for out in (got, want)]
     share = box_match(b8, l8, v8, b16, l16, v16)
-    print(f'[11 int8 vs bf16] full-width b{BATCH}, random weights: head '
+    print(f'[{label}] full-width b{BATCH}, random weights: head '
           f'maps off by ' + ', '.join(f'{k} {v:.3e}' for k, v in rel.items())
           + f' of max|bf16| (limit {INT8_HEAD_TOL}); kept boxes int8 '
           f'{int(v8.sum())}, bf16 {int(v16.sum())}, {share:.4f} of int8 '
@@ -1545,15 +1576,18 @@ def phase_small_train(dev):
 
 
 def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
-                label='15 train step', falling=False, augment=None):
+                label='15 train step', falling=False, augment=None,
+                per_step=(1, 1), sync_check=False, timed=N_TIMED):
     """Full-width training under the bf16 policy at ``batch`` (the fusion
     model of ``configs/bevfusion.py``, or ``cfg`` of family ``mtype``):
-    1 warm-up and N_TIMED timed steps; with ``falling``, the total loss
-    and the occupancy losses (BEVFusion-OCC) must fall from the first step
-    to the last.  ``augment(numpy batch) -> numpy batch`` augments each
-    batch; then one more step runs through ``run_training`` under
-    ``set_sync_debug_mode('warn')`` and its host syncs are counted.
-    Returns (ms per step, (LSS backward launches, the LSS forward's))."""
+    1 warm-up and ``timed`` timed steps, each launching the LSS forward
+    and backward kernels ``per_step`` times; with ``falling``, the total
+    loss and the occupancy losses (BEVFusion-OCC) must fall from the first
+    step to the last.  ``augment(numpy batch) -> numpy batch`` augments
+    each batch; then (or with ``sync_check``) one more step runs through
+    ``run_training`` under ``set_sync_debug_mode('warn')`` and its host
+    syncs are counted.  Returns (ms per step, (LSS backward launches, the
+    LSS forward's))."""
     import torch
 
     from omnihd_scenes_tpu_torch.config import BEVFusionConfig
@@ -1569,14 +1603,15 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     rng = np.random.RandomState(100 + batch)
     t0 = time.perf_counter()
     batches = []
-    for _ in range(1 + N_TIMED + (augment is not None)):
+    sync_check = sync_check or augment is not None
+    for _ in range(1 + timed + sync_check):
         b = random_train_batch(rng, cfg, batch)
         if not fcfg.radar_stream:
             del b['points'], b['points_mask']
         if augment is not None:
             b = augment(b)
         batches.append(b)
-    host_batch = batches.pop() if augment is not None else None
+    host_batch = batches.pop() if sync_check else None
     batches = [batch_to(b, dev) for b in batches]
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
@@ -1610,9 +1645,10 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     hook.remove()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     steps = len(batches)
-    check(counts == [(k, k) for k in range(1, steps + 1)],
+    check(counts == [(k * per_step[0], k * per_step[1])
+                     for k in range(1, steps + 1)],
           f'(LSS forward, backward) launches after each step {counts}, not '
-          f'one each per step')
+          f'{per_step} per step')
     check(lss_sample.launches == 0, 'training launched the fields-in entry')
     check(all(np.isfinite(losses)), f'non-finite losses {losses}')
     check(not falling or losses[-1] < losses[0],
@@ -1625,7 +1661,7 @@ def phase_train(dev, card, batch, state_dict, cfg=None, mtype='bevfusion',
     check(all(float(v) > 0 for v in seen) and len(seen) == steps,
           'DepthNet depth_conv got no gradient')
     ms = float(np.mean(dev_ms[1:]))
-    print(f'[{label}] b{batch}, bf16 policy, {N_TIMED} steps (+1 '
+    print(f'[{label}] b{batch}, bf16 policy, {timed} steps (+1 '
           f'warm-up): {ms:.2f} ms/step by CUDA events ({dev_ms[1:]}), '
           f'{batch * 1e3 / ms:.3f} samples/s, peak {peak:.2f} GiB allocated '
           f'({card}); losses {[round(v, 4) for v in losses]}, grad norm '
@@ -1986,30 +2022,40 @@ def phase_cli(dev, card):
                 f'data.train.ann_file={root}/synth_infos_temporal_train.pkl',
                 f'data.val.ann_file={root}/synth_infos_temporal_val.pkl']
         work = os.path.join(tmp, 'work')
-        times = []
+        times, outs = [], []
+        test = ['omnihd_scenes_tpu_torch.tools.test', config,
+                os.path.join(work, 'ckpts'), '--eval', '--out-dir']
         for args in (['omnihd_scenes_tpu_torch.tools.train', config,
                       '--work-dir', work],
-                     ['omnihd_scenes_tpu_torch.tools.test', config,
-                      os.path.join(work, 'ckpts'), '--eval', '--out-dir',
-                      os.path.join(work, 'test')]):
+                     test + [os.path.join(work, 'test')],
+                     test + [os.path.join(work, 'int8'), '--int8']):
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, '-m', *args, *opts],
                                   capture_output=True, text=True,
                                   timeout=600)
             times.append(time.perf_counter() - t0)
+            outs.append(proc.stdout)
             check(proc.returncode == 0, f'{args[0]} exited '
                   f'{proc.returncode}: {proc.stderr[-2000:]}')
-        with open(os.path.join(work, 'test', 'metrics.json')) as f:
-            metrics = json.load(f)
+        metrics, int8 = ({}, {})
+        for name, m in (('test', metrics), ('int8', int8)):
+            with open(os.path.join(work, name, 'metrics.json')) as f:
+                m.update(json.load(f))
+            check(np.isfinite(m['mAP']) and np.isfinite(m['NOS']),
+                  f'CLI metrics {m}')
         with open(os.path.join(work, 'train.log.json')) as f:
             env = json.loads(f.readline())
-        check(np.isfinite(metrics['mAP']) and np.isfinite(metrics['NOS']),
-              f'CLI metrics {metrics}')
+        calibrated = [line for line in outs[2].splitlines()
+                      if line.startswith('int8 tier: calibrated')]
+        check(len(calibrated) == 1, 'tools.test --int8 printed no '
+              'calibration line')
         check(env['device'].startswith('cuda'), f'tools.train ran on {env}')
         print(f'[19 CLIs] tools.train ({env["device_name"]}) '
               f'{times[0]:.1f} s and tools.test --eval {times[1]:.1f} s '
               f'(whole processes): mAP {metrics["mAP"]:.4f}, NOS '
-              f'{metrics["NOS"]:.4f}')
+              f'{metrics["NOS"]:.4f}; tools.test --int8 --eval '
+              f'{times[2]:.1f} s: {calibrated[0]}, mAP {int8["mAP"]:.4f}, '
+              f'NOS {int8["NOS"]:.4f}')
         t0 = time.perf_counter()
         metrics, losses = micro_train(root, os.path.join(tmp, 'micro'), dev)
         seconds = time.perf_counter() - t0
@@ -3814,6 +3860,484 @@ def phase_host_feed(dev, card):
     torch.cuda.empty_cache()
 
 
+def _scatter_config(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, lss=dataclasses.replace(
+        cfg.lss, splat_mode='scatter'))
+
+
+def phase_scatter_small(dev):
+    """29a: the scatter splat at a small size, f32, the card against the
+    CPU (TF32 off): network outputs within 1e-4 of max|ref|; the card's
+    ``index_add_`` adds with atomics, so two runs on it are compared and
+    their difference printed."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict)
+
+    cfg = _scatter_config(_small_config())
+    sd = random_state_dict(cfg, seed=29)
+    req = random_request(np.random.RandomState(29), cfg, batch=2)
+    gpu = Predictor(cfg, sd, device=dev, dtype=torch.float32)
+    runs = [{k: v.cpu() for k, v in gpu.forward(*req).items()}
+            for _ in range(2)]
+    want = Predictor(cfg, sd, device='cpu', dtype=torch.float32).forward(
+        *req)
+    rel = {k: float((runs[0][k] - want[k]).abs().max()
+                    / want[k].abs().max())
+           for k in ('bev', 'cls_score', 'bbox_pred', 'dir_pred')}
+    twice = max(float((runs[0][k] - runs[1][k]).abs().max()) for k in rel)
+    print(f'[29 scatter small] GPU f32 vs CPU f32 network outputs off by '
+          + ', '.join(f'{k} {v:.3e}' for k, v in rel.items())
+          + f' of max|ref| (limit 1e-4); two runs on the card differ by '
+          f'{twice:.3e} at most')
+    check(all(v <= 1e-4 for v in rel.values()),
+          f'scatter GPU vs CPU: {rel}')
+
+
+def phase_scatter(dev, card, cfg, state_dict, sample_ms):
+    """29b: the scatter splat (``splat_mode='scatter'``) serving at full
+    width, b4 bf16 on the serving weights: 1 + N_TIMED requests (ms,
+    peak GiB, B splats and no LSS kernel launch per request); the view
+    transform alone on a request's depth and features (frustum ids +
+    ``lss_splat``) against its bound and against the sampling kernel on
+    the same inputs (different functions: the share is printed, not
+    checked), and the difference between two runs (atomics)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (lss_sample,
+                                                            lss_sample_bev)
+    from omnihd_scenes_tpu_torch.ops.bev_pool import lss_splat
+    from omnihd_scenes_tpu_torch.ops.lss_project import lss_sample_bev as \
+        sample_view
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+    from omnihd_scenes_tpu_torch.tools.roofline import bound, splat_cost
+
+    cfg = _scatter_config(cfg)
+    predictor = Predictor(cfg, state_dict, device=dev, dtype=torch.bfloat16)
+    lss = predictor.model.lss
+    captured = []
+    splat = lss.scatter
+
+    def capture(*args):
+        captured[:] = [args]
+        return splat(*args)
+
+    lss.scatter = capture
+    rng = np.random.RandomState(29)
+    requests = [random_request(rng, cfg, BATCH) for _ in range(1 + N_TIMED)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    lss_sample_bev.launches = lss_sample.launches = 0
+    lss_splat.calls = 0
+    dev_ms = []
+    for req in requests:
+        start.record()
+        boxes, scores, labels, valid = predictor(*req)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        check(tuple(boxes.shape) == (BATCH, 500, 9)
+              and bool(torch.isfinite(boxes).all()), 'scatter serving')
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = lss_sample_bev.launches
+    check(launches == 0 and lss_sample.launches == 0,
+          f'the scatter path launched the LSS kernel {launches} times')
+    check(lss_splat.calls == BATCH * len(requests),
+          f'{lss_splat.calls} splats for {len(requests)} b{BATCH} requests')
+    lss.scatter = splat
+    ms = float(np.mean(dev_ms[1:]))
+
+    depth, feat, rots, trans = captured[0]
+    with torch.inference_mode():
+        one = splat(depth, feat, rots, trans)
+        two = splat(depth, feat, rots, trans)
+        t_splat = cuda_ms(lambda: splat(depth, feat, rots, trans), 5, 2)
+        nx, ny, nz = cfg.lss.bev_nx
+        solve_x = (cfg.lss.cam_solve_x + (True,) * 6)[:6]
+
+        def sample():
+            return sample_view(
+                depth, feat, rots, trans, image_size=cfg.lss.final_dim,
+                depth_range=cfg.lss.camera_depth_range,
+                bev_start=cfg.lss.pc_range[:3], bev_voxel=(cfg.lss.grid,) * 3,
+                bev_nx=(nx, ny, nz), solve_x=solve_x)
+
+        t_sample = cuda_ms(sample, 10, 2)
+        from omnihd_scenes_tpu_torch.ops.bev_pool import frustum_voxel_ids
+
+        frustum = torch.from_numpy(cfg.lss.frustum()).to(dev)
+
+        def ids():
+            return [frustum_voxel_ids(
+                frustum, rots[b], trans[b], cfg.lss.pc_range[:3],
+                (cfg.lss.grid,) * 3, (nx, ny, nz)) for b in range(BATCH)]
+
+        in_range = sum(int((i < nx * ny * nz).sum()) for i in ids())
+        t_ids = cuda_ms(ids, 5, 1)
+    twice = float((one.float() - two.float()).abs().max())
+    ops, nbytes = splat_cost(depth.numel(), feat.numel(), in_range,
+                             feat.shape[-1], one.numel(), 2, 2)
+    b_ms, by = bound(ops, 'f32', nbytes)
+    print(f'[29 scatter serving] b{BATCH} bf16 x {N_TIMED} requests (+1 '
+          f'warm-up): {ms:.2f} ms/request by CUDA events ({dev_ms[1:]}), '
+          f'{BATCH * 1e3 / ms:.3f} samples/s, {ms - sample_ms:+.2f} ms '
+          f'against phase 5\'s sampling request; peak {peak:.2f} GiB '
+          f'allocated ({card}); {lss_splat.calls} splats, LSS kernel '
+          f'launches 0')
+    print(f'[29 scatter splat] b{BATCH} view transform (frustum ids + '
+          f'lss_splat, {in_range} of {BATCH * depth[0].numel()} frustum '
+          f'points in the grid): {t_splat:.4f} ms (the ids {t_ids:.4f} ms '
+          f'of it) against its bound '
+          f'{b_ms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB; share '
+          f'{b_ms / t_splat:.4f}); the sampling kernel on the same inputs '
+          f'{t_sample:.4f} ms (scatter / sample {t_splat / t_sample:.2f}, '
+          f'different functions, not checked); two scatter runs differ by '
+          f'{twice:.3e} (max|out| {float(one.float().abs().max()):.3e})')
+    del predictor, captured, one, two
+    torch.cuda.empty_cache()
+    return dict(request=launches, ms=ms, splat_ms=t_splat, bound_ms=b_ms,
+                sample_ms=t_sample)
+
+
+def phase_dense_fold(dev, card, cfg, state_dict):
+    """30: ``pillar_impl='dense_fold'`` against ``'dense'`` serving, b4
+    bf16 on the same weights, the two predictors alternating over 1 +
+    N_TIMED fresh requests: ms of each, the pillar canvas and head maps
+    of the last request compared (the fold is exact up to
+    reassociation; bf16 rounds the two differently: within HEAD_TOL of
+    max|dense|), one LSS launch per request on the fold path."""
+    import dataclasses
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample_bev
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+
+    fold_cfg = dataclasses.replace(cfg, pillars=dataclasses.replace(
+        cfg.pillars, pillar_impl='dense_fold'))
+    predictors = {'dense': Predictor(cfg, state_dict, device=dev,
+                                     dtype=torch.bfloat16),
+                  'dense_fold': Predictor(fold_cfg, state_dict, device=dev,
+                                          dtype=torch.bfloat16)}
+    rng = np.random.RandomState(30)
+    requests = [random_request(rng, cfg, BATCH) for _ in range(1 + N_TIMED)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    dev_ms = {k: [] for k in predictors}
+    fold_counts = []
+    for req in requests:
+        for name, p in predictors.items():
+            before = lss_sample_bev.launches
+            start.record()
+            boxes = p(*req)[0]
+            end.record()
+            torch.cuda.synchronize()
+            dev_ms[name].append(start.elapsed_time(end))
+            check(bool(torch.isfinite(boxes).all()), f'{name} boxes')
+            if name == 'dense_fold':
+                fold_counts.append(lss_sample_bev.launches - before)
+    check(fold_counts == [1] * len(requests),
+          f'lss_sample_bev launches per dense_fold request {fold_counts}')
+    points, mask = (torch.from_numpy(a).to(dev) for a in requests[-1][:2])
+    with torch.inference_mode():
+        canvas = {k: p.model.pillar_canvas(points, mask).float()
+                  for k, p in predictors.items()}
+        maps = {k: p.forward(*requests[-1]) for k, p in predictors.items()}
+    rel = {'canvas': float((canvas['dense_fold'] - canvas['dense']).abs()
+                           .max() / canvas['dense'].abs().max())}
+    for k in ('bev', 'cls_score'):
+        d, f = maps['dense'][k].float(), maps['dense_fold'][k].float()
+        rel[k] = float((f - d).abs().max() / d.abs().max())
+    ms = {k: float(np.mean(v[1:])) for k, v in dev_ms.items()}
+    print(f'[30 dense_fold] b{BATCH} bf16 x {N_TIMED} requests (+1 warm-up) '
+          f'each, alternating on the same weights: dense {ms["dense"]:.2f} '
+          f'ms ({dev_ms["dense"][1:]}), dense_fold {ms["dense_fold"]:.2f} ms '
+          f'({dev_ms["dense_fold"][1:]}) ({card}); dense_fold against dense: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in rel.items())
+          + f' of max|dense| (limit {HEAD_TOL}); lss_sample_bev launches per '
+          f'dense_fold request {fold_counts}')
+    check(all(v <= HEAD_TOL for v in rel.values()),
+          f'dense_fold off the dense path: {rel}')
+    del predictors, canvas, maps
+    torch.cuda.empty_cache()
+    return fold_counts[0]
+
+
+def phase_s2d(dev, card, cfg, state_dict, bf16_ms):
+    """31: the space-to-depth stem (``stem_s2d``, ``bench.py --s2d``), b4
+    bf16 on the serving weights with images packed on the host: 1 +
+    N_TIMED requests (ms, peak GiB, one LSS launch each); the head maps
+    against the standard stem's on the same unpacked request (the same
+    function: within HEAD_TOL of max|ref|, bf16 rounding); then int8 +
+    s2d: calibrate on a packed request (the stem records act_amax and
+    stays float, as in JAX: no w8 for it), 1 + N_TIMED int8 requests with
+    qconv launched once per eligible layer each."""
+    import dataclasses
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
+    from omnihd_scenes_tpu_torch.models.resnet import space_to_depth_np
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor, calibrate
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+
+    s2d_cfg = dataclasses.replace(cfg, stem_s2d=True)
+    rng = np.random.RandomState(31)
+    requests = [random_request(rng, s2d_cfg, BATCH)
+                for _ in range(1 + N_TIMED)]
+    check(requests[0][2].shape[-1] == 12, 'requests not packed')
+    predictor = Predictor(s2d_cfg, state_dict, device=dev,
+                          dtype=torch.bfloat16)
+    dev_ms, counts, peak, _ = _timed_requests(dev, predictor, requests)
+    plain = random_request(rng, cfg, BATCH)
+    packed = (*plain[:2], space_to_depth_np(plain[2]), *plain[3:])
+    standard = Predictor(cfg, state_dict, device=dev, dtype=torch.bfloat16)
+    keys = ('bev', 'cls_score', 'bbox_pred', 'dir_pred')
+    got, want = predictor.forward(*packed), standard.forward(*plain)
+    rel = {k: float((got[k].float() - want[k].float()).abs().max()
+                    / want[k].float().abs().max()) for k in keys}
+    del standard
+    ms = float(np.mean(dev_ms))
+    print(f'[31 s2d serving] b{BATCH} bf16 x {N_TIMED} requests (+1 '
+          f'warm-up), packed (B, 6, 272, 480, 12) images: {ms:.2f} '
+          f'ms/request by CUDA events ({dev_ms}), {ms - bf16_ms:+.2f} ms '
+          f'against phase 5\'s standard stem, peak {peak:.2f} GiB allocated '
+          f'({card}); against the standard stem on the unpacked request: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in rel.items())
+          + f' of max|ref| (limit {HEAD_TOL}); lss_sample_bev launches '
+          f'after each request {counts}')
+    check(all(v <= HEAD_TOL for v in rel.values()),
+          f's2d stem off the standard one: {rel}')
+    del predictor
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        quant = calibrate(s2d_cfg, state_dict, [packed], device=dev,
+                          dtype=torch.bfloat16)
+        check('resnet.conv1.act_amax' in quant
+              and 'resnet.conv1.w8' not in quant,
+              'the s2d stem must record act_amax and stay float')
+        int8 = Predictor(s2d_cfg, state_dict, device=dev,
+                         dtype=torch.bfloat16, quant_state=quant)
+        eligible = _eligible_layers(int8.model)
+        qconv3x3.launches = 0
+        int8_ms, int8_counts, int8_peak, outs = _timed_requests(
+            dev, int8, requests)
+        q = qconv3x3.launches
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    check(q == eligible * len(requests) and eligible > 0,
+          f'int8 + s2d qconv launches {q} != {eligible} x {len(requests)}')
+    check(all(bool(torch.isfinite(o[0]).all()) for o in outs),
+          'int8 + s2d boxes')
+    ms8 = float(np.mean(int8_ms))
+    print(f'[31 int8 + s2d] b{BATCH} x {N_TIMED} requests (+1 warm-up): '
+          f'{ms8:.2f} ms/request ({int8_ms}), peak {int8_peak:.2f} GiB; '
+          f'{len(quant)} quant tensors, the stem act_amax only; qconv '
+          f'launches {q} = {eligible} eligible layers x {len(requests)}; '
+          f'lss_sample_bev launches after each request {int8_counts}')
+    del int8, outs
+    torch.cuda.empty_cache()
+    return dict(request_b4=counts[0], int8_request_b4=int8_counts[0],
+                qconv_int8_request_b4=q // len(requests))
+
+
+def _first_step(dev, cfg, sd, batch, lr, policy=True):
+    """One train step (under the bf16 policy, or in f32) from ``sd`` on a
+    fresh state: (loss, {param: grad on the CPU}, {running stat: value on
+    the CPU}, device ms, peak GiB, (LSS forward, backward) launches)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import make_train_step
+
+    state = _train_state(cfg, sd, dev, lr)
+    loss_fn = make_loss_fn_generic(
+        state.model, 'bevfusion', cfg.pillars.anchors(),
+        camera_depth_range=cfg.lss.camera_depth_range)
+    step = make_train_step(bf16_policy(loss_fn) if policy else loss_fn)
+    grads = {}
+    hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g))
+             for k, p in state.model.named_parameters()]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = (lss_sample_bev.launches, lss_sample_bev_backward.launches)
+    start.record()
+    _, loss, _ = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    out = (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+           {k: v.cpu() for k, v in state.model.named_buffers()
+            if 'running' in k}, start.elapsed_time(end),
+           torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           (lss_sample_bev.launches - launches[0],
+            lss_sample_bev_backward.launches - launches[1]))
+    del state, step, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(dev, card, sd):
+    """32: remat on ``configs/bevfusion.py``'s model, one batch and the
+    same seeded weights.  b4 under the bf16 policy: first steps from fresh
+    states in the order plain, remat, plain, remat (cold steps: ms and
+    peak GiB printed), the remat step's running statistics within the
+    larger of 4x the two plain runs' difference (run-to-run rounding) and
+    1e-3 of the step's own update, so that a second update on
+    recomputation (about the size of the update) fails; the LSS forward
+    kernel runs twice a remat step (forward and recomputation), the
+    backward once.  b2 in f32, TF32 off (two plain bf16 steps differ by up
+    to ~1e-1 of a leaf's max on an H100): the remat step's
+    gradients within GRAD_SHARE of each leaf's max|plain| (phase 25a's
+    bound), beside the two plain f32 runs' own difference.  Then warm
+    timed steps at b4 and b8 with remat (``phase_train``), the b4 one
+    with one more step through ``run_training`` under
+    ``set_sync_debug_mode``: one host sync, the logger's."""
+    import dataclasses
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_train_batch
+    from omnihd_scenes_tpu_torch.train.loop import batch_to
+
+    plain_cfg = BEVFusionConfig()
+    remat_cfg = dataclasses.replace(plain_cfg, remat=True)
+    batch = batch_to(random_train_batch(np.random.RandomState(32), plain_cfg,
+                                        BATCH), dev)
+    runs = [_first_step(dev, cfg, sd, batch, 2e-4)
+            for cfg in (plain_cfg, remat_cfg, plain_cfg, remat_cfg)]
+    plain, remat = runs[0], runs[1]
+    old = {k: v for k, v in sd.items() if k in plain[2]}
+    floor = max(float((runs[2][2][k] - v).abs().max())
+                for k, v in plain[2].items())
+    update = max(float((v - old[k]).abs().max()) for k, v in plain[2].items())
+    diff = max(float((remat[2][k] - v).abs().max())
+               for k, v in plain[2].items())
+    limit = max(4 * floor, 1e-3 * update)
+    print(f'[32 remat] configs/bevfusion.py b{BATCH} bf16 policy, cold '
+          f'first steps plain / remat / plain / remat: '
+          + ', '.join(f'{r[3]:.2f} ms {r[4]:.2f} GiB' for r in runs)
+          + f' ({card}); losses {[round(r[0], 4) for r in runs]}; running '
+          f'statistics: remat - plain {diff:.3e}, plain - plain '
+          f'{floor:.3e}, the update itself {update:.3e} (limit '
+          f'{limit:.3e}); (LSS forward, backward) launches plain '
+          f'{plain[5]}, remat {remat[5]}')
+    check(plain[5] == (1, 1) and remat[5] == (2, 1),
+          f'LSS launches plain {plain[5]}, remat {remat[5]}')
+    check(limit < 0.1 * update and diff <= limit,
+          f'remat running statistics off by {diff} (limit {limit}, update '
+          f'{update})')
+    check(abs(remat[0] - plain[0]) <= 1e-3 * abs(plain[0]),
+          f'remat loss {remat[0]} against {plain[0]}')
+    del runs, plain, remat
+
+    small = {k: v[:2] for k, v in batch.items()}
+    f32 = [_first_step(dev, cfg, sd, small, 2e-4, policy=False)
+           for cfg in (plain_cfg, remat_cfg, plain_cfg)]
+
+    def leaf_gap(a, b):
+        return {k: float((a[1][k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for k, g in b[1].items()}
+
+    gap, grad_floor = leaf_gap(f32[1], f32[0]), leaf_gap(f32[2], f32[0])
+    worst = sorted(gap.items(), key=lambda kv: -kv[1])[:3]
+    print(f'[32 remat] b2 f32 first steps plain / remat / plain: '
+          + ', '.join(f'{r[3]:.2f} ms {r[4]:.2f} GiB' for r in f32)
+          + f'; losses {[r[0] for r in f32]}; remat gradients within '
+          f'{worst[0][1]:.3e} of each leaf\'s max|plain| (limit '
+          f'{GRAD_SHARE}; worst {worst}), plain - plain '
+          f'{max(grad_floor.values()):.3e}')
+    check(worst[0][1] <= GRAD_SHARE, f'remat f32 gradients off: {worst}')
+    del f32
+    b4_ms, (b4_back, b4_fwd) = phase_train(
+        dev, card, BATCH, sd, cfg=remat_cfg, label='32 remat train step',
+        per_step=(2, 1), sync_check=True)
+    b8_ms, _ = phase_train(dev, card, 8, sd, cfg=remat_cfg,
+                           label='32 remat train step', per_step=(2, 1),
+                           timed=2)
+    torch.cuda.empty_cache()
+    return dict(train_fwd=b4_fwd, train_back=b4_back, b4_ms=b4_ms,
+                b8_ms=b8_ms)
+
+
+def phase_mtl_int8(dev, card):
+    """33: BEVFusion-OCC's int8 tier (``bench.py --mtl --int8``): the
+    serving configuration inside ``MTLConfig``, calibrate + freeze on one
+    fresh b4 request in bf16 (no quant state for the occupancy head, whose
+    convs are plain in JAX), 1 + N_TIMED int8 requests (ms, qconv once
+    per eligible layer and the LSS kernel once per request, the occupancy
+    argmax on the card), then phase 11's checks against the bf16
+    predictor on the last request, and the share of voxels whose argmax
+    agrees (printed)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import MTLConfig, serving_config
+    from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor, calibrate
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict)
+
+    cfg = MTLConfig(fusion=serving_config())
+    sd = random_state_dict(cfg, seed=0)
+    rng = np.random.RandomState(33)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        quant = calibrate(cfg, sd, [random_request(rng, cfg, BATCH)],
+                          device=dev, dtype=torch.bfloat16)
+        calib_s = time.perf_counter() - t0
+        check(not [k for k in quant if k.startswith('occ_head.')],
+              'the occupancy head got quant state')
+        int8 = Predictor(cfg, sd, device=dev, dtype=torch.bfloat16,
+                         quant_state=quant)
+        eligible = _eligible_layers(int8.model)
+        requests = [random_request(rng, cfg, BATCH)
+                    for _ in range(1 + N_TIMED)]
+        qconv3x3.launches = 0
+        dev_ms, counts, peak, outs = _timed_requests(dev, int8, requests)
+        q = qconv3x3.launches
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    check(q == eligible * len(requests) and eligible > 0,
+          f'MTL int8 qconv launches {q} != {eligible} x {len(requests)}')
+    nx, ny, _ = cfg.fusion.lss.bev_nx
+    for out in outs:
+        check(bool(torch.isfinite(out[0]).all())
+              and tuple(out[4].shape) == (BATCH, nx, ny, cfg.occ_dz)
+              and out[4].is_cuda, 'MTL int8 outputs')
+    ms = float(np.mean(dev_ms))
+    print(f'[33 MTL int8] BEVFusion-OCC b{BATCH} x {N_TIMED} int8 requests '
+          f'(+1 warm-up): {ms:.2f} ms/request by CUDA events ({dev_ms}), '
+          f'{BATCH * 1e3 / ms:.3f} samples/s, peak {peak:.2f} GiB ({card}); '
+          f'calibrate + freeze {calib_s:.2f} s, {len(quant)} quant tensors; '
+          f'qconv launches {q} = {eligible} eligible layers x '
+          f'{len(requests)}; lss_sample_bev launches after each request '
+          f'{counts}')
+    bf16 = Predictor(cfg, sd, device=dev, dtype=torch.bfloat16)
+    phase_int8_vs_bf16(bf16, int8, requests[-1], label='33 MTL int8 vs bf16')
+    agree = float((bf16(*requests[-1])[4] == outs[-1][4]).float().mean())
+    print(f'[33 MTL int8 vs bf16] occupancy argmax equal on {agree:.4f} of '
+          f'the voxels (random weights; printed, not checked)')
+    del int8, bf16, outs
+    torch.cuda.empty_cache()
+    return dict(request=counts[0], qconv_request=q // len(requests))
+
+
 def sca_hits(cfg, lidar2img):
     """Hit queries per camera of one rig (any z-anchor inside the image)."""
     import torch
@@ -3885,6 +4409,17 @@ def main():
     r101 = phase_r101_stream(dev, card)
     aug_back, aug_fwd = phase_aug_train(dev, card)
     phase_host_feed(dev, card)
+    phase_scatter_small(dev)
+    scatter = phase_scatter(dev, card, cfg, state_dict, bf16_ms)
+    train_sd = random_state_dict(BEVFusionConfig(), seed=0)
+    _, (scatter['train_back'], scatter['train_fwd']) = phase_train(
+        dev, card, BATCH, train_sd, cfg=_scatter_config(BEVFusionConfig()),
+        label='29 scatter train step', per_step=(0, 0))
+    fold = phase_dense_fold(dev, card, cfg, state_dict)
+    s2d = phase_s2d(dev, card, cfg, state_dict, bf16_ms)
+    remat = phase_remat(dev, card, train_sd)
+    del train_sd
+    mtl_int8 = phase_mtl_int8(dev, card)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -3913,6 +4448,29 @@ def main():
     extra['lss_sample']['launches_aug_train'] = {'train_b4': aug_fwd}
     extra['lss_sample_backward']['launches_aug_train'] = {
         'train_b4': aug_back}
+    # Phases 29-33: the scatter path launches no LSS kernel; remat
+    # launches the LSS forward twice a step (forward and recomputation).
+    extra['lss_sample']['launches_scatter'] = {
+        'request_b4': scatter['request'], 'train_b4': scatter['train_fwd']}
+    extra['lss_sample_backward']['launches_scatter'] = {
+        'train_b4': scatter['train_back']}
+    extra['lss_sample']['launches_dense_fold'] = {'request_b4': fold}
+    extra['lss_sample']['launches_s2d'] = {
+        'request_b4': s2d['request_b4'],
+        'int8_request_b4': s2d['int8_request_b4']}
+    extra['qconv']['launches_s2d'] = {
+        'int8_request_b4': s2d['qconv_int8_request_b4']}
+    extra['lss_sample']['launches_remat_train'] = {
+        'train_b4': remat['train_fwd']}
+    extra['lss_sample_backward']['launches_remat_train'] = {
+        'train_b4': remat['train_back']}
+    extra['lss_sample']['launches_mtl_int8'] = {
+        'request_b4': mtl_int8['request']}
+    extra['qconv']['launches_mtl_int8'] = {
+        'request_b4': mtl_int8['qconv_request']}
+    check(scatter['request'] == scatter['train_fwd']
+          == scatter['train_back'] == 0,
+          'the scatter path launched an LSS kernel')
     # BEVFormer-T's training run (phase 25b) and R101-DCN's stream (26b)
     # launch no hand kernel: their paths hold none.
     for name in rows:

@@ -9,13 +9,16 @@ These copies keep the same fields, defaults and derived properties;
 ``tests/test_torch_port_config.py`` holds them equal field by field.
 
 Fields that only steer TPU machinery (``splat_impl``,
-``splat_shard_axis``, ``cam_b_windows``, ``remat*``, ``axis_name``) are
-kept so a configuration means the same thing in both packages.  The port
-has one splat implementation per device, does not rematerialise (it
-refuses ``remat=True``; ``remat_parts`` and ``remat_exclude`` then change
-nothing) and ignores FOV windows, which by construction change no
-output.  Options whose value would change the result and that
-the port does not implement yet are rejected by
+``splat_shard_axis``, ``cam_b_windows``, ``axis_name``) are kept so a
+configuration means the same thing in both packages.  The port has one
+splat implementation per device and ignores FOV windows, which by
+construction change no output.  ``remat``, ``remat_exclude`` and
+``remat_parts`` checkpoint the same trunks as JAX
+(``torch.utils.checkpoint``; numerically invisible), ``splat_mode``
+selects the sampling dual or the scatter splat, and ``stem_s2d``,
+``camera_stream`` and ``pillar_impl='dense_fold'`` build what JAX builds.
+The one value still refused, an ``rc_fusion`` other than ``'concat'`` and
+``'cross_attention'``, is rejected by
 :func:`omnihd_scenes_tpu_torch.models.bevfusion.check_supported`.
 """
 
@@ -72,6 +75,23 @@ class LSSConfig:
         return (int((self.pc_range[3] - self.pc_range[0]) / self.grid),
                 int((self.pc_range[4] - self.pc_range[1]) / self.grid),
                 int((self.pc_range[5] - self.pc_range[2]) / self.grid))
+
+    def frustum(self) -> np.ndarray:
+        """(D, fH, fW, 3) f32 image-plane (u, v, depth) points of the
+        scatter splat: fH x fW pixel coordinates spread evenly over the
+        padded image, at every depth bin (JAX
+        ``models/lss.py:LSSConfig.frustum``)."""
+        ogf_h, ogf_w = self.final_dim
+        f_h, f_w = self.feat_hw
+        d0, d1, dd = self.camera_depth_range
+        ds = np.arange(d0, d1, dd, dtype=np.float32)
+        xs = np.linspace(0, ogf_w - 1, f_w, dtype=np.float32)
+        ys = np.linspace(0, ogf_h - 1, f_h, dtype=np.float32)
+        grid = np.zeros((len(ds), f_h, f_w, 3), np.float32)
+        grid[..., 0] = xs[None, None, :]
+        grid[..., 1] = ys[None, :, None]
+        grid[..., 2] = ds[:, None, None]
+        return grid
 
 
 @dataclass(frozen=True)

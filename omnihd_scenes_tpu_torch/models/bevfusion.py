@@ -3,18 +3,22 @@
 
 radar: voxelize -> PillarFeatureNet -> scatter (``pillar_impl='sorted'``,
 the configuration that trains) or DensePillarEncoder (``'dense'``, the
-serving configuration) -> SECOND -> SECONDFPN -> (B, 384, 160, 240);
-camera: ResNet -> FPNC -> LiftSplatShoot (DepthNet, sampling splat) ->
-(B, 256, 160, 240); fusion: concat -> 3x3 ConvBNReLU (``rc_fusion=
-'concat'``) or RCFusion's :class:`CrossModalFusion` (``'cross_attention'``)
--> SE gate -> Anchor3DHead (none with ``with_head=False``, the trunk of
+serving configuration; ``'dense_fold'`` folds its frozen BN in eval mode)
+-> SECOND -> SECONDFPN -> (B, 384, 160, 240); camera: ResNet (on
+space-to-depth packed images with ``stem_s2d``) -> FPNC -> LiftSplatShoot
+(DepthNet, the sampling or the scatter splat) -> (B, 256, 160, 240);
+fusion: concat -> 3x3 ConvBNReLU (``rc_fusion='concat'``) or RCFusion's
+:class:`CrossModalFusion` (``'cross_attention'``) -> SE gate ->
+Anchor3DHead (none with ``with_head=False``, the trunk of
 ``models/mtl.py``'s task-trunk modes).  Without the radar stream
 (``configs/lss_camera.py``, the LSS camera-only model) the head reads the
-camera BEV directly, as in JAX; with it but ``lc_fusion=False`` the head
-reads the radar BEV.  ``model.train()`` is the JAX ``train=True``: batch
-statistics in every BatchNorm but the frozen backbone's.  The camera-less
-variant, ``dense_fold``, remat and the space-to-depth stem are not ported
-yet.
+camera BEV directly, as in JAX; without the camera stream
+(``camera_stream=False``: no ResNet, FPNC or LSS) or with both but
+``lc_fusion=False`` it reads the radar BEV.  ``model.train()`` is the JAX
+``train=True``: batch statistics in every BatchNorm but the frozen
+backbone's.  ``remat`` rematerialises each trunk of ``('second',
+'secondfpn', 'resnet', 'fpnc', 'lss')`` not in ``remat_exclude`` in the
+backward (``models/layers.py:remat``), as JAX's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -28,26 +32,17 @@ from omnihd_scenes_tpu_torch.config import BEVFusionConfig
 from omnihd_scenes_tpu_torch.models.anchor_head import Anchor3DHead
 from omnihd_scenes_tpu_torch.models.detectors import PillarBackbone
 from omnihd_scenes_tpu_torch.models.fpnc import FPNC, resize_bilinear
-from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, SEBlock
+from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, SEBlock, remat
 from omnihd_scenes_tpu_torch.models.lss import LiftSplatShoot
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
 
 
 def check_supported(cfg: BEVFusionConfig) -> None:
-    """Raise for configuration values the port does not implement yet
-    (the pillar stream refuses its own, ``PillarBackbone``)."""
-    unsupported = {
-        'camera_stream': cfg.camera_stream is not True,
-        'rc_fusion': cfg.rc_fusion not in ('concat', 'cross_attention'),
-        'stem_s2d': cfg.stem_s2d,
-        'lss.splat_mode': cfg.lss.splat_mode != 'sample',
-        # torch.utils.checkpoint over the trunks; an 80 GB card holds the
-        # b4 step without it.
-        'remat': cfg.remat,
-    }
-    bad = sorted(k for k, v in unsupported.items() if v)
-    if bad:
-        raise NotImplementedError(f'not ported yet: {bad}')
+    """Raise for an ``rc_fusion`` that is neither fuser (the JAX model
+    would run the concat fuser for it)."""
+    if cfg.rc_fusion not in ('concat', 'cross_attention'):
+        raise NotImplementedError(
+            f'not ported yet: rc_fusion={cfg.rc_fusion!r}')
 
 
 class CrossModalFusion(nn.Module):
@@ -86,8 +81,12 @@ class BEVFusion(PillarBackbone):
     JAX-layout views: 'bev' (B, H, W, C), 'cls_score' / 'bbox_pred' /
     'dir_pred' (B, H, W, A*K), 'depth' / 'depth_logits' (B, N, fH, fW,
     D).  With ``with_head=False`` the head maps are None.  Without the
-    radar stream, ``points`` and ``points_mask`` are None.
-    ``point_dims`` is the dataset's point width (8 for radar).
+    radar stream, ``points`` and ``points_mask`` are None; without the
+    camera stream, ``imgs``, ``rots`` and ``trans`` are, and so are the
+    depth maps.  With ``stem_s2d`` the images come packed by
+    :func:`~omnihd_scenes_tpu_torch.models.resnet.space_to_depth`, (B, N,
+    H/2, W/2, 12).  ``point_dims`` is the dataset's point width (8 for
+    radar).
     """
 
     def __init__(self, cfg: BEVFusionConfig, point_dims: int = 8):
@@ -97,12 +96,14 @@ class BEVFusion(PillarBackbone):
         pc = cfg.pillars
         if cfg.radar_stream:
             self._init_pillars(pc, point_dims)
-        self.resnet = ResNet(cfg.resnet_depth, cfg.resnet_out_indices,
-                             cfg.frozen_backbone_bn)
-        self.fpnc = FPNC(self.resnet.out_channels, 256, cfg.imc,
-                         cfg.lss.feat_hw)
-        self.lss = LiftSplatShoot(cfg.lss, cfg.imc, cfg.use_depthnet)
-        fusion = cfg.radar_stream and cfg.lc_fusion
+        if cfg.camera_stream:
+            self.resnet = ResNet(cfg.resnet_depth, cfg.resnet_out_indices,
+                                 cfg.frozen_backbone_bn,
+                                 stem_s2d=cfg.stem_s2d)
+            self.fpnc = FPNC(self.resnet.out_channels, 256, cfg.imc,
+                             cfg.lss.feat_hw)
+            self.lss = LiftSplatShoot(cfg.lss, cfg.imc, cfg.use_depthnet)
+        fusion = cfg.radar_stream and cfg.camera_stream and cfg.lc_fusion
         self.fuse = None
         if fusion and cfg.rc_fusion == 'cross_attention':
             self.fuse = CrossModalFusion(cfg.lss.outC, sum(pc.fpn_channels),
@@ -114,22 +115,39 @@ class BEVFusion(PillarBackbone):
         self.head = (Anchor3DHead(cfg.head_channels, pc.num_classes,
                                   pc.num_anchors) if cfg.with_head else None)
 
+    def _trunk(self, name: str, module: nn.Module, *args):
+        """``module(*args)``, rematerialised in the backward when
+        ``remat`` is on, ``name`` is not in ``remat_exclude`` and a
+        gradient is being recorded."""
+        cfg = self.cfg
+        if (cfg.remat and name not in cfg.remat_exclude
+                and torch.is_grad_enabled()):
+            return remat(module, *args)
+        return module(*args)
+
     def forward(self, points, points_mask, imgs, rots, trans):
-        pts_bev = None
-        if self.cfg.radar_stream:
+        cfg = self.cfg
+        pts_bev = cam_bev = depth = depth_logits = None
+        if cfg.radar_stream:
             if points is None:
                 raise ValueError('the radar stream needs points')
-            pts_bev = self.pillar_bev(points, points_mask)
+            canvas = self.pillar_canvas(points, points_mask)
+            pts_bev = self._trunk('secondfpn', self.second_fpn,
+                                  self._trunk('second', self.second, canvas))
 
-        b, n = imgs.shape[:2]
-        # NHWC images viewed as NCHW: channels_last memory, no copy.
-        flat = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)
-        feat = self.fpnc(self.resnet(flat.to(self.resnet.conv1.weight.dtype)))
-        cam_bev, depth, depth_logits = self.lss(feat, rots, trans)
-        if pts_bev is not None:
-            # The LSS grid is (ny, nx), y-major like the pillar FPN output;
-            # resized when the resolutions differ.
-            cam_bev = resize_bilinear(cam_bev, pts_bev.shape[-2:])
+        if cfg.camera_stream:
+            b, n = imgs.shape[:2]
+            # NHWC images viewed as NCHW: channels_last memory, no copy.
+            flat = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)
+            stages = self._trunk('resnet', self.resnet,
+                                 flat.to(self.resnet.conv1.weight.dtype))
+            feat = self._trunk('fpnc', self.fpnc, stages)
+            cam_bev, depth, depth_logits = self._trunk('lss', self.lss, feat,
+                                                       rots, trans)
+            if pts_bev is not None:
+                # The LSS grid is (ny, nx), y-major like the pillar FPN
+                # output; resized when the resolutions differ.
+                cam_bev = resize_bilinear(cam_bev, pts_bev.shape[-2:])
 
         if isinstance(self.fuse, CrossModalFusion):
             fused = self.fuse(cam_bev, pts_bev)

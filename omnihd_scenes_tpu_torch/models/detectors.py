@@ -3,7 +3,9 @@
 LiDAR points, and RadarPillarNet (``with_velocity_snr_center=True``).
 
 voxelize -> PillarFeatureNet -> scatter (``pillar_impl='sorted'``, the
-configuration that trains) or DensePillarEncoder (``'dense'``) -> SECOND
+configuration that trains) or DensePillarEncoder (``'dense'``, or
+``'dense_fold'`` with its frozen BN folded through the max-pool in eval
+mode) -> SECOND
 -> SECONDFPN -> Anchor3DHead.  flax infers the PFN's input width from the
 points; here it is ``point_dims``, the dataset's point width
 (``data/dataset.py:NewScenesDetDataset.point_dim``: 8 for radar, 4 for the
@@ -28,17 +30,15 @@ class PillarBackbone(nn.Module):
     (the names the weight bridge maps)."""
 
     def _init_pillars(self, pc: PointPillarsConfig, point_dims: int):
-        if pc.pillar_impl not in ('dense', 'sorted'):
-            # 'dense_fold', the BN-folded inference encoder: ROADMAP queue
-            # 1 item 4.
-            raise NotImplementedError(
-                f'not ported yet: pillar_impl={pc.pillar_impl!r}')
+        if pc.pillar_impl not in ('dense', 'dense_fold', 'sorted'):
+            raise ValueError(f'unknown pillar_impl {pc.pillar_impl!r}')
         self.pillar_cfg = pc
         self.point_dims = point_dims
-        if pc.pillar_impl == 'dense':
+        if pc.pillar_impl != 'sorted':
             self.pillar_encoder = DensePillarEncoder(
                 point_dims, pc.pfn_channels, pc.voxel_size,
-                pc.point_cloud_range, pc.bev_hw, pc.with_velocity_snr_center)
+                pc.point_cloud_range, pc.bev_hw, pc.with_velocity_snr_center,
+                fold_bn=pc.pillar_impl == 'dense_fold')
         else:
             self.pillar_encoder = PillarFeatureNet(
                 point_dims, pc.pfn_channels, pc.voxel_size,
@@ -52,7 +52,7 @@ class PillarBackbone(nn.Module):
         """Points (B, P, D) + mask (B, P) -> the (B, C, H, W) pillar canvas
         (channels_last)."""
         pc = self.pillar_cfg
-        if pc.pillar_impl == 'dense':
+        if pc.pillar_impl != 'sorted':
             return self.pillar_encoder(points, points_mask)
         vox = voxelize(points, points_mask, pc.point_cloud_range,
                        pc.voxel_size, pc.max_voxels, pc.max_points_per_voxel)

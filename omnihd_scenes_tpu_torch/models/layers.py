@@ -8,9 +8,14 @@ flax's default ``FLAX_BN_EPS`` for ResNet, ASPP and FPNC.
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
 
@@ -35,12 +40,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     costs no extra pass; flax computes the variance as E[x^2] - E[x]^2,
     which differs from torch's in the last bits.  The running statistics
     keep their own dtype (f32 under the bf16 policy) and the update runs
-    in it.
+    in it.  While :func:`remat` recomputes a forward, ``recomputing`` is
+    set and the update is skipped, as flax's ``nn.remat`` records one.
     """
 
     def __init__(self, num_features: int, eps: float, frozen: bool = False):
         super().__init__(num_features, eps=eps, momentum=1 - FLAX_BN_MOMENTUM)
         self.frozen = frozen
+        self.recomputing = False
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -54,6 +61,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                                 0.0, self.eps)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.recomputing:
+            return y
         with torch.no_grad():
             m = 1 - FLAX_BN_MOMENTUM
             var = (invstd.double() ** -2 - self.eps).clamp_(min=0.0)
@@ -62,6 +71,34 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_var.mul_(FLAX_BN_MOMENTUM).add_(
                 var.to(self.running_var.dtype), alpha=m)
         return y
+
+
+@contextlib.contextmanager
+def _recomputing(module: nn.Module):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.recomputing = False
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)`` rematerialised in the backward, the counterpart
+    of flax's ``nn.remat`` (``torch.utils.checkpoint``, non-reentrant, so
+    a trunk whose input needs no gradient still gives its parameters
+    theirs).  The forward runs on the parameters ``module`` holds now,
+    which under ``functional_call`` (the bf16 policy's copies) are not the
+    ones it holds when the backward recomputes, so both runs take them
+    explicitly.  The recomputation leaves BatchNorm's running statistics
+    alone: one update per step, as without remat."""
+    params = dict(module.named_parameters())
+    return checkpoint(
+        lambda *a: functional_call(module, params, a), *args,
+        use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing(module)))
 
 
 class ConvBNReLU(nn.Module):
@@ -82,24 +119,41 @@ class ConvBNReLU(nn.Module):
         return F.relu(x) if self.relu else x
 
 
+def same_padding(size: int, kernel: int, stride: int):
+    """flax ``'SAME'`` padding (low, high) of one axis: the output has
+    ceil(size / stride) entries and the odd pixel goes to the high side."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class DeconvBNReLU(nn.Module):
     """ConvTranspose2d(kernel = stride) -> BN -> ReLU (SECONDFPN upsample).
 
-    The JAX block also accepts a fractional stride (a strided conv with
-    flax 'SAME' padding); no configuration uses it and it is not ported.
+    A fractional stride 1/s downsamples instead, as in JAX: an s x s
+    ``QConv2d`` (``conv``; the bridge's ``Conv_0``) at stride s with flax
+    ``'SAME'`` padding.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, stride):
         super().__init__()
-        if stride < 1:
-            raise NotImplementedError(
-                f'fractional SECONDFPN stride {stride} is not ported')
-        self.deconv = nn.ConvTranspose2d(in_channels, out_channels, stride,
-                                         stride=stride, bias=False)
+        if stride >= 1:
+            self.deconv = nn.ConvTranspose2d(in_channels, out_channels,
+                                             stride, stride=stride,
+                                             bias=False)
+        else:
+            s = int(round(1 / stride))
+            self.conv = QConv2d(in_channels, out_channels, s, stride=s,
+                                bias=False)
         self.bn = BatchNorm(out_channels, BN_EPS)
 
     def forward(self, x):
-        return F.relu(self.bn(self.deconv(x)))
+        if hasattr(self, 'deconv'):
+            return F.relu(self.bn(self.deconv(x)))
+        s = self.conv.stride[0]
+        (top, bottom), (left, right) = (same_padding(n, s, s)
+                                        for n in x.shape[-2:])
+        x = F.pad(x, (left, right, top, bottom))
+        return F.relu(self.bn(self.conv(x)))
 
 
 class SEBlock(nn.Module):

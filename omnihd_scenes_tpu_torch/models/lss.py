@@ -1,12 +1,15 @@
 """Lift-Splat-Shoot camera view transform (counterpart of
-``omnihd_scenes_tpu/models/lss.py``), sampling mode.
+``omnihd_scenes_tpu/models/lss.py``).
 
 Camera features (B*N, C, fH, fW) -> DepthNet (or the 1x1 CamEncode) ->
-depth-weighted sampling into the (nz, ny, nx) grid (the LSS kernel) ->
-z collapsed into channels -> BEV conv stack.  The splat returns
-(B, ny, nx, nz, C), so the z-collapse to channels_last
-(B, nz*C, ny, nx) is a free view.  ``splat_mode='scatter'`` is not
-ported yet.
+the view transform into the (nz, ny, nx) grid -> z collapsed into
+channels -> BEV conv stack.  ``splat_mode='sample'`` is the sampling dual
+(the LSS kernel); ``'scatter'`` is the reference's own splat-sum
+(``bev_pool_v2``): each frustum point's depth-weighted feature added to
+its voxel (``ops/bev_pool.py``, one sample at a time).  Both give
+(B, nz, ny, nx, C), whose z-collapse to channels_last (B, nz*C, ny, nx)
+is one copy.  ``remat_parts`` rematerialises DepthNet and/or the BEV
+conv stack in training (``models/layers.py:remat``).
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ from torch import nn
 
 from omnihd_scenes_tpu_torch.config import LSSConfig
 from omnihd_scenes_tpu_torch.models.layers import (FLAX_BN_EPS, BatchNorm,
-                                                 ConvBNReLU)
+                                                 ConvBNReLU, remat)
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
 from omnihd_scenes_tpu_torch.models.resnet import BasicBlock
+from omnihd_scenes_tpu_torch.ops.bev_pool import frustum_voxel_ids, lss_splat
 from omnihd_scenes_tpu_torch.ops.lss_project import lss_sample_bev
 
 
@@ -112,9 +116,8 @@ class LiftSplatShoot(nn.Module):
     def __init__(self, cfg: LSSConfig, in_channels: int,
                  use_depthnet: bool = True):
         super().__init__()
-        if cfg.splat_mode != 'sample':
-            raise NotImplementedError(
-                f"splat_mode={cfg.splat_mode!r}: only 'sample' is ported")
+        if cfg.splat_mode not in ('sample', 'scatter'):
+            raise ValueError(f'unknown splat_mode {cfg.splat_mode!r}')
         self.cfg = cfg
         self.use_depthnet = use_depthnet
         if use_depthnet:
@@ -130,27 +133,56 @@ class LiftSplatShoot(nn.Module):
         logits (B, N, fH, fW, D) (None without DepthNet).
         """
         b, n_view = rots.shape[:2]
+        parts = self.cfg.remat_parts if torch.is_grad_enabled() else ()
         if self.use_depthnet:
-            feat, depth, logits = self.depthnet(cam_feats)
+            feat, depth, logits = (remat(self.depthnet, cam_feats)
+                                   if 'depthnet' in parts
+                                   else self.depthnet(cam_feats))
             logits = _nhwc(logits, b, n_view)
         else:
             (feat, depth), logits = self.cam_encode(cam_feats), None
         depth = _nhwc(depth, b, n_view)
         bev = self.view_transform(depth, _nhwc(feat, b, n_view), rots, trans)
-        return self.bev_encoder(bev), depth, logits
+        bev = (remat(self.bev_encoder, bev) if 'bevencode' in parts
+               else self.bev_encoder(bev))
+        return bev, depth, logits
 
     def view_transform(self, depth, feat, rots, trans):
         """depth (B, N, fH, fW, D), feat (B, N, fH, fW, C) -> the
-        z-collapsed grid (B, nz * C, ny, nx), channels_last (a view of the
-        LSS kernel's (B, ny, nx, nz, C) result)."""
+        z-collapsed grid (B, nz * C, ny, nx), channels_last (the
+        (B, nz, ny, nx, C) grid with z moved beside C)."""
         cfg = self.cfg
         b, n_view = rots.shape[:2]
         nx, ny, nz = cfg.bev_nx
-        solve_x = (cfg.cam_solve_x + (True,) * n_view)[:n_view]
-        vox = lss_sample_bev(
-            depth, feat, rots, trans,
-            image_size=cfg.final_dim, depth_range=cfg.camera_depth_range,
-            bev_start=cfg.pc_range[:3], bev_voxel=(cfg.grid,) * 3,
-            bev_nx=(nx, ny, nz), solve_x=solve_x)     # (B, nz, ny, nx, C)
+        if cfg.splat_mode == 'scatter':
+            vox = self.scatter(depth, feat, rots, trans)
+        else:
+            solve_x = (cfg.cam_solve_x + (True,) * n_view)[:n_view]
+            vox = lss_sample_bev(
+                depth, feat, rots, trans,
+                image_size=cfg.final_dim, depth_range=cfg.camera_depth_range,
+                bev_start=cfg.pc_range[:3], bev_voxel=(cfg.grid,) * 3,
+                bev_nx=(nx, ny, nz), solve_x=solve_x)
         bev = vox.permute(0, 2, 3, 1, 4).reshape(b, ny, nx, nz * cfg.camC)
         return bev.permute(0, 3, 1, 2)
+
+    def scatter(self, depth, feat, rots, trans):
+        """The splat-sum (JAX ``models/lss.py:264-283``), one sample at a
+        time: frustum ids through the sample's cameras, then
+        :func:`lss_splat` -> (B, nz, ny, nx, C) in feat's dtype.  The ids
+        are computed in at least f32 (JAX promotes bf16 geometry against
+        its f32 frustum)."""
+        cfg = self.cfg
+        nx, ny, nz = cfg.bev_nx
+        dt = torch.promote_types(rots.dtype, torch.float32)
+        rots, trans = rots.to(dt), trans.to(dt)
+        frustum = torch.from_numpy(cfg.frustum()).to(rots.device, dt)
+        out = []
+        for i in range(rots.shape[0]):
+            ids = frustum_voxel_ids(frustum, rots[i], trans[i],
+                                    cfg.pc_range[:3], (cfg.grid,) * 3,
+                                    (nx, ny, nz))       # (N, D, fH, fW)
+            pooled = lss_splat(depth[i].permute(0, 3, 1, 2), feat[i], ids,
+                               nz * ny * nx)
+            out.append(pooled.view(nz, ny, nx, -1))
+        return torch.stack(out)

@@ -15,8 +15,11 @@ counts/sums by ``index_add_``, the per-point augmentation by a gather of
 the pillar means, the PFN max-pool by ``scatter_reduce('amax')``.
 Invalid points (masked or out of range) go to one extra sentinel row
 that is sliced off, the torch form of JAX's ``mode='drop'``; cells no
-point reaches stay 0, as JAX's ``where(counts > 0, canvas, 0)``.  The
-BN-folded variant (``pillar_impl='dense_fold'``) is not ported yet.
+point reaches stay 0, as JAX's ``where(counts > 0, canvas, 0)``.  With
+``fold_bn`` (``pillar_impl='dense_fold'``) an eval-mode encoder of one
+PFN layer folds its frozen BN + ReLU through the scatter-max (JAX
+``_FoldedPFN``); in train mode, or with more layers, it computes the
+dense path.
 """
 
 from __future__ import annotations
@@ -117,6 +120,15 @@ class DensePillarEncoder(nn.Module):
 
     The canvas comes back as an NCHW view of an NHWC buffer, i.e. in
     channels_last memory.
+
+    ``fold_bn`` (inference, one PFN layer): per channel c and pillar,
+    ``max_i relu(g (y_i - m) + b) = relu(|g| M - g m + b)`` with ``M =
+    max_i sign(g) y_i`` (sign +1 where g >= 0), g and b the frozen BN's
+    scale and shift, since relu o affine is monotone in the direction
+    sign(g).  So each point needs only the PFN's product with its
+    mean-free features, and the pillar-mean term ``m`` comes per pillar
+    from the statistics' scatter-add.  Exact up to reassociation; the
+    state-dict keys are the dense encoder's.
     """
 
     def __init__(self, in_channels: int = 8,
@@ -125,8 +137,10 @@ class DensePillarEncoder(nn.Module):
                  point_cloud_range: Sequence[float] = (-60, -40, -3.0, 60, 40,
                                                        5.0),
                  grid_hw: Tuple[int, int] = (320, 480),
-                 with_velocity_snr_center: bool = False):
+                 with_velocity_snr_center: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
+        self.fold_bn = fold_bn
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.grid_hw = tuple(grid_hw)
@@ -170,12 +184,15 @@ class DensePillarEncoder(nn.Module):
         sums.index_add_(0, lin, stats)
         counts = sums[:, :1]
         means = sums[:, 1:] / counts.clamp(min=1.0)
-        pmean = means[lin_g]
-
-        feats = [pts, pts[:, :3] - pmean[:, :3]]
         cx = ix.to(pts.dtype) * vx + (vx / 2 + x0)
         cy = iy.to(pts.dtype) * vy + (vy / 2 + y0)
-        feats.append(torch.stack([pts[:, 0] - cx, pts[:, 1] - cy], -1))
+        centre = torch.stack([pts[:, 0] - cx, pts[:, 1] - cy], -1)
+        if self.fold_bn and not self.training and len(self.pfn) == 1:
+            canvas = self._folded(pts, centre, valid, lin, means, counts)
+            return canvas[:b * hw].view(b, h, w, -1).permute(0, 3, 1, 2)
+        pmean = means[lin_g]
+
+        feats = [pts, pts[:, :3] - pmean[:, :3], centre]
         if self.with_velocity_snr_center:
             feats.append(pts[:, 3:7] - pmean[:, 3:])
         x = torch.where(valid[:, None], torch.cat(feats, -1), 0.0)
@@ -194,3 +211,38 @@ class DensePillarEncoder(nn.Module):
                 x = torch.where(valid[:, None], x, 0.0)
         canvas = canvas[:b * hw].to(x.dtype)
         return canvas.view(b, h, w, -1).permute(0, 3, 1, 2)
+
+    def _folded(self, pts, centre, valid, lin, means, counts):
+        """The BN-folded single PFN layer (see the class docstring) ->
+        the (B*H*W + 1, C) canvas, sentinel row last.  The point product
+        runs in the layer's dtype, the per-pillar arithmetic in at least
+        f32 (the frozen BN in f32), and the canvas comes back in the
+        layer's dtype."""
+        layer = self.pfn[0]
+        w = layer.linear.weight                               # (C, D_in)
+        d = pts.shape[-1]
+        # The linear layer splits as W f = W f0 - W_sub mean: f0 holds the
+        # mean-offset blocks' minuends, ``blocks`` (W column, means
+        # column, width) the subtrahends.
+        f0s = [pts, pts[:, :3], centre]
+        blocks = [(d, 0, 3)]
+        if self.with_velocity_snr_center:
+            f0s.append(pts[:, 3:7])
+            blocks.append((d + 5, 3, 4))
+        f0 = torch.where(valid[:, None], torch.cat(f0s, -1), 0.0)
+        y = layer.linear(f0.to(w.dtype))
+        acc = torch.promote_types(y.dtype, torch.float32)
+        y = y.to(acc)
+        bn = layer.bn
+        g = bn.weight.to(acc) * torch.rsqrt(bn.running_var.to(acc) + bn.eps)
+        b_fold = bn.bias.to(acc) - bn.running_mean.to(acc) * g
+        sign = torch.where(g >= 0, 1.0, -1.0).to(acc)
+        src = torch.where(valid[:, None], y * sign, -torch.inf)
+        pooled = torch.full((means.shape[0], y.shape[-1]), -torch.inf,
+                            dtype=acc, device=y.device).scatter_reduce_(
+            0, lin[:, None].expand_as(src), src, 'amax')
+        wf = w.to(acc)
+        m = sum(means[:, c:c + wd].to(acc) @ wf[:, r:r + wd].T
+                for r, c, wd in blocks)
+        out = F.relu(g.abs() * pooled - g * m + b_fold)
+        return torch.where(counts > 0, out, 0.0).to(w.dtype)

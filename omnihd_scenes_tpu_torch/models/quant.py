@@ -14,6 +14,10 @@ attribute of each :class:`QConv2d`, set by :func:`set_mode`)::
     state = quant_state(model)                # the JAX 'quant' collection
     load_quant_state(model, state); set_mode(model, 'int8')
 
+:func:`calibrate_model` runs the first two steps for any model.  The
+space-to-depth stem (``models/resnet.py:S2DStem``) records its
+``act_amax`` and stays float, so its state has no ``w8`` / ``w_scale``.
+
 The quantization state lives in non-persistent buffers, so
 ``state_dict()`` stays the float checkpoint in every mode, as JAX keeps
 the ``quant`` collection apart from ``params``.  ``act_amax`` and
@@ -24,7 +28,7 @@ kept channels_last: that is the fused kernel's layout, packed once.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -134,6 +138,24 @@ def set_mode(model: nn.Module, mode: str) -> None:
         raise ValueError(f'quant mode {mode!r} not in {MODES}')
     for _, m in _qconvs(model):
         m.mode = mode
+
+
+@torch.no_grad()
+def calibrate_model(model: nn.Module, run: Callable, batches: Sequence,
+                    freeze_index: int = -1) -> Dict[str, torch.Tensor]:
+    """PTQ calibration: ``run(batch)`` (a forward of ``model``) over every
+    batch in ``calib`` mode, then over ``batches[freeze_index]`` in
+    ``freeze`` mode (the int8 weights depend on the weights alone, so
+    one pass suffices).  Returns :func:`quant_state`; the model is left
+    in ``freeze`` mode."""
+    if not batches:
+        raise ValueError('calibration needs at least one batch')
+    set_mode(model, 'calib')
+    for batch in batches:
+        run(batch)
+    set_mode(model, 'freeze')
+    run(batches[freeze_index])
+    return quant_state(model)
 
 
 def quant_state(model: nn.Module) -> Dict[str, torch.Tensor]:

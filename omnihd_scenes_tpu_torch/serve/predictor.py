@@ -8,10 +8,16 @@ The network runs in ``dtype`` (bf16 on the card) with channels_last
 activations; geometry (rots, trans), radar points and anchors stay f32 —
 the JAX bench casts them to bf16 as well — and decode + NMS run in f32.
 
-int8 PTQ tier (the ``bench.py --int8`` flow): :func:`calibrate` runs
-calibration then freeze and returns the quant state; ``Predictor(...,
-quant_state=state)`` serves int8, with every eligible 3x3 conv in the
-fused int8 kernel (``models/quant.py``).
+int8 PTQ tier (the ``bench.py --int8`` flow, ``--mtl --int8`` for an
+``MTLConfig``): :func:`calibrate` runs calibration then freeze and returns
+the quant state; ``Predictor(..., quant_state=state)`` serves int8, with
+every eligible 3x3 conv in the fused int8 kernel (``models/quant.py``).
+BEVFusion-OCC's occupancy head convs are plain convs in JAX and stay
+float here too.
+
+With ``stem_s2d`` (``bench.py --s2d``) the images arrive space-to-depth
+packed, (B, N, H/2, W/2, 12) (``models/resnet.py:space_to_depth_np`` on
+the host).
 
 :class:`StreamPredictor` serves BEVFormer-T: one frame of B independent
 streams per call, the previous BEV carried from call to call (the
@@ -34,8 +40,8 @@ from omnihd_scenes_tpu_torch.models.bbox_coder import (NMSFreeCoderCfg,
 from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
-from omnihd_scenes_tpu_torch.models.quant import (load_quant_state,
-                                                  quant_state, set_mode)
+from omnihd_scenes_tpu_torch.models.quant import (calibrate_model,
+                                                  load_quant_state, set_mode)
 from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 from omnihd_scenes_tpu_torch.weights import load_state_dict
 
@@ -52,9 +58,11 @@ class Predictor:
     ``MTLConfig`` then the occupancy argmax (B, Dx, Dy, Dz) int64.
 
     Inputs are NumPy arrays or tensors in the JAX package's layouts:
-    points (B, P, 8), points_mask (B, P), imgs (B, N, H, W, 3),
-    rots (B, N, 3, 3), trans (B, N, 3); points and mask are None for the
-    camera-only model (``radar_stream=False``).
+    points (B, P, 8), points_mask (B, P), imgs (B, N, H, W, 3) ((B, N,
+    H/2, W/2, 12) packed with ``stem_s2d``), rots (B, N, 3, 3), trans (B,
+    N, 3); points and mask are None for the camera-only model
+    (``radar_stream=False``), imgs, rots and trans for the radar-only one
+    (``camera_stream=False``).
 
     With ``quant_state`` (from :func:`calibrate`, or the JAX ``quant``
     collection through ``weights.flax_quant_to_torch``) the network runs
@@ -71,6 +79,8 @@ class Predictor:
         self.decode_cfg = decode_cfg
         model = (BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig)
                  else BEVFusion(cfg))
+        fcfg = cfg.fusion if isinstance(cfg, MTLConfig) else cfg
+        self.img_channels = 12 if fcfg.stem_s2d else 3
         load_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=dtype,
                               memory_format=torch.channels_last).eval()
@@ -83,14 +93,20 @@ class Predictor:
     def forward(self, points, points_mask, imgs, rots, trans):
         """The network alone: the model's dict of JAX-layout outputs."""
         dev = self.device
-        check_rotations(rots)
         if points is not None:               # None: camera-only model
             points = _as_tensor(points, dev, torch.float32)
             points_mask = _as_tensor(points_mask, dev, torch.bool)
-        return self.model(points, points_mask,
-                          _as_tensor(imgs, dev, self.dtype),
-                          _as_tensor(rots, dev, torch.float32),
-                          _as_tensor(trans, dev, torch.float32))
+        if imgs is not None:                 # None: radar-only model
+            if imgs.shape[-1] != self.img_channels:
+                raise ValueError(
+                    f'images of {imgs.shape[-1]} channels; this model takes '
+                    f'{self.img_channels} (12: space_to_depth packed, '
+                    f'stem_s2d)')
+            check_rotations(rots)
+            imgs = _as_tensor(imgs, dev, self.dtype)
+            rots = _as_tensor(rots, dev, torch.float32)
+            trans = _as_tensor(trans, dev, torch.float32)
+        return self.model(points, points_mask, imgs, rots, trans)
 
     @torch.inference_mode()
     def __call__(self, points, points_mask, imgs, rots, trans):
@@ -103,26 +119,18 @@ class Predictor:
         return dets
 
 
-def calibrate(cfg: BEVFusionConfig, state_dict: Mapping[str, torch.Tensor],
-              requests: Sequence, device='cuda',
+def calibrate(cfg: Union[BEVFusionConfig, MTLConfig],
+              state_dict: Mapping[str, torch.Tensor], requests: Sequence,
+              device='cuda',
               dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """PTQ calibration as ``bench.py --int8`` runs it: every request
     through the network in ``calib`` mode (running max|x| per quantized
     conv), then the last one in ``freeze`` mode (int8 weights from the
     weights in ``dtype``).  Returns the quant state, on ``device``."""
-    if not requests:
-        raise ValueError('calibrate needs at least one request')
-    if isinstance(cfg, MTLConfig):
-        raise NotImplementedError(
-            'the int8 tier of BEVFusion-OCC (an MTLConfig) is not ported: '
-            'calibrate serves the detection models only')
     predictor = Predictor(cfg, state_dict, device=device, dtype=dtype)
-    set_mode(predictor.model, 'calib')
-    for request in requests:
-        predictor.forward(*request)
-    set_mode(predictor.model, 'freeze')
-    predictor.forward(*requests[-1])
-    return quant_state(predictor.model)
+    return calibrate_model(predictor.model,
+                           lambda request: predictor.forward(*request),
+                           requests)
 
 
 @torch.inference_mode()

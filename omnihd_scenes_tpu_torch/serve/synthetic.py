@@ -15,6 +15,7 @@ from omnihd_scenes_tpu_torch.models.bevformer import (BEVFormerDetector,
                                                       init_bevformer)
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL, occupancy_shape
+from omnihd_scenes_tpu_torch.models.resnet import space_to_depth_np
 from omnihd_scenes_tpu_torch.utils.rig import (ring_rig_img2lidar,
                                                ring_rig_lidar2img)
 from omnihd_scenes_tpu_torch.weights import init_weights
@@ -52,8 +53,11 @@ def random_state_dict(cfg: Config, seed: int) -> Dict[str, torch.Tensor]:
 def random_request(rng: np.random.RandomState, cfg: Config,
                    batch: int, n_points: int = N_POINTS):
     """Fresh ``Predictor`` inputs drawn as ``bench.py:main`` draws them:
-    radar points uniform inside the range, all valid; N(0, 1) images; the
-    ring rig for every sample."""
+    radar points uniform inside the range, all valid; N(0, 1) images
+    (space-to-depth packed on the host with ``stem_s2d``, as ``bench.py
+    --s2d`` packs them); the ring rig for every sample.  The images and
+    the rig are drawn whatever the streams, and the inputs of a stream
+    the model lacks are None."""
     cfg = _fusion(cfg)
     x0, y0 = cfg.pillars.point_cloud_range[:2]
     points = rng.uniform(x0 + 5, -x0 - 5, size=(batch, n_points, 8)).astype(
@@ -63,18 +67,27 @@ def random_request(rng: np.random.RandomState, cfg: Config,
     mask = np.ones((batch, n_points), dtype=bool)
     h, w = cfg.lss.final_dim
     imgs = rng.randn(batch, cfg.num_views, h, w, 3).astype(np.float32)
+    if cfg.stem_s2d:
+        imgs = space_to_depth_np(imgs)
     rots, trans = ring_rig_img2lidar(img_hw=(h, w))
-    return (points, mask, imgs, np.tile(rots[None], (batch, 1, 1, 1)),
-            np.tile(trans[None], (batch, 1, 1)))
+    camera = (imgs, np.tile(rots[None], (batch, 1, 1, 1)),
+              np.tile(trans[None], (batch, 1, 1)))
+    if not cfg.camera_stream:
+        camera = (None,) * 3
+    return (points, mask) + camera
 
 
 def random_train_batch(rng: np.random.RandomState, cfg: Config,
                        batch: int, n_points: int = N_POINTS,
                        max_gt: int = MAX_GT,
                        depth: bool = True) -> Dict[str, np.ndarray]:
-    """A training batch drawn as ``bench.py``'s train bench draws it:
-    radar points uniform over +-50 m (all 8 dims), all valid; N(0, 1)
-    images; the ring rig; ``max_gt`` GT boxes per sample, centres uniform
+    """A training batch drawn as ``bench.py``'s train bench draws it (its
+    remat arms included: remat changes the model, not the batch): radar
+    points uniform over +-50 m (all 8 dims), all valid; N(0, 1) images,
+    space-to-depth packed with ``stem_s2d``; the ring rig; without the
+    camera stream neither images nor geometry nor depth targets (drawn all
+    the same, so the other entries do not change); ``max_gt`` GT boxes
+    per sample, centres uniform
     over +-40 m, sizes 1-4 m, labels over the classes, all valid.  With
     ``depth``, also ``depth_gaussian`` (B, N, fH, fW, D), a normalised
     Gaussian (std 1 bin) around a per-pixel depth, and ``depth_min`` (B,
@@ -113,6 +126,12 @@ def random_train_batch(rng: np.random.RandomState, cfg: Config,
         out['depth_gaussian'] = (g / np.maximum(g.sum(-1, keepdims=True),
                                                 1e-12)).astype(np.float32)
         out['depth_min'] = d_min
+    if cfg.stem_s2d:
+        out['imgs'] = space_to_depth_np(out['imgs'])
+    if not cfg.camera_stream:
+        for key in ('imgs', 'img2lidar_rots', 'img2lidar_trans',
+                    'depth_gaussian', 'depth_min'):
+            out.pop(key, None)
     if mtl is not None:
         shape = (batch, *occupancy_shape(mtl))
         u = rng.uniform(size=shape)

@@ -32,3 +32,14 @@ def conv_cost(n: int, c: int, h: int, w: int, co: int, in_bytes: int,
     nbytes = (n * h * w * c + 9 * c * co) * in_bytes + 2 * co * 4 \
         + n * h * w * co * out_bytes
     return ops, nbytes
+
+
+def splat_cost(depth_elems: int, feat_elems: int, in_range: int,
+               channels: int, out_elems: int, in_bytes: int,
+               out_bytes: int) -> tuple:
+    """(operations, bytes) of the scatter splat (``ops/bev_pool.py``): a
+    multiply and an add per channel for each frustum point that lands in
+    the grid (this run's count, in f32); the depth and the features read
+    once, the grid written once (the ids come from the camera geometry)."""
+    return (2 * in_range * channels,
+            (depth_elems + feat_elems) * in_bytes + out_elems * out_bytes)

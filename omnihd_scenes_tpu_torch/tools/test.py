@@ -13,9 +13,11 @@ metrics are printed as JSON and written to ``<out_dir>/metrics.json``;
 BEVFormer streams the dataset in order, one stream, or
 ``data.samples_per_device`` scene-parallel streams; with
 ``sca_query_cap < 1`` it first checks each distinct scene rig and warns
-loudly if the cap drops hit queries.  ``--int8`` is not ported yet and is
-refused; ``--host-nms`` is refused too, except for BEVFormer, whose
-NMS-free decode ignores it.
+loudly if the cap drops hit queries.  ``--int8`` evaluates the int8 PTQ
+tier: calibration on the first ``min(4, len(dataset))`` samples at batch
+1 in dataset order (BEVFormer through the streaming forward on a cold
+stream), freeze in one pass, then the quantized graph.  ``--host-nms``
+is refused, except for BEVFormer, whose NMS-free decode ignores it.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import os.path as osp
 
 # Flags of the JAX CLI that wait for their ROADMAP items.
 UNPORTED_FLAGS = {
-    'int8': 'the int8 PTQ tier of the test CLI (ROADMAP queue 1 item 3)',
-    'host_nms': 'the native host NMS (ROADMAP queue 1 item 3)'}
+    'host_nms': 'the native host NMS (ROADMAP queue 1 item 3.6)'}
+# Calibration samples of ``--int8`` (JAX ``tools/test.py:128``).
+CALIB_SAMPLES = 4
 
 
 def parse_args(argv=None):
@@ -44,6 +47,10 @@ def parse_args(argv=None):
     p.add_argument('--cfg-options', nargs='+')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument('--int8', action='store_true',
+                   help='evaluate the int8 PTQ tier: calibrate on the first '
+                        'samples, freeze int8 weights, run the quantized '
+                        'graph')
     for flag, what in UNPORTED_FLAGS.items():
         p.add_argument('--' + flag.replace('_', '-'), action='store_true',
                        help=f'not ported yet: {what}')
@@ -80,6 +87,50 @@ def sca_cap_preflight(model_cfg, dataset) -> int:
               f'results will NOT match the dense formulation. Raise '
               f'sca_query_cap (1.0 = exact masked-dense) for this rig.')
     return total
+
+
+def calibrate_int8(model, mtype: str, dataset) -> dict:
+    """The int8 tier of ``--int8`` (JAX ``tools/test.py:92-145``): the
+    eval-mode forward in ``calib`` mode over the first ``min(4,
+    len(dataset))`` samples at batch 1, in dataset order, then ``freeze``
+    on the first.  BEVFormer calibrates through the streaming forward on a
+    cold stream (zero previous BEV, no history), as the single-frame
+    dataset has no queue.  Returns the quant state and leaves ``model``
+    in ``int8`` mode."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+    from omnihd_scenes_tpu_torch.models.quant import calibrate_model, set_mode
+    from omnihd_scenes_tpu_torch.serve.predictor import predict_stream
+    from omnihd_scenes_tpu_torch.train.builder import model_inputs
+    from omnihd_scenes_tpu_torch.train.loop import batch_to
+
+    model.eval()
+    n = min(CALIB_SAMPLES, len(dataset))
+    dev = next(model.parameters()).device
+    if mtype == 'bevformer':
+        cfg = model.cfg
+        zero_bev = torch.zeros(1, cfg.bev_h * cfg.bev_w, cfg.embed_dims)
+
+        def run(sample):
+            predict_stream(model, sample['imgs'][None],
+                           sample['can_bus'][None], sample['lidar2img'][None],
+                           zero_bev, np.zeros(1, bool))
+
+        batches = [dataset[i] for i in range(n)]
+    else:
+        def run(batch):
+            with torch.no_grad():
+                model(*model_inputs(batch_to(batch, dev), mtype))
+
+        batches = [b for b, _ in itertools.islice(EvalLoader(dataset, 1), n)]
+    state = calibrate_model(model, run, batches, freeze_index=0)
+    set_mode(model, 'int8')
+    print(f'int8 tier: calibrated {len(state)} quant variables')
+    return state
 
 
 def run_bevformer(args, cfg, model, dataset):
@@ -130,6 +181,8 @@ def main(argv=None):
     state = create_train_state(model, lambda params: make_optimizer(
         params, make_lr_schedule(1e-3, 100, warmup_iters=10)))
     state = load_checkpoint(args.checkpoint, state)
+    if args.int8:
+        calibrate_int8(state.model, mtype, dataset)
 
     if mtype == 'bevformer':
         outputs = run_bevformer(args, cfg, state.model, dataset)

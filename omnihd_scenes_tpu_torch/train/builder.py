@@ -136,8 +136,8 @@ def model_inputs(batch: Mapping, mtype: str) -> tuple:
     if mtype == 'bevformer':
         return (batch['imgs'], batch['can_bus'], batch['lidar2img'],
                 batch['has_prev'])
-    return (batch.get('points'), batch.get('points_mask'), batch['imgs'],
-            batch['img2lidar_rots'], batch['img2lidar_trans'])
+    return tuple(batch.get(k) for k in ('points', 'points_mask', 'imgs',
+                                        'img2lidar_rots', 'img2lidar_trans'))
 
 
 def forward(model, params: Optional[Mapping[str, torch.Tensor]], batch,

@@ -20,7 +20,9 @@ weight/bias; flax ``MultiHeadDotProductAttention``'s query / key / value
 kernels (C, heads, head_dim) and biases (heads, head_dim) <-> ``Linear``
 (heads * head_dim, C) and (heads * head_dim,), its out kernel (heads,
 head_dim, C) <-> (C, heads * head_dim); embeddings as they are.  Each torch BatchNorm carries its
-flax module's epsilon (see ``models/layers.py``).  The ResNet part is the
+flax module's epsilon (see ``models/layers.py``).  A BEVFusion without
+the camera stream has no ResNet, FPNC or LSS keys; a fractional SECONDFPN
+stride is a strided conv, flax's ``Conv_0``.  The ResNet part is the
 JAX package's ``train/torch_import.resnet_name_map``, restated here so
 the port imports nothing of the JAX package.
 
@@ -168,6 +170,28 @@ def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
         (_occ_head_2d if cfg.kind == '2d' else _occ_head_3d)(m, ())
         return m.pairs
     m = _NameMap()
+    if cfg.camera_stream:
+        _camera_block(m, cfg)
+    if cfg.radar_stream:
+        _pillar_block(m, cfg.pillars)
+    if cfg.lc_fusion and cfg.radar_stream and cfg.camera_stream:
+        if cfg.rc_fusion == 'cross_attention':
+            cmf = ('CrossModalFusion_0',)
+            m.conv('fuse.att_img', cmf + ('att_img',))
+            m.conv('fuse.att_radar', cmf + ('att_radar',))
+            m.conv_bn('fuse.fuse', cmf + ('ConvBNReLU_0',))
+        else:
+            m.conv_bn('fuse', ('ConvBNReLU_0',))
+        if cfg.se:
+            m.conv('se.conv', ('SEBlock_0', 'Conv_0'), bias=True)
+    if cfg.with_head:
+        _head(m)
+    return m.pairs
+
+
+def _camera_block(m: _NameMap, cfg: BEVFusionConfig):
+    """The camera stream: ResNet, FPNC and LiftSplatShoot (the s2d stem
+    keeps the standard stem's ``Conv_0``)."""
     for tkey, path in resnet_name_map(cfg.resnet_depth).items():
         m.pairs[f'resnet.{tkey}'] = (path[0], 'ResNet_0') + tuple(path[1:])
 
@@ -210,22 +234,6 @@ def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
     for i in range(4):
         m.conv_bn(f'lss.bev_encoder.layers.{i}',
                   lss + ('BevEncoderConvs_0', f'ConvBNReLU_{i}'))
-
-    if cfg.radar_stream:
-        _pillar_block(m, cfg.pillars)
-    if cfg.lc_fusion and cfg.radar_stream:
-        if cfg.rc_fusion == 'cross_attention':
-            cmf = ('CrossModalFusion_0',)
-            m.conv('fuse.att_img', cmf + ('att_img',))
-            m.conv('fuse.att_radar', cmf + ('att_radar',))
-            m.conv_bn('fuse.fuse', cmf + ('ConvBNReLU_0',))
-        else:
-            m.conv_bn('fuse', ('ConvBNReLU_0',))
-        if cfg.se:
-            m.conv('se.conv', ('SEBlock_0', 'Conv_0'), bias=True)
-    if cfg.with_head:
-        _head(m)
-    return m.pairs
 
 
 def _bev_encode_trunk(m: _NameMap, t: str, f: FlaxPath):
@@ -376,9 +384,11 @@ def _pillar_block(m: _NameMap, pc: PointPillarsConfig):
         for j in range(num + 1):
             m.conv_bn(f'second.blocks.{s}.{j}', ('SECOND_0', f'ConvBNReLU_{li}'))
             li += 1
-    for i in range(len(pc.fpn_strides)):
+    for i, stride in enumerate(pc.fpn_strides):
+        # A fractional stride is a strided conv, flax's Conv_0.
         m.conv_bn(f'second_fpn.deblocks.{i}',
-                  ('SECONDFPN_0', f'DeconvBNReLU_{i}'), conv='deconv')
+                  ('SECONDFPN_0', f'DeconvBNReLU_{i}'),
+                  conv='deconv' if stride >= 1 else 'conv')
 
 
 def _head(m: _NameMap):

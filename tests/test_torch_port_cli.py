@@ -23,9 +23,17 @@
   equal to the test CLI's metrics;
 * ``tools.train`` with ``aug``, ``data.workers_per_device=2`` and
   ``load_pts_from``, and ``--resume-from`` taking precedence over it;
-* ``--int8`` and ``--host-nms`` are refused (``--host-nms`` is ignored
-  for BEVFormer, whose decode is NMS-free), and a CUDA device that is not
-  there is an error, not a silent fallback.
+* ``tools.test --int8 --eval`` on the pillar model's checkpoint:
+  calibration on the first four val samples, then the int8 eval with
+  finite metrics; its quant state equals the one JAX's ``tools.test
+  --int8`` loop (JAX ``tools/test.py:92-145``, replayed with JAX's model
+  and model inputs on the same samples and weights) records, key for
+  key, ``act_amax`` within 1e-5 relative (f32 summation order) and ``w8``
+  / ``w_scale`` equal; BEVFormer-T's calibration (its streaming forward on
+  a cold stream) held to JAX's the same way;
+* ``--host-nms`` is refused (it is ignored for BEVFormer, whose decode is
+  NMS-free), and a CUDA device that is not there is an error, not a
+  silent fallback.
 """
 
 import dataclasses
@@ -340,11 +348,74 @@ def test_train_cli_aug_workers_and_load_pts_from(trained, dataroot,
     assert state.step == 6 + 3
 
 
-@pytest.mark.parametrize('flag', ['--int8', '--host-nms'])
+@pytest.mark.parametrize('flag', ['--host-nms'])
 def test_unported_test_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
         test_cli.parse_args([SYNTH, 'ckpt', '--eval', flag])
     assert 'not ported yet' in capsys.readouterr().err
+
+
+def test_test_cli_int8_evaluates(trained, dataroot, tmp_path, capsys):
+    """``--int8``, refused until its port, calibrates and evaluates."""
+    work, _ = trained
+    metrics = test_cli.main([SYNTH, os.path.join(work, 'ckpts'), '--eval',
+                             '--int8', '--out-dir', str(tmp_path / 'int8'),
+                             '--device', 'cpu',
+                             '--cfg-options', *cfg_options(dataroot)])
+    assert math.isfinite(metrics['mAP']) and math.isfinite(metrics['NOS'])
+    assert 'int8 tier: calibrated ' in capsys.readouterr().out
+
+
+def test_test_cli_int8_quant_state_matches_jax(trained, dataroot):
+    import jax
+
+    from omnihd_scenes_tpu.models import quant as jquant
+    from omnihd_scenes_tpu.train.builder import (
+        _model_inputs as jax_model_inputs,
+        build_model_from_cfg as jax_build_model)
+    from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
+    from omnihd_scenes_tpu_torch.weights import (flax_quant_to_torch,
+                                                 torch_to_flax)
+
+    work, _ = trained
+    cfg = Config.fromfile(SYNTH)
+    cfg.merge_from_options(cfg_options(dataroot))
+    dataset = build_dataset_single(cfg.data.val)
+    model, mtype = build_model_from_cfg(cfg)
+    sd = torch.load(os.path.join(work, 'ckpts', 'ckpt_2.pt'),
+                    weights_only=False)['model']
+    model.load_state_dict(sd)
+    got = test_cli.calibrate_int8(model, mtype, dataset)
+    assert all(m.mode == 'int8' for m in model.modules()
+               if hasattr(m, 'act_amax'))
+
+    jcfg = JaxConfig.fromfile(SYNTH)
+    jcfg.merge_from_options(cfg_options(dataroot))
+    jmodel, jtype = jax_build_model(jcfg)
+    variables = torch_to_flax(sd, model.cfg)
+    samples = [dataset[i] for i in range(min(4, len(dataset)))]
+    try:
+        muts = {}
+        for mode, batch_samples in (('calib', samples),
+                                    ('freeze', samples[:1])):
+            jquant.set_mode(mode)
+            fn = jax.jit(lambda v, kw: jmodel.apply(
+                v, train=False, mutable=['quant'], **kw)[1])
+            for sample in batch_samples:
+                batch = {k: v[None] for k, v in sample.items()
+                         if hasattr(v, 'shape')}
+                v = dict(variables, **({'quant': muts} if muts else {}))
+                muts = jax.device_get(fn(v, jax_model_inputs(
+                    batch, jtype, False)))['quant']
+    finally:
+        jquant.set_mode('off')
+    want = flax_quant_to_torch(muts, model.cfg)
+    assert set(got) == set(want) and len(got) % 3 == 0 and len(got) > 0
+    for k in got:
+        if k.endswith('.act_amax'):
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], want[k]), k
 
 
 def test_bad_conditions_flag_evaluates(trained, dataroot, tmp_path):
@@ -438,3 +509,51 @@ def test_cuda_is_the_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(SystemExit, match='no CUDA device'):
         train_cli.resolve_device('cuda')
+
+
+def test_int8_calibrates_bevformer_on_a_cold_stream():
+    """``tools.test --int8``'s calibration of BEVFormer-T (the synthetic
+    model, two frames): the streaming forward on a cold stream, as JAX's
+    ``tools/test.py:98-113`` replays it with JAX's model on the same
+    frames and weights; the quant state key for key, ``act_amax`` within
+    1e-5 relative, ``w8`` / ``w_scale`` equal."""
+    import jax
+
+    from omnihd_scenes_tpu.models import quant as jquant
+    from omnihd_scenes_tpu.models.bevformer.detector import (
+        BEVFormerDetector as JaxDetector)
+    from omnihd_scenes_tpu_torch.weights import (flax_quant_to_torch,
+                                                 flax_to_torch)
+    from tests.test_torch_port_bevformer import (C, CFG, JCFG, NQ, _frames,
+                                                 bridged_variables)
+
+    imgs, cbs, l2i, _ = _frames(2)
+    dataset = [{'imgs': imgs[i], 'can_bus': cbs[i], 'lidar2img': l2i[i]}
+               for i in range(2)]
+    variables = bridged_variables(CFG)
+    model = BEVFormerDetector(CFG)
+    model.load_state_dict(flax_to_torch(variables, CFG), strict=False)
+    got = test_cli.calibrate_int8(model, 'bevformer', dataset)
+
+    jm = JaxDetector(JCFG)
+    zero = np.zeros((NQ, C), np.float32)
+    try:
+        muts = {}
+        for mode, samples in (('calib', dataset), ('freeze', dataset[:1])):
+            jquant.set_mode(mode)
+            fn = jax.jit(lambda v, s: jm.apply(
+                v, s['imgs'], s['can_bus'], s['lidar2img'], zero,
+                np.asarray(False), mutable=['quant'],
+                method=JaxDetector.forward_stream)[1])
+            for s in samples:
+                v = dict(variables, **({'quant': muts} if muts else {}))
+                muts = jax.device_get(fn(v, s))['quant']
+    finally:
+        jquant.set_mode('off')
+    want = flax_quant_to_torch(muts, CFG)
+    assert set(got) == set(want) and 'img_backbone.conv1.act_amax' in got
+    for k in got:
+        if k.endswith('.act_amax'):
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], want[k]), k

@@ -1,7 +1,9 @@
 """The CUDA kernels (LSS sampling, int8 and bf16 3x3 convolution) against
 their plain PyTorch versions, on the card, and small train steps (BEVFusion,
-the camera-only model, BEVFusion-OCC in each trunk mode, RCFusion, the
-pillar families) on the card against the CPU.  Every test here needs a CUDA
+with the scatter splat and with remat too, the camera-only model,
+BEVFusion-OCC in each trunk mode, RCFusion, the pillar families) and
+small serving runs (BN-folded pillars, the space-to-depth stem, the
+scatter splat) on the card against the CPU.  Every test here needs a CUDA
 device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -479,6 +481,57 @@ def test_lss_camera_only_train_step_matches_the_cpu(dev):
                         'lss')
 
 
+def test_scatter_train_step_matches_the_cpu(dev):
+    """The scatter view transform (``splat_mode='scatter'``: ``index_add_``,
+    atomics on the card): the same bounds, and no LSS kernel launch."""
+    import dataclasses
+
+    cfg, sd, batch = _small_train_case(seed=6)
+    cfg = dataclasses.replace(cfg, lss=dataclasses.replace(
+        cfg.lss, splat_mode='scatter'))
+    _train_step_on_both(dev, cfg, sd, batch, 'bevfusion', expect=(0, 0))
+
+
+def test_remat_train_step_matches_the_cpu(dev):
+    """Every trunk rematerialised: the same bounds; the LSS forward kernel
+    runs again when the backward recomputes the LSS trunk."""
+    import dataclasses
+
+    cfg, sd, batch = _small_train_case(seed=7)
+    _train_step_on_both(dev, dataclasses.replace(cfg, remat=True), sd, batch,
+                        'bevfusion', expect=(2, 1))
+
+
+@pytest.mark.parametrize('option', ['dense_fold', 'stem_s2d', 'scatter'])
+def test_serving_options_on_the_card_equal_the_cpu(dev, option):
+    """f32 ``Predictor`` network outputs on the card within 1e-4 of
+    max|ref| of the CPU's (TF32 off), for the BN-folded pillars, the
+    space-to-depth stem (packed images) and the scatter splat."""
+    import dataclasses
+
+    import numpy as np
+
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sd, _ = _small_train_case(seed=8)
+    change = {'dense_fold': dict(pillars=dataclasses.replace(
+                  cfg.pillars, pillar_impl='dense_fold')),
+              'stem_s2d': dict(stem_s2d=True),
+              'scatter': dict(lss=dataclasses.replace(
+                  cfg.lss, splat_mode='scatter'))}[option]
+    cfg = dataclasses.replace(cfg, **change)
+    request = random_request(np.random.RandomState(8), cfg, 2, 600)
+    outs = [Predictor(cfg, sd, device=d, dtype=torch.float32).forward(
+        *request) for d in ('cpu', dev)]
+    for key in ('bev', 'cls_score', 'bbox_pred', 'dir_pred'):
+        want, got = outs[0][key], outs[1][key].cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), key
+
+
 def test_pillar_families_on_the_card_equal_the_cpu(dev):
     """PointPillars radar (sorted, dense), RadarPillarNet and LiDAR at a
     small size: ``chip_smoke.py`` phase 16's checks (head maps within
@@ -491,7 +544,9 @@ def test_pillar_families_on_the_card_equal_the_cpu(dev):
     chip_smoke.phase_pillars_small(dev)
 
 
-def _train_step_on_both(dev, cfg, sd, batch, mtype):
+def _train_step_on_both(dev, cfg, sd, batch, mtype, expect=(1, 1)):
+    """One step on the CPU and on the card; ``expect`` the LSS forward and
+    backward kernels' launches on the card."""
     from omnihd_scenes_tpu_torch.config import MTLConfig
     from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
     from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
@@ -530,7 +585,7 @@ def _train_step_on_both(dev, cfg, sd, batch, mtype):
             grads={k: v.cpu() for k, v in grads.items()},
             state={k: v.cpu() for k, v in model.state_dict().items()})
     cpu, gpu = runs['cpu'], runs[str(dev)]
-    assert cpu['launches'] == (0, 0) and gpu['launches'] == (1, 1)
+    assert cpu['launches'] == (0, 0) and gpu['launches'] == expect
     assert abs(gpu['loss'] - cpu['loss']) <= 1e-5 * abs(cpu['loss'])
     diff = sum(float((gpu['grads'][k] - g).square().sum())
                for k, g in cpu['grads'].items())

@@ -276,10 +276,25 @@ def test_pfn_width_follows_the_point_dims():
         assert w.shape == (64, want), (name, w.shape)
 
 
-def test_dense_fold_is_refused():
-    cfg = to_port_pillars(dataclasses.replace(MINI, pillar_impl='dense_fold'))
-    with pytest.raises(NotImplementedError, match='pillar_impl'):
-        PointPillars(cfg)
+def test_dense_fold_builds_and_serves():
+    """``pillar_impl='dense_fold'``, refused until its port, builds with
+    the dense encoder's state-dict keys, and its eval-mode maps equal the
+    dense model's on the same weights within 1e-5 of max|ref|
+    (reassociation; ``tests/test_torch_port_dense_fold.py`` holds the
+    fold to JAX's)."""
+    dense = PointPillars(to_port_pillars(
+        dataclasses.replace(MINI, pillar_impl='dense')), 8).eval()
+    fold = PointPillars(to_port_pillars(
+        dataclasses.replace(MINI, pillar_impl='dense_fold')), 8).eval()
+    assert fold.pillar_encoder.fold_bn and not dense.pillar_encoder.fold_bn
+    assert list(fold.state_dict()) == list(dense.state_dict())
+    fold.load_state_dict(dense.state_dict())
+    pts, mask = (torch.from_numpy(a) for a in pillar_points(4, 8))
+    with torch.no_grad():
+        want, got = dense(pts, mask), fold(pts, mask)
+    for key in ('cls_score', 'bbox_pred', 'dir_pred'):
+        err = (got[key] - want[key]).abs().max() / want[key].abs().max()
+        assert float(err) < 1e-5, (key, float(err))
 
 
 def test_pfn_gradient_by_central_differences():
