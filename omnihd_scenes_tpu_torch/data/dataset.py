@@ -18,6 +18,11 @@ OpenCV), their depth targets (``load_depth_gt``) and the occupancy GT
 (``load_occ``), and the training augmentation (``aug``,
 ``data/augmentation.py``), with the same seeded ``RandomState`` draws in
 the same order, hence the same samples bit for bit.
+
+``image_decode='device'`` (test mode only, the card's serving and eval
+path) leaves the pixels to ``image_loading.decode_camera_batch``: a
+sample carries its cameras' JPEG bytes and rectify parameters in place
+of ``imgs``.
 """
 
 from __future__ import annotations
@@ -75,9 +80,18 @@ class NewScenesDetDataset:
                  occ_size: Sequence[int] = (240, 160, 16),
                  occ_downsample: Sequence[int] = (1, 1, 1),
                  aug: Optional[Dict] = None,
-                 seed: int = 0):
+                 seed: int = 0,
+                 image_decode: str = 'host'):
         if modality not in ('radar', 'lidar', 'camera'):
             raise ValueError(f'unknown modality {modality!r}')
+        if image_decode not in ('host', 'device'):
+            raise ValueError(f"image_decode must be 'host' or 'device', got "
+                             f'{image_decode!r}')
+        if image_decode == 'device' and (not test_mode or load_depth_gt):
+            raise ValueError(
+                "image_decode='device' serves test-mode datasets without "
+                'depth targets: training reads its images on the host '
+                '(ROADMAP queue 1 item 3.11)')
         self.infos = load_infos(ann_file)
         self.modality = modality
         self.classes = list(classes)
@@ -100,6 +114,7 @@ class NewScenesDetDataset:
         # Serving decode path: reduced-res JPEG decode + fused
         # undistort/rescale remap (image_loading._load_cam_fast).
         self.image_fast_decode = image_fast_decode
+        self.image_decode = image_decode
         self.load_depth_gt = load_depth_gt
         self.depth_stride = depth_stride
         self.camera_depth_range = list(camera_depth_range)
@@ -194,7 +209,8 @@ class NewScenesDetDataset:
         cam = load_camera_data(info, scale=self.image_scale,
                                front_back_scale=self.front_back_scale,
                                target_hw=self.image_target_hw,
-                               fast_decode=self.image_fast_decode)
+                               fast_decode=self.image_fast_decode,
+                               decode=self.image_decode)
         if self.load_depth_gt:
             from omnihd_scenes_tpu_torch.data.depth_loading import (
                 gaussian_depth_target, load_gt_depth)

@@ -23,6 +23,15 @@ imports nothing of the JAX package: the same OpenCV calls in the same
 order, hence the same arrays bit for bit.  OpenCV is imported where it
 is used; without it the loaders raise an ``ImportError`` that says the
 camera data path needs it.
+
+``load_camera_data(..., decode='device')`` is the card's path, which needs
+no OpenCV: it reads each camera's JPEG bytes and returns them with what
+the pixels' preparation needs (:data:`CAMERA_SOURCE_KEYS`) and the same
+``lidar2img`` / ``img2lidar_*`` as the host path (they do not depend on
+pixels); :func:`decode_camera_batch` then turns a collated batch of them
+into ``imgs`` on a device: nvJPEG (``data/jpeg.py``) and the rectify
+kernel (``kernels/rectify.py``, on the maps of ``data/undistort.py``) on
+the card, ``cv2.imdecode`` and the kernel's plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 _REMAP_CACHE: Dict[tuple, tuple] = {}
+_DEVICE_MAPS: Dict[tuple, object] = {}
 
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
@@ -161,7 +171,8 @@ def load_camera_data(info: Dict,
                      std: Sequence[float] = IMAGENET_STD,
                      to_rgb: bool = True,
                      target_hw: Tuple[int, int] = None,
-                     fast_decode: bool = False):
+                     fast_decode: bool = False,
+                     decode: str = 'host'):
     """Load all cameras of one frame.
 
     Returns dict with:
@@ -169,7 +180,20 @@ def load_camera_data(info: Dict,
         lidar2img: (N_cam, 4, 4) final projection (all scales folded);
         img2lidar_rots / img2lidar_trans: (N_cam, 3, 3) / (N_cam, 3)
             inverse transform for LSS frustum lifting.
+    With ``decode='device'``, no ``imgs``: the JPEG bytes and the
+    rectify parameters (:func:`camera_sources`) for
+    :func:`decode_camera_batch`.
     """
+    if decode == 'device':
+        if fast_decode:
+            raise ValueError(
+                'image_fast_decode=True (the reduced-DCT JPEG decode, '
+                'IMREAD_REDUCED_COLOR_*) has no nvJPEG counterpart: the '
+                'device decode refuses it (ROADMAP queue 1 item 3.10)')
+        return camera_sources(info, scale, front_back_scale, pad_divisor,
+                              mean, std, to_rgb, target_hw)
+    if decode != 'host':
+        raise ValueError(f"decode must be 'host' or 'device', got {decode!r}")
     cv2 = require_cv2()
 
     imgs, l2is = [], []
@@ -239,3 +263,186 @@ def load_camera_data(info: Dict,
         'img2lidar_rots': img2lidar[:, :3, :3].astype(np.float32),
         'img2lidar_trans': img2lidar[:, :3, 3].astype(np.float32),
     }
+
+
+# ---- the device decode path ----------------------------------------------
+
+# The arrays a ``decode='device'`` sample carries for its pixels; they stay
+# on the host (nvJPEG reads host bitstreams) until decode_camera_batch.
+JPEG_BYTES, JPEG_OFFSETS = 'jpeg_bytes', 'jpeg_offsets'
+CAMERA_SOURCE_KEYS = (JPEG_BYTES, JPEG_OFFSETS, 'cam_intrinsics',
+                      'cam_distortion', 'cam_scales', 'image_layout',
+                      'image_norm')
+
+
+def _plumb_bob(distortion) -> np.ndarray:
+    """(k1, k2, p1, p2, k3) f64 from a calibration's coefficients."""
+    d = np.asarray(distortion, np.float64).reshape(-1)
+    if d.size > 5 and np.any(d[5:]):
+        raise ValueError(f'distortion {d.tolist()}: only the plumb-bob '
+                         'coefficients (k1, k2, p1, p2, k3) are undistorted '
+                         'on the device path')
+    out = np.zeros(5, np.float64)
+    out[:min(d.size, 5)] = d[:5]
+    return out
+
+
+def camera_sources(info: Dict, scale: float = 0.5,
+                   front_back_scale: float = 0.5, pad_divisor: int = 32,
+                   mean: Sequence[float] = IMAGENET_MEAN,
+                   std: Sequence[float] = IMAGENET_STD, to_rgb: bool = True,
+                   target_hw: Tuple[int, int] = None) -> Dict[str, np.ndarray]:
+    """One frame's cameras for the device decode: the files' bytes
+    (``jpeg_bytes`` u8, the files concatenated; ``jpeg_offsets`` (N + 1,)
+    int64), per camera the camera matrix and plumb-bob coefficients of its
+    undistortion map (``cam_intrinsics`` (N, 3, 3), ``cam_distortion`` (N,
+    5) f64) and its two resize factors (``cam_scales`` (N, 2) f64: the u8
+    downscale, ``front_back_scale`` for the front and back cameras and 1
+    for the others, then ``scale``), ``image_layout`` [target_h,
+    target_w, pad_divisor] int64 (0, 0 when ``target_hw`` is None),
+    ``image_norm`` [mean, std, to_rgb] f32, and the host path's
+    ``lidar2img`` / ``img2lidar_*``, computed by the same f64 operations
+    (the scale matrices applied when the host path applies them)."""
+    blobs, ks, dists, scales, l2is = [], [], [], [], []
+    for cam_type, cam_info in info['cams'].items():
+        lidar2img, _, viewpad = build_lidar2img(cam_info)
+        is_fb = cam_type in ('camera_front', 'camera_back')
+        u8_scale = 1.0
+        if is_fb and front_back_scale != 1.0:
+            u8_scale = float(front_back_scale)
+            s = np.eye(4)
+            s[0, 0] = s[1, 1] = front_back_scale
+            lidar2img = s @ lidar2img
+        if scale != 1.0:
+            s = np.eye(4)
+            s[0, 0] = s[1, 1] = scale
+            lidar2img = s @ lidar2img
+        blobs.append(np.fromfile(cam_info['data_path'], np.uint8))
+        ks.append(np.asarray(viewpad[:3, :3], np.float64))
+        dists.append(_plumb_bob(cam_info['cam_distortion']))
+        scales.append((u8_scale, float(scale)))
+        l2is.append(lidar2img)
+    offsets = np.zeros(len(blobs) + 1, np.int64)
+    offsets[1:] = np.cumsum([b.size for b in blobs])
+    lidar2img = np.asarray(l2is, np.float32)
+    img2lidar = np.linalg.inv(np.asarray(l2is, np.float64))
+    return {
+        JPEG_BYTES: np.concatenate(blobs),
+        JPEG_OFFSETS: offsets,
+        'cam_intrinsics': np.stack(ks),
+        'cam_distortion': np.stack(dists),
+        'cam_scales': np.asarray(scales, np.float64),
+        'image_layout': np.asarray(
+            [*(target_hw if target_hw is not None else (0, 0)),
+             pad_divisor], np.int64),
+        'image_norm': np.asarray([*mean, *std, float(to_rgb)], np.float32),
+        'lidar2img': lidar2img,
+        'img2lidar_rots': img2lidar[:, :3, :3].astype(np.float32),
+        'img2lidar_trans': img2lidar[:, :3, 3].astype(np.float32),
+    }
+
+
+def collate_jpeg(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
+    """The JPEG entries of samples batched: the bytes concatenated and
+    each sample's offsets rebased onto them, (B, N + 1)."""
+    bytes_, offsets, base = [], [], 0
+    for s in samples:
+        b = np.asarray(s[JPEG_BYTES])
+        bytes_.append(b)
+        offsets.append(np.asarray(s[JPEG_OFFSETS], np.int64) + base)
+        base += b.size
+    return {JPEG_BYTES: np.concatenate(bytes_),
+            JPEG_OFFSETS: np.stack(offsets)}
+
+
+def _host_array(v) -> np.ndarray:
+    """A batch entry (NumPy array or CPU tensor, pinned or not) as NumPy."""
+    if hasattr(v, 'numpy'):
+        return v.numpy()
+    return np.asarray(v)
+
+
+def _device_map(k: np.ndarray, dist: np.ndarray, hw, device):
+    """The undistortion map of one camera on ``device`` (None without
+    distortion), uploaded once per calibration and device."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+
+    fixed = rectify_map(k, dist, hw)
+    if fixed is None:
+        return None
+    if device.type == 'cpu':
+        return torch.from_numpy(fixed)
+    key = (np.ascontiguousarray(k).tobytes(), dist.tobytes(), tuple(hw),
+           str(device))
+    t = _DEVICE_MAPS.get(key)
+    if t is None:
+        t = torch.from_numpy(fixed).pin_memory().to(device, non_blocking=True)
+        _DEVICE_MAPS[key] = t
+    return t
+
+
+def _resized(hw, factor: float):
+    """``cv2.resize``'s size ``(int(h * f), int(w * f))``, or ``hw`` at 1."""
+    if factor == 1.0:
+        return tuple(hw)
+    return int(hw[0] * factor), int(hw[1] * factor)
+
+
+def decoded_sources(batch: Dict, device):
+    """Decode a collated batch's JPEGs on ``device`` -> (the BGR u8 images
+    in (sample, camera) order, and :func:`kernels.rectify.rectify`'s other
+    arguments: undistortion maps, u8 sizes, output sizes, target size,
+    mean, std, to_rgb).  The batch's camera sources are NumPy arrays or
+    CPU tensors."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.data.jpeg import decode_jpegs
+
+    device = torch.device(device)
+    src = {k: _host_array(batch[k]) for k in CAMERA_SOURCE_KEYS}
+    data, offsets = src[JPEG_BYTES], src[JPEG_OFFSETS]
+    b, n_cam = offsets.shape[0], offsets.shape[1] - 1
+    layout, norm = src['image_layout'][0], src['image_norm'][0]
+    if not (np.all(src['image_layout'] == layout)
+            and np.all(src['image_norm'] == norm)):
+        raise ValueError('decode_camera_batch: samples of one batch must '
+                         'share the image layout and normalisation')
+    images = decode_jpegs([data[offsets[i, c]:offsets[i, c + 1]]
+                           for i in range(b) for c in range(n_cam)], device)
+    k = src['cam_intrinsics'].reshape(b * n_cam, 3, 3)
+    dist = src['cam_distortion'].reshape(b * n_cam, 5)
+    factors = src['cam_scales'].reshape(b * n_cam, 2)
+    maps, u8_hws, out_hws = [], [], []
+    for j, img in enumerate(images):
+        hw = tuple(img.shape[:2])
+        maps.append(_device_map(k[j], dist[j], hw, device))
+        u8_hws.append(_resized(hw, float(factors[j, 0])))
+        out_hws.append(_resized(u8_hws[-1], float(factors[j, 1])))
+    th, tw, pad = (int(v) for v in layout)
+    if th <= 0:
+        th = int(np.ceil(max(h for h, _ in out_hws) / pad) * pad)
+        tw = int(np.ceil(max(w for _, w in out_hws) / pad) * pad)
+    return images, (maps, u8_hws, out_hws, (th, tw), norm[:3], norm[3:6],
+                    bool(norm[6]))
+
+
+def decode_camera_batch(batch: Dict, device) -> Dict:
+    """``batch`` with its camera sources (:data:`CAMERA_SOURCE_KEYS`, as
+    :func:`collate_jpeg` and the loaders batch them) replaced by ``imgs``
+    (B, N, H, W, 3) f32 on ``device``; a batch without them is returned as
+    it is.  On a CUDA device: one nvJPEG batched decode and the rectify
+    kernel's passes; on the CPU: ``cv2.imdecode`` and the plain passes,
+    which equal the host path's OpenCV chain (``tests/
+    test_torch_port_camera_decode.py``)."""
+    from omnihd_scenes_tpu_torch.kernels.rectify import rectify
+
+    if JPEG_BYTES not in batch:
+        return batch
+    images, args = decoded_sources(batch, device)
+    imgs = rectify(images, *args)
+    out = {k: v for k, v in batch.items() if k not in CAMERA_SOURCE_KEYS}
+    out['imgs'] = imgs.reshape(len(batch[JPEG_OFFSETS]), -1,
+                               *imgs.shape[1:])
+    return out

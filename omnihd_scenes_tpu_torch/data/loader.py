@@ -12,6 +12,8 @@ contiguous-block rule per process.
 Restated from ``omnihd_scenes_tpu/data/loader.py``: the same seeded epoch
 order and padding, hence the same batches; batches are NumPy dicts, which
 ``data/prefetch.py`` (or ``train/loop.py:batch_to``) moves to the device.
+A device-decode sample's JPEG bytes (``image_loading.camera_sources``)
+are concatenated across the batch, not stacked.
 """
 
 from __future__ import annotations
@@ -20,9 +22,19 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from omnihd_scenes_tpu_torch.data.image_loading import (JPEG_BYTES,
+                                                        JPEG_OFFSETS,
+                                                        collate_jpeg)
 
-def _stack(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack each key; a device-decode sample's ragged JPEG bytes are
+    concatenated instead, with their offsets rebased (``collate_jpeg``)."""
+    out = {k: np.stack([s[k] for s in samples]) for k in samples[0]
+           if k not in (JPEG_BYTES, JPEG_OFFSETS)}
+    if JPEG_BYTES in samples[0]:
+        out.update(collate_jpeg(samples))
+    return out
 
 
 class TrainLoader:
@@ -89,12 +101,12 @@ class TrainLoader:
             for s in self._pool.imap(order):
                 batch.append(s)
                 if len(batch) == self.batch_size:
-                    yield _stack(batch)
+                    yield collate(batch)
                     batch = []
             return
         for i in range(0, len(order), self.batch_size):
             idxs = order[i:i + self.batch_size]
-            yield _stack([self.dataset[int(j)] for j in idxs])
+            yield collate([self.dataset[int(j)] for j in idxs])
 
     def close(self):
         """Stop the worker processes, if any."""
@@ -133,4 +145,4 @@ class EvalLoader:
                 else:
                     samples.append(self.dataset[n - 1])  # pad with last
                     valid.append(False)
-            yield _stack(samples), np.asarray(valid)
+            yield collate(samples), np.asarray(valid)

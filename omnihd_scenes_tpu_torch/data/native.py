@@ -1,7 +1,8 @@
-"""ctypes bindings to the port's native radar decode
-(``omnihd_scenes_tpu_torch/csrc/host_ops.cpp``).
+"""ctypes bindings to the port's native host ops
+(``omnihd_scenes_tpu_torch/csrc/host_ops.cpp``): the radar sweep decode
+and the greedy rotated NMS (``ops/nms_host.py``).
 
-Counterpart of ``omnihd_scenes_tpu/data/native.py`` for its radar part:
+Counterpart of ``omnihd_scenes_tpu/data/native.py`` for those parts:
 ``g++ -O3 -shared -fPIC`` builds the library at first use into
 ``kernels/_build/host_ops-<hash>/`` (gitignored), keyed by a hash of the
 source, the flags and ``g++ --version``, written under a temporary name and
@@ -11,9 +12,9 @@ object, and ctypes releases the interpreter lock around each call, so a
 decode overlaps the other threads of the process.
 
 Unlike the JAX package, nothing falls back: ``radar_loading.
-load_radar_sweep(use_native=True)`` raises when the library cannot be
-built or loaded, or the sweep cannot be read; ``use_native=False`` is the
-explicit NumPy path.
+load_radar_sweep(use_native=True)`` and the host NMS raise when the
+library cannot be built or loaded, or the sweep cannot be read;
+``use_native=False`` is the radar decode's explicit NumPy path.
 """
 
 from __future__ import annotations
@@ -65,6 +66,11 @@ def get_lib() -> ctypes.CDLL:
                                      f64p, ctypes.c_double, ctypes.c_double,
                                      f32p]
     lib.radar_compensate.restype = None
+    i32p = np.ctypeslib.ndpointer(np.int32, flags='C_CONTIGUOUS')
+    lib.nms_rotated_multiclass.argtypes = [
+        f32p, f32p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_double, ctypes.c_double, ctypes.c_long, f32p, f32p, i32p]
+    lib.nms_rotated_multiclass.restype = ctypes.c_long
     return lib
 
 

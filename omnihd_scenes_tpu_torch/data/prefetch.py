@@ -12,7 +12,10 @@ tensor is marked as used by the current stream, so the caching allocator
 does not hand its memory to a later upload while the step still reads it;
 PyTorch's pinned-memory allocator holds each pinned block until its copy
 has completed.  ``batch_to``'s copies from pageable memory, as an
-unprefetched step makes, are synchronous and overlap nothing.  For a CPU
+unprefetched step makes, are synchronous and overlap nothing.  A
+device-decode batch's camera sources (``image_loading.
+CAMERA_SOURCE_KEYS``: JPEG bytes, offsets, calibration) are pinned but
+stay on the host, where nvJPEG reads its bitstreams.  For a CPU
 ``device`` (or none) batches pass through as they are.
 """
 
@@ -25,6 +28,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from omnihd_scenes_tpu_torch.data.image_loading import CAMERA_SOURCE_KEYS
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 
 
@@ -53,10 +57,12 @@ class PrefetchIterator:
                       else v) for k, v in batch.items()}
         pinned = {k: (v.pin_memory() if torch.is_tensor(v) else v)
                   for k, v in pinned.items()}
+        host = {k: pinned.pop(k) for k in CAMERA_SOURCE_KEYS if k in pinned}
         with torch.cuda.stream(self._stream):
             out = batch_to(pinned, self._device)
             event = torch.cuda.Event()
             event.record(self._stream)
+        out.update(host)
         return out, event
 
     def _worker(self):

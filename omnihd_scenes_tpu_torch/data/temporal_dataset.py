@@ -11,7 +11,9 @@
 - ``union2one``: can_bus rewritten to per-frame deltas (position and
   patch angle) with ``has_prev`` scene-boundary flags (``:63-91``).
 
-Test mode yields single frames with the absolute can_bus;
+Test mode yields single frames with the absolute can_bus (with
+``image_decode='device'``, the cameras' JPEG sources in place of
+``imgs``);
 :class:`StreamingEvalState` keeps (prev_bev, prev_pos, prev_angle) on the
 host and computes the deltas (reference ``bevformer.py:270-306``).  The
 samples are the JAX package's, with the same seeded draws, bit for bit.
@@ -24,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 
 from omnihd_scenes_tpu_torch.data.dataset import NewScenesDetDataset
+from omnihd_scenes_tpu_torch.data.image_loading import CAMERA_SOURCE_KEYS
 from omnihd_scenes_tpu_torch.utils.quaternion import Quaternion
 
 
@@ -67,9 +70,13 @@ class TemporalNewScenesDataset(NewScenesDetDataset):
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         if self.test_mode:
-            frame = self._frame(idx)
-            return {'imgs': frame['imgs'], 'lidar2img': frame['lidar2img'],
-                    'can_bus': frame['can_bus'], 'index': np.int32(idx)}
+            info = self.infos[idx]
+            cam = self._load_camera(info)
+            pixels = (('imgs',) if self.image_decode == 'host'
+                      else CAMERA_SOURCE_KEYS)
+            return {**{k: cam[k] for k in pixels},
+                    'lidar2img': cam['lidar2img'],
+                    'can_bus': finalize_can_bus(info), 'index': np.int32(idx)}
 
         frames = [self._frame(i) for i in self._queue_indices(idx)]
         # union2one: relative can_bus + scene-boundary flags.

@@ -16,7 +16,8 @@ the worker writes them all into one shared byte tensor and sends its
 handle (``torch.multiprocessing`` queues) with their layout, and the
 parent maps the same memory and gets NumPy views of it, so no array is
 pickled (pickled-array IPC made the JAX package's 2-worker pool slower
-than inline) and one handle crosses per sample.  Workers never
+than inline) and one handle crosses per sample; a device-decode
+sample's ragged JPEG bytes travel so too, as one more array.  Workers never
 touch CUDA: each hides the devices (``CUDA_VISIBLE_DEVICES=''``) before it
 runs the dataset.
 

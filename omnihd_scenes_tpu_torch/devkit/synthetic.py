@@ -97,29 +97,87 @@ class SyntheticConfig:
         self.cam_distortion = list(cam_distortion)
 
 
-def _write_image(path: str, img: np.ndarray, draws) -> None:
-    """Paint ``draws`` (depth, polygon, colour) far to near onto ``img``
-    and write it as a JPEG (needs OpenCV)."""
-    from omnihd_scenes_tpu_torch.data.image_loading import require_cv2
+def convex_hull(points: np.ndarray) -> np.ndarray:
+    """The convex hull of integer points (Andrew's monotone chain): (K, 2)
+    int64 vertices in counter-clockwise order (x right, y down: clockwise
+    on screen), without collinear ones."""
+    pts = sorted({(int(x), int(y)) for x, y in np.asarray(points)
+                  .reshape(-1, 2)})
+    if len(pts) <= 2:
+        return np.asarray(pts, np.int64).reshape(-1, 2)
 
-    cv2 = require_cv2()
+    def cross(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    lower, upper = [], []
+    for p in pts:
+        while len(lower) >= 2 and cross(lower[-2], lower[-1], p) <= 0:
+            lower.pop()
+        lower.append(p)
+    for p in reversed(pts):
+        while len(upper) >= 2 and cross(upper[-2], upper[-1], p) <= 0:
+            upper.pop()
+        upper.append(p)
+    return np.asarray(lower[:-1] + upper[:-1], np.int64)
+
+
+def fill_convex_poly(img: np.ndarray, hull: np.ndarray, color) -> None:
+    """Fill a convex polygon in place without OpenCV: every pixel whose
+    centre (integer coordinates, as OpenCV's) lies inside or on the
+    hull's edges.  Equal to ``cv2.fillConvexPoly`` off a one-pixel band
+    along the edges, where OpenCV's scan conversion rounds its own way."""
+    h, w = img.shape[:2]
+    if len(hull) < 3:
+        return
+    x0, y0 = np.maximum(hull.min(0), 0)
+    x1, y1 = np.minimum(hull.max(0), (w - 1, h - 1))
+    if x0 > x1 or y0 > y1:
+        return
+    ys, xs = np.mgrid[y0:y1 + 1, x0:x1 + 1]
+    inside = np.ones(ys.shape, bool)
+    for (ax, ay), (bx, by) in zip(hull, np.roll(hull, -1, 0)):
+        inside &= (bx - ax) * (ys - ay) - (by - ay) * (xs - ax) >= 0
+    img[y0:y1 + 1, x0:x1 + 1][inside] = color
+
+
+def _write_image(path: str, img: np.ndarray, draws,
+                 image_device: str = 'cpu') -> None:
+    """Paint ``draws`` (depth, polygon, colour) far to near onto ``img``
+    and write it as a JPEG: with OpenCV (``image_device='cpu'``, the JAX
+    generator's bytes), or filled in NumPy and encoded by nvJPEG on a CUDA
+    device (``data/jpeg.py``; no OpenCV)."""
+    if image_device == 'cpu':
+        from omnihd_scenes_tpu_torch.data.image_loading import require_cv2
+
+        cv2 = require_cv2()
+        for _, poly, color in sorted(draws, key=lambda d: -d[0]):
+            hull = cv2.convexHull(poly.reshape(-1, 1, 2))
+            cv2.fillConvexPoly(img, hull, color)
+        cv2.imwrite(path, img)
+        return
+    from omnihd_scenes_tpu_torch.data.jpeg import encode_jpeg
 
     for _, poly, color in sorted(draws, key=lambda d: -d[0]):
-        hull = cv2.convexHull(poly.reshape(-1, 1, 2))
-        cv2.fillConvexPoly(img, hull, color)
-    cv2.imwrite(path, img)
+        fill_convex_poly(img, convex_hull(poly), color)
+    with open(path, 'wb') as f:
+        f.write(encode_jpeg(img, image_device))
 
 
 def generate(dataroot: str, version: str = 'v1.0-mini',
-             cfg: SyntheticConfig = None, images: bool = True) -> Dict:
+             cfg: SyntheticConfig = None, images: bool = True,
+             image_device: str = 'cpu') -> Dict:
     """Write a synthetic NewScenes dataset under ``dataroot/version``.
 
     ``images=False`` writes no camera JPEG (and needs no OpenCV): the
     tables still name the image files, and every other file is the same
     byte for byte, since each image's noise is drawn from the generator's
     random stream either way.  It suits radar and LiDAR runs only.
-    ``images=True`` needs OpenCV and writes the JAX generator's JPEGs byte
-    for byte.
+    ``images=True`` with ``image_device='cpu'`` needs OpenCV and writes the
+    JAX generator's JPEGs byte for byte; with ``image_device='cuda'`` it
+    needs no OpenCV: the boxes are filled in NumPy (:func:`fill_convex_poly`)
+    and nvJPEG encodes at OpenCV's defaults (quality 95, 4:2:0), so the
+    images are close to, not equal to, the JAX generator's; every other
+    file is the same.
     """
     cfg = cfg or SyntheticConfig()
     rng = np.random.RandomState(cfg.seed)
@@ -286,7 +344,8 @@ def generate(dataroot: str, version: str = 'v1.0-mini',
                     draws.append((float(pc[vis, 2].mean()),
                                   np.clip(uv, -4 * w, 4 * w)
                                   .astype(np.int32), color))
-                _write_image(osp.join(dataroot, rel), img, draws)
+                _write_image(osp.join(dataroot, rel), img, draws,
+                             image_device)
 
             radars_rel = {}
             ego_vel_ego = np.array([ego_speed, 0.1, 0.0])

@@ -1,11 +1,13 @@
 """Build the CUDA kernels from the sources in ``csrc/`` at first use.
 
 Each kernel file is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with :mod:`ctypes`.  Builds go
-to ``_build/<name>-<hash>/`` next to this file, keyed by a hash of the
-source, the shared headers (``csrc/*.cuh``), the flags and ``nvcc
---version``, so an edited source or another toolkit rebuilds and an
-unchanged one is reused.  ``nvcc``'s own output (``-Xptxas -v``: registers, shared
+library with a plain C interface, loaded with :mod:`ctypes`; a source
+that calls a library of the toolkit (``nvjpeg.cpp`` and ``libnvjpeg``)
+links it from ``$CUDA_HOME/lib64`` with that directory as its run path.
+Builds go to ``_build/<name>-<hash>/`` next to this file, keyed by a hash
+of the source, the shared headers (``csrc/*.cuh``), the flags, the linked
+libraries and ``nvcc --version``, so an edited source or another toolkit
+rebuilds and an unchanged one is reused.  ``nvcc``'s own output (``-Xptxas -v``: registers, shared
 memory and spills per kernel) is kept beside the library as ``nvcc.log``.
 """
 
@@ -23,6 +25,10 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# Sources that are not ``<name>.cu``, and the toolkit libraries a source
+# links.
+SOURCES = {'nvjpeg': 'nvjpeg.cpp'}
+LIBRARIES = {'nvjpeg': ('nvjpeg',)}
 
 
 def nvcc_path() -> str:
@@ -47,32 +53,48 @@ def nvcc_version() -> str:
                           text=True, check=True).stdout
 
 
+def source_path(name: str) -> Path:
+    return CSRC / SOURCES.get(name, f'{name}.cu')
+
+
+def link_flags(name: str) -> list:
+    """``-L`` / ``-l`` / run path of the toolkit libraries ``name`` links."""
+    libs = LIBRARIES.get(name, ())
+    if not libs:
+        return []
+    lib_dir = Path(nvcc_path()).resolve().parent.parent / 'lib64'
+    return [f'-L{lib_dir}', *(f'-l{lib}' for lib in libs),
+            '-Xlinker', f'-rpath={lib_dir}']
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built: keyed by the source, the headers,
-    the flags and the toolkit, so a change of any of them rebuilds."""
+    """Where ``name``'s source is built: keyed by the source, the headers,
+    the flags, the linked libraries and the toolkit, so a change of any of
+    them rebuilds."""
     source = b''.join(p.read_bytes() for p in
-                      [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))])
-    key = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode()
-                         + nvcc_version().encode())
+                      [source_path(name), *sorted(CSRC.glob('*.cuh'))])
+    key = hashlib.sha256(source + ' '.join(NVCC_FLAGS + tuple(
+        link_flags(name))).encode() + nvcc_version().encode())
     return BUILD_DIR / f'{name}-{key.hexdigest()[:16]}' / f'lib{name}.so'
 
 
 def compile_library(name: str, out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-           str(CSRC / f'{name}.cu')]
+    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(source_path(name)),
+           *link_flags(name)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     (out.parent / 'nvcc.log').write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed with code {proc.returncode} on '
-                           f'{name}.cu:\n{proc.stderr}')
+                           f'{source_path(name).name}:\n{proc.stderr}')
     os.replace(tmp, out)            # readers never see a partial library
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The compiled ``csrc/<name>.cu``, built first if needed."""
+    """The compiled ``csrc/<name>.cu`` (or its :data:`SOURCES` entry),
+    built first if needed."""
     out = library_path(name)
     if not out.exists():
         compile_library(name, out)

@@ -51,8 +51,8 @@ def multiclass_nms_rotated(boxes, scores, score_thr: float,
     s_mat = rotated_iou_bev(boxes, boxes) > iou_threshold      # (..., N, N)
     cls_scores = scores.transpose(-1, -2)                      # (..., C, N)
     cand = cls_scores > score_thr
-    neg_inf = torch.tensor(-torch.inf, dtype=scores.dtype,
-                           device=scores.device)
+    neg_inf = torch.full((), -torch.inf, dtype=scores.dtype,
+                         device=scores.device)      # no host-to-device copy
     prec = _precedence(torch.where(cand, cls_scores, neg_inf))
     keep = _greedy_fixpoint(s_mat[..., None, :, :], prec, cand)  # (..., C, N)
 

@@ -5,11 +5,16 @@ devkit eval (detection, and occupancy for BEVFusion-OCC).
 
     python -m omnihd_scenes_tpu_torch.tools.test CONFIG CKPT_DIR_OR_FILE \\
         [--eval] [--format-only] [--bad-conditions] [--out-dir DIR] \\
-        [--cfg-options k=v ...] [--device cuda|cpu]
+        [--cfg-options k=v ...] [--device cuda|cpu] [--int8] [--host-nms]
 
-It runs on one CUDA device unless ``--device cpu``.  With ``--eval`` the
+It runs on one CUDA device unless ``--device cpu``.  On the card the
+camera images are decoded and rectified there (the dataset's
+``image_decode='device'``: nvJPEG and ``kernels/rectify.py``); with
+``--device cpu`` they take the OpenCV host path.  With ``--eval`` the
 metrics are printed as JSON and written to ``<out_dir>/metrics.json``;
 ``--bad-conditions`` restricts both evals to rainy and night scenes.
+The last line printed is the kernels' launch counts of the run
+(``kernel launches {...}``, ``kernels.launch_counts``).
 BEVFormer streams the dataset in order, one stream, or
 ``data.samples_per_device`` scene-parallel streams; with
 ``sca_query_cap < 1`` it first checks each distinct scene rig and warns
@@ -17,7 +22,9 @@ loudly if the cap drops hit queries.  ``--int8`` evaluates the int8 PTQ
 tier: calibration on the first ``min(4, len(dataset))`` samples at batch
 1 in dataset order (BEVFormer through the streaming forward on a cold
 stream), freeze in one pass, then the quantized graph.  ``--host-nms``
-is refused, except for BEVFormer, whose NMS-free decode ignores it.
+ends the anchor families' device work at the top-``nms_pre`` candidates
+and runs the rotated NMS on the host (``ops/nms_host.py``); BEVFormer's
+decode is NMS-free and ignores it.
 """
 
 from __future__ import annotations
@@ -27,9 +34,6 @@ import json
 import os
 import os.path as osp
 
-# Flags of the JAX CLI that wait for their ROADMAP items.
-UNPORTED_FLAGS = {
-    'host_nms': 'the native host NMS (ROADMAP queue 1 item 3.6)'}
 # Calibration samples of ``--int8`` (JAX ``tools/test.py:128``).
 CALIB_SAMPLES = 4
 
@@ -51,21 +55,10 @@ def parse_args(argv=None):
                    help='evaluate the int8 PTQ tier: calibrate on the first '
                         'samples, freeze int8 weights, run the quantized '
                         'graph')
-    for flag, what in UNPORTED_FLAGS.items():
-        p.add_argument('--' + flag.replace('_', '-'), action='store_true',
-                       help=f'not ported yet: {what}')
-    args = p.parse_args(argv)
-    for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, flag) and not (flag == 'host_nms'
-                                        and _is_bevformer(args.config)):
-            p.error(f'--{flag.replace("_", "-")} is not ported yet: {what}')
-    return args
-
-
-def _is_bevformer(config: str) -> bool:
-    from omnihd_scenes_tpu_torch.train.config import Config
-
-    return Config.fromfile(config).get('model_type') == 'bevformer'
+    p.add_argument('--host-nms', action='store_true',
+                   help='run the rotated NMS on the host (native C++ core) '
+                        'on the top-nms_pre candidates; anchor families')
+    return p.parse_args(argv)
 
 
 def sca_cap_preflight(model_cfg, dataset) -> int:
@@ -102,7 +95,9 @@ def calibrate_int8(model, mtype: str, dataset) -> dict:
     import numpy as np
     import torch
 
-    from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+    from omnihd_scenes_tpu_torch.data.image_loading import (
+        decode_camera_batch)
+    from omnihd_scenes_tpu_torch.data.loader import EvalLoader, collate
     from omnihd_scenes_tpu_torch.models.quant import calibrate_model, set_mode
     from omnihd_scenes_tpu_torch.serve.predictor import predict_stream
     from omnihd_scenes_tpu_torch.train.builder import model_inputs
@@ -116,15 +111,17 @@ def calibrate_int8(model, mtype: str, dataset) -> dict:
         zero_bev = torch.zeros(1, cfg.bev_h * cfg.bev_w, cfg.embed_dims)
 
         def run(sample):
-            predict_stream(model, sample['imgs'][None],
-                           sample['can_bus'][None], sample['lidar2img'][None],
-                           zero_bev, np.zeros(1, bool))
+            imgs = decode_camera_batch(collate([sample]), dev)['imgs']
+            predict_stream(model, imgs, sample['can_bus'][None],
+                           sample['lidar2img'][None], zero_bev,
+                           np.zeros(1, bool))
 
         batches = [dataset[i] for i in range(n)]
     else:
         def run(batch):
             with torch.no_grad():
-                model(*model_inputs(batch_to(batch, dev), mtype))
+                model(*model_inputs(batch_to(decode_camera_batch(batch, dev),
+                                             dev), mtype))
 
         batches = [b for b, _ in itertools.islice(EvalLoader(dataset, 1), n)]
     state = calibrate_model(model, run, batches, freeze_index=0)
@@ -153,6 +150,7 @@ def run_bevformer(args, cfg, model, dataset):
 
 
 def main(argv=None):
+    from omnihd_scenes_tpu_torch.kernels import launch_counts
     from omnihd_scenes_tpu_torch.tools.train import resolve_device
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
                                                        build_model_from_cfg,
@@ -172,8 +170,9 @@ def main(argv=None):
     cfg.merge_from_options(args.cfg_options)
     out_dir = args.out_dir or osp.join(cfg.work_dir, 'test')
 
-    dataset = build_dataset_single(cfg.data.get('test', cfg.data.val),
-                                   cfg.get('dataset_type', 'det'))
+    dataset = build_dataset_single(
+        cfg.data.get('test', cfg.data.val), cfg.get('dataset_type', 'det'),
+        image_decode='device' if device.type == 'cuda' else 'host')
     model, mtype = build_model_from_cfg(cfg)
     model.to(device)
     # A train state shaped like the training side's, so the checkpoint's
@@ -188,16 +187,18 @@ def main(argv=None):
         outputs = run_bevformer(args, cfg, state.model, dataset)
     else:
         predict_fn = make_predict_fn_generic(model, mtype,
-                                             anchors_for(model, mtype))
+                                             anchors_for(model, mtype),
+                                             host_nms=args.host_nms)
         outputs = run_inference_generic(predict_fn, state.model, dataset,
                                         cfg.data.samples_per_device)
 
+    launches = launch_counts()
+    result = outputs
     if args.format_only:
         path = dataset.format_results(outputs['bbox_results'], out_dir)
         print('Results written to', path)
-        return None
-
-    if args.eval:
+        result = None
+    elif args.eval:
         metrics = evaluate_results(dataset, outputs, cfg.dataroot,
                                    cfg.version, cfg.eval_set, out_dir,
                                    bad_conditions=args.bad_conditions,
@@ -206,8 +207,9 @@ def main(argv=None):
         with open(osp.join(out_dir, 'metrics.json'), 'w') as f:
             json.dump(metrics, f, indent=2)
         print(json.dumps(metrics, indent=2))
-        return metrics
-    return outputs
+        result = metrics
+    print('kernel launches ' + json.dumps(launches))
+    return result
 
 
 if __name__ == '__main__':

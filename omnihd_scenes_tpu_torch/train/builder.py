@@ -38,9 +38,9 @@ from torch.func import functional_call
 from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
                                             DecodeCfg, LSSConfig, MTLConfig,
                                             PointPillarsConfig)
-from omnihd_scenes_tpu_torch.models.anchor_head import (HeadLossConfig,
-                                                        anchor_head_get_bboxes,
-                                                        anchor_head_loss)
+from omnihd_scenes_tpu_torch.models.anchor_head import (
+    HeadLossConfig, anchor_head_decode_candidates, anchor_head_get_bboxes,
+    anchor_head_loss)
 from omnihd_scenes_tpu_torch.models.bbox_coder import NMSFreeCoderCfg
 from omnihd_scenes_tpu_torch.models.bevformer import (BEVFormerDetector,
                                                       DETRLossCfg,
@@ -51,6 +51,8 @@ from omnihd_scenes_tpu_torch.models.bevfusion import (BEVFusion,
 from omnihd_scenes_tpu_torch.models.detectors import PointPillars
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
 from omnihd_scenes_tpu_torch.models.occ_head import occ_head_loss
+from omnihd_scenes_tpu_torch.ops.nms_host import (
+    nms_rotated_multiclass_host_batch)
 from omnihd_scenes_tpu_torch.serve.predictor import predict_stream
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 from omnihd_scenes_tpu_torch.weights import init_weights
@@ -267,34 +269,51 @@ class DetectionLosses:
 def make_predict_fn_generic(model, mtype: str,
                             anchors_np: Optional[np.ndarray] = None,
                             decode_cfg: Optional[DecodeCfg] = None,
-                            nms_free_cfg: Optional[NMSFreeCoderCfg] = None
-                            ) -> Callable:
+                            nms_free_cfg: Optional[NMSFreeCoderCfg] = None,
+                            host_nms: bool = False) -> Callable:
     """``predict(model, batch) -> ((boxes (B, max_num, 9), scores, labels,
     valid), occ)``: the eval-mode forward, then decode + rotated NMS in f32
     on the model's device; ``occ`` is the occupancy argmax (B, Dx, Dy, Dz)
     for ``bevfusion_mtl`` and None for the other families.  Batch entries
-    may be NumPy arrays.  The JAX package's ``host_nms`` (its native C++
-    host NMS) is not ported.
+    may be NumPy arrays.
+
+    ``host_nms`` (anchor families only; JAX ``train/builder.py:236-300``):
+    the device work ends at the top-``nms_pre`` candidate decode
+    (``anchor_head_decode_candidates``), the candidates come back to the
+    host in one copy, and the greedy rotated NMS runs there in the native
+    core (``ops/nms_host.py``); the detections are then CPU tensors.
 
     For ``bevformer``: ``predict(model, imgs, can_bus, lidar2img,
     prev_bev, has_prev) -> ((boxes, scores, labels, valid), bev_embed)``,
-    one frame of B streams (``serve/predictor.py:predict_stream``)."""
+    one frame of B streams (``serve/predictor.py:predict_stream``), whose
+    decode is NMS-free (``host_nms`` is ignored)."""
     check_family(mtype)
     if mtype == 'bevformer':
         return functools.partial(predict_stream,
                                  coder_cfg=nms_free_cfg or NMSFreeCoderCfg())
     decode_cfg = decode_cfg or DecodeCfg()
     anchors = torch.from_numpy(np.asarray(anchors_np, np.float32))
+    on_device = {}                  # the anchors, uploaded once per device
 
     @torch.inference_mode()
     def predict(model, batch):
         model.eval()
         dev = next(model.parameters()).device
+        if dev not in on_device:
+            on_device[dev] = anchors.to(dev)
         out = model(*model_inputs(batch_to(batch, dev), mtype))
         occ = (out['occ_logits'].argmax(-1) if mtype == 'bevfusion_mtl'
                else None)
-        return anchor_head_get_bboxes(
-            out['cls_score'].float(), out['bbox_pred'].float(),
-            out['dir_pred'].float(), anchors.to(dev), decode_cfg), occ
+        head = (out['cls_score'].float(), out['bbox_pred'].float(),
+                out['dir_pred'].float(), on_device[dev], decode_cfg)
+        if not host_nms:
+            return anchor_head_get_bboxes(*head), occ
+        boxes, scores = anchor_head_decode_candidates(*head)
+        cand = torch.cat([boxes, scores], -1).cpu().numpy()
+        d = boxes.shape[-1]
+        dets = nms_rotated_multiclass_host_batch(
+            cand[..., :d], cand[..., d:], decode_cfg.score_thr,
+            decode_cfg.nms_thr, decode_cfg.max_num)
+        return tuple(torch.from_numpy(x) for x in dets), occ
 
     return predict

@@ -19,9 +19,13 @@ from omnihd_scenes_tpu_torch.train.builder import (make_loss_fn_generic,
 from omnihd_scenes_tpu_torch.train.eval_runner import run_inference_generic
 
 
-def build_dataset_single(ds_cfg, dataset_type: str = 'det'):
+def build_dataset_single(ds_cfg, dataset_type: str = 'det',
+                         image_decode: str = 'host'):
+    """The dataset of one split's config; ``image_decode='device'`` leaves
+    the camera pixels to ``image_loading.decode_camera_batch``."""
     kwargs = ds_cfg.to_dict() if hasattr(ds_cfg, 'to_dict') else dict(ds_cfg)
     kwargs.pop('wrapper', None)    # consumed by the caller (sampling.wrap_dataset)
+    kwargs['image_decode'] = image_decode
     if dataset_type == 'temporal':
         return TemporalNewScenesDataset(**kwargs)
     return NewScenesDetDataset(**kwargs)

@@ -8,9 +8,17 @@ BEVFusion-OCC, the occupancy eval (reference
 
 The streaming runners keep each stream's previous BEV where the predict
 function leaves it (on the card for the port's); they read back only the
-decoded boxes.  The JAX package's probe of its windowed TSA dual is not
-ported: the port computes the gather form, which has no window to
-overflow.
+decoded boxes.  A batch of a device-decode dataset (``image_decode=
+'device'``) is decoded on the model's device by ``image_loading.
+decode_camera_batch`` before the predict function sees it; the detections
+come back to the host in one copy a batch (:func:`detections_to_host`).
+Both runners take an optional ``timer`` (``tools/benchmark.py``'s
+``StageTimer``): ``timer.mark(stage)`` as each stage of a batch starts
+(``'load'``, ``'upload'``, ``'decode'``, ``'model'``, then ``'end'``
+before the batch's one host sync) and ``timer.batch_done(n_samples)``
+after it, which ends the run early when it returns True.
+The JAX package's probe of its windowed TSA dual is not ported: the port
+computes the gather form, which has no window to overflow.
 """
 
 from __future__ import annotations
@@ -20,24 +28,79 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+from omnihd_scenes_tpu_torch.data.image_loading import (CAMERA_SOURCE_KEYS,
+                                                        JPEG_BYTES,
+                                                        decode_camera_batch)
+from omnihd_scenes_tpu_torch.data.loader import EvalLoader, collate
 from omnihd_scenes_tpu_torch.data.temporal_dataset import StreamingEvalState
 from omnihd_scenes_tpu_torch.eval.occupancy import (evaluation_semantic,
                                                     summarize_occ_scores)
+from omnihd_scenes_tpu_torch.train.loop import batch_to
 
 
-def run_inference_generic(predict_fn, model, dataset,
-                          batch_size: int) -> Dict:
+class _Untimed:
+    def mark(self, stage: str) -> None:
+        pass
+
+    def batch_done(self, n_samples: int) -> bool:
+        return False
+
+
+def model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def detections_to_host(dets) -> tuple:
+    """(boxes, scores, labels, valid) as NumPy arrays, copied from the
+    card in one transfer (one host sync): the four packed into one f32
+    tensor (the labels and the flags are small integers, exact in f32)."""
+    boxes, scores, labels, valid = dets
+    if not (torch.is_tensor(boxes) and boxes.is_cuda):
+        return tuple(np.asarray(t.cpu() if torch.is_tensor(t) else t)
+                     for t in dets)
+    packed = torch.cat([boxes.float(), scores.float()[..., None],
+                        labels.float()[..., None], valid.float()[..., None]],
+                       -1).cpu().numpy()
+    d = boxes.shape[-1]
+    label_dtype = torch.empty((), dtype=labels.dtype).numpy().dtype
+    return (packed[..., :d], packed[..., d],
+            packed[..., d + 1].astype(label_dtype), packed[..., d + 2] > 0.5)
+
+
+def _upload(batch: Dict, dev) -> Dict:
+    """The batch's arrays on ``dev``, but for its camera sources, which
+    the decode reads on the host."""
+    cam = {k: batch[k] for k in CAMERA_SOURCE_KEYS if k in batch}
+    rest = {k: v for k, v in batch.items() if k not in cam}
+    return {**batch_to(rest, dev), **cam}
+
+
+def run_inference_generic(predict_fn, model, dataset, batch_size: int,
+                          timer=None) -> Dict:
     """Batched inference -> {'bbox_results': per-sample detections in
     dataset order, 'occ_results': per-sample occupancy argmax grids, or
     None when the model predicts none}.  ``predict_fn(model, batch)`` is
     :func:`train.builder.make_predict_fn_generic`'s."""
+    timer = timer or _Untimed()
     results: List = [None] * len(dataset)
     occ_results: List = [None] * len(dataset)
-    for batch, valid in EvalLoader(dataset, batch_size):
+    dev = model_device(model)
+    batches = iter(EvalLoader(dataset, batch_size))
+    while True:
+        timer.mark('load')
+        item = next(batches, None)
+        if item is None:
+            break
+        batch, valid = item
+        timer.mark('upload')
         indices = batch.pop('index')
+        batch = _upload(batch, dev)
+        timer.mark('decode')
+        batch = decode_camera_batch(batch, dev)
+        timer.mark('model')
         dets, occ_pred = predict_fn(model, batch)
-        boxes, scores, labels, det_valid = [t.cpu().numpy() for t in dets]
+        timer.mark('end')
+        boxes, scores, labels, det_valid = detections_to_host(dets)
         if occ_pred is not None:
             occ_pred = occ_pred.cpu().numpy()
         for i, ok in enumerate(valid):
@@ -47,6 +110,8 @@ def run_inference_generic(predict_fn, model, dataset,
                     'labels': labels[i], 'valid': det_valid[i]}
                 if occ_pred is not None:
                     occ_results[int(indices[i])] = occ_pred[i]
+        if timer.batch_done(int(np.sum(valid))):
+            break
     return {'bbox_results': results,
             'occ_results': occ_results if occ_results[0] is not None
             else None}
@@ -61,8 +126,8 @@ def run_streaming_inference(predict_stream, model, dataset,
 
 
 def run_streaming_inference_batched(predict_stream, model, dataset,
-                                    bev_shape, batch_size: int
-                                    ) -> List[Dict]:
+                                    bev_shape, batch_size: int,
+                                    timer=None) -> List[Dict]:
     """Scene-parallel streaming eval, ``predict_stream(model, imgs,
     can_bus, lidar2img, prev_bev, has_prev) -> (dets, bev)`` once per
     step for all streams: ``batch_size`` independent streams,
@@ -71,14 +136,17 @@ def run_streaming_inference_batched(predict_stream, model, dataset,
     step for all of them.  A stream past its block's end repeats the last
     sample with a zero can_bus and no history, and its output is
     dropped."""
+    timer = timer or _Untimed()
     n = len(dataset)
     batch_size = max(1, min(batch_size, n))
     per_slot = -(-n // batch_size)
     streams = [StreamingEvalState(bev_shape) for _ in range(batch_size)]
     results: List = [None] * n
+    model_dev = model_device(model)
     dev = None                       # the device the BEVs come back on
     for step in range(per_slot):
-        idxs, valid, imgs, cbs, l2is, hps = [], [], [], [], [], []
+        timer.mark('load')
+        idxs, valid, samples, cbs, l2is, hps = [], [], [], [], [], []
         for s in range(batch_size):
             idx = s * per_slot + step
             ok = idx < n
@@ -91,22 +159,38 @@ def run_streaming_inference_batched(predict_stream, model, dataset,
                 cb, hp = sample['can_bus'] * 0.0, False
             idxs.append(use)
             valid.append(ok)
-            imgs.append(sample['imgs'])
+            samples.append(sample)
             cbs.append(cb)
             l2is.append(sample['lidar2img'])
             hps.append(hp)
+        timer.mark('upload')
+        device_decode = JPEG_BYTES in samples[0]
+        inputs = {'can_bus': np.stack(cbs), 'lidar2img': np.stack(l2is),
+                  'has_prev': np.asarray(hps)}
+        if not device_decode:
+            inputs['imgs'] = np.stack([s['imgs'] for s in samples])
+        inputs = batch_to(inputs, model_dev)
+        timer.mark('decode')
+        if device_decode:
+            inputs['imgs'] = decode_camera_batch(collate(samples),
+                                                 model_dev)['imgs']
+        timer.mark('model')
         prev = torch.stack([torch.as_tensor(st.prev_bev, device=dev)
                             for st in streams])
-        dets, bev = predict_stream(model, np.stack(imgs), np.stack(cbs),
-                                   np.stack(l2is), prev, np.asarray(hps))
+        dets, bev = predict_stream(model, inputs['imgs'], inputs['can_bus'],
+                                   inputs['lidar2img'], prev,
+                                   inputs['has_prev'])
+        timer.mark('end')
         dev = bev.device
-        boxes, scores, labels, det_valid = (t.cpu().numpy() for t in dets)
+        boxes, scores, labels, det_valid = detections_to_host(dets)
         for s in range(batch_size):
             if valid[s]:
                 streams[s].update(bev[s])
                 results[idxs[s]] = {
                     'boxes': boxes[s], 'scores': scores[s],
                     'labels': labels[s], 'valid': det_valid[s]}
+        if timer.batch_done(sum(valid)):
+            break
     return results
 
 

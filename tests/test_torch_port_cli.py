@@ -31,9 +31,8 @@
   key, ``act_amax`` within 1e-5 relative (f32 summation order) and ``w8``
   / ``w_scale`` equal; BEVFormer-T's calibration (its streaming forward on
   a cold stream) held to JAX's the same way;
-* ``--host-nms`` is refused (it is ignored for BEVFormer, whose decode is
-  NMS-free), and a CUDA device that is not there is an error, not a
-  silent fallback.
+* a CUDA device that is not there is an error, not a silent fallback
+  (``--host-nms`` is held in ``tests/test_torch_port_nms_host.py``).
 """
 
 import dataclasses
@@ -346,13 +345,6 @@ def test_train_cli_aug_workers_and_load_pts_from(trained, dataroot,
     assert {'mode': 'resume', 'step': 6} in records
     assert not [r for r in records if r['mode'] == 'load_pts_from']
     assert state.step == 6 + 3
-
-
-@pytest.mark.parametrize('flag', ['--host-nms'])
-def test_unported_test_flags_are_refused(flag, capsys):
-    with pytest.raises(SystemExit):
-        test_cli.parse_args([SYNTH, 'ckpt', '--eval', flag])
-    assert 'not ported yet' in capsys.readouterr().err
 
 
 def test_test_cli_int8_evaluates(trained, dataroot, tmp_path, capsys):

@@ -31,6 +31,14 @@ Bounds:
   whole gradient within 1e-4 in relative L2 norm, the new BatchNorm
   statistics within 1e-4 of max|ref|, the parameters after AdamW within
   2.5 learning rates.
+* rectify (camera decode): the u8 passes bit-equal to their plain
+  versions on the card, the f32 pass within one f32 ulp (the plain
+  version's f64 stand-in for the FMA may round a tie the other way).
+* the card's JPEG decode (nvJPEG's planes, then libjpeg's upsampling and
+  colour tables in the rectify kernel) against the committed
+  ``cv2.imdecode`` results of ``tests/torch_port_fixtures/jpeg``: mean
+  |diff| <= 0.5 and max <= 3 u8 levels at 4:4:4 (one IDCT level in Y and
+  in a chroma plane), mean <= 1.0 and 99.9th percentile <= 8 at 4:2:0.
 The conv cases include the edge shapes of the kernels' block tiling
 (images smaller than a 128-pixel tile, widths that split tiles, channel
 counts that are not multiples of the block's channel tile).
@@ -44,6 +52,9 @@ counts that are not multiples of the block's channel tile).
   max|ref| for cancellation near zero.
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -852,3 +863,187 @@ def test_msda_on_the_card_equals_the_cpu(dev, shape):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = allow
+
+
+# ---- camera decode on the card: the rectify kernel and nvJPEG ------------
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'torch_port_fixtures', 'jpeg')
+# The card's decode against libjpeg-turbo (cv2.imdecode) on the committed
+# fixtures: mean and largest |diff| in u8 levels at 4:4:4, mean and 99.9th
+# percentile at 4:2:0.  Only the IDCTs differ (the card repeats libjpeg's
+# upsampling and colour tables).  The card's decode does not meet the 4:4:4
+# max yet: it reads 3 on one value of the 4:4:4 fixture (PERF.md), where a
+# one-level IDCT difference in Y and in Cr moves R by 1 + 2, so this test
+# fails on the card until the decode's IDCT matches libjpeg's.
+JPEG_444_MEAN, JPEG_444_MAX = 0.5, 2
+JPEG_420_MEAN, JPEG_420_P999 = 1.0, 8
+
+
+def _f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in f32 units in the last place (same-sign ints)."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def _camera_case(gen, hw, dist):
+    from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+
+    h, w = hw
+    img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8, generator=gen)
+    k = [[w * 0.8, 0.0, w / 2.0], [0.0, w * 0.8, h / 2.0], [0.0, 0.0, 1.0]]
+    fixed = rectify_map(k, dist, hw)
+    return img, (None if fixed is None else torch.from_numpy(fixed))
+
+
+DIST = (-0.05, 0.01, 1e-3, -1e-3, 0.0)
+R_MEAN, R_STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+
+
+@pytest.mark.parametrize('hw', [(72, 128), (1080, 1920)])
+def test_rectify_passes_match_plain(dev, hw):
+    """Each pass of the rectify kernel on the card against its plain
+    version on the card: remap and the u8 resizes (0.5, the exact 2x,
+    and 0.7) bit-equal, the normalise + resize + pad pass (0.5, 0.8, 1.0,
+    padded and cropped) within one f32 ulp."""
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    gen = torch.Generator().manual_seed(0)
+    img, fixed = _camera_case(gen, hw, DIST)
+    src, m = img.to(dev), fixed.to(dev)
+    launches = R.rectify.launches
+    (got,) = R.remap_u8([src], [m])
+    assert torch.equal(got, R.remap_u8_plain(src, m))
+    h, w = hw
+    sizes = [(h // 2, w // 2), (int(h * 0.7), int(w * 0.7))]
+    for got, size in zip(R.resize_u8([src, src], sizes), sizes):
+        assert torch.equal(got, R.resize_u8_plain(src, size))
+    outs = [(h // 2, w // 2), (int(h * 0.8), int(w * 0.8)), (h, w)]
+    for target in ((h + 8, w + 32), (h // 2, w // 3)):
+        got = R.normalize_pad([src] * 3, outs, target, R_MEAN, R_STD)
+        want = R.normalize_pad_plain([src] * 3, outs, target, R_MEAN, R_STD)
+        assert _f32_ulps(got, want) <= 1
+    assert R.rectify.launches == launches + 4
+
+
+def test_rectify_chain_matches_plain(dev):
+    """The whole chain of a six-camera batch of two samples (undistorted
+    or not, front and back halved, 0.5 resize, padded to 544x960) in at
+    most three launches, against ``rectify_plain``."""
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    gen = torch.Generator().manual_seed(1)
+    images, maps, u8_hws, out_hws = [], [], [], []
+    for k in range(12):
+        img, fixed = _camera_case(gen, (1080, 1920),
+                                  DIST if k % 3 else (0.0,) * 5)
+        images.append(img.to(dev))
+        maps.append(None if fixed is None else fixed.to(dev))
+        fb = k % 6 in (0, 3)
+        u8_hws.append((540, 960) if fb else (1080, 1920))
+        out_hws.append((270, 480) if fb else (540, 960))
+    before = R.rectify.launches
+    got = R.rectify(images, maps, u8_hws, out_hws, (544, 960), R_MEAN, R_STD)
+    assert R.rectify.launches == before + 3
+    want = R.rectify_plain(images, maps, u8_hws, out_hws, (544, 960),
+                           R_MEAN, R_STD)
+    assert _f32_ulps(got, want) <= 1
+
+
+def test_rectify_refuses_what_the_kernel_does_not_take(dev):
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    img = torch.zeros((8, 8, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        R.resize_u8([img.float()], [(4, 4)])
+    with pytest.raises(ValueError):
+        R.resize_u8([img.transpose(0, 1)], [(4, 4)])
+    with pytest.raises(ValueError):
+        R.remap_u8([img], [torch.zeros((8, 8, 2), dtype=torch.int64,
+                                       device=dev)])
+
+
+def _fixture(name):
+    with open(os.path.join(JPEG_FIXTURES, f'{name}.jpg'), 'rb') as f:
+        data = np.frombuffer(f.read(), np.uint8)
+    return data, np.load(os.path.join(JPEG_FIXTURES, f'{name}.npz'))['bgr']
+
+
+def test_nvjpeg_decode_matches_the_fixtures(dev):
+    """nvJPEG's batched decode of the committed JPEGs against their
+    ``cv2.imdecode`` result, within the 4:4:4 and 4:2:0 bounds above; one
+    decode call for the three."""
+    from omnihd_scenes_tpu_torch.data.jpeg import (decode_jpeg_planes,
+                                                   decode_jpegs)
+
+    names = ('camera_1080p_420', 'noise_64x96_420', 'noise_64x96_444')
+    blobs, refs = zip(*[_fixture(n) for n in names])
+    calls = decode_jpeg_planes.calls
+    got = decode_jpegs(list(blobs), dev)
+    assert decode_jpeg_planes.calls == calls + 1
+    gaps = {}
+    for name, g, want in zip(names, got, refs):
+        d = np.abs(g.cpu().numpy().astype(int) - want.astype(int))
+        gaps[name] = (d.mean(), np.percentile(d, 99.9), d.max())
+    for name, (mean, p999, top) in gaps.items():
+        if name.endswith('444'):
+            assert mean <= JPEG_444_MEAN and top <= JPEG_444_MAX, gaps
+        else:
+            assert mean <= JPEG_420_MEAN and p999 <= JPEG_420_P999, gaps
+
+
+@pytest.mark.parametrize('hw', [(65, 97), (1080, 1920)])
+def test_ycbcr_pass_matches_plain(dev, hw):
+    """The rectify kernel's YCbCr -> BGR pass (libjpeg's fancy chroma
+    upsampling and colour tables) bit-equal to its plain version on the
+    card, for 4:4:4, 4:2:2 and 4:2:0 planes of odd and even sizes."""
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    gen = torch.Generator().manual_seed(3)
+    planes, modes = [], []
+    for mode in (R.CHROMA_444, R.CHROMA_422, R.CHROMA_420):
+        shape = R.chroma_shape(hw, mode)
+        planes.append(tuple(
+            torch.randint(0, 256, s, dtype=torch.uint8,
+                          generator=gen).to(dev)
+            for s in (hw, shape, shape)))
+        modes.append(mode)
+    launches = R.rectify.launches
+    got = R.ycbcr_to_bgr(planes, modes)
+    assert R.rectify.launches == launches + 1
+    for g, p, m in zip(got, planes, modes):
+        assert torch.equal(g, R.ycbcr_to_bgr_plain(*p, m))
+
+
+def test_nvjpeg_encode_round_trip(dev):
+    """nvJPEG's encoder writes a baseline 4:2:0 JPEG (``cv2.imwrite``'s
+    defaults), which decodes back to the image within a few levels on
+    average."""
+    from omnihd_scenes_tpu_torch.data.jpeg import (decode_jpegs,
+                                                   encode_jpeg, jpeg_header)
+    from omnihd_scenes_tpu_torch.kernels.rectify import CHROMA_420
+
+    _, img = _fixture('camera_1080p_420')
+    data = encode_jpeg(img, dev)
+    header = jpeg_header(data)
+    assert header.baseline and header.chroma == CHROMA_420
+    assert (header.height, header.width) == img.shape[:2]
+    (back,) = decode_jpegs([np.frombuffer(data, np.uint8)], dev)
+    d = np.abs(back.cpu().numpy().astype(int) - img.astype(int))
+    assert d.mean() <= 1.5, d.mean()
+
+
+def test_card_decode_refuses_progressive(dev):
+    """A progressive frame header is refused before any decode."""
+    from omnihd_scenes_tpu_torch.data.jpeg import decode_jpegs, jpeg_header
+
+    data, _ = _fixture('noise_64x96_444')
+    data = data.copy()
+    sof = bytes(data).index(b'\xff\xc0')
+    data[sof + 1] = 0xC2
+    assert not jpeg_header(data).baseline
+    with pytest.raises(ValueError, match='progressive'):
+        decode_jpegs([data], dev)

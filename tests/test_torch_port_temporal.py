@@ -48,6 +48,7 @@ from omnihd_scenes_tpu_torch.devkit.synthetic import (  # noqa: E402
     SyntheticConfig, generate)
 from omnihd_scenes_tpu_torch.models.bevformer import (  # noqa: E402
     BEVFormerDetector)
+from omnihd_scenes_tpu_torch.tools import benchmark as bench_cli  # noqa: E402
 from omnihd_scenes_tpu_torch.tools import test as test_cli  # noqa: E402
 from omnihd_scenes_tpu_torch.train.builder import (  # noqa: E402
     build_model_from_cfg, make_predict_fn_generic)
@@ -281,3 +282,34 @@ def test_test_cli_evaluates_bevformer(dataroot, checkpoint, tmp_path, streams,
     assert json.load(open(os.path.join(out, 'metrics.json'))) == metrics
     sub = json.load(open(os.path.join(out, 'results_newsc.json')))
     assert sub['meta']['use_camera'] and len(sub['results']) > 3
+
+
+def test_benchmark_times_the_streaming_runner(cfg, dataroot, weights,
+                                              checkpoint, capsys):
+    """``tools.benchmark`` on BEVFormer times ``tools.test``'s streaming
+    runner: its timer ends the run after the first step, which leaves each
+    stream's first sample (the first of its block) as the whole run has
+    it; the CLI prints its FPS line at two streams."""
+    mcfg, _, model = weights
+    port, _ = _datasets(cfg, 'val')
+    predict = make_predict_fn_generic(model, 'bevformer')
+    full = run_streaming_inference_batched(predict, model, port,
+                                           _bev_shape(mcfg), 2)
+    timer = bench_cli.StageTimer(torch.device('cpu'), warmup=0, samples=1)
+    first = run_streaming_inference_batched(predict, model, port,
+                                            _bev_shape(mcfg), 2, timer)
+    per = -(-len(port) // 2)
+    assert [i for i, r in enumerate(first) if r is not None] == [0, per]
+    for i in (0, per):
+        for k in ('boxes', 'scores', 'labels', 'valid'):
+            assert np.array_equal(first[i][k], full[i][k])
+    assert (timer.n_done, timer.n_batches, timer.seen) == (2, 1, 1)
+    assert set(timer.totals) == set(bench_cli.STAGES)
+    result = bench_cli.main([SYNTH_CFG, '--checkpoint', checkpoint,
+                             '--samples', '3', '--warmup', '1',
+                             '--device', 'cpu', '--cfg-options',
+                             *cfg_options(dataroot),
+                             'data.samples_per_device=2'])
+    assert capsys.readouterr().out.startswith('Overall fps: ')
+    assert result['samples'] == 4 and result['batch'] == 2
+    assert result['fps'] > 0 and result['decode'] == 'host'
