@@ -9,7 +9,8 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 1. device: torch/CUDA versions, the card's name and power limit; TF32
    off for the parity phases;
 2. build: the kernels (``kernels/csrc/lss_sample.cu``, ``qconv.cu``,
-   ``bconv.cu``, ``rectify.cu``) and the nvJPEG binding (``nvjpeg.cpp``)
+   ``bconv.cu``, ``rectify.cu``, ``jpeg_idct.cu``) and the nvJPEG binding
+   (``nvjpeg.cpp``: the encoder, and the decode yardstick)
    from source for sm_90a, one ``nvcc`` each, all started together; build
    seconds, registers and spills;
 3. the LSS kernel vs plain at production shapes (6 cameras, 136x240
@@ -268,18 +269,20 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 34. camera dataroots on the card, with ``cv2`` and ``PIL`` blocked: a
    synthetic dataroot of 8 samples, six 1920x1080 cameras with lens
    distortion, written by ``generate(..., image_device='cuda')`` (NumPy
-   boxes, nvJPEG encode), and its infos; (a) the card's decode of the
-   committed JPEG fixtures against their ``cv2.imdecode`` (4:4:4 mean
-   <= 0.5, and max <= 2 printed as met or not met; 4:2:0 mean <= 1.0,
-   p99.9 <= 8); (b) each of the rectify kernel's four passes on one b4
-   batch of the dataroot against its plain version on the card (the
-   YCbCr pass on nvJPEG's planes of the batch; u8 bit-equal, f32 within
-   one ulp), each pass's ms and byte bound, the four passes' ms beside
-   their byte bound, the plain versions' and one ``F.grid_sample`` on the
-   chain's own grid, nvJPEG's planar decode's ms per six images; the main
-   path in this process (``run_inference_generic`` of
-   ``configs/bevfusion.py``'s seeded model at b4 over the val set: one
-   LSS launch, four rectify launches and one nvJPEG decode a batch) and
+   boxes, nvJPEG encode), and its infos; (a) the card's decode (host
+   entropy decode, the IDCT kernel, rectify's colour step) of the
+   committed JPEG fixtures against their ``cv2.imdecode``: max |d| 0;
+   (b) on one b4 batch of the dataroot (24 images): the host entropy
+   decode's ms on 1 thread and on the default count (the CPU model and
+   count printed), the coefficients' pinned upload, the IDCT kernel
+   against its plain version on the card (bit-equal) and the fused
+   rectify kernel against its plain version (bit-equal), each with its
+   ms, byte bound and plain ms, nvJPEG's batched decode of the same 24
+   JPEGs (the IDCT's library yardstick) and one ``F.grid_sample`` on the
+   chain's own grid (rectify's); the main path in this process
+   (``run_inference_generic`` of ``configs/bevfusion.py``'s seeded model
+   at b4 over the val set: one LSS launch, one batched decode, one IDCT
+   and one rectify launch a batch, no nvJPEG decode) and
    one batch's host syncs (only the result copy; with the host NMS only
    the candidate copy); on that batch's candidates the in-graph NMS
    against a greedy pass over the card's own IoU matrix (equal, its
@@ -288,15 +291,16 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    lies within 1e-9 of the threshold);
    (c) ``tools.test --eval`` and (d) ``--host-nms`` of
    ``configs/bevfusion.py`` at b4 as subprocesses on a seeded checkpoint
-   (exit 0, finite mAP and NOS, one LSS and four rectify launches a
-   batch; ``--host-nms``'s kept boxes those of the host NMS over the val
-   set in this process on every sample, bit for bit; the samples that
+   (exit 0, finite mAP and NOS, one LSS, IDCT and rectify launch and
+   one decode a batch, no nvJPEG decode; ``--host-nms``'s kept boxes
+   those of the host NMS over the val set in this process on every
+   sample, bit for bit; the samples that
    keep the in-graph run's boxes printed); (e)
    ``tools.benchmark`` (24 samples: samples/s and ms a sample of loading,
    upload, decode + rectify, model); (f) ``tools.test --eval`` of
    ``lss_camera``, ``rcfusion``, ``bevfusion_occ`` and
    ``bevformer_t_r50`` at b1, side by side (finite metrics, their
-   launches).
+   launches, no nvJPEG decode).
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -307,8 +311,8 @@ RCFusion's (phase 23) and the augmented training's (phase 27,
 which must be 0), dense_fold's (30), s2d's and int8 + s2d's (31, qconv
 too), the remat training run's (32) and BEVFusion-OCC int8's (33, qconv
 too), 0 on BEVFormer-T's training run (phase 25b) and
-R101-DCN's stream (26b); the rectify kernel's and nvJPEG's (a library
-call, marked so) from phase 34's main path), error against the plain
+R101-DCN's stream (26b); the rectify and IDCT kernels' from phase 34's
+main path), error against the plain
 version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
@@ -344,7 +348,10 @@ INT8_SMALL_TOL = 0.1
 INT8_HEAD_TOL = 0.15
 INT8_BOX_MATCH = 0.75
 CSRC = 'omnihd_scenes_tpu_torch/kernels/csrc/'
-KERNELS = ('lss_sample', 'qconv', 'bconv', 'rectify', 'nvjpeg')
+# rectify's setup kernels (kernels/rectify.py), by kernels-line name.
+SETUP_KERNELS = ('rectify_pack_map', 'rectify_footprint', 'rectify_taps')
+KERNELS = ('lss_sample', 'qconv', 'bconv', 'rectify', 'jpeg_idct',
+           'nvjpeg')
 SPLAT_PASSES = ('omnihd_scenes_tpu/ops/pallas_splat.py:68',
                 'omnihd_scenes_tpu/ops/pallas_splat.py:80')
 KERNEL_REPLACES = {
@@ -358,8 +365,13 @@ KERNEL_REPLACES = {
     # No TPU kernel: the JAX package runs these on the host with OpenCV
     # (load_camera_data's undistort, resizes and normalisation; its
     # cv2.imread).
+    # rectify's setup kernels serve the same chain: the packed map and the
+    # tile footprints its cv2.remap (:133), the taps its f32 cv2.resize.
     'rectify': ('omnihd_scenes_tpu/data/image_loading.py:139',),
-    'nvjpeg': ('omnihd_scenes_tpu/data/image_loading.py:177',)}
+    'rectify_pack_map': ('omnihd_scenes_tpu/data/image_loading.py:133',),
+    'rectify_footprint': ('omnihd_scenes_tpu/data/image_loading.py:133',),
+    'rectify_taps': ('omnihd_scenes_tpu/data/image_loading.py:139',),
+    'jpeg_idct': ('omnihd_scenes_tpu/data/image_loading.py:177',)}
 # (N, C, H, W) -> Co of the int8 tier's eligible layers at b4 (24 images).
 QCONV_SHAPES = {'DepthNet block': ((24, 256, 136, 240), 256),
                 'FPNC reduce': ((24, 768, 136, 240), 256),
@@ -403,6 +415,31 @@ def cuda_ms(fn, iters, warmup):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, key, iters, warmup):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``key``, by torch.profiler over ``iters`` calls of ``fn`` (a wrapper's
+    host work between launches does not count); fails when the profiler
+    records no such launch or no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if key in e.key:
+            total += getattr(e, 'device_time_total', 0) or e.cuda_time_total
+            count += e.count
+    check(total > 0 and count > 0, f'the profiler recorded no device time '
+          f'of a kernel named *{key}* ({count} launches)')
+    return total / count / 1e3
 
 
 def phase_device():
@@ -2989,14 +3026,18 @@ GRAD_SHARE = 1e-3
 def _kernel_launches():
     """The launch count of every hand kernel's wrapper."""
     from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
+    from omnihd_scenes_tpu_torch.kernels.jpeg_idct import jpeg_idct
     from omnihd_scenes_tpu_torch.kernels.lss_sample import (
         lss_sample, lss_sample_bev, lss_sample_bev_backward)
     from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
-    from omnihd_scenes_tpu_torch.kernels.rectify import rectify
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
 
     return {'lss_sample': lss_sample_bev, 'lss_sample_backward':
             lss_sample_bev_backward, 'lss_sample_fields_in': lss_sample,
-            'qconv': qconv3x3, 'bconv': bconv3x3, 'rectify': rectify}
+            'qconv': qconv3x3, 'bconv': bconv3x3, 'rectify': R.rectify,
+            'rectify_pack_map': R.pack_map,
+            'rectify_footprint': R.footprint_table,
+            'rectify_taps': R.resize_taps, 'jpeg_idct': jpeg_idct}
 
 
 def _zero_launches():
@@ -4388,15 +4429,8 @@ CAMERA_CONFIGS = ('configs/lss_camera.py', 'configs/rcfusion.py',
 BEVFUSION_CONFIG = 'configs/bevfusion.py'
 BENCH_SAMPLES = 24
 JPEG_FIXTURES = 'tests/torch_port_fixtures/jpeg/'
-# The card's decode against the fixtures' cv2.imdecode (libjpeg-turbo), in
-# u8 levels, the bounds of tests/test_torch_port_gpu.py: 4:4:4 mean and
-# max, 4:2:0 mean and 99.9th percentile.  Only the IDCTs differ.  The
-# decode does not meet the 4:4:4 max yet (it read 3 on one value: a
-# one-level IDCT difference in Y and in Cr moves R by 1 + 2); phase 34a
-# prints that criterion as met or not met and holds the decode to the
-# other three, while the YCbCr pass after nvJPEG is held bit-equal to its
-# plain version on the dataroot's own planes (34b).
-JPEG_444_MEAN, JPEG_444_MAX, JPEG_420_MEAN, JPEG_420_P999 = 0.5, 2, 1.0, 8
+JPEG_FIXTURE_NAMES = ('camera_1080p_420', 'noise_64x96_420',
+                      'noise_64x96_444')
 # 34d: candidate pairs whose f64 IoU lies this close to the threshold may
 # go either way between the native core and the vectorised reference.
 HOST_IOU_TIE = 1e-9
@@ -4489,43 +4523,23 @@ def _kept_rows(out_dir):
             for tok, rows in results.items()}
 
 
-def _fixture_gaps(dev):
+def _fixture_exact(dev):
     """34a: the card's decode of the committed JPEG fixtures against their
-    cv2.imdecode result -> (the largest |d|, whether the 4:4:4 max
-    criterion is met)."""
+    cv2.imdecode result: every value equal (max |d| 0) -> that max."""
     from omnihd_scenes_tpu_torch.data.jpeg import decode_jpegs
 
-    names = ('camera_1080p_420', 'noise_64x96_420', 'noise_64x96_444')
-    blobs = [np.fromfile(f'{JPEG_FIXTURES}{n}.jpg', np.uint8) for n in names]
-    gaps = {}
-    for n, img in zip(names, decode_jpegs(blobs, dev)):
+    blobs = [np.fromfile(f'{JPEG_FIXTURES}{n}.jpg', np.uint8)
+             for n in JPEG_FIXTURE_NAMES]
+    top = 0
+    for n, img in zip(JPEG_FIXTURE_NAMES, decode_jpegs(blobs, dev)):
         ref = np.load(f'{JPEG_FIXTURES}{n}.npz')['bgr'].astype(int)
         d = np.abs(img.cpu().numpy().astype(int) - ref)
-        gaps[n] = (float(d.mean()), float(np.percentile(d, 99.9)),
-                   int(d.max()), int((d > JPEG_444_MAX).sum()), d.size)
-        print(f'[34a JPEG fixtures] {n}: mean |d| {gaps[n][0]:.4f}, p99.9 '
-              f'{gaps[n][1]:.1f}, max {gaps[n][2]} against cv2.imdecode')
-    met = True
-    for n, (mean, p999, top, over, size) in gaps.items():
-        if n.endswith('444'):
-            check(mean <= JPEG_444_MEAN, f'card decode of {n}: {gaps[n]}')
-            met = top <= JPEG_444_MAX
-            print(f'[34a JPEG fixtures] criterion max |d| <= {JPEG_444_MAX} '
-                  f'on {n}: {"met" if met else "NOT MET"} (max {top}; '
-                  f'{over} of {size} values above it)')
-        else:
-            check(mean <= JPEG_420_MEAN and p999 <= JPEG_420_P999,
-                  f'card decode of {n}: {gaps[n]}')
-    return max(g[2] for g in gaps.values()), met
-
-
-def _f32_ulps(a, b):
-    import torch
-
-    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
-    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
-    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
-    return int((ia - ib).abs().max())
+        print(f'[34a JPEG fixtures] {n}: max |d| {int(d.max())}, '
+              f'{int((d > 0).sum())} of {d.size} values differ from '
+              'cv2.imdecode')
+        check(d.max() == 0, f'card decode of {n} differs from cv2.imdecode')
+        top = max(top, int(d.max()))
+    return top
 
 
 def _sample_grid(images, maps, out_hws, target):
@@ -4555,117 +4569,255 @@ def _sample_grid(images, maps, out_hws, target):
     return torch.stack(grids)
 
 
-def _rectify_on_batch(dev, card, batch):
-    """34b: each of the rectify kernel's four passes on one b4 batch of
-    the dataroot against its plain version on the card (u8 bit-equal, f32
-    within one ulp), with its ms and byte bound; the four passes' ms
-    beside their byte bound, the plain versions' ms and one F.grid_sample
-    of the decoded f32 images on the chain's own sampling grid; nvJPEG's
-    planar decode's ms per set of six 1080p images."""
+def _cpu_model():
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if line.startswith('model name'):
+                    return line.split(':', 1)[1].strip()
+    except OSError:
+        pass
+    return 'unknown CPU'
+
+
+def _decode_on_batch(dev, card, batch):
+    """34b: one b4 batch of the dataroot (24 images), stage by stage: the
+    host entropy decode on 1 thread and on the default count, the pinned
+    upload of its coefficients, the IDCT kernel against its plain version
+    on the card (bit-equal; library: nvJPEG's batched decode of the same
+    JPEGs), the fused rectify kernel against its plain version on the
+    card (bit-equal; library: one F.grid_sample of the decoded f32 images
+    on the chain's own grid) -> the rectify and IDCT rows of the kernels
+    line (max |d|, ms, plain ms, bound ms, bound_by, library ms) and the
+    host stages' numbers."""
+    import os
+
     import torch
     import torch.nn.functional as F
 
     from omnihd_scenes_tpu_torch.data import image_loading as IL
-    from omnihd_scenes_tpu_torch.data.jpeg import decode_jpeg_planes
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
     from omnihd_scenes_tpu_torch.kernels import rectify as R
     from omnihd_scenes_tpu_torch.tools.roofline import HBM_BYTES_PER_S
 
-    images, (maps, u8_hws, out_hws, target, mean, std, _) = \
-        IL.decoded_sources(batch, dev)
     offsets, data = batch[IL.JPEG_OFFSETS], batch[IL.JPEG_BYTES]
     blobs = [data[offsets[i, c]:offsets[i, c + 1]]
              for i in range(offsets.shape[0])
              for c in range(offsets.shape[1] - 1)]
-    check(all(m is not None for m in maps), 'phase 34 cameras undistort')
+    jpeg_bytes = sum(int(b.size) for b in blobs)
 
-    def numel(ts):
-        return sum(int(t.numel()) * t.element_size() for t in ts)
+    pin = dev.type == 'cuda'
 
-    def ms_bound(fn, nbytes):
-        return cuda_ms(fn, 20, 3), nbytes / HBM_BYTES_PER_S * 1e3
+    def host_ms(threads, reps=3):
+        J.entropy_decode(blobs, pin=pin, threads=threads)       # warm
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = J.entropy_decode(blobs, pin=pin, threads=threads)
+        return (time.perf_counter() - t0) / reps * 1e3, out
 
-    passes = {}
-    # Pass 0: YCbCr -> BGR of nvJPEG's planes of the whole batch.
-    planes, modes = decode_jpeg_planes(blobs, dev)
-    bgr = R.ycbcr_to_bgr(planes, modes)
-    check(all(torch.equal(b, R.ycbcr_to_bgr_plain(*p, m))
-              for b, p, m in zip(bgr, planes, modes)), 'ycbcr_to_bgr != plain')
-    check(all(torch.equal(b, i) for b, i in zip(bgr, images)),
-          'decoded_sources does not return the YCbCr pass of the planes')
-    plane_bytes = numel([t for p in planes for t in p])
-    passes['ycbcr_to_bgr'] = ms_bound(lambda: R.ycbcr_to_bgr(planes, modes),
-                                      plane_bytes + numel(bgr))
-    # Pass 1: undistort.
-    undist = R.remap_u8(images, maps)
-    check(all(torch.equal(u, R.remap_u8_plain(i, m))
-              for u, i, m in zip(undist, images, maps)), 'remap_u8 != plain')
-    map_bytes = numel({m.data_ptr(): m for m in maps}.values())
-    passes['remap_u8'] = ms_bound(lambda: R.remap_u8(images, maps),
-                                  numel(images) + map_bytes + numel(undist))
-    # Pass 2: the front/back downscale.
-    fb = [j for j, (u, hw) in enumerate(zip(undist, u8_hws))
-          if tuple(hw) != tuple(u.shape[:2])]
-    fb_in, fb_hws = [undist[j] for j in fb], [u8_hws[j] for j in fb]
-    small = R.resize_u8(fb_in, fb_hws)
-    check(all(torch.equal(s, R.resize_u8_plain(u, hw))
-              for s, u, hw in zip(small, fb_in, fb_hws)), 'resize_u8 != plain')
-    passes['resize_u8'] = ms_bound(lambda: R.resize_u8(fb_in, fb_hws),
-                                   numel(fb_in) + numel(small))
-    # Pass 3: BGR -> RGB, normalise, resize, pad.
-    staged = list(undist)
-    for s, j in zip(small, fb):
-        staged[j] = s
-    got = R.normalize_pad(staged, out_hws, target, mean, std)
-    want = R.normalize_pad_plain(staged, out_hws, target, mean, std)
-    ulps = _f32_ulps(got, want)
-    check(ulps <= 1, f'normalize_pad {ulps} ulps from plain')
-    passes['normalize_pad'] = ms_bound(
-        lambda: R.normalize_pad(staged, out_hws, target, mean, std),
-        numel(staged) + numel([got]))
-    # The four passes as the main path runs them.
-    whole = R.rectify(bgr, maps, u8_hws, out_hws, target, mean, std)
-    plain = R.rectify_plain(images, maps, u8_hws, out_hws, target, mean, std)
+    threads = min(len(blobs), os.cpu_count() or 1)
+    host1, _ = host_ms(1, 2)
+    host_n, c = host_ms(threads)
+    coef_bytes = int(c.coefs.numel()) * 2
+    upload = cuda_ms(lambda: c.coefs.to(dev, non_blocking=True), 10, 2)
+    print(f'[34b host decode] {len(blobs)} JPEGs ({jpeg_bytes} bytes) -> '
+          f'{coef_bytes / 1e6:.1f} MB of int16 coefficients: {host1:.3f} ms '
+          f'on 1 thread ({host1 / len(blobs):.3f} ms an image), {host_n:.3f} '
+          f'ms on {threads} threads; {os.cpu_count()} CPUs, {_cpu_model()}; '
+          f'pinned upload {upload:.4f} ms ({coef_bytes / upload / 1e6:.1f} '
+          f'GB/s; {card})')
+
+    coefs = c.coefs.to(dev, non_blocking=True)
+    quant = c.quant.to(dev, non_blocking=True)
+    buf = JI.jpeg_idct(coefs, quant, c.comps)
+    plain_buf = JI.jpeg_idct_plain(coefs, quant, c.comps)
+    idct_err = float((buf.int() - plain_buf.int()).abs().max())
+    check(idct_err == 0, f'jpeg_idct != plain (max |d| {idct_err})')
+    idct_ms = kernel_ms(lambda: JI.jpeg_idct(coefs, quant, c.comps),
+                        'jpeg_idct_kernel', 20, 3)
+    idct_plain = cuda_ms(lambda: JI.jpeg_idct_plain(coefs, quant, c.comps),
+                         2, 1)
+    idct_bound = JI.jpeg_idct_bytes(coefs) / HBM_BYTES_PER_S * 1e3
+    nv_ms = cuda_ms(lambda: J.nvjpeg_decode_planes(blobs, dev), 3, 1)
+    print(f'[34b jpeg_idct] {coefs.numel() // 64} blocks: bit-equal to '
+          f'plain; {idct_ms:.4f} ms against {idct_bound:.4f} ms (bytes, '
+          f'{JI.jpeg_idct_bytes(coefs) / 1e6:.1f} MB; share '
+          f'{idct_bound / idct_ms:.3f}), plain {idct_plain:.2f} ms; nvJPEG\'s '
+          f'batched decode of the same JPEGs (Huffman + IDCT) {nv_ms:.4f} ms '
+          f'({card})')
+
+    planes = J.planes_of(buf, c)
+    got_planes, (maps, u8_hws, out_hws, target, mean, std, _) = \
+        IL.decoded_sources(batch, dev)
+    check(all(torch.equal(a, b) for p, q in zip(planes, got_planes)
+              for a, b in zip(p[:3], q[:3])),
+          'decoded_sources does not return the IDCT\'s planes')
+    check(all(isinstance(m, R.DeviceMap) for m in maps),
+          'phase 34 cameras undistort')
+    args = (u8_hws, out_hws, target, mean, std)
+    whole = R.rectify(planes, maps, *args)
+    plain = R.rectify_plain(planes, maps, *args)
     err = float((whole - plain).abs().max())
-    check(_f32_ulps(whole, plain) <= 1, 'rectify chain != plain')
+    check(torch.equal(whole, plain), f'rectify != plain (max |d| {err})')
 
-    def run():
-        R.rectify(R.ycbcr_to_bgr(planes, modes), maps, u8_hws, out_hws,
-                  target, mean, std)
+    def call():
+        R.rectify(planes, maps, *args)
 
-    def run_plain():
-        R.rectify_plain([R.ycbcr_to_bgr_plain(*p, m)
-                         for p, m in zip(planes, modes)], maps, u8_hws,
-                        out_hws, target, mean, std)
-
-    ms = cuda_ms(run, 20, 3)
-    plain_ms = cuda_ms(run_plain, 2, 1)
-    nbytes = plane_bytes + map_bytes + numel([whole])
+    ms = kernel_ms(call, 'rectify_kernel', 20, 3)
+    call_ms = cuda_ms(call, 20, 3)
+    plain_ms = cuda_ms(lambda: R.rectify_plain(planes, maps, *args), 2, 1)
+    nbytes = R.rectify_bytes(planes, maps, target)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    images = R.planes_to_bgr(planes)
     x = torch.stack([i.permute(2, 0, 1).float() for i in images])
-    grid = _sample_grid(images, maps, out_hws, target)
+    grid = _sample_grid(images, [m.fixed for m in maps], out_hws, target)
     lib_ms = cuda_ms(lambda: F.grid_sample(x, grid, align_corners=False), 20,
                      3)
-    for name, (t, b) in passes.items():
-        print(f'[34b rectify] pass {name}: bit-equal to plain'
-              if name != 'normalize_pad' else
-              f'[34b rectify] pass {name}: within {ulps} ulp of plain',
-              f'{t:.4f} ms against {b:.4f} ms (bytes; share {b / t:.3f})')
-    print(f'[34b rectify] b{offsets.shape[0]} ({len(images)} x 1080x1920 '
-          f'-> {target}, {len(fb)} halved), the four passes: '
-          f'{_f32_ulps(whole, plain)} ulp from plain (max |d| {err:.3g}); '
-          f'{ms:.4f} ms (4 launches) against {bound_ms:.4f} ms (bytes, '
+    fb = sum(tuple(hw) != tuple(p.y.shape) for p, hw in zip(planes, u8_hws))
+    print(f'[34b rectify] b{offsets.shape[0]} ({len(planes)} x '
+          f'{planes[0].y.shape[0]}x{planes[0].y.shape[1]} '
+          f'4:2:0 planes -> {target}, {fb} halved), one launch: bit-equal '
+          f'to plain; {ms:.4f} ms (kernel; the wrapper\'s call '
+          f'{call_ms:.4f} ms) against {bound_ms:.4f} ms (bytes, '
           f'{nbytes / 1e6:.1f} MB; share {bound_ms / ms:.3f}), plain '
           f'{plain_ms:.2f} ms, F.grid_sample of the f32 images on the '
           f'chain\'s grid {lib_ms:.4f} ms ({card})')
-    one = blobs[:offsets.shape[1] - 1]
-    dec_ms = cuda_ms(lambda: decode_jpeg_planes(one, dev), 10, 2)
-    dec_bytes = sum(b.size for b in one) + numel(
-        [t for p in planes[:len(one)] for t in p])
-    dec_bound = dec_bytes / HBM_BYTES_PER_S * 1e3
-    print(f'[34b nvJPEG] planar decode of one sample\'s {len(one)} 1080p '
-          f'JPEGs ({sum(b.size for b in one)} bytes): {dec_ms:.4f} ms, byte '
-          f'bound {dec_bound:.4f} ms ({card})')
-    return (err, ms, plain_ms, bound_ms, 'bytes', lib_ms), (dec_ms, dec_bound)
+    layouts, per_camera_bound = _rectify_layouts(dev, card, batch, planes,
+                                                 maps, args, plain)
+    setup = _rectify_setup(dev, card, planes, maps, args)
+    host = dict(host_decode_ms_1_thread=host1, host_decode_ms=host_n,
+                host_threads=threads, host_cpus=os.cpu_count(),
+                host_cpu=_cpu_model(), upload_ms=upload,
+                upload_bytes=coef_bytes, jpeg_bytes=jpeg_bytes,
+                images=len(blobs))
+    return ((err, ms, plain_ms, bound_ms, 'bytes', lib_ms),
+            (idct_err, idct_ms, idct_plain, idct_bound, 'bytes', nv_ms), host,
+            dict(call_ms=call_ms, layout_ms=layouts,
+                 bound_ms_per_camera_maps=per_camera_bound), setup)
+
+
+def _rectify_layouts(dev, card, batch, planes, maps, args, plain):
+    """34b: the rectify kernel's tile layouts timed on the batch: the
+    images of one geometry and map interleaved tile by tile (rectify's)
+    or laid out image by image, on the batch's own maps (the synthetic rig
+    gives its six cameras one calibration) and on six per-camera maps
+    (each camera's focal length and centre moved, as a real rig's
+    differ), each launch bit-equal to the plain version -> ({layout: ms},
+    the bound with the per-camera maps)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.data import image_loading as IL
+    from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+    from omnihd_scenes_tpu_torch.tools.roofline import HBM_BYTES_PER_S
+
+    k = IL._host_array(batch['cam_intrinsics']).reshape(-1, 3, 3)
+    dist = IL._host_array(batch['cam_distortion']).reshape(-1, 5)
+    n_cam = IL._host_array(batch[IL.JPEG_OFFSETS]).shape[1] - 1
+    own = []
+    for cam in range(n_cam):
+        kc = np.array(k[cam], np.float64)
+        kc[0, 0] *= 1 + 0.01 * (cam + 1)
+        kc[1, 1] *= 1 + 0.01 * (cam + 1)
+        kc[0, 2] += 2.0 * (cam + 1)
+        fixed = rectify_map(kc, dist[cam], tuple(planes[cam].y.shape))
+        own.append(R.DeviceMap(torch.from_numpy(fixed).to(dev)))
+    per_camera = [own[j % n_cam] for j in range(len(planes))]
+    per_camera_plain = R.rectify_plain(planes, per_camera, *args)
+    layouts = {}
+    for label, lay_maps, want in (('shared_map', maps, plain),
+                             ('per_camera_maps', per_camera,
+                              per_camera_plain)):
+        for interleave in (True, False):
+            name = f'{label}_' + ('interleaved' if interleave
+                                  else 'by_image')
+            got = R._launch(planes, lay_maps, *args, interleave=interleave)
+            check(torch.equal(got, want), f'rectify ({name}) != plain')
+            layouts[name] = kernel_ms(
+                lambda: R._launch(planes, lay_maps, *args,
+                                  interleave=interleave),
+                'rectify_kernel', 20, 3)
+    bound = R.rectify_bytes(planes, per_camera, args[2]) / \
+        HBM_BYTES_PER_S * 1e3
+    print(f'[34b rectify layouts] kernel ms, each launch bit-equal to '
+          f'plain: ' + ', '.join(f'{k} {v:.4f}' for k, v in layouts.items())
+          + f'; bound with {n_cam} per-camera maps {bound:.4f} ms ({card})')
+    return layouts, bound
+
+
+def _rectify_setup(dev, card, planes, maps, args):
+    """34b: rectify's setup kernels on the batch's map and geometries,
+    each against its plain version on the card (bit-equal), timed at the
+    full-size cameras' geometry from a cold L2 -> their rows of the kernels line (max
+    |d|, ms, plain ms, bound ms, bound_by, library ms)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+    from omnihd_scenes_tpu_torch.tools.roofline import HBM_BYTES_PER_S
+
+    u8_hws, out_hws, target = args[:3]
+    geos = [R._geometry(*p.y.shape, int(p.mode), tuple(u8), tuple(hw),
+                        tuple(target))
+            for p, u8, hw in zip(planes, u8_hws, out_hws)]
+    full = next(j for j, p in enumerate(planes)
+                if tuple(u8_hws[j]) == tuple(p.y.shape))
+    geo, fixed = geos[full], maps[full].fixed
+
+    def diff(a, b):
+        return float((a.long() - b.long()).abs().max())
+
+    distinct = {id(m): m.fixed for m in maps}.values()
+    e_pack = max(diff(R.pack_map(f), R.pack_map_plain(f)) for f in distinct)
+    pairs = {(id(m), g): (m.fixed, g) for m, g in zip(maps, geos)}.values()
+    e_foot = max(diff(R.footprint_table(f, g, target),
+                      R.footprint_table_plain(f, g, target))
+                 for f, g in pairs)
+    e_taps = max(diff(a, b) for g in set(geos)
+                 for a, b in zip(R.resize_taps(g, dev),
+                                 R.resize_taps_plain(g, dev)))
+    check(e_pack == e_foot == e_taps == 0,
+          f'rectify setup kernels != plain (max |d| pack {e_pack}, '
+          f'footprint {e_foot}, taps {e_taps})')
+    table = R.footprint_table(fixed, geo, target)
+    read = torch.zeros(fixed.shape[:2], dtype=torch.bool)
+    for a, b, c, d in table[0::2].tolist():
+        read[a:b + 1, c:d + 1] = True
+    taps = R.resize_taps(geo, dev)
+    nbytes = {'rectify_pack_map': fixed.numel() * 4 + fixed.numel() * 2,
+              'rectify_footprint': int(read.sum()) * 8 + table.numel() * 4,
+              'rectify_taps': sum(t.numel() * 4 for t in taps)}
+    runs = {'rectify_pack_map': (lambda: R.pack_map(fixed),
+                                 lambda: R.pack_map_plain(fixed),
+                                 'pack_map_kernel', e_pack),
+            'rectify_footprint': (
+                lambda: R.footprint_table(fixed, geo, target),
+                lambda: R.footprint_table_plain(fixed, geo, target),
+                'footprint_kernel', e_foot),
+            'rectify_taps': (lambda: R.resize_taps(geo, dev),
+                             lambda: R.resize_taps_plain(geo, dev),
+                             'taps_kernel', e_taps)}
+    # Each timed launch starts with its inputs out of the 50 MB L2, as at
+    # a map's first use: a 256 MB buffer is written before it.
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+
+    def cold(fn):
+        def run():
+            flush.zero_()
+            fn()
+        return run
+
+    rows = {}
+    for name, (fn, plain_fn, key, e) in runs.items():
+        t = kernel_ms(cold(fn), key, 20, 3)
+        pt = cuda_ms(plain_fn, 2, 1)
+        bt = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        rows[name] = (e, t, pt, bt, 'bytes', None)
+        print(f'[34b {name}] bit-equal to plain on the batch\'s '
+              f'{len(distinct)} map(s) and {len(set(geos))} geometries; '
+              f'{t:.4f} ms a launch (cold L2) against {bt:.4f} ms (bytes, '
+              f'{nbytes[name] / 1e6:.2f} MB), plain {pt:.2f} ms ({card})')
+    return rows
 
 
 def _host_syncs(fn):
@@ -4775,7 +4927,9 @@ def phase_camera_dataroot(dev, card):
 
     import torch
 
-    from omnihd_scenes_tpu_torch.data.jpeg import decode_jpeg_planes
+    from omnihd_scenes_tpu_torch.data import image_loading as IL
+    from omnihd_scenes_tpu_torch.data.jpeg import (decode_jpeg_planes,
+                                                   nvjpeg_decode_planes)
     from omnihd_scenes_tpu_torch.data.loader import EvalLoader
     from omnihd_scenes_tpu_torch.devkit.converter import (
         create_newscenes_infos)
@@ -4784,6 +4938,7 @@ def phase_camera_dataroot(dev, card):
     from omnihd_scenes_tpu_torch.data.image_loading import (
         decode_camera_batch)
     from omnihd_scenes_tpu_torch.eval.detection.config import config_factory
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
                                                        make_predict_fn_generic)
     from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
@@ -4800,7 +4955,7 @@ def phase_camera_dataroot(dev, card):
         create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
                                max_sweeps=0)
         gen_s = time.perf_counter() - t0
-        jpeg_max, jpeg_444_met = _fixture_gaps(dev)
+        jpeg_max = _fixture_exact(dev)
 
         opts = _camera_options(root, BATCH)
         ckpts = {p: os.path.join(tmp, os.path.basename(p)[:-3])
@@ -4815,7 +4970,8 @@ def phase_camera_dataroot(dev, card):
                                        image_decode='device')
         n_batches = math.ceil(len(dataset) / BATCH)
         batch, _ = next(iter(EvalLoader(dataset, BATCH)))
-        rect_row, (dec_ms, dec_bound) = _rectify_on_batch(dev, card, batch)
+        rect_row, idct_row, host, rect_extra, setup_rows = _decode_on_batch(
+            dev, card, batch)
 
         # The main path in this process: tools.test's inference over the
         # val set at b4 (decode + rectify + the model), the counts zeroed
@@ -4828,16 +4984,32 @@ def phase_camera_dataroot(dev, card):
             model, mtype, anchors_for(model, mtype), host_nms=True)
         for fn in (predict, host_predict):                      # warm
             run_inference_generic(fn, model, dataset, BATCH)
+        # The run starts with no calibration on the card, as a tools.test
+        # process does: its first batch makes each map's DeviceMap
+        # (pack_map) and each geometry's tables (footprint, taps).
+        IL._DEVICE_MAPS.clear()
+        R._TABLES.clear()
         _zero_launches()
-        decode_jpeg_planes.calls = 0
+        decode_jpeg_planes.calls = nvjpeg_decode_planes.calls = 0
         run_inference_generic(predict, model, dataset, BATCH)
         launches = dict(_read_launches(),
-                        nvjpeg_decode=decode_jpeg_planes.calls)
+                        jpeg_decode=decode_jpeg_planes.calls,
+                        nvjpeg_decode=nvjpeg_decode_planes.calls)
+        n_maps = len(IL._DEVICE_MAPS)
+        n_tables = sum(len(m.tables) for m in IL._DEVICE_MAPS.values()) \
+            + len(R._TABLES)
         check(launches['lss_sample'] == n_batches
-              and launches['rectify'] == 4 * n_batches
-              and launches['nvjpeg_decode'] == n_batches,
+              and launches['rectify'] == n_batches
+              and launches['jpeg_idct'] == n_batches
+              and launches['jpeg_decode'] == n_batches
+              and launches['nvjpeg_decode'] == 0
+              and launches['rectify_pack_map'] == n_maps >= 1
+              and launches['rectify_footprint'] == n_tables >= 1
+              and launches['rectify_taps'] == n_tables,
               f'main path launches {launches} for {n_batches} b{BATCH} '
-              'batches (LSS 1, rectify 4, nvJPEG 1 a batch)')
+              f'batches, {n_maps} maps and {n_tables} map geometries (LSS, '
+              'decode, IDCT and rectify 1 a batch, pack_map 1 a map, '
+              'footprint and taps 1 a map geometry, nvJPEG 0)')
         batch.pop('index', None)
         syncs = {}
         for label, fn in (('in-graph NMS', predict),
@@ -4890,7 +5062,10 @@ def phase_camera_dataroot(dev, card):
         for k, (stdout, _) in runs.items():
             printed = _printed_launches(stdout)
             check(printed['lss_sample_bev'] == n_batches
-                  and printed['rectify'] == 4 * n_batches,
+                  and printed['rectify'] == printed['jpeg_idct']
+                  == printed['jpeg_decode'] == n_batches
+                  and printed['nvjpeg_decode'] == 0
+                  and all(printed[n] == launches[n] for n in SETUP_KERNELS),
                   f'tools.test ({k} NMS) launches {printed}')
         graph_rows, host_rows, inproc_rows = (
             _kept_rows(d) for d in (outs['graph'], outs['host'], inproc))
@@ -4941,7 +5116,10 @@ def phase_camera_dataroot(dev, card):
             for path, m, seconds, printed in pool.map(other, CAMERA_CONFIGS):
                 lss = 0 if 'bevformer' in path else len(dataset)
                 check(printed['lss_sample_bev'] == lss
-                      and printed['nvjpeg_decode'] == len(dataset),
+                      and printed['jpeg_decode'] == printed['jpeg_idct']
+                      == printed['rectify'] == len(dataset)
+                      and printed['nvjpeg_decode'] == 0
+                      and all(printed[n] >= 1 for n in SETUP_KERNELS),
                       f'{path} launches {printed}')
                 print(f'[34f tools.test --eval] {path} b1: mAP '
                       f'{m["mAP"]:.4f}, NOS {m["NOS"]:.4f}'
@@ -4950,8 +5128,9 @@ def phase_camera_dataroot(dev, card):
                       + f' in {seconds:.1f} s; launches {printed}')
     print(f'[34 camera dataroots] {time.perf_counter() - t_phase:.1f} s with '
           f'cv2 and PIL blocked ({card})')
-    return dict(launches=launches, rectify=rect_row, jpeg_max=jpeg_max,
-                jpeg_444_met=jpeg_444_met, decode=(dec_ms, dec_bound))
+    return dict(launches=launches, rectify=rect_row, idct=idct_row,
+                jpeg_max=jpeg_max, host=host, rectify_extra=rect_extra,
+                setup=setup_rows)
 
 
 def sca_hits(cfg, lidar2img):
@@ -5052,20 +5231,22 @@ def main():
                                      *fields_row, None),
             'qconv': ('qconv', q_launches, *q_row),
             'bconv': ('bconv', b_launches, *b_row),
-            # rectify: the four passes of one b4 batch of phase 34, from
-            # nvJPEG's planes to the padded f32 images (library: one
-            # F.grid_sample of the decoded f32 images on the chain's
-            # grid); launches of phase 34's main path (4 a batch).
+            # rectify: one b4 batch of phase 34, from the decoded planes
+            # to the padded f32 images (library: one F.grid_sample of the
+            # decoded f32 images on the chain's grid); launches of phase
+            # 34's main path (1 a batch).
             'rectify': ('rectify', camera['launches']['rectify'],
                         *camera['rectify']),
-            # nvJPEG (a library call): six 1080p JPEGs to their Y, Cb, Cr
-            # planes; max |d| against the fixtures' cv2 decode (with the
-            # YCbCr pass);
-            # no plain version runs on the card (its plain form, cv2.imdecode,
-            # is the CPU's).
-            'nvjpeg': ('nvjpeg', camera['launches']['nvjpeg_decode'],
-                       camera['jpeg_max'], camera['decode'][0], None,
-                       camera['decode'][1], 'bytes', None)}
+            # jpeg_idct: the same batch's coefficients to planes (library:
+            # nvJPEG's batched decode of the same 24 JPEGs, Huffman
+            # included; no path calls it); 1 launch a batch.
+            'jpeg_idct': ('jpeg_idct', camera['launches']['jpeg_idct'],
+                          *camera['idct']),
+            # rectify's setup kernels at the batch's shapes (the map, the
+            # full-size cameras' geometry); launches of phase 34's main
+            # path (1 a map, 1 a map geometry, at their first use).
+            **{name: ('rectify', camera['launches'][name],
+                      *camera['setup'][name]) for name in SETUP_KERNELS}}
     # Launches on the LSS camera-only path (phase 18), BEVFusion-OCC
     # (phases 21-22) and RCFusion (phase 23): each b4 training run (1 +
     # N_TIMED steps) and each path's first b4 request.
@@ -5110,8 +5291,14 @@ def main():
         extra[name]['launches_r101_dcn_stream'] = r101['launches'][name]
     from omnihd_scenes_tpu_torch.kernels._build import SOURCES
 
-    extra['nvjpeg']['library_call'] = 'nvJPEG (CUDA toolkit)'
-    extra['nvjpeg']['fixture_444_max_met'] = camera['jpeg_444_met']
+    extra['rectify'].update(camera['rectify_extra'])
+    extra['jpeg_idct']['library'] = 'nvJPEG nvjpegDecodeBatched'
+    extra['jpeg_idct']['fixture_max_abs_err'] = camera['jpeg_max']
+    extra['jpeg_idct'].update(camera['host'])
+    extra['jpeg_idct']['launches_jpeg_decode'] = \
+        camera['launches']['jpeg_decode']
+    extra['jpeg_idct']['launches_nvjpeg_decode'] = \
+        camera['launches']['nvjpeg_decode']
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'{CSRC}{SOURCES.get(src, src + ".cu")}',

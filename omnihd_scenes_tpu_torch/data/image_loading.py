@@ -29,9 +29,11 @@ no OpenCV: it reads each camera's JPEG bytes and returns them with what
 the pixels' preparation needs (:data:`CAMERA_SOURCE_KEYS`) and the same
 ``lidar2img`` / ``img2lidar_*`` as the host path (they do not depend on
 pixels); :func:`decode_camera_batch` then turns a collated batch of them
-into ``imgs`` on a device: nvJPEG (``data/jpeg.py``) and the rectify
-kernel (``kernels/rectify.py``, on the maps of ``data/undistort.py``) on
-the card, ``cv2.imdecode`` and the kernel's plain version on the CPU.
+into ``imgs`` on a device: the host entropy decode and the IDCT kernel
+(``data/jpeg.py``, ``kernels/jpeg_idct.py``), then the rectify kernel
+(``kernels/rectify.py``, on the maps of ``data/undistort.py``); on the
+CPU the kernels' plain versions, bit-equal to ``cv2.imdecode`` and
+OpenCV's chain.
 """
 
 from __future__ import annotations
@@ -188,8 +190,8 @@ def load_camera_data(info: Dict,
         if fast_decode:
             raise ValueError(
                 'image_fast_decode=True (the reduced-DCT JPEG decode, '
-                'IMREAD_REDUCED_COLOR_*) has no nvJPEG counterpart: the '
-                'device decode refuses it (ROADMAP queue 1 item 3.10)')
+                'IMREAD_REDUCED_COLOR_*) has no device counterpart yet: '
+                'the device decode refuses it (ROADMAP queue 1 item 3.10)')
         return camera_sources(info, scale, front_back_scale, pad_divisor,
                               mean, std, to_rgb, target_hw)
     if decode != 'host':
@@ -268,7 +270,8 @@ def load_camera_data(info: Dict,
 # ---- the device decode path ----------------------------------------------
 
 # The arrays a ``decode='device'`` sample carries for its pixels; they stay
-# on the host (nvJPEG reads host bitstreams) until decode_camera_batch.
+# on the host (the entropy decode reads them there) until
+# decode_camera_batch.
 JPEG_BYTES, JPEG_OFFSETS = 'jpeg_bytes', 'jpeg_offsets'
 CAMERA_SOURCE_KEYS = (JPEG_BYTES, JPEG_OFFSETS, 'cam_intrinsics',
                       'cam_distortion', 'cam_scales', 'image_layout',
@@ -364,10 +367,14 @@ def _host_array(v) -> np.ndarray:
 
 def _device_map(k: np.ndarray, dist: np.ndarray, hw, device):
     """The undistortion map of one camera on ``device`` (None without
-    distortion), uploaded once per calibration and device."""
+    distortion): on the CPU the (h, w, 2) int32 map; on the card a
+    :class:`kernels.rectify.DeviceMap`, made (uploaded and packed) once
+    per calibration and device and kept, with the tables ``rectify``
+    adds to it."""
     import torch
 
     from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+    from omnihd_scenes_tpu_torch.kernels.rectify import DeviceMap
 
     fixed = rectify_map(k, dist, hw)
     if fixed is None:
@@ -378,7 +385,8 @@ def _device_map(k: np.ndarray, dist: np.ndarray, hw, device):
            str(device))
     t = _DEVICE_MAPS.get(key)
     if t is None:
-        t = torch.from_numpy(fixed).pin_memory().to(device, non_blocking=True)
+        t = DeviceMap(torch.from_numpy(fixed).pin_memory().to(
+            device, non_blocking=True))
         _DEVICE_MAPS[key] = t
     return t
 
@@ -391,14 +399,15 @@ def _resized(hw, factor: float):
 
 
 def decoded_sources(batch: Dict, device):
-    """Decode a collated batch's JPEGs on ``device`` -> (the BGR u8 images
-    in (sample, camera) order, and :func:`kernels.rectify.rectify`'s other
-    arguments: undistortion maps, u8 sizes, output sizes, target size,
-    mean, std, to_rgb).  The batch's camera sources are NumPy arrays or
-    CPU tensors."""
+    """Decode a collated batch's JPEGs on ``device`` -> (the planes of
+    each image, :class:`kernels.rectify.Planes`, in (sample, camera)
+    order, and :func:`kernels.rectify.rectify`'s other arguments:
+    undistortion maps, u8 sizes, output sizes, target size, mean, std,
+    to_rgb).  The batch's camera sources are NumPy arrays or CPU
+    tensors."""
     import torch
 
-    from omnihd_scenes_tpu_torch.data.jpeg import decode_jpegs
+    from omnihd_scenes_tpu_torch.data.jpeg import decode_jpeg_planes
 
     device = torch.device(device)
     src = {k: _host_array(batch[k]) for k in CAMERA_SOURCE_KEYS}
@@ -409,14 +418,15 @@ def decoded_sources(batch: Dict, device):
             and np.all(src['image_norm'] == norm)):
         raise ValueError('decode_camera_batch: samples of one batch must '
                          'share the image layout and normalisation')
-    images = decode_jpegs([data[offsets[i, c]:offsets[i, c + 1]]
-                           for i in range(b) for c in range(n_cam)], device)
+    planes = decode_jpeg_planes([data[offsets[i, c]:offsets[i, c + 1]]
+                                 for i in range(b) for c in range(n_cam)],
+                                device)
     k = src['cam_intrinsics'].reshape(b * n_cam, 3, 3)
     dist = src['cam_distortion'].reshape(b * n_cam, 5)
     factors = src['cam_scales'].reshape(b * n_cam, 2)
     maps, u8_hws, out_hws = [], [], []
-    for j, img in enumerate(images):
-        hw = tuple(img.shape[:2])
+    for j, p in enumerate(planes):
+        hw = tuple(p.y.shape)
         maps.append(_device_map(k[j], dist[j], hw, device))
         u8_hws.append(_resized(hw, float(factors[j, 0])))
         out_hws.append(_resized(u8_hws[-1], float(factors[j, 1])))
@@ -424,7 +434,7 @@ def decoded_sources(batch: Dict, device):
     if th <= 0:
         th = int(np.ceil(max(h for h, _ in out_hws) / pad) * pad)
         tw = int(np.ceil(max(w for _, w in out_hws) / pad) * pad)
-    return images, (maps, u8_hws, out_hws, (th, tw), norm[:3], norm[3:6],
+    return planes, (maps, u8_hws, out_hws, (th, tw), norm[:3], norm[3:6],
                     bool(norm[6]))
 
 
@@ -432,16 +442,18 @@ def decode_camera_batch(batch: Dict, device) -> Dict:
     """``batch`` with its camera sources (:data:`CAMERA_SOURCE_KEYS`, as
     :func:`collate_jpeg` and the loaders batch them) replaced by ``imgs``
     (B, N, H, W, 3) f32 on ``device``; a batch without them is returned as
-    it is.  On a CUDA device: one nvJPEG batched decode and the rectify
-    kernel's passes; on the CPU: ``cv2.imdecode`` and the plain passes,
-    which equal the host path's OpenCV chain (``tests/
-    test_torch_port_camera_decode.py``)."""
+    it is.  The JPEGs are entropy-decoded on the host (all of the batch's
+    in one threaded native call), then on a CUDA device one IDCT launch
+    and one ``rectify`` launch (planes to the padded f32 images); on the
+    CPU the kernels' plain versions.  Both equal the host path's OpenCV
+    chain (``tests/test_torch_port_camera_decode.py``,
+    ``tests/test_torch_port_jpeg_decode.py``)."""
     from omnihd_scenes_tpu_torch.kernels.rectify import rectify
 
     if JPEG_BYTES not in batch:
         return batch
-    images, args = decoded_sources(batch, device)
-    imgs = rectify(images, *args)
+    planes, args = decoded_sources(batch, device)
+    imgs = rectify(planes, *args)
     out = {k: v for k, v in batch.items() if k not in CAMERA_SOURCE_KEYS}
     out['imgs'] = imgs.reshape(len(batch[JPEG_OFFSETS]), -1,
                                *imgs.shape[1:])

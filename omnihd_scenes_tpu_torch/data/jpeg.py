@@ -1,46 +1,59 @@
-"""JPEG decode and encode: batched on the card through nvJPEG, with
-OpenCV as the plain form on the CPU.
+"""JPEG decode and encode for the camera feed.
 
-* :func:`decode_jpeg_planes` (list of bitstreams -> the (Y, Cb, Cr) u8
-  planes of each on a CUDA device, and each one's chroma mode): one
-  ``nvjpegDecodeBatched`` call (``kernels/csrc/nvjpeg.cpp``) into
-  tensors PyTorch allocates, on the current stream.
+* :func:`entropy_decode` (list of bitstreams -> their DCT coefficients
+  on the host): libjpeg's baseline Huffman decode, one native call for
+  the batch on ``min(images, os.cpu_count())`` threads
+  (``csrc/host_ops.cpp``, ``data/native.py``), straight into one int16
+  buffer, pinned when it is bound for the card.  Entropy decoding is
+  serial within a stream; nvJPEG's default backend runs this stage on the
+  host too.
+* :func:`decode_jpeg_planes` (list of bitstreams -> each one's Y, Cb, Cr
+  u8 planes on ``device``, :class:`kernels.rectify.Planes`): the entropy
+  decode, the coefficients' upload, then one launch of the IDCT kernel
+  (``kernels/jpeg_idct.py``: libjpeg's ``jpeg_idct_islow``; its plain
+  version on the CPU).  The planes are views of the padded component
+  planes, cut to libjpeg's ``downsampled_height`` / ``_width``.
 * :func:`decode_jpegs` (list of bitstreams -> list of (h, w, 3) u8 BGR
-  tensors on ``device``): on a CUDA device :func:`decode_jpeg_planes`
-  then one launch of the rectify kernel's ``ycbcr_to_bgr`` pass, which
-  upsamples the chroma and converts to BGR as libjpeg does; on the CPU
-  ``cv2.imdecode``, which the JAX package's ``cv2.imread`` runs.
+  tensors on ``device``): the planes, then libjpeg's fancy chroma
+  upsampling and colour tables (``kernels.rectify.planes_to_bgr``; the
+  camera feed fuses them into ``rectify`` instead).
 * :func:`encode_jpeg` (one (h, w, 3) u8 BGR image -> bytes) at
   ``cv2.imwrite``'s defaults, quality 95 with 4:2:0 chroma: on a CUDA
-  device ``nvjpegEncodeImage``, on the CPU ``cv2.imencode``.
+  device ``nvjpegEncodeImage`` (``kernels/csrc/nvjpeg.cpp``), on the CPU
+  ``cv2.imencode``.
+* :func:`nvjpeg_decode_planes`: nvJPEG's batched planar decode, kept only
+  as the yardstick a chip run times the decode against; no path calls
+  it.
 
-nvJPEG's IDCT is not libjpeg-turbo's, so the card's pixels are close to
-OpenCV's, not equal (``tests/torch_port_fixtures/jpeg`` bounds the gap).
-nvJPEG's own interleaved BGR output upsamples 4:2:0 chroma otherwise
-than libjpeg's "fancy" filter and lands far outside those bounds on
-noisy chroma (PERF.md), hence the planes and the libjpeg steps after
-them.  What the card's batched path does not decode is refused with an
-error before any CUDA call: a progressive or non-baseline-DCT stream,
-one that is not three components, or a chroma sampling other than 4:4:4,
-4:2:2 and 4:2:0.  The nvJPEG context (handle, decode and encode states)
-is made once per process and device; only the process that owns the card
-decodes (data workers never touch CUDA).
-:data:`decode_jpeg_planes.calls` counts the card's batched decode calls.
+Every step is libjpeg's integer arithmetic (islow IDCT, fancy
+upsampling, ``jdcolor.c``'s tables), so the card's pixels and the CPU's
+equal ``cv2.imdecode``'s (the JAX package's ``cv2.imread``) bit for bit.
+What the decode does not take is refused with an error before any CUDA
+call: a progressive or other non-baseline frame, one that is not three
+8-bit components, a non-interleaved scan, an RGB-coded frame, or a
+chroma sampling other than 4:4:4, 4:2:2 and 4:2:0; and a truncated or
+corrupt stream (bad Huffman code, missing restart marker, data running
+out), which libjpeg decodes with a warning, filling what is missing.
+Only the process that owns the card decodes (data workers never touch
+CUDA).  :data:`decode_jpeg_planes.calls` counts the batched decodes,
+:data:`nvjpeg_decode_planes.calls` nvJPEG's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import threading
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from omnihd_scenes_tpu_torch.kernels.rectify import (CHROMA_420, CHROMA_422,
-                                                     CHROMA_444, chroma_shape,
-                                                     ycbcr_to_bgr)
+                                                     CHROMA_444, Planes,
+                                                     chroma_shape,
+                                                     planes_to_bgr)
 
 QUALITY = 95                 # cv2.imwrite's default IMWRITE_JPEG_QUALITY
 _BUFFER_TOO_SMALL = 2000000
@@ -124,41 +137,113 @@ def check_card_decodable(headers: Sequence[JpegHeader]) -> None:
                              '4:2:0 are)')
 
 
-def _decode_cpu(blobs) -> List[torch.Tensor]:
-    from omnihd_scenes_tpu_torch.data.image_loading import require_cv2
+class Coefficients(NamedTuple):
+    """A batch's entropy-decoded JPEGs on the host."""
+    coefs: torch.Tensor      # (total,) int16, 64 a block, natural order
+    quant: torch.Tensor      # (3 n, 64) int32, natural order
+    # (3 n, 5) int64 per component (Y, Cb, Cr of each image): first
+    # block, block rows, block columns, downsampled height, width.
+    comps: np.ndarray
+    modes: List[int]         # each image's chroma mode
 
-    cv2 = require_cv2()
+
+def entropy_decode(blobs: Sequence, pin: bool = False,
+                   threads: Optional[int] = None) -> Coefficients:
+    """Huffman-decode baseline JPEGs (u8 arrays) into one int16 buffer
+    (pinned when ``pin``), on ``threads`` threads (default ``min(images,
+    os.cpu_count())``); the result does not depend on the count.  Raises
+    on what the card's decode does not take."""
+    from omnihd_scenes_tpu_torch.data import native
+
+    arrays = [np.ascontiguousarray(b, np.uint8) for b in blobs]
+    headers = [jpeg_header(a) for a in arrays]
+    check_card_decodable(headers)
+    n = len(arrays)
+    geom = native.jpeg_geometry(arrays)
+    comps = np.zeros((3 * n, 5), np.int64)
+    comps[:, 1:] = geom[:, 4:].reshape(3 * n, 4)
+    blocks = comps[:, 1] * comps[:, 2]
+    comps[1:, 0] = np.cumsum(blocks)[:-1]
+    total = int(blocks.sum()) * 64
+    coefs = torch.empty(total, dtype=torch.int16, pin_memory=pin)
+    quant = torch.empty((3 * n, 64), dtype=torch.int32, pin_memory=pin)
+    if threads is None:
+        threads = min(n, os.cpu_count() or 1)
+    native.jpeg_decode_coefficients(arrays, coefs.data_ptr(),
+                                    comps[:, 0].reshape(n, 3) * 64,
+                                    quant.numpy().reshape(n, 3, 64), threads)
+    return Coefficients(coefs, quant, comps, [h.chroma for h in headers])
+
+
+def planes_of(buffer: torch.Tensor, c: Coefficients) -> List[Planes]:
+    """Each image's planes as views of the IDCT's output buffer, cut to
+    libjpeg's downsampled extent."""
     out = []
-    for k, blob in enumerate(blobs):
-        img = cv2.imdecode(np.asarray(blob, np.uint8), cv2.IMREAD_COLOR)
-        if img is None:
-            raise ValueError(f'JPEG {k} could not be decoded')
-        out.append(torch.from_numpy(img))
+    views = []
+    for first, rows, cols, dh, dw in c.comps.tolist():
+        plane = buffer[first * 64:(first + rows * cols) * 64].view(
+            rows * 8, cols * 8)
+        views.append(plane[:dh, :dw])
+    for i, mode in enumerate(c.modes):
+        out.append(Planes(*views[3 * i:3 * i + 3], mode))
     return out
 
 
-def decode_jpeg_planes(blobs: Sequence, device):
-    """Decode JPEG bitstreams (u8 arrays) on a CUDA device -> ([(Y, Cb, Cr)
-    u8 planes] with the chroma planes of :func:`kernels.rectify.
-    chroma_shape`, [chroma mode]): one nvJPEG batched decode; raises on
-    what it cannot decode, or on an nvJPEG error."""
+def decode_jpeg_planes(blobs: Sequence, device,
+                       threads: Optional[int] = None) -> List[Planes]:
+    """Decode JPEG bitstreams (u8 arrays) to their planes on ``device``:
+    the host entropy decode, the upload of the coefficients (pinned,
+    without a host wait) and one IDCT launch (its plain version on the
+    CPU)."""
+    from omnihd_scenes_tpu_torch.kernels.jpeg_idct import jpeg_idct
+
+    device = torch.device(device)
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no JPEG decode for device {device}')
+    if len(blobs) == 0:
+        return []
+    c = entropy_decode(blobs, pin=device.type == 'cuda', threads=threads)
+    coefs = c.coefs.to(device, non_blocking=True)
+    quant = c.quant.to(device, non_blocking=True)
+    planes = planes_of(jpeg_idct(coefs, quant, c.comps), c)
+    decode_jpeg_planes.calls += 1
+    return planes
+
+
+decode_jpeg_planes.calls = 0
+
+
+def decode_jpegs(blobs: Sequence, device,
+                 threads: Optional[int] = None) -> List[torch.Tensor]:
+    """Decode JPEG bitstreams (u8 arrays) to (h, w, 3) u8 BGR tensors on
+    ``device``, equal to ``cv2.imdecode``'s."""
+    planes = decode_jpeg_planes(blobs, device, threads)
+    return planes_to_bgr(planes) if planes else []
+
+
+def nvjpeg_decode_planes(blobs: Sequence, device) -> List[Planes]:
+    """nvJPEG's batched planar decode of JPEG bitstreams on a CUDA device
+    (one ``nvjpegDecodeBatched`` call, ``kernels/csrc/nvjpeg.cpp``), the
+    library yardstick of :func:`decode_jpeg_planes`; its IDCT is not
+    libjpeg's.  No path calls it."""
     device = torch.device(device)
     if device.type != 'cuda':
-        raise ValueError(f'no planar JPEG decode for device {device}')
+        raise ValueError(f'no nvJPEG decode for device {device}')
     arrays = [np.ascontiguousarray(b, np.uint8) for b in blobs]
     headers = [jpeg_header(a) for a in arrays]
     check_card_decodable(headers)
     n = len(arrays)
     if n == 0:
-        return [], []
+        return []
     planes, channels, pitches = [], [], []
     for h in headers:
         ch, cw = chroma_shape((h.height, h.width), h.chroma)
-        p = (torch.empty((h.height, h.width), dtype=torch.uint8,
-                         device=device),
-             torch.empty((ch, cw), dtype=torch.uint8, device=device),
-             torch.empty((ch, cw), dtype=torch.uint8, device=device))
-        channels += [t.data_ptr() for t in p]
+        p = Planes(torch.empty((h.height, h.width), dtype=torch.uint8,
+                               device=device),
+                   torch.empty((ch, cw), dtype=torch.uint8, device=device),
+                   torch.empty((ch, cw), dtype=torch.uint8, device=device),
+                   h.chroma)
+        channels += [t.data_ptr() for t in p[:3]]
         pitches += [h.width, cw, cw]
         planes.append(p)
     data = (ctypes.c_void_p * n)(*[a.ctypes.data for a in arrays])
@@ -172,22 +257,11 @@ def decode_jpeg_planes(blobs: Sequence, device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nvjpeg_decode(ctx, n, data, lengths, dst, pitch, stream)
     _raise_on_error('nvjpegDecodeBatched', err)
-    decode_jpeg_planes.calls += 1
-    return planes, [h.chroma for h in headers]
+    nvjpeg_decode_planes.calls += 1
+    return planes
 
 
-decode_jpeg_planes.calls = 0
-
-
-def decode_jpegs(blobs: Sequence, device) -> List[torch.Tensor]:
-    """Decode JPEG bitstreams (u8 arrays) to (h, w, 3) u8 BGR tensors on
-    ``device``: :func:`decode_jpeg_planes` and the ``ycbcr_to_bgr`` pass
-    on a CUDA device, ``cv2.imdecode`` on the CPU."""
-    device = torch.device(device)
-    if device.type == 'cpu':
-        return _decode_cpu(blobs)
-    planes, modes = decode_jpeg_planes(blobs, device)
-    return ycbcr_to_bgr(planes, modes) if planes else []
+nvjpeg_decode_planes.calls = 0
 
 
 def encode_jpeg(img, device='cpu') -> bytes:

@@ -1,9 +1,11 @@
 """ctypes bindings to the port's native host ops
-(``omnihd_scenes_tpu_torch/csrc/host_ops.cpp``): the radar sweep decode
-and the greedy rotated NMS (``ops/nms_host.py``).
+(``omnihd_scenes_tpu_torch/csrc/host_ops.cpp``): the radar sweep decode,
+the greedy rotated NMS (``ops/nms_host.py``) and the baseline JPEG
+entropy decode of the camera feed (``data/jpeg.py``).
 
-Counterpart of ``omnihd_scenes_tpu/data/native.py`` for those parts:
-``g++ -O3 -shared -fPIC`` builds the library at first use into
+Counterpart of ``omnihd_scenes_tpu/data/native.py`` for the first two
+(the JPEG decode has none: the JAX package decodes with OpenCV):
+``g++ -O3 -shared -fPIC -pthread`` builds the library at first use into
 ``kernels/_build/host_ops-<hash>/`` (gitignored), keyed by a hash of the
 source, the flags and ``g++ --version``, written under a temporary name and
 renamed, so concurrent first users (the worker pool's processes, parallel
@@ -30,7 +32,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'host_ops.cpp'
 BUILD_DIR = Path(__file__).resolve().parents[1] / 'kernels' / '_build'
-FLAGS = ('-O3', '-shared', '-fPIC')
+FLAGS = ('-O3', '-shared', '-fPIC', '-pthread')
 ROW = 8                                  # raw radar row: 8 float32
 
 
@@ -71,7 +73,65 @@ def get_lib() -> ctypes.CDLL:
         f32p, f32p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
         ctypes.c_double, ctypes.c_double, ctypes.c_long, f32p, f32p, i32p]
     lib.nms_rotated_multiclass.restype = ctypes.c_long
+    ptr = ctypes.c_void_p
+    lib.jpeg_geometry.argtypes = [ctypes.c_long, ptr, ptr, ptr, ptr]
+    lib.jpeg_geometry.restype = ctypes.c_long
+    lib.jpeg_decode_coefficients.argtypes = [ctypes.c_long, ptr, ptr, ptr,
+                                             ptr, ptr, ctypes.c_long, ptr]
+    lib.jpeg_decode_coefficients.restype = ctypes.c_long
     return lib
+
+
+JPEG_ERR_LEN = 256                       # host_ops.cpp kErrLen
+
+
+def _jpeg_streams(arrays):
+    """ctypes arrays of the bitstreams' pointers and lengths."""
+    n = len(arrays)
+    return ((ctypes.c_void_p * n)(*[a.ctypes.data for a in arrays]),
+            (ctypes.c_int64 * n)(*[a.nbytes for a in arrays]))
+
+
+def _jpeg_raise(errors, n: int) -> None:
+    for i in range(n):
+        msg = errors[i * JPEG_ERR_LEN:(i + 1) * JPEG_ERR_LEN].split(
+            b'\0', 1)[0]
+        if msg:
+            raise ValueError(f'JPEG {i}: {msg.decode()}')
+
+
+def jpeg_geometry(arrays) -> np.ndarray:
+    """(n, 16) int32 frame geometry of baseline JPEGs (contiguous u8
+    arrays): height, width, SOF marker, components, then per component
+    (Y, Cb, Cr) its block rows and columns, padded to whole MCUs, and
+    libjpeg's ``downsampled_height`` / ``downsampled_width``.  Raises a
+    ValueError on the first stream the decode refuses."""
+    n = len(arrays)
+    geom = np.zeros((n, 16), np.int32)
+    errors = ctypes.create_string_buffer(max(n, 1) * JPEG_ERR_LEN)
+    if get_lib().jpeg_geometry(n, *_jpeg_streams(arrays),
+                               geom.ctypes.data, errors):
+        _jpeg_raise(errors.raw, n)
+    return geom
+
+
+def jpeg_decode_coefficients(arrays, coefs_ptr: int, offsets: np.ndarray,
+                             quant: np.ndarray, threads: int) -> None:
+    """Entropy-decode baseline JPEGs on ``threads`` threads, one call for
+    the batch: image i's component c (Y, Cb, Cr) goes to the int16 buffer
+    at ``coefs_ptr`` from element ``offsets[i, c]`` on, its block grid
+    (:func:`jpeg_geometry`) row-major, 64 coefficients a block in natural
+    order; its quantisation table to ``quant[i, c]`` (int32, natural
+    order).  Raises a ValueError on a stream it cannot decode."""
+    n = len(arrays)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    assert offsets.shape == (n, 3) and quant.shape == (n, 3, 64) \
+        and quant.dtype == np.int32 and quant.flags.c_contiguous
+    errors = ctypes.create_string_buffer(max(n, 1) * JPEG_ERR_LEN)
+    if get_lib().jpeg_decode_coefficients(
+            n, *_jpeg_streams(arrays), coefs_ptr, offsets.ctypes.data,
+            quant.ctypes.data, int(threads), errors):
+        _jpeg_raise(errors.raw, n)
 
 
 def _f64(a) -> np.ndarray:

@@ -15,7 +15,7 @@ has completed.  ``batch_to``'s copies from pageable memory, as an
 unprefetched step makes, are synchronous and overlap nothing.  A
 device-decode batch's camera sources (``image_loading.
 CAMERA_SOURCE_KEYS``: JPEG bytes, offsets, calibration) are pinned but
-stay on the host, where nvJPEG reads its bitstreams.  For a CPU
+stay on the host, where the entropy decode reads the bitstreams.  For a CPU
 ``device`` (or none) batches pass through as they are.
 """
 

@@ -16,7 +16,8 @@ start until ``--samples`` samples are timed (the JAX tool stops at its
 end).  Beside the FPS line it prints the ms per sample of each stage:
 loading (the host's ``EvalLoader`` step, or the streams' dataset reads;
 host clock), upload (the batch's arrays to the device), decode + rectify
-(nvJPEG and ``kernels/rectify.py``; 0 on the host path) and model +
+(the host entropy decode, ``kernels/jpeg_idct.py`` and
+``kernels/rectify.py``; 0 on the host path) and model +
 decode (forward, box decode and NMS), the last three by CUDA events on
 the card and by the host clock with ``--device cpu`` (where the images
 take the OpenCV host path); and one JSON line of the same numbers.

@@ -9,7 +9,8 @@ devkit eval (detection, and occupancy for BEVFusion-OCC).
 
 It runs on one CUDA device unless ``--device cpu``.  On the card the
 camera images are decoded and rectified there (the dataset's
-``image_decode='device'``: nvJPEG and ``kernels/rectify.py``); with
+``image_decode='device'``: the host entropy decode, then
+``kernels/jpeg_idct.py`` and ``kernels/rectify.py``); with
 ``--device cpu`` they take the OpenCV host path.  With ``--eval`` the
 metrics are printed as JSON and written to ``<out_dir>/metrics.json``;
 ``--bad-conditions`` restricts both evals to rainy and night scenes.

@@ -7,9 +7,12 @@ against OpenCV and the JAX package's ``load_camera_data``.
 * the rectify kernel's plain passes (``kernels/rectify.py``) against
   ``cv2.remap`` and ``cv2.resize`` (u8 equal at 0.5, f32 within 1e-5 at
   0.5 and 0.8), and its YCbCr -> BGR pass against libjpeg (Pillow's YCbCr
-  decode of the fixtures, converted, equals ``cv2.imdecode``);
+  decode of the fixtures, converted, equals ``cv2.imdecode``); the plain
+  versions of its setup kernels (packed map, tile footprints, resize
+  taps) against what the chain reads;
 * ``load_camera_data(decode='device')`` + ``decode_camera_batch(...,
-  'cpu')`` against JAX's ``load_camera_data``, with and without
+  'cpu')`` (the host entropy decode and the kernels' plain versions, no
+  ``cv2.imdecode``) against JAX's ``load_camera_data``, with and without
   distortion, padded to a target and to the divisor: ``lidar2img`` and
   ``img2lidar_*`` bit-equal, ``imgs`` within 1e-5 but on pixels whose
   fixed-point map entry differs from OpenCV's (none here), which may move
@@ -110,6 +113,117 @@ def test_rectify_plain_matches_cv2(hw):
         assert np.abs(got[:size[0], :size[1]].numpy() - want).max() <= 1e-5
 
 
+def _map(hw, dist=DIST):
+    return torch.from_numpy(fixed_point_map(*undistort_map(_k(hw), dist,
+                                                           hw)))
+
+
+def test_pack_map_plain_holds_each_entry():
+    """Each word of ``pack_map_plain`` unpacks, as ``csrc/rectify.cu``
+    reads it, to its map entry's whole pixel (an 11-bit displacement from
+    its own pixel) and 1/32-px fractions; a displacement of 1024 px or
+    more wraps (``footprint_table`` marks such tiles)."""
+    hw = (72, 128)
+    fixed = _map(hw)
+    fixed[3, 5] = torch.tensor([(5 + 1500) * 32 + 7, 3 * 32 + 9])
+    p = R.pack_map_plain(fixed).long() & 0xFFFFFFFF
+    assert p.shape == hw
+
+    def signed11(v):
+        return ((v & 2047) ^ 1024) - 1024
+
+    e = fixed.long()
+    x = signed11(p) + torch.arange(hw[1])
+    y = signed11(p >> 11) + torch.arange(hw[0])[:, None]
+    near = torch.ones(hw, dtype=torch.bool)
+    near[3, 5] = False
+    assert torch.equal(x[near], (e[..., 0] >> 5)[near])
+    assert torch.equal(y, e[..., 1] >> 5)
+    assert int(x[3, 5]) != 1505
+    assert torch.equal((p >> 22) & 31, e[..., 0] & 31)
+    assert torch.equal(p >> 27, e[..., 1] & 31)
+
+
+@pytest.mark.parametrize('f', [0.5, 0.8, 1.0])
+def test_resize_taps_plain_are_the_resize_taps(f):
+    """``resize_taps_plain``: the f32 resize's taps of every output row and
+    column (``_axis_taps``, as ``resize_f32_plain`` reads them), the last
+    repeated 31 times."""
+    u8 = (65, 97)
+    out = (int(u8[0] * f), int(u8[1] * f))
+    geo = R._geometry(*u8, R.CHROMA_420, u8, out, (64, 96))
+    _, sy, sx = R.resize_scales(u8, out)
+    for table, n, n_src, scale in zip(R.resize_taps_plain(geo, 'cpu'), out,
+                                      u8, (sy, sx)):
+        s0, s1, w = R._axis_taps(n, n_src, scale, 'cpu')
+        assert table.dtype == torch.int32 and table.shape == (n + 31, 4)
+        assert torch.equal(table[:n, 0].long(), s0)
+        assert torch.equal(table[:n, 1].long(), s1)
+        assert torch.equal(table[:n, 2].view(torch.float32), w)
+        assert torch.equal(table[n:], table[n - 1:n].expand(31, 4))
+        assert int(table[:, 3].abs().max()) == 0
+
+
+def _u_reads(d, geo, axis):
+    """The U (undistorted image) rows or columns that output rows or
+    columns ``d`` read through the f32 resize and the u8 one: (taps,
+    len(d))."""
+    sizes, scales, *_ = geo
+    u8h, u8w, kind, usy, usx, oh, ow, resize, fsy, fsx = scales
+    n, n_u8 = sizes[axis], (u8h, u8w)[axis]
+    s = [d]
+    if resize:
+        s = list(R._taps_at(d, n_u8, R._f64((fsy, fsx)[axis]))[:2])
+    if kind == R._U8_AREA2:
+        s = [2 * v for v in s] + [2 * v + 1 for v in s]
+    elif kind == R._U8_BILINEAR:
+        s = [t for v in s
+             for t in R._taps_at(v, n, R._f64((usy, usx)[axis]))[:2]]
+    return torch.stack(s)
+
+
+@pytest.mark.parametrize('use_map', [False, True])
+@pytest.mark.parametrize('u8_f,out_f', [(1.0, 0.5), (0.5, 0.5), (0.7, 0.8),
+                                        (1.0, 1.0)])
+def test_footprint_table_plain_covers_the_taps(u8_f, out_f, use_map):
+    """``footprint_table_plain``: the content tiles (32 columns by 8r rows)
+    cover the resized image on the canvas once; each tile's U rectangle is
+    the least and largest U row and column its output pixels read through
+    both resizes, and its footprint the least and largest map row and
+    column over that rectangle (the rectangle less its last row and column
+    without a map)."""
+    hw = (65, 97)
+    u8 = (int(hw[0] * u8_f), int(hw[1] * u8_f))
+    out = (int(u8[0] * out_f), int(u8[1] * out_f))
+    target = (out[0] + 3, out[1] - 5)
+    geo = R._geometry(*hw, R.CHROMA_420, u8, out, target)
+    fixed = _map(hw) if use_map else None
+    table = R.footprint_table_plain(fixed, geo, target)
+    _, _, r, content, _ = geo
+    assert table.dtype == torch.int32 and table.shape == (2 * content, 4)
+    rect, foot = table[0::2].long(), table[1::2].long()
+    rows, cols = min(out[0], target[0]), min(out[1], target[1])
+    tiles_x = -(-cols // 32)
+    covered = torch.zeros((rows, cols), dtype=torch.int64)
+    for t in range(content):
+        y0, x0 = (t // tiles_x) * 8 * r, (t % tiles_x) * 32
+        ys = torch.arange(y0, min(y0 + 8 * r, rows))
+        xs = torch.arange(x0, min(x0 + 32, cols))
+        covered[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] += 1
+        ry, rx = _u_reads(ys, geo, 0), _u_reads(xs, geo, 1)
+        a, b, c, d = rect[t].tolist()
+        assert (a, b, c, d) == (int(ry.min()), int(ry.max()),
+                                int(rx.min()), int(rx.max())), t
+        if fixed is None:
+            assert foot[t].tolist() == [a, b - 1, c, d - 1]
+        else:
+            e = fixed[a:b + 1, c:d + 1].long() >> 5
+            assert foot[t].tolist() == [
+                int(e[..., 1].min()), int(e[..., 1].max()),
+                int(e[..., 0].min()), int(e[..., 0].max())], t
+    assert int(covered.min()) == int(covered.max()) == 1
+
+
 def test_ycbcr_pass_matches_libjpeg():
     """Pillow's libjpeg YCbCr decode of each fixture (chroma upsampled by
     libjpeg), through the plain YCbCr -> BGR pass at 4:4:4, equals
@@ -155,7 +269,11 @@ def _dataset(root, decode, **kw):
 
 @pytest.mark.parametrize('target', [None, (48, 80)], ids=['divisor', 'target'])
 @pytest.mark.parametrize('name', ['plain', 'distorted'])
-def test_device_decode_matches_jax(dataroots, name, target):
+def test_device_decode_matches_jax(dataroots, name, target, monkeypatch):
+    def forbidden(*args, **kwargs):
+        raise AssertionError('cv2.imdecode on the device-decode path')
+
+    monkeypatch.setattr(cv2, 'imdecode', forbidden)
     ds = _dataset(dataroots[name], 'device', image_target_hw=target)
     for batch, valid in EvalLoader(ds, 2):
         out = IL.decode_camera_batch(batch, 'cpu')

@@ -183,6 +183,7 @@ def test_package_imports_without_jax():
         'models.bevformer.detector', 'data.temporal_dataset',
         'models.bevformer.loss', 'models.hungarian', 'models.dcn',
         'ops.bev_pool', 'data.undistort', 'data.jpeg', 'kernels.rectify',
+        'kernels.jpeg_idct',
         'ops.nms_host', 'tools.benchmark')} <= set(modules)
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '

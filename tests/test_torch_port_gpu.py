@@ -31,14 +31,16 @@ Bounds:
   whole gradient within 1e-4 in relative L2 norm, the new BatchNorm
   statistics within 1e-4 of max|ref|, the parameters after AdamW within
   2.5 learning rates.
-* rectify (camera decode): the u8 passes bit-equal to their plain
-  versions on the card, the f32 pass within one f32 ulp (the plain
-  version's f64 stand-in for the FMA may round a tie the other way).
-* the card's JPEG decode (nvJPEG's planes, then libjpeg's upsampling and
-  colour tables in the rectify kernel) against the committed
-  ``cv2.imdecode`` results of ``tests/torch_port_fixtures/jpeg``: mean
-  |diff| <= 0.5 and max <= 3 u8 levels at 4:4:4 (one IDCT level in Y and
-  in a chroma plane), mean <= 1.0 and 99.9th percentile <= 8 at 4:2:0.
+* rectify (camera decode, planes to padded f32 images in one launch, and
+  its setup kernels: packed map, tile footprints, resize taps):
+  bit-equal to its plain version on the card (integer steps, then f32
+  steps rounded alike; the plain version emulates the FMA exactly).
+* jpeg_idct: bit-equal to its plain version (32-bit words that wrap
+  alike), on the fixtures' coefficients and on extreme random blocks.
+* the card's JPEG decode (host entropy decode, the IDCT kernel, libjpeg's
+  upsampling and colour tables in the rectify kernel) against the
+  committed ``cv2.imdecode`` results of ``tests/torch_port_fixtures/
+  jpeg``: exact, max |diff| 0.
 The conv cases include the edge shapes of the kernels' block tiling
 (images smaller than a 128-pixel tile, widths that split tiles, channel
 counts that are not multiples of the block's channel tile).
@@ -865,105 +867,174 @@ def test_msda_on_the_card_equals_the_cpu(dev, shape):
          torch.backends.cudnn.allow_tf32) = allow
 
 
-# ---- camera decode on the card: the rectify kernel and nvJPEG ------------
+# ---- camera decode on the card: the IDCT and rectify kernels ------------
 
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              'torch_port_fixtures', 'jpeg')
-# The card's decode against libjpeg-turbo (cv2.imdecode) on the committed
-# fixtures: mean and largest |diff| in u8 levels at 4:4:4, mean and 99.9th
-# percentile at 4:2:0.  Only the IDCTs differ (the card repeats libjpeg's
-# upsampling and colour tables).  The card's decode does not meet the 4:4:4
-# max yet: it reads 3 on one value of the 4:4:4 fixture (PERF.md), where a
-# one-level IDCT difference in Y and in Cr moves R by 1 + 2, so this test
-# fails on the card until the decode's IDCT matches libjpeg's.
-JPEG_444_MEAN, JPEG_444_MAX = 0.5, 2
-JPEG_420_MEAN, JPEG_420_P999 = 1.0, 8
+FIXTURE_NAMES = ('camera_1080p_420', 'noise_64x96_420', 'noise_64x96_444')
 
 
-def _f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest distance in f32 units in the last place (same-sign ints)."""
-    ia = a.contiguous().view(torch.int32).long()
-    ib = b.contiguous().view(torch.int32).long()
-    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
-    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
-    return int((ia - ib).abs().max()) if a.numel() else 0
-
-
-def _camera_case(gen, hw, dist):
+def _planes_case(gen, hw, mode, dist, dev):
+    """Seeded random planes of an (h, w) image sampled ``mode`` (the Y
+    plane a view with a wider pitch, as the decode's planes are), and the
+    undistortion map of a camera with ``dist`` (None without)."""
     from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
 
     h, w = hw
-    img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8, generator=gen)
+    shape = R.chroma_shape(hw, mode)
+    y = torch.randint(0, 256, (h, w + 8), dtype=torch.uint8,
+                      generator=gen).to(dev)[:, :w]
+    cb, cr = (torch.randint(0, 256, shape, dtype=torch.uint8,
+                            generator=gen).to(dev) for _ in range(2))
     k = [[w * 0.8, 0.0, w / 2.0], [0.0, w * 0.8, h / 2.0], [0.0, 0.0, 1.0]]
     fixed = rectify_map(k, dist, hw)
-    return img, (None if fixed is None else torch.from_numpy(fixed))
+    return (R.Planes(y, cb, cr, mode),
+            None if fixed is None else torch.from_numpy(fixed).to(dev))
 
 
 DIST = (-0.05, 0.01, 1e-3, -1e-3, 0.0)
 R_MEAN, R_STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
 
 
-@pytest.mark.parametrize('hw', [(72, 128), (1080, 1920)])
+@pytest.mark.parametrize('hw', [(72, 128), (65, 97), (1080, 1920)])
 def test_rectify_passes_match_plain(dev, hw):
-    """Each pass of the rectify kernel on the card against its plain
-    version on the card: remap and the u8 resizes (0.5, the exact 2x,
-    and 0.7) bit-equal, the normalise + resize + pad pass (0.5, 0.8, 1.0,
-    padded and cropped) within one f32 ulp."""
+    """The fused rectify kernel, one launch per call, bit-equal to its
+    plain version on the card with each step of the chain alone and
+    together: YCbCr -> BGR of 4:4:4 / 4:2:2 / 4:2:0 planes, the remap,
+    the u8 resizes (the exact 2x and 0.7), the f32 resize (0.5, 0.8, the
+    same size), padded and cropped."""
     from omnihd_scenes_tpu_torch.kernels import rectify as R
 
     gen = torch.Generator().manual_seed(0)
-    img, fixed = _camera_case(gen, hw, DIST)
-    src, m = img.to(dev), fixed.to(dev)
-    launches = R.rectify.launches
-    (got,) = R.remap_u8([src], [m])
-    assert torch.equal(got, R.remap_u8_plain(src, m))
     h, w = hw
-    sizes = [(h // 2, w // 2), (int(h * 0.7), int(w * 0.7))]
-    for got, size in zip(R.resize_u8([src, src], sizes), sizes):
-        assert torch.equal(got, R.resize_u8_plain(src, size))
-    outs = [(h // 2, w // 2), (int(h * 0.8), int(w * 0.8)), (h, w)]
-    for target in ((h + 8, w + 32), (h // 2, w // 3)):
-        got = R.normalize_pad([src] * 3, outs, target, R_MEAN, R_STD)
-        want = R.normalize_pad_plain([src] * 3, outs, target, R_MEAN, R_STD)
-        assert _f32_ulps(got, want) <= 1
-    assert R.rectify.launches == launches + 4
+    launches = R.rectify.launches
+    calls = 0
+    for mode in (R.CHROMA_444, R.CHROMA_422, R.CHROMA_420):
+        planes, m = _planes_case(gen, hw, mode, DIST, dev)
+        for use_map in (False, True):
+            for u8 in ((h, w), (h // 2, w // 2), (int(h * 0.7), int(w * 0.7))):
+                outs = [u8, (u8[0] // 2, u8[1] // 2),
+                        (int(u8[0] * 0.8), int(u8[1] * 0.8))]
+                target = (u8[0] + 8, u8[1] + 32) if use_map else \
+                    (u8[0] // 2, u8[1] // 3)
+                args = ([planes] * 3, [m if use_map else None] * 3,
+                        [u8] * 3, outs, target, R_MEAN, R_STD)
+                got = R.rectify(*args)
+                calls += 1
+                assert torch.equal(got, R.rectify_plain(*args)), \
+                    (mode, use_map, u8)
+    assert R.rectify.launches == launches + calls
 
 
 def test_rectify_chain_matches_plain(dev):
-    """The whole chain of a six-camera batch of two samples (undistorted
-    or not, front and back halved, 0.5 resize, padded to 544x960) in at
-    most three launches, against ``rectify_plain``."""
+    """The whole chain of a six-camera batch of two samples (4:2:0 1080p
+    planes, undistorted or not, front and back halved, 0.5 resize, padded
+    to 544x960) in one launch, bit-equal to ``rectify_plain``."""
     from omnihd_scenes_tpu_torch.kernels import rectify as R
 
     gen = torch.Generator().manual_seed(1)
-    images, maps, u8_hws, out_hws = [], [], [], []
+    planes, maps, u8_hws, out_hws = [], [], [], []
     for k in range(12):
-        img, fixed = _camera_case(gen, (1080, 1920),
-                                  DIST if k % 3 else (0.0,) * 5)
-        images.append(img.to(dev))
-        maps.append(None if fixed is None else fixed.to(dev))
+        p, m = _planes_case(gen, (1080, 1920), R.CHROMA_420,
+                            DIST if k % 3 else (0.0,) * 5, dev)
+        planes.append(p)
+        maps.append(m)
         fb = k % 6 in (0, 3)
         u8_hws.append((540, 960) if fb else (1080, 1920))
         out_hws.append((270, 480) if fb else (540, 960))
     before = R.rectify.launches
-    got = R.rectify(images, maps, u8_hws, out_hws, (544, 960), R_MEAN, R_STD)
-    assert R.rectify.launches == before + 3
-    want = R.rectify_plain(images, maps, u8_hws, out_hws, (544, 960),
+    got = R.rectify(planes, maps, u8_hws, out_hws, (544, 960), R_MEAN, R_STD)
+    assert R.rectify.launches == before + 1
+    want = R.rectify_plain(planes, maps, u8_hws, out_hws, (544, 960),
                            R_MEAN, R_STD)
-    assert _f32_ulps(got, want) <= 1
+    assert torch.equal(got, want)
+
+
+def test_rectify_per_camera_maps_match_plain(dev):
+    """Two samples of six cameras, each camera with its own calibration
+    (focal length and centre moved) kept as a ``DeviceMap``: the launch,
+    with the images of one map interleaved tile by tile and laid out image
+    by image, bit-equal to ``rectify_plain``; each camera's tables are
+    made once."""
+    from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    gen = torch.Generator().manual_seed(2)
+    hw = (1080, 1920)
+    own = []
+    for cam in range(6):
+        k = np.array([[1536.0 * (1 + 0.01 * cam), 0.0, 960.0 + 2 * cam],
+                      [0.0, 1536.0 * (1 + 0.01 * cam), 540.0],
+                      [0.0, 0.0, 1.0]])
+        own.append(R.DeviceMap(torch.from_numpy(
+            rectify_map(k, DIST, hw)).to(dev)))
+    planes = [_planes_case(gen, hw, R.CHROMA_420, (0.0,) * 5, dev)[0]
+              for _ in range(12)]
+    maps = [own[j % 6] for j in range(12)]
+    fb = [j % 6 in (0, 3) for j in range(12)]
+    args = ([(540, 960) if f else hw for f in fb],
+            [(270, 480) if f else (540, 960) for f in fb], (544, 960),
+            R_MEAN, R_STD)
+    want = R.rectify_plain(planes, maps, *args)
+    tables = R.footprint_table.launches
+    assert torch.equal(R.rectify(planes, maps, *args), want)
+    assert R.footprint_table.launches == tables + 6
+    assert torch.equal(R._launch(planes, maps, *args, interleave=False),
+                       want)
+    assert R.footprint_table.launches == tables + 6
+
+
+@pytest.mark.parametrize('hw', [(65, 97), (1080, 1920)])
+def test_rectify_setup_kernels_match_plain(dev, hw):
+    """rectify's setup kernels bit-equal to their plain versions on the
+    card, one launch a call: the packed map, and each image geometry's
+    tile footprints (with and without a map) and resize taps, at the
+    u8 sizes and f32 resizes of the chain."""
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    gen = torch.Generator().manual_seed(4)
+    h, w = hw
+    _, fixed = _planes_case(gen, hw, R.CHROMA_420, DIST, dev)
+    counts = (R.pack_map.launches, R.footprint_table.launches,
+              R.resize_taps.launches)
+    assert torch.equal(R.pack_map(fixed), R.pack_map_plain(fixed))
+    calls = 0
+    for u8 in ((h, w), (h // 2, w // 2), (int(h * 0.7), int(w * 0.7))):
+        for out in (u8, (u8[0] // 2, u8[1] // 2),
+                    (int(u8[0] * 0.8), int(u8[1] * 0.8))):
+            target = (out[0] + 8, out[1] - 3)
+            geo = R._geometry(h, w, R.CHROMA_420, u8, out, target)
+            for m in (fixed, None):
+                assert torch.equal(
+                    R.footprint_table(m, geo, target, dev),
+                    R.footprint_table_plain(m, geo, target, dev)), \
+                    (u8, out, m is None)
+            for a, b in zip(R.resize_taps(geo, dev),
+                            R.resize_taps_plain(geo, dev)):
+                assert torch.equal(a, b), (u8, out)
+            calls += 1
+    assert (R.pack_map.launches, R.footprint_table.launches,
+            R.resize_taps.launches) == (counts[0] + 1, counts[1] + 2 * calls,
+                                        counts[2] + calls)
 
 
 def test_rectify_refuses_what_the_kernel_does_not_take(dev):
     from omnihd_scenes_tpu_torch.kernels import rectify as R
 
-    img = torch.zeros((8, 8, 3), dtype=torch.uint8, device=dev)
+    y = torch.zeros((8, 8), dtype=torch.uint8, device=dev)
+    c = torch.zeros((4, 4), dtype=torch.uint8, device=dev)
+    good = R.Planes(y, c, c, R.CHROMA_420)
+    args = ([(8, 8)], [(8, 8)], (8, 8), R_MEAN, R_STD)
     with pytest.raises(ValueError):
-        R.resize_u8([img.float()], [(4, 4)])
+        R.rectify([good._replace(y=y.float())], [None], *args)
     with pytest.raises(ValueError):
-        R.resize_u8([img.transpose(0, 1)], [(4, 4)])
+        R.rectify([good._replace(y=y.t())], [None], *args)
     with pytest.raises(ValueError):
-        R.remap_u8([img], [torch.zeros((8, 8, 2), dtype=torch.int64,
-                                       device=dev)])
+        R.rectify([good._replace(mode=R.CHROMA_444)], [None], *args)
+    with pytest.raises(ValueError):
+        R.rectify([good], [torch.zeros((8, 8, 2), dtype=torch.int64,
+                                       device=dev)], *args)
 
 
 def _fixture(name):
@@ -972,50 +1043,75 @@ def _fixture(name):
     return data, np.load(os.path.join(JPEG_FIXTURES, f'{name}.npz'))['bgr']
 
 
-def test_nvjpeg_decode_matches_the_fixtures(dev):
-    """nvJPEG's batched decode of the committed JPEGs against their
-    ``cv2.imdecode`` result, within the 4:4:4 and 4:2:0 bounds above; one
-    decode call for the three."""
-    from omnihd_scenes_tpu_torch.data.jpeg import (decode_jpeg_planes,
-                                                   decode_jpegs)
+def test_card_decode_matches_the_fixtures(dev):
+    """The card's decode (host entropy decode, the IDCT kernel, the
+    rectify kernel's colour step) of the committed JPEGs equals their
+    ``cv2.imdecode`` result exactly (max |d| 0); one batched decode, one
+    IDCT launch, no nvJPEG decode."""
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.kernels.jpeg_idct import jpeg_idct
 
-    names = ('camera_1080p_420', 'noise_64x96_420', 'noise_64x96_444')
-    blobs, refs = zip(*[_fixture(n) for n in names])
-    calls = decode_jpeg_planes.calls
-    got = decode_jpegs(list(blobs), dev)
-    assert decode_jpeg_planes.calls == calls + 1
-    gaps = {}
-    for name, g, want in zip(names, got, refs):
+    blobs, refs = zip(*[_fixture(n) for n in FIXTURE_NAMES])
+    calls, idct, nv = (J.decode_jpeg_planes.calls, jpeg_idct.launches,
+                       J.nvjpeg_decode_planes.calls)
+    got = J.decode_jpegs(list(blobs), dev)
+    assert J.decode_jpeg_planes.calls == calls + 1
+    assert jpeg_idct.launches == idct + 1
+    assert J.nvjpeg_decode_planes.calls == nv
+    for name, g, want in zip(FIXTURE_NAMES, got, refs):
         d = np.abs(g.cpu().numpy().astype(int) - want.astype(int))
-        gaps[name] = (d.mean(), np.percentile(d, 99.9), d.max())
-    for name, (mean, p999, top) in gaps.items():
-        if name.endswith('444'):
-            assert mean <= JPEG_444_MEAN and top <= JPEG_444_MAX, gaps
-        else:
-            assert mean <= JPEG_420_MEAN and p999 <= JPEG_420_P999, gaps
+        assert d.max() == 0, (name, d.max(), (d > 0).sum())
+
+
+def test_jpeg_idct_matches_plain(dev):
+    """The IDCT kernel bit-equal to ``jpeg_idct_plain`` on the card: on
+    the fixtures' own coefficients and on seeded random int16 blocks with
+    8- and 16-bit tables, extreme values included (every word wraps alike
+    in both), over a layout of odd block grids."""
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
+
+    c = J.entropy_decode([_fixture(n)[0] for n in FIXTURE_NAMES])
+    coefs, quant = c.coefs.to(dev), c.quant.to(dev)
+    launches = JI.jpeg_idct.launches
+    assert torch.equal(JI.jpeg_idct(coefs, quant, c.comps),
+                       JI.jpeg_idct_plain(coefs, quant, c.comps))
+    rng = np.random.RandomState(0)
+    grids = [(3, 5), (1, 1), (7, 2), (33, 61)]
+    n = sum(r * k for r, k in grids)
+    blocks = rng.randint(-32768, 32768, (n, 64)).astype(np.int16)
+    blocks[:n // 4] = rng.randint(-1024, 1024, (n // 4, 64))
+    blocks[n // 4:n // 4 + 8] = 32767
+    blocks[n // 4 + 8:n // 4 + 16] = -32768
+    tables = np.stack([rng.randint(1, 256, 64), np.ones(64, np.int64),
+                       rng.randint(1, 65536, 64), np.full(64, 65535)])
+    first = np.cumsum([0] + [r * k for r, k in grids])[:-1]
+    layout = np.array([[f, r, k] for f, (r, k) in zip(first, grids)])
+    coefs = torch.from_numpy(blocks.reshape(-1)).to(dev)
+    quant = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    got = JI.jpeg_idct(coefs, quant, layout)
+    assert torch.equal(got, JI.jpeg_idct_plain(coefs, quant, layout))
+    assert torch.equal(got.cpu(), JI.jpeg_idct_plain(
+        coefs.cpu(), quant.cpu(), layout))
+    assert JI.jpeg_idct.launches == launches + 2
 
 
 @pytest.mark.parametrize('hw', [(65, 97), (1080, 1920)])
 def test_ycbcr_pass_matches_plain(dev, hw):
-    """The rectify kernel's YCbCr -> BGR pass (libjpeg's fancy chroma
-    upsampling and colour tables) bit-equal to its plain version on the
-    card, for 4:4:4, 4:2:2 and 4:2:0 planes of odd and even sizes."""
+    """The rectify kernel's colour step alone (``planes_to_bgr``: libjpeg's
+    fancy chroma upsampling and colour tables, one launch) bit-equal to
+    ``ycbcr_to_bgr_plain`` on the card, for 4:4:4, 4:2:2 and 4:2:0 planes
+    of odd and even sizes."""
     from omnihd_scenes_tpu_torch.kernels import rectify as R
 
     gen = torch.Generator().manual_seed(3)
-    planes, modes = [], []
-    for mode in (R.CHROMA_444, R.CHROMA_422, R.CHROMA_420):
-        shape = R.chroma_shape(hw, mode)
-        planes.append(tuple(
-            torch.randint(0, 256, s, dtype=torch.uint8,
-                          generator=gen).to(dev)
-            for s in (hw, shape, shape)))
-        modes.append(mode)
+    planes = [_planes_case(gen, hw, mode, (0.0,) * 5, dev)[0]
+              for mode in (R.CHROMA_444, R.CHROMA_422, R.CHROMA_420)]
     launches = R.rectify.launches
-    got = R.ycbcr_to_bgr(planes, modes)
+    got = R.planes_to_bgr(planes)
     assert R.rectify.launches == launches + 1
-    for g, p, m in zip(got, planes, modes):
-        assert torch.equal(g, R.ycbcr_to_bgr_plain(*p, m))
+    for g, p in zip(got, planes):
+        assert torch.equal(g, R.ycbcr_to_bgr_plain(*p))
 
 
 def test_nvjpeg_encode_round_trip(dev):
