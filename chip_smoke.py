@@ -9,7 +9,8 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 1. device: torch/CUDA versions, the card's name and power limit; TF32
    off for the parity phases;
 2. build: the kernels (``kernels/csrc/lss_sample.cu``, ``qconv.cu``,
-   ``bconv.cu``, ``rectify.cu``, ``jpeg_idct.cu``) and the nvJPEG binding
+   ``bconv.cu``, ``rectify.cu``, ``jpeg_idct.cu``, ``photometric.cu``,
+   ``crop_resize_flip.cu``) and the nvJPEG binding
    (``nvjpeg.cpp``: the encoder, and the decode yardstick)
    from source for sm_90a, one ``nvcc`` each, all started together; build
    seconds, registers and spills;
@@ -301,6 +302,30 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``lss_camera``, ``rcfusion``, ``bevfusion_occ`` and
    ``bevformer_t_r50`` at b1, side by side (finite metrics, their
    launches, no nvJPEG decode).
+35. camera training from a JPEG dataroot, with ``cv2`` and ``PIL``
+   blocked: a 1080p dataroot of 32 samples (16 train) and a 108x192 one,
+   both written with nvJPEG, their infos and their depth GT
+   (``tools.gen_depth_gt``); (a) on one decoded b4 val batch (24 x
+   544x960) the ``photometric`` kernel against its plain version on four
+   sets of rows (every step off; every step with contrast before and
+   after the HSV steps, swaps; per-view draws) and ``crop_resize_flip``
+   (720x408 crops back to 960x544, without, with and mixed flips), both
+   bit-equal, with their ms, byte bounds, plain ms and ``F.interpolate``
+   of the crops; (b) ``configs/bevfusion.py`` trained at b4 from the
+   dataroot with depth targets and all three image augmentations,
+   through ``TrainLoader`` (2 spawn workers), ``run_training``'s prefetch
+   (the decode on its side stream) and the bf16-policy step: 8 finite
+   steps, the IDCT, ``rectify``, ``photometric``, ``crop_resize_flip``
+   and the LSS forward and backward kernels launched once a step (the
+   counts zeroed just before, read just after), the step gaps beside
+   phase 15's step on ready batches, the main stream's busy share, the
+   host entropy decode's ms a batch, and the first batch the step saw
+   equal to that batch decoded by every kernel's plain version on the
+   card; (c) ``tools.train`` on ``configs/synthetic/bevfusion_synth.py``
+   (the three augmentations, its eval: finite mAP and NOS) and on
+   ``configs/synthetic/bevformer_synth.py`` (temporal queues) from the
+   small JPEG dataroot as subprocesses: exit 0 on ``cuda``, finite
+   losses, the decode kernels' launches in the log.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -312,7 +337,8 @@ which must be 0), dense_fold's (30), s2d's and int8 + s2d's (31, qconv
 too), the remat training run's (32) and BEVFusion-OCC int8's (33, qconv
 too), 0 on BEVFormer-T's training run (phase 25b) and
 R101-DCN's stream (26b); the rectify and IDCT kernels' from phase 34's
-main path), error against the plain
+main path; the augmentation kernels' from phase 35b's training run, and
+every kernel's there as ``launches_camera_train``), error against the plain
 version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
@@ -351,7 +377,7 @@ CSRC = 'omnihd_scenes_tpu_torch/kernels/csrc/'
 # rectify's setup kernels (kernels/rectify.py), by kernels-line name.
 SETUP_KERNELS = ('rectify_pack_map', 'rectify_footprint', 'rectify_taps')
 KERNELS = ('lss_sample', 'qconv', 'bconv', 'rectify', 'jpeg_idct',
-           'nvjpeg')
+           'photometric', 'crop_resize_flip', 'nvjpeg')
 SPLAT_PASSES = ('omnihd_scenes_tpu/ops/pallas_splat.py:68',
                 'omnihd_scenes_tpu/ops/pallas_splat.py:80')
 KERNEL_REPLACES = {
@@ -371,7 +397,11 @@ KERNEL_REPLACES = {
     'rectify_pack_map': ('omnihd_scenes_tpu/data/image_loading.py:133',),
     'rectify_footprint': ('omnihd_scenes_tpu/data/image_loading.py:133',),
     'rectify_taps': ('omnihd_scenes_tpu/data/image_loading.py:139',),
-    'jpeg_idct': ('omnihd_scenes_tpu/data/image_loading.py:177',)}
+    'jpeg_idct': ('omnihd_scenes_tpu/data/image_loading.py:177',),
+    # The training augmentations' pixel work, NumPy and cv2.resize on the
+    # JAX package's host (photometric_distortion, crop_resize_flip_images).
+    'photometric': ('omnihd_scenes_tpu/data/augmentation.py:55',),
+    'crop_resize_flip': ('omnihd_scenes_tpu/data/augmentation.py:193',)}
 # (N, C, H, W) -> Co of the int8 tier's eligible layers at b4 (24 images).
 QCONV_SHAPES = {'DepthNet block': ((24, 256, 136, 240), 256),
                 'FPNC reduce': ((24, 768, 136, 240), 256),
@@ -3026,9 +3056,12 @@ GRAD_SHARE = 1e-3
 def _kernel_launches():
     """The launch count of every hand kernel's wrapper."""
     from omnihd_scenes_tpu_torch.kernels.bconv import bconv3x3
+    from omnihd_scenes_tpu_torch.kernels.crop_resize_flip import (
+        crop_resize_flip)
     from omnihd_scenes_tpu_torch.kernels.jpeg_idct import jpeg_idct
     from omnihd_scenes_tpu_torch.kernels.lss_sample import (
         lss_sample, lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.kernels.photometric import photometric
     from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
     from omnihd_scenes_tpu_torch.kernels import rectify as R
 
@@ -3037,7 +3070,8 @@ def _kernel_launches():
             'qconv': qconv3x3, 'bconv': bconv3x3, 'rectify': R.rectify,
             'rectify_pack_map': R.pack_map,
             'rectify_footprint': R.footprint_table,
-            'rectify_taps': R.resize_taps, 'jpeg_idct': jpeg_idct}
+            'rectify_taps': R.resize_taps, 'jpeg_idct': jpeg_idct,
+            'photometric': photometric, 'crop_resize_flip': crop_resize_flip}
 
 
 def _zero_launches():
@@ -5133,6 +5167,403 @@ def phase_camera_dataroot(dev, card):
                 setup=setup_rows)
 
 
+# Phase 35: the full-width training run (configs/bevfusion.py, b4, two
+# spawn workers) from a 1080p JPEG dataroot of TRAIN_SYNTH (16 train
+# samples: 4 batches an epoch, TRAIN_EPOCHS epochs), its augmentations
+# (the crop takes 720x408 of the 544x960 canvas back to 544x960), and the
+# CLIs' small dataroot (SyntheticConfig's 108x192 cameras) and options.
+TRAIN_SYNTH = dict(CAMERA_SYNTH, samples_per_scene=16)
+TRAIN_EPOCHS = 2
+TRAIN_CROP = (120, 68, 840, 476)
+TRAIN_AUG = {'photometric': True,
+             'crop_resize_flip': {'resize': [544], 'crop': TRAIN_CROP,
+                                  'rand_flip': True},
+             'rot_scale_flip_image': {}}
+SYNTH_AUG = {'photometric': 'per_view',
+             'crop_resize_flip': {'resize': [128], 'crop': (24, 16, 168, 112),
+                                  'rand_flip': True},
+             'rot_scale_flip_image': {}}
+AUG_KERNELS = ('photometric', 'crop_resize_flip')
+
+
+def _photometric_cases(n):
+    """35a's photometric rows (n views each): every step off; brightness,
+    contrast before the HSV steps, saturation, hue and a swap; contrast
+    after them with a negative hue and another swap; independent per-view
+    draws."""
+    from omnihd_scenes_tpu_torch.data.augmentation import draw_photometric
+
+    rows = {'all off': (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2),
+            'mode 1, every step, swap': (1, -31.5, 1, 1, 1.4, 1, 0.6, 1,
+                                         17.0, 1, 2, 0, 1),
+            'mode 0, every step, swap': (1, 20.0, 0, 1, 0.55, 1, 1.45, 1,
+                                         -17.9, 1, 1, 2, 0)}
+    cases = {k: np.tile(np.asarray(v, np.float32), (n, 1))
+             for k, v in rows.items()}
+    cases['per-view draws'] = draw_photometric(np.random.RandomState(7), n,
+                                               per_view=True)
+    return cases
+
+
+def _aug_kernels_on(dev, card, imgs):
+    """35a: the two augmentation kernels against their plain versions on
+    the card on a decoded b4 batch (24 x 544x960) -> their kernels-line
+    rows (max |d|, ms, plain ms, bound ms, bound_by, library ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omnihd_scenes_tpu_torch.kernels.crop_resize_flip import (
+        crop_resize_flip, crop_resize_flip_bytes, crop_resize_flip_plain)
+    from omnihd_scenes_tpu_torch.kernels.photometric import (
+        photometric, photometric_bytes, photometric_plain)
+    from omnihd_scenes_tpu_torch.tools.roofline import HBM_BYTES_PER_S
+
+    n = imgs.shape[0]
+    errs = {}
+    for label, rows in _photometric_cases(n).items():
+        got, want = photometric(imgs, rows), photometric_plain(imgs, rows)
+        errs[label] = float((got - want).abs().max())
+        check(torch.equal(got, want), f'photometric != plain ({label}: max '
+              f'|d| {errs[label]})')
+    rows = _photometric_cases(n)['per-view draws']
+    ms = kernel_ms(lambda: photometric(imgs, rows), 'photometric_kernel',
+                   20, 3)
+    plain_ms = cuda_ms(lambda: photometric_plain(imgs, rows), 2, 1)
+    nbytes = photometric_bytes(imgs)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f'[35a photometric] {n} x {imgs.shape[1]}x{imgs.shape[2]} f32, '
+          f'one launch: bit-equal to plain on {list(errs)}; {ms:.4f} ms '
+          f'against {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB; share '
+          f'{bound / ms:.3f}), plain {plain_ms:.2f} ms, no single PyTorch '
+          f'call to compare ({card})')
+    photo_row = (max(errs.values()), ms, plain_ms, bound, 'bytes', None)
+
+    x0, y0, x1, y1 = TRAIN_CROP
+    out_hw = tuple(imgs.shape[1:3])
+    crf = {}
+    for label, flips in (('no flip', [0] * n), ('flip', [1] * n),
+                         ('mixed', [i % 2 for i in range(n)])):
+        rec = np.array([[out_hw[1], out_hw[0], *TRAIN_CROP, f]
+                        for f in flips], np.int64)
+        got, want = crop_resize_flip(imgs, rec), crop_resize_flip_plain(imgs,
+                                                                        rec)
+        crf[label] = float((got - want).abs().max())
+        check(torch.equal(got, want), f'crop_resize_flip != plain ({label}: '
+              f'max |d| {crf[label]})')
+    ms2 = kernel_ms(lambda: crop_resize_flip(imgs, rec),
+                    'crop_resize_flip_kernel', 20, 3)
+    plain2 = cuda_ms(lambda: crop_resize_flip_plain(imgs, rec), 2, 1)
+    crop = imgs[:, y0:y1, x0:x1].permute(0, 3, 1, 2).contiguous()
+    lib = cuda_ms(lambda: F.interpolate(crop, size=out_hw, mode='bilinear',
+                                        align_corners=False, antialias=False),
+                  20, 3)
+    nbytes2 = crop_resize_flip_bytes(imgs, rec)
+    bound2 = nbytes2 / HBM_BYTES_PER_S * 1e3
+    print(f'[35a crop_resize_flip] {n} crops {x1 - x0}x{y1 - y0} -> '
+          f'{out_hw[1]}x{out_hw[0]}, one launch: bit-equal to plain '
+          f'({crf}); {ms2:.4f} ms against {bound2:.4f} ms (bytes, '
+          f'{nbytes2 / 1e6:.1f} MB; share {bound2 / ms2:.3f}), plain '
+          f'{plain2:.2f} ms, F.interpolate (bilinear, NCHW crop) {lib:.4f} '
+          f'ms ({card})')
+    return photo_row, (max(crf.values()), ms2, plain2, bound2, 'bytes', lib)
+
+
+def _plain_decode(batch, dev):
+    """A host device-decode batch decoded with every kernel's plain
+    version on the card (the host entropy decode, then the plain IDCT,
+    ``rectify``, ``photometric`` and ``crop_resize_flip``) -> (imgs (B,
+    N, H, W, 3), whether the IDCT kernel's planes equal the plain
+    IDCT's)."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.data import image_loading as IL
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+    from omnihd_scenes_tpu_torch.kernels.crop_resize_flip import (
+        crop_resize_flip_plain)
+    from omnihd_scenes_tpu_torch.kernels.photometric import (
+        photometric_plain)
+
+    offsets, data = batch[IL.JPEG_OFFSETS], batch[IL.JPEG_BYTES]
+    blobs = [data[a:b] for row in offsets for a, b in zip(row[:-1], row[1:])]
+    c = J.entropy_decode(blobs, pin=dev.type == 'cuda')
+    planes = J.planes_of(JI.jpeg_idct_plain(c.coefs.to(dev), c.quant.to(dev),
+                                            c.comps), c)
+    kernel_planes, (maps, *args) = IL.decoded_sources(batch, dev)
+    same = all(torch.equal(a, b) for p, q in zip(planes, kernel_planes)
+               for a, b in zip(p[:3], q[:3]))
+    imgs = R.rectify_plain(planes, maps, *args)
+    imgs = photometric_plain(imgs, batch[IL.AUG_PHOTOMETRIC].reshape(
+        imgs.shape[0], -1))
+    rec = np.repeat(batch[IL.AUG_CROP_RESIZE_FLIP], offsets.shape[1] - 1, 0)
+    imgs = crop_resize_flip_plain(imgs, rec)
+    return imgs.reshape(offsets.shape[0], -1, *imgs.shape[1:]), same
+
+
+def _train_cli(path, root, work, extra):
+    """35c: ``tools.train`` on ``path`` as a subprocess on the JPEG
+    dataroot ``root`` -> (its train.log.json records, seconds)."""
+    import os
+
+    args = [path, '--work-dir', work, '--cfg-options',
+            *_camera_options(root, 2), *extra]
+    _, seconds = _cli('omnihd_scenes_tpu_torch.tools.train', *args)
+    with open(os.path.join(work, 'train.log.json')) as f:
+        return [json.loads(line) for line in f], seconds
+
+
+def _camera_train_run(cfg, dev, epochs, batch, workers):
+    """35b: ``cfg``'s model trained on its train split from the JPEG
+    dataroot, as ``tools.train`` trains it (``image_decode='device'``,
+    ``TrainLoader`` with ``workers`` spawn workers -> ``run_training``'s
+    prefetch, which decodes on its side stream -> the bf16-policy
+    step), the launch counts zeroed just before and read just after ->
+    steps, losses, launches, each step's host start time and CUDA events,
+    each batch's host entropy decode ms and a copy of the first host batch
+    with the images its step saw."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.data import image_loading as IL
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.data.loader import TrainLoader
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
+                                                       build_model_from_cfg,
+                                                       init_model,
+                                                       make_loss_fn_generic)
+    from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
+    from omnihd_scenes_tpu_torch.train.loop import (create_train_state,
+                                                    make_train_step,
+                                                    run_training)
+    from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
+                                                     make_optimizer)
+
+    train = build_dataset_single(cfg.data.train, 'det',
+                                 image_decode='device')
+    loader = TrainLoader(train, batch, num_workers=workers)
+    model, mtype = build_model_from_cfg(cfg)
+    init_model(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    steps = epochs * len(loader)
+    state = create_train_state(model, lambda p: make_optimizer(
+        p, make_lr_schedule(2e-4, steps, warmup_iters=2)))
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        model, mtype, anchors_for(model, mtype))))
+    kept, walls, events, host_ms, losses = {}, [], [], [], []
+    entropy = J.entropy_decode
+
+    def timed_entropy(*a, **k):
+        t = time.perf_counter()
+        out = entropy(*a, **k)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    class Keep:
+        """The loader, keeping a copy of its first host batch."""
+
+        def set_epoch(self, e):
+            loader.set_epoch(e)
+
+        def __iter__(self):
+            for b in loader:
+                kept.setdefault('host', {k: np.array(v) for k, v in
+                                         b.items()})
+                yield b
+
+    def spy(st, b):
+        check(not set(IL.HOST_KEYS) & set(b) and b['imgs'].device == dev,
+              'a train step got camera sources, not decoded images')
+        kept.setdefault('imgs', b['imgs'].clone())
+        walls.append(time.perf_counter())
+        if dev.type == 'cuda':
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            out = step(st, b)
+            e[1].record()
+            events.append(e)
+            return out
+        return step(st, b)
+
+    class Logger:
+        def log(self, rec, echo=True):
+            if rec.get('mode') == 'train':
+                losses.append(rec['loss'])
+
+    IL._DEVICE_MAPS.clear()
+    R._TABLES.clear()
+    _zero_launches()
+    J.decode_jpeg_planes.calls = 0
+    J.entropy_decode = timed_entropy
+    t0 = time.perf_counter()
+    try:
+        state = run_training(state, spy, Keep(), epochs, logger=Logger(),
+                             log_interval=1)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+    finally:
+        J.entropy_decode = entropy
+        loader.close()
+    seconds = time.perf_counter() - t0
+    launches = dict(_read_launches(),
+                    jpeg_decode=J.decode_jpeg_planes.calls)
+    check(int(state.step) == steps == len(losses)
+          and all(np.isfinite(losses)),
+          f'{int(state.step)} of {steps} steps, losses {losses}')
+    for name in ('jpeg_idct', 'rectify', 'jpeg_decode', 'lss_sample',
+                 'lss_sample_backward') + AUG_KERNELS:
+        check(launches[name] == steps, f'35b launches {launches}: {name} '
+              f'{launches[name]} in {steps} steps')
+    check(launches['rectify_pack_map'] >= 1 and launches['rectify_taps'] >= 1,
+          f'35b setup launches {launches}')
+    return dict(steps=steps, losses=losses, launches=launches, walls=walls,
+                dev_ms=events, host_ms=host_ms, kept=kept, seconds=seconds,
+                samples=len(train), depth=train.load_depth_gt)
+
+
+def phase_camera_train(dev, card, step_ms):
+    """35: camera training from a JPEG dataroot on the card, with cv2 and
+    PIL blocked."""
+    import os
+    import sys
+    import tempfile
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.data import image_loading as IL
+    from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
+                                                          generate)
+    from omnihd_scenes_tpu_torch.tools import gen_depth_gt
+    from omnihd_scenes_tpu_torch.train.config import Config
+    from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
+
+    t_phase = time.perf_counter()
+    with _blocked_modules('cv2', 'PIL'), \
+            tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        roots = {k: os.path.join(tmp, k) for k in ('full', 'small')}
+        for key, cfg in (('full', SyntheticConfig(**TRAIN_SYNTH)),
+                         ('small', SyntheticConfig())):
+            generate(roots[key], 'v1.0-mini', cfg, images=True,
+                     image_device='cuda')
+            create_newscenes_infos(roots[key], roots[key], 'synth',
+                                   version='v1.0-mini', max_sweeps=0)
+            hw = cfg.image_hw
+            for split in ('train', 'val'):
+                gen_depth_gt.main([
+                    f'{roots[key]}/synth_infos_temporal_{split}.pkl',
+                    '--img-h', str(hw[0]), '--img-w', str(hw[1]),
+                    '--workers', str(os.cpu_count() or 1)])
+        gen_s = time.perf_counter() - t0
+
+        # 35a: the kernels against their plain versions on a decoded b4
+        # val batch.
+        root = roots['full']
+        cfg = Config.fromfile(BEVFUSION_CONFIG)
+        cfg.merge_from_options(_camera_options(root, BATCH)
+                               + ['data.workers_per_device=2'])
+        val = build_dataset_single(cfg.data.val, 'det', image_decode='device')
+        vbatch, _ = next(iter(EvalLoader(val, BATCH)))
+        imgs = IL.decode_camera_batch(vbatch, dev)['imgs']
+        imgs = imgs.reshape(-1, *imgs.shape[2:])
+        photo_row, crf_row = _aug_kernels_on(dev, card, imgs)
+        del imgs, vbatch
+
+        # 35b: the training run through TrainLoader -> prefetch ->
+        # train_step, the counts zeroed just before and read just after.
+        cfg.data.train.aug = TRAIN_AUG
+        run = _camera_train_run(cfg, dev, TRAIN_EPOCHS, BATCH, 2)
+        steps, losses, launches = run['steps'], run['losses'], run['launches']
+        walls, dev_ms, kept = run['walls'], run['dev_ms'], run['kept']
+        check(steps == 8 and run['depth'], f'{steps} steps, not 8, or no '
+              'depth targets')
+        ms = [a.elapsed_time(b) for a, b in dev_ms]
+        gaps = np.diff(walls) * 1e3
+        busy = sum(ms[1:]) / (walls[-1] - walls[1] + ms[-1] / 1e3) / 1e3
+        host_ms = run['host_ms']
+        got, same_planes = _plain_decode(kept['host'], dev)
+        err = float((got - kept['imgs']).abs().max())
+        check(same_planes and torch.equal(got, kept['imgs']),
+              f'35b: a training batch differs from its plain decode (max '
+              f'|d| {err}, IDCT planes equal {same_planes})')
+        print(f'[35b camera train] {BEVFUSION_CONFIG} b{BATCH} from '
+              f'{run["samples"]} 1080p JPEG samples with depth GT and '
+              f'{TRAIN_AUG}, 2 workers, bf16 policy: {steps} steps in '
+              f'{run["seconds"]:.1f} s, losses '
+              f'{[round(v, 3) for v in losses]}; step wall gaps {np.round(gaps, 1).tolist()} ms (mean of the last '
+              f'{len(gaps) - 1}: {float(np.mean(gaps[1:])):.2f}) against '
+              f'phase 15\'s {step_ms:.2f} ms on ready batches; step device '
+              f'ms {np.round(ms, 2).tolist()}, main-stream busy share '
+              f'{busy:.3f} over steps 2-{steps}; host entropy decode '
+              f'{np.round(host_ms, 1).tolist()} ms a batch; launches '
+              f'{launches}; cv2 imported: '
+              f'{sys.modules.get("cv2") is not None} ({card})')
+        print(f'[35b plain decode] the first training batch the step saw '
+              f'({tuple(got.shape)}) equals the same batch decoded with '
+              f'every kernel\'s plain version on the card: max |d| {err}')
+        sample_ms = {}
+        for depth in (True, False):
+            ds = build_dataset_single(dict(cfg.data.train.to_dict(),
+                                           load_depth_gt=depth), 'det',
+                                      image_decode='device')
+            t0 = time.perf_counter()
+            for i in range(BATCH):
+                ds[i]
+            sample_ms[depth] = (time.perf_counter() - t0) / BATCH * 1e3
+        print(f'[35b host feed] one process: {sample_ms[True]:.1f} ms a '
+              f'training sample with its depth targets, '
+              f'{sample_ms[False]:.1f} ms without; {os.cpu_count()} CPUs, '
+              f'{_cpu_model()}')
+        del run, got, kept
+        torch.cuda.empty_cache()
+
+        # 35c: tools.train as subprocesses on the small JPEG dataroot.
+        small = roots['small']
+        aug = [f'data.train.aug={SYNTH_AUG}']
+        jobs = {'bevfusion_synth': ('configs/synthetic/bevfusion_synth.py',
+                                    aug + ['eval_interval=1']),
+                'bevformer_synth': ('configs/synthetic/bevformer_synth.py',
+                                    [])}
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            runs = dict(zip(jobs, pool.map(
+                lambda k: _train_cli(jobs[k][0], small,
+                                     os.path.join(tmp, k), jobs[k][1]),
+                jobs)))
+        for key, (records, seconds) in runs.items():
+            env = [r for r in records if r.get('mode') == 'env']
+            done = [r for r in records if r.get('mode') == 'done']
+            trains = [r['loss'] for r in records if r.get('mode') == 'train']
+            vals = [r for r in records if r.get('mode') == 'val']
+            kl = done[0]['kernel_launches'] if done else {}
+            check(env and env[0]['device'].startswith('cuda') and trains
+                  and all(np.isfinite(trains)),
+                  f'tools.train {key}: {records[:3]} ...')
+            check(kl.get('jpeg_idct', 0) >= len(trains)
+                  and kl.get('rectify', 0) >= len(trains),
+                  f'tools.train {key} launches {kl}')
+            if key == 'bevfusion_synth':
+                check(vals and np.isfinite(vals[0]['mAP'])
+                      and np.isfinite(vals[0]['NOS'])
+                      and kl['photometric'] == kl['crop_resize_flip']
+                      == len(trains), f'tools.train {key}: {vals} {kl}')
+            print(f'[35c tools.train] {jobs[key][0]} from the 108x192 JPEG '
+                  f'dataroot on {env[0]["device"]}: exit 0 in {seconds:.1f} '
+                  f's, {len(trains)} steps, losses '
+                  f'{[round(v, 3) for v in trains]}'
+                  + (f', mAP {vals[0]["mAP"]:.4f}, NOS {vals[0]["NOS"]:.4f}'
+                     if vals else '') + f'; launches {kl}')
+    check('cv2' not in sys.modules, 'cv2 was imported')
+    print(f'[35 camera training] {time.perf_counter() - t_phase:.1f} s with '
+          f'cv2 and PIL blocked (dataroots, infos and depth GT '
+          f'{gen_s:.1f} s; {card})')
+    return dict(launches=launches, photometric=photo_row,
+                crop_resize_flip=crf_row)
+
+
 def sca_hits(cfg, lidar2img):
     """Hit queries per camera of one rig (any z-anchor inside the image)."""
     import torch
@@ -5216,6 +5647,7 @@ def main():
     del train_sd
     mtl_int8 = phase_mtl_int8(dev, card)
     camera = phase_camera_dataroot(dev, card)
+    cam_train = phase_camera_train(dev, card, train[BATCH][0])
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -5246,7 +5678,13 @@ def main():
             # full-size cameras' geometry); launches of phase 34's main
             # path (1 a map, 1 a map geometry, at their first use).
             **{name: ('rectify', camera['launches'][name],
-                      *camera['setup'][name]) for name in SETUP_KERNELS}}
+                      *camera['setup'][name]) for name in SETUP_KERNELS},
+            # The training augmentations (phase 35a: one decoded b4 batch,
+            # 24 x 544x960; library: F.interpolate of the crops for
+            # crop_resize_flip, none for photometric); launches of phase
+            # 35b's training run (1 a step).
+            **{name: (name, cam_train['launches'][name], *cam_train[name])
+               for name in AUG_KERNELS}}
     # Launches on the LSS camera-only path (phase 18), BEVFusion-OCC
     # (phases 21-22) and RCFusion (phase 23): each b4 training run (1 +
     # N_TIMED steps) and each path's first b4 request.
@@ -5291,6 +5729,11 @@ def main():
         extra[name]['launches_r101_dcn_stream'] = r101['launches'][name]
     from omnihd_scenes_tpu_torch.kernels._build import SOURCES
 
+    # Phase 35b's camera training run: every kernel of its path once a
+    # step (the decode's, the augmentations', the LSS forward and
+    # backward), rectify's setup kernels at first use.
+    for name in _kernel_launches():
+        extra[name]['launches_camera_train'] = cam_train['launches'][name]
     extra['rectify'].update(camera['rectify_extra'])
     extra['jpeg_idct']['library'] = 'nvJPEG nvjpegDecodeBatched'
     extra['jpeg_idct']['fixture_max_abs_err'] = camera['jpeg_max']

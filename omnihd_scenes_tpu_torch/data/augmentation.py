@@ -15,7 +15,13 @@ Parity targets (reference ``datasets/pipelines/``):
 Restated from ``omnihd_scenes_tpu/data/augmentation.py``, function for
 function: host NumPy, so every draw and every array is bit-equal to the
 JAX package's on an equal ``RandomState``.  ``crop_resize_flip_images``
-reads OpenCV through ``image_loading.require_cv2``.
+reads OpenCV through ``image_loading.require_cv2``.  The two image
+augmentations are split into their draws (:func:`draw_photometric`,
+:func:`sample_crop_resize_flip`) and their application, so that a
+device-decode sample carries the draws as records
+(:data:`PHOTOMETRIC_FIELDS`, :data:`CROP_RESIZE_FLIP_FIELDS`) and the
+pixels are jittered and resampled on the card
+(``image_loading.decode_camera_batch``).
 """
 
 from __future__ import annotations
@@ -57,6 +63,95 @@ def hsv_to_rgb(h: np.ndarray, s: np.ndarray, v: np.ndarray):
     return np.stack([r, g, b], axis=-1)
 
 
+# One view's photometric draws (:func:`draw_photometric`), f32 in this
+# order: each step's flag (0 / 1) and value as the host applies it (the
+# draw rounded to f32, as NumPy rounds a Python float against an f32
+# array), the contrast mode (1: before the HSV steps, 0: after) and the
+# channel permutation.
+PHOTOMETRIC_FIELDS = ('brightness', 'brightness_delta', 'mode', 'contrast',
+                      'contrast_alpha', 'saturation', 'saturation_alpha',
+                      'hue', 'hue_delta', 'swap', 'perm_r', 'perm_g',
+                      'perm_b')
+
+
+def _draw_photometric_one(rng, brightness_delta, contrast_range,
+                          saturation_range, hue_delta) -> np.ndarray:
+    p = np.zeros(len(PHOTOMETRIC_FIELDS), np.float32)
+    p[10:13] = (0, 1, 2)
+    if rng.randint(2):
+        p[0:2] = 1, rng.uniform(-brightness_delta, brightness_delta)
+    mode = rng.randint(2)
+    p[2] = mode
+    if mode == 1 and rng.randint(2):
+        p[3:5] = 1, rng.uniform(*contrast_range)
+    if rng.randint(2):
+        p[5:7] = 1, rng.uniform(*saturation_range)
+    if rng.randint(2):
+        p[7:9] = 1, rng.uniform(-hue_delta, hue_delta)
+    if mode == 0 and rng.randint(2):
+        p[3:5] = 1, rng.uniform(*contrast_range)
+    if rng.randint(2):
+        p[9] = 1
+        p[10:13] = rng.permutation(3)
+    return p
+
+
+def draw_photometric(rng: np.random.RandomState, n_views: int,
+                     brightness_delta: float = 32.0,
+                     contrast_range: Tuple[float, float] = (0.5, 1.5),
+                     saturation_range: Tuple[float, float] = (0.5, 1.5),
+                     hue_delta: float = 18.0,
+                     per_view: bool = False) -> np.ndarray:
+    """The draws of :func:`photometric_distortion` for ``n_views`` views,
+    (n_views, len(PHOTOMETRIC_FIELDS)) f32: ``rng`` consumed as that
+    function consumes it, conditional draws included; one draw repeated
+    for every view, or with ``per_view`` one draw per view in view
+    order."""
+    args = (brightness_delta, contrast_range, saturation_range, hue_delta)
+    if per_view:
+        return np.stack([_draw_photometric_one(rng, *args)
+                         for _ in range(n_views)])
+    return np.repeat(_draw_photometric_one(rng, *args)[None], n_views, 0)
+
+
+def _imagenet(mean, std):
+    if mean is None or std is None:
+        from omnihd_scenes_tpu_torch.data.image_loading import (
+            IMAGENET_MEAN, IMAGENET_STD)
+        mean = IMAGENET_MEAN if mean is None else mean
+        std = IMAGENET_STD if std is None else std
+    return np.asarray(mean, np.float32), np.asarray(std, np.float32)
+
+
+def apply_photometric(imgs: np.ndarray, params: np.ndarray,
+                      mean: Sequence[float] = None,
+                      std: Sequence[float] = None) -> np.ndarray:
+    """Jitter normalized images (N, H, W, 3) by their drawn parameters
+    (:func:`draw_photometric`, one row per view): denormalize, brightness,
+    contrast (mode 1), HSV saturation, hue, contrast (mode 0), channel
+    swap, renormalize, each step in f32."""
+    mean, std = _imagenet(mean, std)
+    out = []
+    for img, p in zip(imgs, np.asarray(params, np.float32)):
+        x = img.astype(np.float32) * std + mean     # 0-255 pixel space
+        if p[0]:
+            x = x + p[1]
+        if p[2] == 1 and p[3]:
+            x = x * p[4]
+        h, s, v = rgb_to_hsv(x)
+        if p[5]:
+            s = s * p[6]
+        if p[7]:
+            h = np.mod(h + p[8], 360.0)
+        x = hsv_to_rgb(h, s, v)
+        if p[2] == 0 and p[3]:
+            x = x * p[4]
+        if p[9]:
+            x = x[..., p[10:13].astype(np.int64)]
+        out.append((x - mean) / std)
+    return np.stack(out)
+
+
 def photometric_distortion(imgs: np.ndarray,
                            rng: np.random.RandomState,
                            brightness_delta: float = 32.0,
@@ -81,37 +176,14 @@ def photometric_distortion(imgs: np.ndarray,
     per-view redraw (each view gets independent parameter draws, the
     same rng consumption order per view).  Hue zero-point differs
     RGB-vs-BGR, which is immaterial under a symmetric random hue shift.
+
+    :func:`draw_photometric` then :func:`apply_photometric`; the device
+    decode applies the same draws on the card (``kernels/photometric.py``).
     """
-    if per_view:
-        return np.stack([
-            photometric_distortion(
-                imgs[i:i + 1], rng, brightness_delta, contrast_range,
-                saturation_range, hue_delta, mean, std, per_view=False)[0]
-            for i in range(imgs.shape[0])], axis=0)
-    if mean is None or std is None:
-        from omnihd_scenes_tpu_torch.data.image_loading import (
-            IMAGENET_MEAN, IMAGENET_STD)
-        mean = IMAGENET_MEAN if mean is None else mean
-        std = IMAGENET_STD if std is None else std
-    mean = np.asarray(mean, np.float32)
-    std = np.asarray(std, np.float32)
-    out = imgs.astype(np.float32) * std + mean     # 0-255 pixel space
-    if rng.randint(2):
-        out = out + rng.uniform(-brightness_delta, brightness_delta)
-    mode = rng.randint(2)
-    if mode == 1 and rng.randint(2):
-        out = out * rng.uniform(*contrast_range)
-    h, s, v = rgb_to_hsv(out)
-    if rng.randint(2):
-        s = s * rng.uniform(*saturation_range)
-    if rng.randint(2):
-        h = np.mod(h + rng.uniform(-hue_delta, hue_delta), 360.0)
-    out = hsv_to_rgb(h, s, v)
-    if mode == 0 and rng.randint(2):
-        out = out * rng.uniform(*contrast_range)
-    if rng.randint(2):
-        out = out[..., rng.permutation(3)]
-    return (out - mean) / std
+    params = draw_photometric(rng, imgs.shape[0], brightness_delta,
+                              contrast_range, saturation_range, hue_delta,
+                              per_view)
+    return apply_photometric(imgs, params, mean, std)
 
 
 def global_rot_scale_trans(points: np.ndarray,
@@ -195,24 +267,26 @@ def sample_crop_resize_flip(rng: np.random.RandomState,
     return resize, resize_dims, crop, flip
 
 
-def crop_resize_flip_images(imgs: np.ndarray,
-                            lidar2img: np.ndarray,
-                            resize: float,
-                            resize_dims: Tuple[int, int],
+# One sample's crop-resize-flip draw as the device decode carries it
+# (int64): the output size, the crop box (x0, y0, x1, y1) and the flip.
+CROP_RESIZE_FLIP_FIELDS = ('new_w', 'new_h', 'x0', 'y0', 'x1', 'y1', 'flip')
+
+
+def crop_resize_flip_record(resize: float, resize_dims: Tuple[int, int],
                             crop: Tuple[int, int, int, int],
-                            flip: bool):
-    """Crop + resize + optional horizontal flip of all views, with the
-    homography folded into ``lidar2img`` (reference
-    ``CropResizeFlipImage``).  Unlike the reference — which leaves the
-    flip out of the matrix and compensates inside the network — the
-    flip IS folded in here, so projections stay consistent end-to-end.
+                            flip: bool) -> np.ndarray:
+    """:func:`sample_crop_resize_flip`'s draw as a
+    :data:`CROP_RESIZE_FLIP_FIELDS` row (``resize`` is implied by the
+    sizes)."""
+    return np.asarray([*resize_dims, *crop, int(flip)], np.int64)
 
-    imgs: (N, H, W, 3); lidar2img: (N, 4, 4).
-    Returns (imgs', lidar2img') with imgs' (N, h', w', 3).
-    """
-    from omnihd_scenes_tpu_torch.data.image_loading import require_cv2
 
-    cv2 = require_cv2()
+def crop_resize_flip_geometry(lidar2img: np.ndarray,
+                              resize_dims: Tuple[int, int],
+                              crop: Tuple[int, int, int, int],
+                              flip: bool) -> np.ndarray:
+    """``lidar2img`` (N, 4, 4) with the crop + resize + flip homography
+    folded in (:func:`crop_resize_flip_images`)."""
     new_w, new_h = resize_dims
     x0, y0, x1, y1 = crop
     # Per-axis scales from the ACTUAL output dims: int() truncation in
@@ -233,9 +307,23 @@ def crop_resize_flip_images(imgs: np.ndarray,
     ida4 = np.eye(4, dtype=np.float64)
     ida4[:2, :2] = ida[:2, :2]
     ida4[:2, 2] = ida[:2, 2]      # translation rides the depth row
+    return np.stack([(ida4 @ lidar2img[n].astype(np.float64)
+                      ).astype(lidar2img.dtype)
+                     for n in range(lidar2img.shape[0])])
 
+
+def crop_resize_flip_pixels(imgs: np.ndarray, resize_dims: Tuple[int, int],
+                            crop: Tuple[int, int, int, int],
+                            flip: bool) -> np.ndarray:
+    """Each view (N, H, W, 3) cropped (NumPy slicing), resized with
+    ``cv2.resize(..., INTER_LINEAR)`` and flipped horizontally if asked
+    -> (N, new_h, new_w, 3)."""
+    from omnihd_scenes_tpu_torch.data.image_loading import require_cv2
+
+    cv2 = require_cv2()
+    new_w, new_h = resize_dims
+    x0, y0, x1, y1 = crop
     out_imgs = []
-    out_l2i = []
     for n in range(imgs.shape[0]):
         img = imgs[n, y0:y1, x0:x1]
         img = cv2.resize(img, (new_w, new_h),
@@ -243,9 +331,28 @@ def crop_resize_flip_images(imgs: np.ndarray,
         if flip:
             img = img[:, ::-1]
         out_imgs.append(np.ascontiguousarray(img))
-        out_l2i.append((ida4 @ lidar2img[n].astype(np.float64)
-                        ).astype(lidar2img.dtype))
-    return np.stack(out_imgs), np.stack(out_l2i)
+    return np.stack(out_imgs)
+
+
+def crop_resize_flip_images(imgs: np.ndarray,
+                            lidar2img: np.ndarray,
+                            resize: float,
+                            resize_dims: Tuple[int, int],
+                            crop: Tuple[int, int, int, int],
+                            flip: bool):
+    """Crop + resize + optional horizontal flip of all views, with the
+    homography folded into ``lidar2img`` (reference
+    ``CropResizeFlipImage``).  Unlike the reference — which leaves the
+    flip out of the matrix and compensates inside the network — the
+    flip IS folded in here, so projections stay consistent end-to-end.
+
+    imgs: (N, H, W, 3); lidar2img: (N, 4, 4).
+    Returns (imgs', lidar2img') with imgs' (N, h', w', 3):
+    :func:`crop_resize_flip_pixels` and :func:`crop_resize_flip_geometry`;
+    the device decode resamples on the card (``kernels/crop_resize_flip.py``).
+    """
+    return (crop_resize_flip_pixels(imgs, resize_dims, crop, flip),
+            crop_resize_flip_geometry(lidar2img, resize_dims, crop, flip))
 
 
 def global_rot_scale_trans_image(gt_boxes: np.ndarray,

@@ -19,10 +19,14 @@ OpenCV), their depth targets (``load_depth_gt``) and the occupancy GT
 ``data/augmentation.py``), with the same seeded ``RandomState`` draws in
 the same order, hence the same samples bit for bit.
 
-``image_decode='device'`` (test mode only, the card's serving and eval
-path) leaves the pixels to ``image_loading.decode_camera_batch``: a
-sample carries its cameras' JPEG bytes and rectify parameters in place
-of ``imgs``.
+``image_decode='device'`` (the card's path, for training and test
+datasets alike) leaves the pixels to ``image_loading.decode_camera_batch``:
+a sample carries its cameras' JPEG bytes and rectify parameters in place
+of ``imgs``, its depth targets at the size the decode will give
+(``image_loading.source_canvas_hw``, from the JPEG headers), and, in
+training, the image augmentations' draws as records
+(``image_loading.CAMERA_RECORD_KEYS``) in place of their pixel work;
+every other key is the host path's, bit for bit.
 """
 
 from __future__ import annotations
@@ -87,11 +91,11 @@ class NewScenesDetDataset:
         if image_decode not in ('host', 'device'):
             raise ValueError(f"image_decode must be 'host' or 'device', got "
                              f'{image_decode!r}')
-        if image_decode == 'device' and (not test_mode or load_depth_gt):
+        if image_decode == 'device' and image_fast_decode:
             raise ValueError(
-                "image_decode='device' serves test-mode datasets without "
-                'depth targets: training reads its images on the host '
-                '(ROADMAP queue 1 item 3.11)')
+                "image_decode='device' has no counterpart of "
+                'image_fast_decode=True (the reduced-DCT JPEG decode, '
+                'ROADMAP queue 1 item 3.10)')
         self.infos = load_infos(ann_file)
         self.modality = modality
         self.classes = list(classes)
@@ -204,7 +208,8 @@ class NewScenesDetDataset:
         return out_boxes, out_labels, out_mask
 
     def _load_camera(self, info: Dict) -> Dict[str, np.ndarray]:
-        from omnihd_scenes_tpu_torch.data.image_loading import load_camera_data
+        from omnihd_scenes_tpu_torch.data.image_loading import (
+            load_camera_data, source_canvas_hw)
 
         cam = load_camera_data(info, scale=self.image_scale,
                                front_back_scale=self.front_back_scale,
@@ -215,7 +220,8 @@ class NewScenesDetDataset:
             from omnihd_scenes_tpu_torch.data.depth_loading import (
                 gaussian_depth_target, load_gt_depth)
 
-            hw = cam['imgs'].shape[1:3]
+            hw = (cam['imgs'].shape[1:3] if 'imgs' in cam
+                  else source_canvas_hw(cam))
             gauss, mins = [], []
             for cam_type, cam_info in info['cams'].items():
                 dmap = load_gt_depth(
@@ -282,22 +288,38 @@ class NewScenesDetDataset:
         consistent (reference pipeline modules cited per function), in
         the JAX package's order and ``self.rng`` consumption."""
         from omnihd_scenes_tpu_torch.data import augmentation as A
+        from omnihd_scenes_tpu_torch.data import image_loading as IL
 
         aug = self.aug
         geom_dirty = False
-        if aug.get('photometric') and 'imgs' in sample:
+        # A device-decode sample carries its pixels as JPEG sources: the
+        # same draws, in the same order, go into records that
+        # decode_camera_batch applies after the decode.
+        device = IL.JPEG_BYTES in sample
+        has_pixels = device or 'imgs' in sample
+        if aug.get('photometric') and has_pixels:
             # 'photometric': True -> per-sample draws (multi-view
             # consistent); 'per_view' -> the reference's per-view redraw.
-            sample['imgs'] = A.photometric_distortion(
-                sample['imgs'], self.rng,
-                per_view=aug.get('photometric') == 'per_view')
-        if aug.get('crop_resize_flip') and 'imgs' in sample:
+            per_view = aug.get('photometric') == 'per_view'
+            if device:
+                sample[IL.AUG_PHOTOMETRIC] = A.draw_photometric(
+                    self.rng, len(sample['lidar2img']), per_view=per_view)
+            else:
+                sample['imgs'] = A.photometric_distortion(
+                    sample['imgs'], self.rng, per_view=per_view)
+        if aug.get('crop_resize_flip') and has_pixels:
             params = A.sample_crop_resize_flip(
                 self.rng, aug['crop_resize_flip'],
                 training=not self.test_mode)
-            sample['imgs'], sample['lidar2img'] = \
-                A.crop_resize_flip_images(sample['imgs'],
-                                          sample['lidar2img'], *params)
+            if device:
+                sample[IL.AUG_CROP_RESIZE_FLIP] = \
+                    A.crop_resize_flip_record(*params)
+                sample['lidar2img'] = A.crop_resize_flip_geometry(
+                    sample['lidar2img'], *params[1:])
+            else:
+                sample['imgs'], sample['lidar2img'] = \
+                    A.crop_resize_flip_images(sample['imgs'],
+                                              sample['lidar2img'], *params)
             geom_dirty = True
         if aug.get('rot_scale_flip_image') is not None and \
                 'lidar2img' in sample:
@@ -313,7 +335,7 @@ class NewScenesDetDataset:
                 sample['points'] = pts
             geom_dirty = True
         if aug.get('rot_scale_flip') is not None and 'points' in sample \
-                and 'imgs' not in sample:
+                and not has_pixels:
             vel_dims = (3, 5) if self.modality == 'radar' else None
             kw = dict(aug['rot_scale_flip']) \
                 if isinstance(aug['rot_scale_flip'], dict) else {}

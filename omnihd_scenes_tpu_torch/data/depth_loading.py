@@ -37,12 +37,18 @@ def rasterize_depth(points_uvd: np.ndarray, hw: Tuple[int, int],
     return depth
 
 
+def depth_gt_path(cam_path: str) -> str:
+    """Where the ``depth_gt`` bins of one camera image live (and
+    ``tools/gen_depth_gt.py`` writes them)."""
+    return cam_path.replace('cameras', 'depth_gt') + '.bin'
+
+
 def load_gt_depth(cam_path: str, hw: Tuple[int, int], scale: float,
                   front_back_scale: float = 0.5,
                   is_front_back: bool = False) -> np.ndarray:
     """Read ``depth_gt`` bins for one camera image path."""
-    depth_path = cam_path.replace('cameras', 'depth_gt') + '.bin'
-    pts = np.fromfile(depth_path, dtype=np.float32).reshape(-1, 3)
+    pts = np.fromfile(depth_gt_path(cam_path),
+                      dtype=np.float32).reshape(-1, 3)
     if is_front_back and front_back_scale != 1.0:
         pts = pts.copy()
         pts[:, :2] *= front_back_scale

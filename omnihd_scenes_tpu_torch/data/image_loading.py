@@ -31,9 +31,13 @@ the pixels' preparation needs (:data:`CAMERA_SOURCE_KEYS`) and the same
 pixels); :func:`decode_camera_batch` then turns a collated batch of them
 into ``imgs`` on a device: the host entropy decode and the IDCT kernel
 (``data/jpeg.py``, ``kernels/jpeg_idct.py``), then the rectify kernel
-(``kernels/rectify.py``, on the maps of ``data/undistort.py``); on the
-CPU the kernels' plain versions, bit-equal to ``cv2.imdecode`` and
-OpenCV's chain.
+(``kernels/rectify.py``, on the maps of ``data/undistort.py``), then a
+training batch's image augmentations (:data:`CAMERA_RECORD_KEYS`: the
+``photometric`` and ``crop_resize_flip`` kernels); on the CPU the
+kernels' plain versions, bit-equal to ``cv2.imdecode`` and OpenCV's
+chain (the f32 resizes within 1e-5).  :func:`camera_sizes` is the one
+rule for the sizes a decode gives, so a dataset can take its depth
+targets' size from the JPEG headers (:func:`source_canvas_hw`).
 """
 
 from __future__ import annotations
@@ -276,6 +280,15 @@ JPEG_BYTES, JPEG_OFFSETS = 'jpeg_bytes', 'jpeg_offsets'
 CAMERA_SOURCE_KEYS = (JPEG_BYTES, JPEG_OFFSETS, 'cam_intrinsics',
                       'cam_distortion', 'cam_scales', 'image_layout',
                       'image_norm')
+# A device-decode training sample's image augmentation draws, applied by
+# decode_camera_batch after rectify in the JAX dataset's order: the
+# photometric jitter's rows (N, len(augmentation.PHOTOMETRIC_FIELDS)) f32,
+# then the crop-resize-flip row (len(augmentation.CROP_RESIZE_FLIP_FIELDS),)
+# int64 shared by the sample's cameras.  They stay on the host too.
+AUG_PHOTOMETRIC, AUG_CROP_RESIZE_FLIP = ('aug_photometric',
+                                         'aug_crop_resize_flip')
+CAMERA_RECORD_KEYS = (AUG_PHOTOMETRIC, AUG_CROP_RESIZE_FLIP)
+HOST_KEYS = CAMERA_SOURCE_KEYS + CAMERA_RECORD_KEYS
 
 
 def _plumb_bob(distortion) -> np.ndarray:
@@ -345,17 +358,28 @@ def camera_sources(info: Dict, scale: float = 0.5,
     }
 
 
-def collate_jpeg(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
-    """The JPEG entries of samples batched: the bytes concatenated and
-    each sample's offsets rebased onto them, (B, N + 1)."""
+def collate_jpeg(items: Sequence[Dict]) -> Dict[str, np.ndarray]:
+    """The JPEG entries of samples (or of a queue's frames) under one new
+    leading axis: the bytes concatenated and each item's offsets (any
+    shape ``(..., N + 1)``) rebased onto them and stacked, (B, [T,] N +
+    1)."""
     bytes_, offsets, base = [], [], 0
-    for s in samples:
+    for s in items:
         b = np.asarray(s[JPEG_BYTES])
         bytes_.append(b)
         offsets.append(np.asarray(s[JPEG_OFFSETS], np.int64) + base)
         base += b.size
     return {JPEG_BYTES: np.concatenate(bytes_),
             JPEG_OFFSETS: np.stack(offsets)}
+
+
+def stack_camera_sources(frames: Sequence[Dict]) -> Dict[str, np.ndarray]:
+    """Several frames' camera sources (:data:`CAMERA_SOURCE_KEYS`) as one,
+    under a new leading axis: a temporal queue's (T, ...)."""
+    out = {k: np.stack([f[k] for f in frames]) for k in CAMERA_SOURCE_KEYS
+           if k not in (JPEG_BYTES, JPEG_OFFSETS)}
+    out.update(collate_jpeg(frames))
+    return out
 
 
 def _host_array(v) -> np.ndarray:
@@ -398,63 +422,119 @@ def _resized(hw, factor: float):
     return int(hw[0] * factor), int(hw[1] * factor)
 
 
+def camera_sizes(src_hws, cam_scales, layout):
+    """The sizes the host path's steps give a frame's (or batch's) cameras
+    from their decoded sizes ``src_hws`` [(h, w), ...]: each one's u8 size
+    after the front / back downscale and its size after ``scale``
+    (``cam_scales`` rows, :func:`camera_sources`), and the padded canvas
+    (``image_layout``: the target, else every output size's maximum
+    rounded up to the divisor) -> (u8_hws, out_hws, (th, tw))."""
+    factors = np.asarray(cam_scales, np.float64).reshape(-1, 2)
+    u8_hws = [_resized(hw, float(f[0])) for hw, f in zip(src_hws, factors)]
+    out_hws = [_resized(hw, float(f[1])) for hw, f in zip(u8_hws, factors)]
+    th, tw, pad = (int(v) for v in np.asarray(layout).reshape(-1)[:3])
+    if th <= 0:
+        th = int(np.ceil(max(h for h, _ in out_hws) / pad) * pad)
+        tw = int(np.ceil(max(w for _, w in out_hws) / pad) * pad)
+    return u8_hws, out_hws, (th, tw)
+
+
+def source_canvas_hw(sources: Dict) -> Tuple[int, int]:
+    """The padded (h, w) that decoding one frame's camera sources gives,
+    the host path's ``imgs.shape[1:3]``, from the JPEG headers alone (no
+    decode): :func:`camera_sizes` on the frame sizes."""
+    from omnihd_scenes_tpu_torch.data.jpeg import jpeg_header
+
+    data = np.asarray(sources[JPEG_BYTES])
+    offsets = np.asarray(sources[JPEG_OFFSETS])
+    hws = []
+    for a, b in zip(offsets[:-1], offsets[1:]):
+        head = jpeg_header(data[a:b])
+        hws.append((head.height, head.width))
+    return camera_sizes(hws, sources['cam_scales'],
+                        sources['image_layout'])[2]
+
+
 def decoded_sources(batch: Dict, device):
     """Decode a collated batch's JPEGs on ``device`` -> (the planes of
-    each image, :class:`kernels.rectify.Planes`, in (sample, camera)
-    order, and :func:`kernels.rectify.rectify`'s other arguments:
+    each image, :class:`kernels.rectify.Planes`, in (sample, [frame,]
+    camera) order, and :func:`kernels.rectify.rectify`'s other arguments:
     undistortion maps, u8 sizes, output sizes, target size, mean, std,
     to_rgb).  The batch's camera sources are NumPy arrays or CPU
-    tensors."""
+    tensors; their offsets (..., N + 1) may carry any leading axes."""
     import torch
 
     from omnihd_scenes_tpu_torch.data.jpeg import decode_jpeg_planes
 
     device = torch.device(device)
     src = {k: _host_array(batch[k]) for k in CAMERA_SOURCE_KEYS}
-    data, offsets = src[JPEG_BYTES], src[JPEG_OFFSETS]
-    b, n_cam = offsets.shape[0], offsets.shape[1] - 1
-    layout, norm = src['image_layout'][0], src['image_norm'][0]
-    if not (np.all(src['image_layout'] == layout)
-            and np.all(src['image_norm'] == norm)):
+    data = src[JPEG_BYTES]
+    offsets = src[JPEG_OFFSETS].reshape(-1, src[JPEG_OFFSETS].shape[-1])
+    layouts = src['image_layout'].reshape(-1, 3)
+    norms = src['image_norm'].reshape(-1, 7)
+    layout, norm = layouts[0], norms[0]
+    if not (np.all(layouts == layout) and np.all(norms == norm)):
         raise ValueError('decode_camera_batch: samples of one batch must '
                          'share the image layout and normalisation')
-    planes = decode_jpeg_planes([data[offsets[i, c]:offsets[i, c + 1]]
-                                 for i in range(b) for c in range(n_cam)],
+    planes = decode_jpeg_planes([data[a:b] for row in offsets
+                                 for a, b in zip(row[:-1], row[1:])],
                                 device)
-    k = src['cam_intrinsics'].reshape(b * n_cam, 3, 3)
-    dist = src['cam_distortion'].reshape(b * n_cam, 5)
-    factors = src['cam_scales'].reshape(b * n_cam, 2)
-    maps, u8_hws, out_hws = [], [], []
-    for j, p in enumerate(planes):
-        hw = tuple(p.y.shape)
-        maps.append(_device_map(k[j], dist[j], hw, device))
-        u8_hws.append(_resized(hw, float(factors[j, 0])))
-        out_hws.append(_resized(u8_hws[-1], float(factors[j, 1])))
-    th, tw, pad = (int(v) for v in layout)
-    if th <= 0:
-        th = int(np.ceil(max(h for h, _ in out_hws) / pad) * pad)
-        tw = int(np.ceil(max(w for _, w in out_hws) / pad) * pad)
-    return planes, (maps, u8_hws, out_hws, (th, tw), norm[:3], norm[3:6],
+    k = src['cam_intrinsics'].reshape(-1, 3, 3)
+    dist = src['cam_distortion'].reshape(-1, 5)
+    u8_hws, out_hws, target = camera_sizes(
+        [tuple(p.y.shape) for p in planes], src['cam_scales'], layout)
+    maps = [_device_map(k[j], dist[j], tuple(p.y.shape), device)
+            for j, p in enumerate(planes)]
+    return planes, (maps, u8_hws, out_hws, target, norm[:3], norm[3:6],
                     bool(norm[6]))
+
+
+def augment_decoded(imgs, batch: Dict, lead):
+    """Decoded images (M, H, W, 3) with the batch's augmentation records
+    applied in the JAX dataset's order (``data/dataset.py:_apply_aug``):
+    the photometric jitter (``kernels/photometric.py``), then the
+    crop-resize-flip (``kernels/crop_resize_flip.py``), each one launch on
+    the card (their plain versions on the CPU); ``lead`` is the records'
+    leading shape (the batch's, before the camera axis)."""
+    if AUG_PHOTOMETRIC in batch:
+        from omnihd_scenes_tpu_torch.kernels.photometric import photometric
+
+        rows = _host_array(batch[AUG_PHOTOMETRIC])
+        imgs = photometric(imgs, rows.reshape(imgs.shape[0], -1))
+    if AUG_CROP_RESIZE_FLIP in batch:
+        from omnihd_scenes_tpu_torch.kernels.crop_resize_flip import (
+            crop_resize_flip)
+
+        rows = _host_array(batch[AUG_CROP_RESIZE_FLIP]).reshape(
+            int(np.prod(lead)), -1)
+        per_image = np.repeat(rows, imgs.shape[0] // rows.shape[0], 0)
+        imgs = crop_resize_flip(imgs, per_image)
+    return imgs
 
 
 def decode_camera_batch(batch: Dict, device) -> Dict:
     """``batch`` with its camera sources (:data:`CAMERA_SOURCE_KEYS`, as
-    :func:`collate_jpeg` and the loaders batch them) replaced by ``imgs``
-    (B, N, H, W, 3) f32 on ``device``; a batch without them is returned as
-    it is.  The JPEGs are entropy-decoded on the host (all of the batch's
-    in one threaded native call), then on a CUDA device one IDCT launch
-    and one ``rectify`` launch (planes to the padded f32 images); on the
-    CPU the kernels' plain versions.  Both equal the host path's OpenCV
-    chain (``tests/test_torch_port_camera_decode.py``,
-    ``tests/test_torch_port_jpeg_decode.py``)."""
+    :func:`collate_jpeg` and the loaders batch them) and augmentation
+    records (:data:`CAMERA_RECORD_KEYS`) replaced by ``imgs`` (B, [T,] N,
+    H, W, 3) f32 on ``device``; a batch without sources is returned as it
+    is.  The JPEGs are entropy-decoded on the host (all of the batch's in
+    one threaded native call), then on a CUDA device one IDCT launch and
+    one ``rectify`` launch (planes to the padded f32 images), then, for a
+    training batch that carries them, one ``photometric`` and one
+    ``crop_resize_flip`` launch (:func:`augment_decoded`); on the CPU the
+    kernels' plain versions.  Both equal the host path's OpenCV chain
+    (``tests/test_torch_port_camera_decode.py``,
+    ``tests/test_torch_port_jpeg_decode.py``,
+    ``tests/test_torch_port_camera_train.py``).  The kernels launch on
+    the current stream (``data/prefetch.py`` decodes on its side
+    stream)."""
     from omnihd_scenes_tpu_torch.kernels.rectify import rectify
 
     if JPEG_BYTES not in batch:
         return batch
+    lead = tuple(batch[JPEG_OFFSETS].shape[:-1])
     planes, args = decoded_sources(batch, device)
-    imgs = rectify(planes, *args)
-    out = {k: v for k, v in batch.items() if k not in CAMERA_SOURCE_KEYS}
-    out['imgs'] = imgs.reshape(len(batch[JPEG_OFFSETS]), -1,
-                               *imgs.shape[1:])
+    imgs = augment_decoded(rectify(planes, *args), batch, lead)
+    out = {k: v for k, v in batch.items() if k not in HOST_KEYS}
+    out['imgs'] = imgs.reshape(*lead, -1, *imgs.shape[1:])
     return out

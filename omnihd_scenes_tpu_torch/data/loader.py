@@ -12,8 +12,10 @@ contiguous-block rule per process.
 Restated from ``omnihd_scenes_tpu/data/loader.py``: the same seeded epoch
 order and padding, hence the same batches; batches are NumPy dicts, which
 ``data/prefetch.py`` (or ``train/loop.py:batch_to``) moves to the device.
-A device-decode sample's JPEG bytes (``image_loading.camera_sources``)
-are concatenated across the batch, not stacked.
+A device-decode sample's JPEG bytes (``image_loading.camera_sources``;
+a temporal queue's frames already concatenated, with (T, N + 1) offsets)
+are concatenated across the batch, not stacked, and their offsets
+rebased; the augmentation records stack like any array.
 """
 
 from __future__ import annotations

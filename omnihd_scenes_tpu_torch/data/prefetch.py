@@ -13,10 +13,17 @@ does not hand its memory to a later upload while the step still reads it;
 PyTorch's pinned-memory allocator holds each pinned block until its copy
 has completed.  ``batch_to``'s copies from pageable memory, as an
 unprefetched step makes, are synchronous and overlap nothing.  A
-device-decode batch's camera sources (``image_loading.
-CAMERA_SOURCE_KEYS``: JPEG bytes, offsets, calibration) are pinned but
-stay on the host, where the entropy decode reads the bitstreams.  For a CPU
-``device`` (or none) batches pass through as they are.
+device-decode batch's camera sources and augmentation records
+(``image_loading.HOST_KEYS``: JPEG bytes, offsets, calibration, draws)
+are pinned but stay on the host, where the entropy decode reads the
+bitstreams; the thread then calls ``image_loading.decode_camera_batch`` on
+the side stream, so the IDCT, ``rectify``, ``photometric`` and
+``crop_resize_flip`` kernels of batch k + 1 run there while step k runs
+(the native entropy decode releases the interpreter lock), and the event
+is recorded after them: the consumer's wait and ``record_stream`` cover
+the decoded ``imgs`` too.  For a CPU ``device`` the thread decodes such a
+batch with the kernels' plain versions and passes every other batch
+through; with no ``device`` batches pass through as they are.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from omnihd_scenes_tpu_torch.data.image_loading import CAMERA_SOURCE_KEYS
+from omnihd_scenes_tpu_torch.data.image_loading import (HOST_KEYS,
+                                                        decode_camera_batch)
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 
 
@@ -50,19 +58,19 @@ class PrefetchIterator:
         self._thread.start()
 
     def _upload(self, batch):
-        """``batch`` copied into pinned host memory and sent to the device
-        by ``batch_to`` on the side stream -> (device batch, the copies'
-        event)."""
+        """``batch`` copied into pinned host memory, sent to the device by
+        ``batch_to`` and its camera sources decoded on the side stream ->
+        (device batch, the event after the copies and the decode)."""
         pinned = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
                       else v) for k, v in batch.items()}
         pinned = {k: (v.pin_memory() if torch.is_tensor(v) else v)
                   for k, v in pinned.items()}
-        host = {k: pinned.pop(k) for k in CAMERA_SOURCE_KEYS if k in pinned}
+        host = {k: pinned.pop(k) for k in HOST_KEYS if k in pinned}
         with torch.cuda.stream(self._stream):
             out = batch_to(pinned, self._device)
+            out = decode_camera_batch({**out, **host}, self._device)
             event = torch.cuda.Event()
             event.record(self._stream)
-        out.update(host)
         return out, event
 
     def _worker(self):
@@ -70,6 +78,8 @@ class PrefetchIterator:
             for item in self._iterable:
                 if self._stream is not None:
                     item = self._upload(item)
+                elif self._device is not None:
+                    item = decode_camera_batch(item, self._device)
                 self._q.put(item)
         except BaseException as e:  # propagate into the consumer
             self._err = e

@@ -11,9 +11,12 @@
 - ``union2one``: can_bus rewritten to per-frame deltas (position and
   patch angle) with ``has_prev`` scene-boundary flags (``:63-91``).
 
-Test mode yields single frames with the absolute can_bus (with
-``image_decode='device'``, the cameras' JPEG sources in place of
-``imgs``);
+Test mode yields single frames with the absolute can_bus; with
+``image_decode='device'`` a frame (test mode) or a queue (training,
+``image_loading.stack_camera_sources``: (T, ...) arrays, the JPEG bytes
+concatenated with (T, N + 1) offsets) carries its cameras' JPEG sources
+in place of ``imgs``, which ``image_loading.decode_camera_batch`` turns
+into the (B, T, N, H, W, 3) queue;
 :class:`StreamingEvalState` keeps (prev_bev, prev_pos, prev_angle) on the
 host and computes the deltas (reference ``bevformer.py:270-306``).  The
 samples are the JAX package's, with the same seeded draws, bit for bit.
@@ -26,7 +29,8 @@ from typing import Dict, List
 import numpy as np
 
 from omnihd_scenes_tpu_torch.data.dataset import NewScenesDetDataset
-from omnihd_scenes_tpu_torch.data.image_loading import CAMERA_SOURCE_KEYS
+from omnihd_scenes_tpu_torch.data.image_loading import (
+    CAMERA_SOURCE_KEYS, stack_camera_sources)
 from omnihd_scenes_tpu_torch.utils.quaternion import Quaternion
 
 
@@ -64,17 +68,19 @@ class TemporalNewScenesDataset(NewScenesDetDataset):
     def _frame(self, idx: int) -> Dict[str, np.ndarray]:
         info = self.infos[idx]
         cam = self._load_camera(info)
-        return {'imgs': cam['imgs'], 'lidar2img': cam['lidar2img'],
+        return {**{k: cam[k] for k in self._pixel_keys()},
+                'lidar2img': cam['lidar2img'],
                 'can_bus': finalize_can_bus(info),
                 'scene_token': info['scene_token']}
+
+    def _pixel_keys(self):
+        return ('imgs',) if self.image_decode == 'host' else CAMERA_SOURCE_KEYS
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         if self.test_mode:
             info = self.infos[idx]
             cam = self._load_camera(info)
-            pixels = (('imgs',) if self.image_decode == 'host'
-                      else CAMERA_SOURCE_KEYS)
-            return {**{k: cam[k] for k in pixels},
+            return {**{k: cam[k] for k in self._pixel_keys()},
                     'lidar2img': cam['lidar2img'],
                     'can_bus': finalize_can_bus(info), 'index': np.int32(idx)}
 
@@ -98,7 +104,10 @@ class TemporalNewScenesDataset(NewScenesDetDataset):
                 prev_pos, prev_angle = tmp_pos, tmp_angle
 
         boxes, labels, mask = self._load_annotations(self.infos[idx])
-        return {'imgs': np.stack([f['imgs'] for f in frames]),
+        pixels = ({'imgs': np.stack([f['imgs'] for f in frames])}
+                  if self.image_decode == 'host'
+                  else stack_camera_sources(frames))
+        return {**pixels,
                 'lidar2img': np.stack([f['lidar2img'] for f in frames]),
                 'can_bus': np.stack([f['can_bus'] for f in frames]),
                 'has_prev': np.asarray(has_prev),

@@ -18,8 +18,13 @@ and the occupancy metrics to the periodic eval.  A BEVFormer-T config
 (``model_type='bevformer'``, ``dataset_type='temporal'``) trains on the
 temporal dataset's frame queues with the Hungarian-matched DETR loss and,
 as in the JAX package, skips the periodic eval: ``tools.test --eval``
-streams the val split from the checkpoint.  Camera configs read JPEGs
-through OpenCV.  ``data.workers_per_device`` (or ``workers_per_gpu``)
+streams the val split from the checkpoint.  Camera configs read their
+JPEGs as ``tools.test`` does: on CUDA the datasets carry the JPEG bytes
+and the image augmentations' draws (``image_decode='device'``), and the
+prefetch thread decodes each batch on its side stream (host entropy
+decode, then the IDCT, ``rectify``, ``photometric`` and
+``crop_resize_flip`` kernels), with no OpenCV in the process; with
+``--device cpu`` they read through OpenCV.  ``data.workers_per_device`` (or ``workers_per_gpu``)
 prepares samples in that many spawn processes (``data/worker_pool.py``).
 Pretrained and staged weights apply after the model is built, unless
 ``--resume-from`` restores a checkpoint, which takes precedence as in the
@@ -27,6 +32,8 @@ JAX package: ``pretrained`` / ``load_img_from`` through
 ``train/torch_import.py``, then ``load_lift_from`` / ``load_pts_from``
 (a checkpoint of the port, file or directory) through
 ``train/ckpt_remap.py``; each logs ``{'mode': key, 'loaded': ...}``.
+The last log line (``'mode': 'done'``) carries the hand kernels' launch
+counts of the run (``kernels.launch_counts``), periodic eval included.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ def resolve_device(name: str) -> torch.device:
 
 def main(argv=None):
     from omnihd_scenes_tpu_torch.data.loader import TrainLoader
+    from omnihd_scenes_tpu_torch.kernels import launch_counts
     from omnihd_scenes_tpu_torch.data.sampling import wrap_dataset
     from omnihd_scenes_tpu_torch.train.amp import bf16_policy
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
@@ -106,7 +114,8 @@ def main(argv=None):
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    train_ds, val_ds = build_datasets(cfg)
+    train_ds, val_ds = build_datasets(
+        cfg, image_decode='device' if device.type == 'cuda' else 'host')
     train_ds = wrap_dataset(train_ds, cfg.data.train.get('wrapper'))
     batch_size = cfg.data.samples_per_device
     train_loader = TrainLoader(
@@ -171,7 +180,8 @@ def main(argv=None):
     finally:
         train_loader.close()
     logger.log({'mode': 'done', 'wall_time': time.time() - t0,
-                'final_step': int(state.step)})
+                'final_step': int(state.step),
+                'kernel_launches': launch_counts()})
     return state
 
 

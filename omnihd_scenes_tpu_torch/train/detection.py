@@ -31,10 +31,12 @@ def build_dataset_single(ds_cfg, dataset_type: str = 'det',
     return NewScenesDetDataset(**kwargs)
 
 
-def build_datasets(cfg):
+def build_datasets(cfg, image_decode: str = 'host'):
+    """The train and val datasets of a config, both with
+    ``image_decode``."""
     dtype = cfg.get('dataset_type', 'det')
-    train_ds = build_dataset_single(cfg.data.train, dtype)
-    val_ds = build_dataset_single(cfg.data.val, dtype)
+    train_ds = build_dataset_single(cfg.data.train, dtype, image_decode)
+    val_ds = build_dataset_single(cfg.data.val, dtype, image_decode)
     return train_ds, val_ds
 
 

@@ -28,7 +28,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from omnihd_scenes_tpu_torch.data.image_loading import (CAMERA_SOURCE_KEYS,
+from omnihd_scenes_tpu_torch.data.image_loading import (HOST_KEYS,
                                                         JPEG_BYTES,
                                                         decode_camera_batch)
 from omnihd_scenes_tpu_torch.data.loader import EvalLoader, collate
@@ -68,9 +68,9 @@ def detections_to_host(dets) -> tuple:
 
 
 def _upload(batch: Dict, dev) -> Dict:
-    """The batch's arrays on ``dev``, but for its camera sources, which
-    the decode reads on the host."""
-    cam = {k: batch[k] for k in CAMERA_SOURCE_KEYS if k in batch}
+    """The batch's arrays on ``dev``, but for its camera sources (and
+    records), which the decode reads on the host."""
+    cam = {k: batch[k] for k in HOST_KEYS if k in batch}
     rest = {k: v for k, v in batch.items() if k not in cam}
     return {**batch_to(rest, dev), **cam}
 

@@ -218,7 +218,10 @@ def run_training(state: TrainState, train_step, train_loader,
     """Epoch-based runner over an iterable of batches (dicts of arrays or
     tensors); ``train_loader.set_epoch(epoch)`` is called if it exists.
     Batches go through :func:`data.prefetch.prefetch` toward the model's
-    device, as in JAX ``loop.py:174-183``."""
+    device, as in JAX ``loop.py:174-183``; a batch of camera sources
+    (``image_decode='device'``) is decoded there, on the card's side
+    stream or, on the CPU, by the kernels' plain versions, before
+    ``train_step`` sees it."""
     from omnihd_scenes_tpu_torch.data.prefetch import prefetch
 
     device = next(state.model.parameters()).device

@@ -438,9 +438,16 @@ def test_device_decode_refusals(dataroots):
         IL.load_camera_data(ds.infos[0], fast_decode=True, decode='device')
     with pytest.raises(ValueError, match='decode'):
         IL.load_camera_data(ds.infos[0], decode='gpu')
+    # Training and depth targets take the device decode; the
+    # reduced-DCT fast decode (ROADMAP queue 1 item 3.10) stays refused.
     for kw in (dict(test_mode=False), dict(test_mode=True,
                                            load_depth_gt=True)):
+        ds = NewScenesDetDataset(f'{root}/synth_infos_temporal_val.pkl',
+                                 modality='camera', use_camera=True,
+                                 image_decode='device', **kw)
+        assert ds.image_decode == 'device'
         with pytest.raises(ValueError, match='image_decode'):
             NewScenesDetDataset(f'{root}/synth_infos_temporal_val.pkl',
                                 modality='camera', use_camera=True,
-                                image_decode='device', **kw)
+                                image_decode='device',
+                                image_fast_decode=True, **kw)

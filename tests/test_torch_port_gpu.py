@@ -1143,3 +1143,137 @@ def test_card_decode_refuses_progressive(dev):
     assert not jpeg_header(data).baseline
     with pytest.raises(ValueError, match='progressive'):
         decode_jpegs([data], dev)
+
+
+# -- the image augmentation kernels and the decode on the prefetch stream --
+
+def _photometric_rows(n, seed):
+    """Rows covering each step on and off, both contrast modes, a channel
+    swap and an identity row."""
+    from omnihd_scenes_tpu_torch.data.augmentation import draw_photometric
+
+    rows = draw_photometric(np.random.RandomState(seed), n, per_view=True)
+    rows[0] = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2)
+    rows[1] = (1, -31.5, 1, 1, 1.4, 1, 0.6, 1, 17.0, 1, 2, 0, 1)
+    rows[2] = (1, 20.0, 0, 1, 0.55, 1, 1.45, 1, -17.9, 1, 1, 2, 0)
+    return rows
+
+
+@pytest.mark.parametrize('shape', [(6, 65, 97), (24, 544, 960)])
+def test_photometric_matches_plain(dev, shape):
+    """Bit-equal to the plain version on the card and on the CPU, pad
+    band, channel ties and all."""
+    from omnihd_scenes_tpu_torch.kernels.photometric import (
+        photometric, photometric_plain)
+
+    gen = torch.Generator().manual_seed(shape[0])
+    imgs = torch.randn(shape + (3,), generator=gen) * 1.7
+    imgs[:, -8:] = 0.0
+    imgs[:, :4, :, 1] = imgs[:, :4, :, 0]
+    imgs[:, 4:8, :, 2] = imgs[:, 4:8, :, 1]
+    rows = _photometric_rows(shape[0], 5)
+    before = photometric.launches
+    got = photometric(imgs.to(dev), rows)
+    torch.cuda.synchronize()
+    assert photometric.launches == before + 1
+    assert torch.equal(got, photometric_plain(imgs.to(dev), rows))
+    if shape[0] <= 6:
+        assert torch.equal(got.cpu(), photometric_plain(imgs, rows))
+
+
+@pytest.mark.parametrize('crop,out_hw', [
+    ((120, 68, 840, 476), (544, 960)), ((0, 0, 960, 544), (544, 960)),
+    ((-40, 10, 2000, 300), (200, 333)), ((5, 7, 61, 39), (17, 29))])
+def test_crop_resize_flip_matches_plain(dev, crop, out_hw):
+    """Bit-equal to the plain version on the card, flips mixed in one
+    launch; a same-size crop is a copy."""
+    from omnihd_scenes_tpu_torch.kernels.crop_resize_flip import (
+        crop_resize_flip, crop_resize_flip_plain)
+
+    imgs = torch.randn((4, 544, 960, 3),
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+    rec = np.array([[out_hw[1], out_hw[0], *crop, f] for f in (0, 1, 1, 0)],
+                   np.int64)
+    before = crop_resize_flip.launches
+    got = crop_resize_flip(imgs, rec)
+    torch.cuda.synchronize()
+    assert crop_resize_flip.launches == before + 1
+    assert tuple(got.shape) == (4, *out_hw, 3)
+    assert torch.equal(got, crop_resize_flip_plain(imgs, rec))
+    unflipped = crop_resize_flip(imgs, rec * [1, 1, 1, 1, 1, 1, 0])
+    assert torch.equal(got[1], unflipped[1].flip(1))
+    assert torch.equal(got[0], unflipped[0])
+
+
+def test_augmentation_kernels_refuse_what_they_do_not_take(dev):
+    from omnihd_scenes_tpu_torch.kernels.crop_resize_flip import (
+        crop_resize_flip)
+    from omnihd_scenes_tpu_torch.kernels.photometric import photometric
+
+    imgs = torch.zeros((3, 8, 8, 3), device=dev)
+    with pytest.raises(ValueError, match='params'):
+        photometric(imgs, np.zeros((2, 13), np.float32))
+    bad = _photometric_rows(3, 0)
+    bad[0, 10:13] = (0, 0, 1)
+    with pytest.raises(ValueError, match='permutation'):
+        photometric(imgs, bad)
+    with pytest.raises(ValueError, match='records'):
+        crop_resize_flip(imgs, np.array([[4, 4, 0, 0, 8, 8, 0]] * 2))
+    with pytest.raises(ValueError, match='one output size'):
+        crop_resize_flip(imgs, np.array([[4, 4, 0, 0, 8, 8, 0],
+                                         [4, 4, 0, 0, 8, 8, 1],
+                                         [5, 4, 0, 0, 8, 8, 0]]))
+    with pytest.raises(ValueError, match='leaves nothing'):
+        crop_resize_flip(imgs, np.array([[4, 4, 9, 0, 12, 8, 0]] * 3))
+
+
+def test_prefetch_decodes_on_its_stream_as_on_the_current(dev, tmp_path):
+    """Device-decode training batches (photometric and crop-resize-flip
+    records) decoded by the prefetch thread on its side stream equal the
+    same batches decoded on the current stream; one IDCT, rectify,
+    photometric and crop_resize_flip launch a batch."""
+    from omnihd_scenes_tpu_torch.data.dataset import NewScenesDetDataset
+    from omnihd_scenes_tpu_torch.data.image_loading import (
+        HOST_KEYS, decode_camera_batch)
+    from omnihd_scenes_tpu_torch.data.loader import TrainLoader
+    from omnihd_scenes_tpu_torch.data.prefetch import prefetch
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
+                                                          generate)
+    from omnihd_scenes_tpu_torch.kernels import launch_counts
+    from omnihd_scenes_tpu_torch.train.loop import batch_to
+
+    root = str(tmp_path / 'synth')
+    generate(root, 'v1.0-mini', SyntheticConfig(
+        n_scenes=2, samples_per_scene=4, image_hw=(216, 384),
+        cam_distortion=(-0.05, 0.01, 1e-3, -1e-3, 0.0)),
+        image_device='cuda')
+    create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
+                           max_sweeps=0)
+
+    def loader():
+        ds = NewScenesDetDataset(
+            f'{root}/synth_infos_temporal_train.pkl', modality='camera',
+            use_camera=True, image_decode='device', seed=4, aug={
+                'photometric': 'per_view', 'rot_scale_flip_image': {},
+                'crop_resize_flip': {'resize': [96], 'crop': (16, 8, 176,
+                                                              104),
+                                     'rand_flip': True}})
+        return TrainLoader(ds, 2, seed=1)
+
+    want = [decode_camera_batch({
+        **batch_to({k: v for k, v in b.items() if k not in HOST_KEYS}, dev),
+        **{k: b[k] for k in HOST_KEYS}}, dev) for b in loader()]
+    before = launch_counts()
+    got = list(prefetch(iter(loader()), device=dev))
+    after = launch_counts()
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 2
+    for name in ('jpeg_idct', 'rectify', 'photometric', 'crop_resize_flip'):
+        assert after[name] - before[name] == 2, name
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert tuple(g['imgs'].shape) == (2, 6, 96, 160, 3)
+        for k in w:
+            assert torch.equal(g[k].cpu(), w[k].cpu()), k
