@@ -276,11 +276,17 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    (b) on one b4 batch of the dataroot (24 images): the host entropy
    decode's ms on 1 thread and on the default count (the CPU model and
    count printed), the coefficients' pinned upload, the IDCT kernel
-   against its plain version on the card (bit-equal) and the fused
+   against its plain version on the card (bit-equal; also its SASS
+   instructions a block, read by ``cuobjdump``, and the issue floor they
+   imply at the card's SM clock) and the fused
    rectify kernel against its plain version (bit-equal), each with its
    ms, byte bound and plain ms, nvJPEG's batched decode of the same 24
-   JPEGs (the IDCT's library yardstick) and one ``F.grid_sample`` on the
-   chain's own grid (rectify's); the main path in this process
+   JPEGs (the decode's yardstick: Huffman and another IDCT; no PyTorch
+   call computes islow, so the IDCT has no library time) and one
+   ``F.grid_sample`` on the chain's own grid (rectify's); rectify's setup
+   kernels (the packed map; the footprint and taps tables, both from one
+   launch a map and geometry) against their plain versions, timed from a
+   cold L2; the main path in this process
    (``run_inference_generic`` of ``configs/bevfusion.py``'s seeded model
    at b4 over the val set: one LSS launch, one batched decode, one IDCT
    and one rectify launch a batch, no nvJPEG decode) and
@@ -374,7 +380,9 @@ INT8_SMALL_TOL = 0.1
 INT8_HEAD_TOL = 0.15
 INT8_BOX_MATCH = 0.75
 CSRC = 'omnihd_scenes_tpu_torch/kernels/csrc/'
-# rectify's setup kernels (kernels/rectify.py), by kernels-line name.
+# rectify's setup kernels (kernels/rectify.py), by kernels-line name: one
+# row a table; the footprint and taps tables come from one launch
+# (geometry_tables), whose count both rows read.
 SETUP_KERNELS = ('rectify_pack_map', 'rectify_footprint', 'rectify_taps')
 KERNELS = ('lss_sample', 'qconv', 'bconv', 'rectify', 'jpeg_idct',
            'photometric', 'crop_resize_flip', 'nvjpeg')
@@ -3069,8 +3077,9 @@ def _kernel_launches():
             lss_sample_bev_backward, 'lss_sample_fields_in': lss_sample,
             'qconv': qconv3x3, 'bconv': bconv3x3, 'rectify': R.rectify,
             'rectify_pack_map': R.pack_map,
-            'rectify_footprint': R.footprint_table,
-            'rectify_taps': R.resize_taps, 'jpeg_idct': jpeg_idct,
+            # One launch makes both tables: one count, two rows.
+            'rectify_footprint': R.geometry_tables,
+            'rectify_taps': R.geometry_tables, 'jpeg_idct': jpeg_idct,
             'photometric': photometric, 'crop_resize_flip': crop_resize_flip}
 
 
@@ -4618,12 +4627,14 @@ def _decode_on_batch(dev, card, batch):
     """34b: one b4 batch of the dataroot (24 images), stage by stage: the
     host entropy decode on 1 thread and on the default count, the pinned
     upload of its coefficients, the IDCT kernel against its plain version
-    on the card (bit-equal; library: nvJPEG's batched decode of the same
-    JPEGs), the fused rectify kernel against its plain version on the
-    card (bit-equal; library: one F.grid_sample of the decoded f32 images
-    on the chain's own grid) -> the rectify and IDCT rows of the kernels
-    line (max |d|, ms, plain ms, bound ms, bound_by, library ms) and the
-    host stages' numbers."""
+    on the card (bit-equal; no library call computes islow; its SASS
+    instructions a block and their issue floor; nvJPEG's batched decode
+    of the same JPEGs timed as the decode's yardstick), the fused rectify
+    kernel against its plain version on the card (bit-equal; library: one
+    F.grid_sample of the decoded f32 images on the chain's own grid) ->
+    the rectify and IDCT rows of the kernels line (max |d|, ms, plain ms,
+    bound ms, bound_by, library ms) and the IDCT row's further keys (the
+    host stages, nvJPEG, the SASS count)."""
     import os
 
     import torch
@@ -4674,12 +4685,29 @@ def _decode_on_batch(dev, card, batch):
                          2, 1)
     idct_bound = JI.jpeg_idct_bytes(coefs) / HBM_BYTES_PER_S * 1e3
     nv_ms = cuda_ms(lambda: J.nvjpeg_decode_planes(blobs, dev), 3, 1)
-    print(f'[34b jpeg_idct] {coefs.numel() // 64} blocks: bit-equal to '
-          f'plain; {idct_ms:.4f} ms against {idct_bound:.4f} ms (bytes, '
+    n_blocks, n_chunks = coefs.numel() // 64, len(JI.idct_chunks(c.comps))
+    sass = _idct_sass(n_blocks, n_chunks)
+    # What the card's memory gives on the same bytes: one device copy that
+    # reads and writes half of them each.
+    src = torch.empty(JI.jpeg_idct_bytes(coefs) // 2, dtype=torch.uint8,
+                      device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), 20, 3)
+    del src, dst
+    print(f'[34b jpeg_idct] {n_blocks} blocks in {n_chunks} chunks, one '
+          f'launch: bit-equal to plain; {idct_ms:.4f} ms against '
+          f'{idct_bound:.4f} ms (bytes, '
           f'{JI.jpeg_idct_bytes(coefs) / 1e6:.1f} MB; share '
-          f'{idct_bound / idct_ms:.3f}), plain {idct_plain:.2f} ms; nvJPEG\'s '
-          f'batched decode of the same JPEGs (Huffman + IDCT) {nv_ms:.4f} ms '
-          f'({card})')
+          f'{idct_bound / idct_ms:.3f}), plain {idct_plain:.2f} ms; no '
+          f'library call computes islow; nvJPEG\'s batched decode of the '
+          f'same JPEGs (Huffman + its own IDCT) {nv_ms:.4f} ms; SASS: '
+          f'{sass["sass_kernel"]} instructions in the kernel, '
+          f'{sass["sass_block"]} a block (a lane\'s, first coefficient load '
+          f'to last pixel store), {sass["warp_instructions_per_block"]:.2f} '
+          f'warp instructions a block, issue floor '
+          f'{sass["issue_floor_ms"]:.4f} ms at {sass["sm_clock_mhz"]} MHz x '
+          f'{sass["sms"]} SMs x 4; a device copy of the same bytes '
+          f'{copy_ms:.4f} ms ({card})')
 
     planes = J.planes_of(buf, c)
     got_planes, (maps, u8_hws, out_hws, target, mean, std, _) = \
@@ -4724,11 +4752,56 @@ def _decode_on_batch(dev, card, batch):
                 host_threads=threads, host_cpus=os.cpu_count(),
                 host_cpu=_cpu_model(), upload_ms=upload,
                 upload_bytes=coef_bytes, jpeg_bytes=jpeg_bytes,
-                images=len(blobs))
+                images=len(blobs), chunks=n_chunks, nvjpeg_decode_ms=nv_ms,
+                copy_same_bytes_ms=copy_ms, **sass)
     return ((err, ms, plain_ms, bound_ms, 'bytes', lib_ms),
-            (idct_err, idct_ms, idct_plain, idct_bound, 'bytes', nv_ms), host,
+            (idct_err, idct_ms, idct_plain, idct_bound, 'bytes', None), host,
             dict(call_ms=call_ms, layout_ms=layouts,
                  bound_ms_per_camera_maps=per_camera_bound), setup)
+
+
+def _idct_sass(n_blocks, n_chunks):
+    """The IDCT kernel's SASS (``cuobjdump -sass`` of the built library):
+    its instructions, those a lane runs for one block (the straight-line
+    code from the first 16-byte shared load of a coefficient row to the
+    last 8-byte pixel store, unrolled, one block a lane), the warp
+    instructions a block that makes on this batch (a warp runs a chunk),
+    and the issue floor they imply: warp instructions over 4 issue slots
+    x the SMs x the SM clock ``nvidia-smi`` reads as its maximum."""
+    import os
+    import re
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels._build import (library_path,
+                                                         nvcc_path)
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), 'cuobjdump')
+    dump = subprocess.run([tool, '-sass', str(library_path('jpeg_idct'))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    section = next(sec for sec in re.split(r'\n\s*Function : ', dump)[1:]
+                   if 'jpeg_idct_kernel' in sec.split('\n', 1)[0])
+    code = [(int(a, 16), text.strip()) for a, text in re.findall(
+        r'/\*([0-9a-f]{4,})\*/\s+([^;]*);', section)]
+    code = [(a, t) for a, t in code if not t.startswith('NOP')]
+
+    def op(t):
+        return re.sub(r'^@!?U?P[T0-9]+\s+', '', t).split(' ')[0]
+
+    first = min(a for a, t in code if op(t) == 'LDS.128')
+    last = max(a for a, t in code if op(t).startswith('STG.E.64'))
+    block = sum(first <= a <= last for a, _ in code)
+    mhz = int(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warp = n_chunks * block
+    return dict(sass_kernel=len(code), sass_block=block,
+                warp_instructions_per_block=warp / n_blocks,
+                sm_clock_mhz=mhz, sms=sms,
+                issue_floor_ms=warp / (4 * sms * mhz * 1e6) * 1e3)
 
 
 def _rectify_layouts(dev, card, batch, planes, maps, args, plain):
@@ -4782,9 +4855,12 @@ def _rectify_layouts(dev, card, batch, planes, maps, args, plain):
 
 def _rectify_setup(dev, card, planes, maps, args):
     """34b: rectify's setup kernels on the batch's map and geometries,
-    each against its plain version on the card (bit-equal), timed at the
-    full-size cameras' geometry from a cold L2 -> their rows of the kernels line (max
-    |d|, ms, plain ms, bound ms, bound_by, library ms)."""
+    each table against its plain version on the card (bit-equal), the
+    footprint and taps tables from one launch a (map, geometry), timed at
+    the full-size cameras' geometry from a cold L2 -> their rows of the
+    kernels line (max |d|, ms, plain ms, bound ms, bound_by, library ms):
+    the footprint's and the taps' rows both carry that one launch's time,
+    bound (both tables and the map entries read) and plain time."""
     import torch
 
     from omnihd_scenes_tpu_torch.kernels import rectify as R
@@ -4804,33 +4880,32 @@ def _rectify_setup(dev, card, planes, maps, args):
     distinct = {id(m): m.fixed for m in maps}.values()
     e_pack = max(diff(R.pack_map(f), R.pack_map_plain(f)) for f in distinct)
     pairs = {(id(m), g): (m.fixed, g) for m, g in zip(maps, geos)}.values()
-    e_foot = max(diff(R.footprint_table(f, g, target),
-                      R.footprint_table_plain(f, g, target))
-                 for f, g in pairs)
-    e_taps = max(diff(a, b) for g in set(geos)
-                 for a, b in zip(R.resize_taps(g, dev),
-                                 R.resize_taps_plain(g, dev)))
+    e_foot = e_taps = 0.0
+    for f, g in pairs:
+        before = R.geometry_tables.launches
+        got = R.geometry_tables(f, g, target)
+        check(R.geometry_tables.launches == before + 1,
+              'geometry_tables made more than one launch')
+        want = R.geometry_tables_plain(f, g, target)
+        e_foot = max(e_foot, diff(got[0], want[0]))
+        e_taps = max(e_taps, diff(got[1], want[1]), diff(got[2], want[2]))
     check(e_pack == e_foot == e_taps == 0,
           f'rectify setup kernels != plain (max |d| pack {e_pack}, '
           f'footprint {e_foot}, taps {e_taps})')
-    table = R.footprint_table(fixed, geo, target)
+    table, *taps = R.geometry_tables(fixed, geo, target)
     read = torch.zeros(fixed.shape[:2], dtype=torch.bool)
     for a, b, c, d in table[0::2].tolist():
         read[a:b + 1, c:d + 1] = True
-    taps = R.resize_taps(geo, dev)
-    nbytes = {'rectify_pack_map': fixed.numel() * 4 + fixed.numel() * 2,
-              'rectify_footprint': int(read.sum()) * 8 + table.numel() * 4,
-              'rectify_taps': sum(t.numel() * 4 for t in taps)}
+    tables_bytes = (int(read.sum()) * 8 + table.numel() * 4
+                    + sum(t.numel() * 4 for t in taps))
     runs = {'rectify_pack_map': (lambda: R.pack_map(fixed),
                                  lambda: R.pack_map_plain(fixed),
-                                 'pack_map_kernel', e_pack),
-            'rectify_footprint': (
-                lambda: R.footprint_table(fixed, geo, target),
-                lambda: R.footprint_table_plain(fixed, geo, target),
-                'footprint_kernel', e_foot),
-            'rectify_taps': (lambda: R.resize_taps(geo, dev),
-                             lambda: R.resize_taps_plain(geo, dev),
-                             'taps_kernel', e_taps)}
+                                 'pack_map_kernel',
+                                 fixed.numel() * 4 + fixed.numel() * 2),
+            'geometry_tables': (
+                lambda: R.geometry_tables(fixed, geo, target),
+                lambda: R.geometry_tables_plain(fixed, geo, target),
+                'geometry_tables_kernel', tables_bytes)}
     # Each timed launch starts with its inputs out of the 50 MB L2, as at
     # a map's first use: a 256 MB buffer is written before it.
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
@@ -4841,17 +4916,36 @@ def _rectify_setup(dev, card, planes, maps, args):
             fn()
         return run
 
-    rows = {}
-    for name, (fn, plain_fn, key, e) in runs.items():
+    def emptied(fn):
+        def run():
+            flush.sum()
+            fn()
+        return run
+
+    timed = {}
+    for name, (fn, plain_fn, key, nbytes) in runs.items():
         t = kernel_ms(cold(fn), key, 20, 3)
         pt = cuda_ms(plain_fn, 2, 1)
-        bt = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        rows[name] = (e, t, pt, bt, 'bytes', None)
+        bt = nbytes / HBM_BYTES_PER_S * 1e3
+        timed[name] = (t, pt, bt)
+        # The cold L2 above holds the buffer's dirty lines, which the
+        # launch's reads must write back; beside it, the same launch after
+        # the buffer was read (clean lines) and warm.
+        t_read, t_warm = (kernel_ms(emptied(fn), key, 20, 3),
+                          kernel_ms(fn, key, 20, 3))
         print(f'[34b {name}] bit-equal to plain on the batch\'s '
-              f'{len(distinct)} map(s) and {len(set(geos))} geometries; '
-              f'{t:.4f} ms a launch (cold L2) against {bt:.4f} ms (bytes, '
-              f'{nbytes[name] / 1e6:.2f} MB), plain {pt:.2f} ms ({card})')
-    return rows
+              f'{len(distinct)} map(s) and {len(set(geos))} geometries'
+              + ('' if name == 'rectify_pack_map' else
+                 ' (footprint and taps tables, one launch a map geometry)')
+              + f'; {t:.4f} ms a launch (cold L2) against {bt:.4f} ms '
+              f'(bytes, {nbytes / 1e6:.3f} MB), {t_read:.4f} after a read '
+              f'of 256 MB, {t_warm:.4f} warm; plain {pt:.2f} ms ({card})')
+    return {'rectify_pack_map': (e_pack, *timed['rectify_pack_map'],
+                                 'bytes', None),
+            'rectify_footprint': (e_foot, *timed['geometry_tables'],
+                                  'bytes', None),
+            'rectify_taps': (e_taps, *timed['geometry_tables'], 'bytes',
+                             None)}
 
 
 def _host_syncs(fn):
@@ -4953,6 +5047,45 @@ def _nms_agreement(model, mtype, batch, dev):
     return rows
 
 
+def _write_camera_dataroot(tmp):
+    """Phase 34's synthetic dataroot (1080p JPEGs written by nvJPEG, lens
+    distortion) and its infos under ``tmp`` -> its path."""
+    import os
+
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
+                                                          generate)
+
+    root = os.path.join(tmp, 'synth')
+    generate(root, 'v1.0-mini', SyntheticConfig(**CAMERA_SYNTH),
+             images=True, image_device='cuda')
+    create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
+                           max_sweeps=0)
+    return root
+
+
+def phase_decode_kernels(dev, card):
+    """34b alone, for a short call: phase 34's dataroot, one b4 val batch
+    of it and the decode's kernels on that batch (``_decode_on_batch``)
+    -> its rows, as phase 34 takes them."""
+    import tempfile
+
+    from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+    from omnihd_scenes_tpu_torch.train.config import Config
+    from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
+
+    with _blocked_modules('cv2', 'PIL'), \
+            tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.fromfile(BEVFUSION_CONFIG)
+        cfg.merge_from_options(_camera_options(_write_camera_dataroot(tmp),
+                                               BATCH))
+        dataset = build_dataset_single(cfg.data.val, 'det',
+                                       image_decode='device')
+        batch, _ = next(iter(EvalLoader(dataset, BATCH)))
+        return _decode_on_batch(dev, card, batch)
+
+
 def phase_camera_dataroot(dev, card):
     """34: camera dataroots on the card, with cv2 and PIL blocked."""
     import math
@@ -4965,10 +5098,6 @@ def phase_camera_dataroot(dev, card):
     from omnihd_scenes_tpu_torch.data.jpeg import (decode_jpeg_planes,
                                                    nvjpeg_decode_planes)
     from omnihd_scenes_tpu_torch.data.loader import EvalLoader
-    from omnihd_scenes_tpu_torch.devkit.converter import (
-        create_newscenes_infos)
-    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
-                                                          generate)
     from omnihd_scenes_tpu_torch.data.image_loading import (
         decode_camera_batch)
     from omnihd_scenes_tpu_torch.eval.detection.config import config_factory
@@ -4983,11 +5112,7 @@ def phase_camera_dataroot(dev, card):
     with _blocked_modules('cv2', 'PIL'), \
             tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        root = os.path.join(tmp, 'synth')
-        generate(root, 'v1.0-mini', SyntheticConfig(**CAMERA_SYNTH),
-                 images=True, image_device='cuda')
-        create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
-                               max_sweeps=0)
+        root = _write_camera_dataroot(tmp)
         gen_s = time.perf_counter() - t0
         jpeg_max = _fixture_exact(dev)
 
@@ -5669,14 +5794,14 @@ def main():
             # 34's main path (1 a batch).
             'rectify': ('rectify', camera['launches']['rectify'],
                         *camera['rectify']),
-            # jpeg_idct: the same batch's coefficients to planes (library:
-            # nvJPEG's batched decode of the same 24 JPEGs, Huffman
-            # included; no path calls it); 1 launch a batch.
+            # jpeg_idct: the same batch's coefficients to planes (no
+            # library call computes islow); 1 launch a batch.
             'jpeg_idct': ('jpeg_idct', camera['launches']['jpeg_idct'],
                           *camera['idct']),
             # rectify's setup kernels at the batch's shapes (the map, the
             # full-size cameras' geometry); launches of phase 34's main
-            # path (1 a map, 1 a map geometry, at their first use).
+            # path (1 a map, 1 a map geometry for both tables, at their
+            # first use).
             **{name: ('rectify', camera['launches'][name],
                       *camera['setup'][name]) for name in SETUP_KERNELS},
             # The training augmentations (phase 35a: one decoded b4 batch,
@@ -5735,7 +5860,16 @@ def main():
     for name in _kernel_launches():
         extra[name]['launches_camera_train'] = cam_train['launches'][name]
     extra['rectify'].update(camera['rectify_extra'])
-    extra['jpeg_idct']['library'] = 'nvJPEG nvjpegDecodeBatched'
+    # No PyTorch call computes libjpeg's islow: the IDCT row has no
+    # library time; nvJPEG's batched decode (Huffman + its own IDCT) is
+    # the decode's yardstick, under its own key.
+    extra['jpeg_idct']['library'] = 'none'
+    extra['jpeg_idct']['nvjpeg_decode'] = ('nvJPEG nvjpegDecodeBatched of '
+                                           'the same JPEGs')
+    for name in ('rectify_footprint', 'rectify_taps'):
+        extra[name]['one_launch'] = (
+            'geometry_tables_kernel makes the footprint and taps tables: '
+            'launches, ms, plain_ms and bound_ms are that launch\'s')
     extra['jpeg_idct']['fixture_max_abs_err'] = camera['jpeg_max']
     extra['jpeg_idct'].update(camera['host'])
     extra['jpeg_idct']['launches_jpeg_decode'] = \

@@ -20,8 +20,9 @@ def launch_counts() -> dict:
     return {'lss_sample_bev': lss_sample_bev.launches,
             'qconv3x3': qconv3x3.launches, 'rectify': R.rectify.launches,
             'rectify_pack_map': R.pack_map.launches,
-            'rectify_footprint': R.footprint_table.launches,
-            'rectify_taps': R.resize_taps.launches,
+            # Both geometry tables come from one launch: one count.
+            'rectify_footprint': R.geometry_tables.launches,
+            'rectify_taps': R.geometry_tables.launches,
             'jpeg_idct': jpeg_idct.launches,
             'photometric': photometric.launches,
             'crop_resize_flip': crop_resize_flip.launches,

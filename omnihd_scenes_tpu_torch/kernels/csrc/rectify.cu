@@ -33,8 +33,8 @@
 //      8-byte copies: the Y samples of the box of I that the tile's taps
 //      reach, the chroma samples their upsampling reads, and the packed
 //      map entries of the U pixels the tile reads.  The box comes from the
-//      calibration's footprint table (footprint_kernel, run once per map
-//      and geometry and kept with the map, kernels/rectify.py:DeviceMap),
+//      calibration's footprint table (geometry_tables_kernel, run once per
+//      map and geometry and kept with the map, kernels/rectify.py:DeviceMap),
 //      so the copies start at once;
 //   2. it decodes the box, 2x2 pixels a thread at a time, to packed BGR
 //      (the quad's chroma from one 3x3 patch of each plane);
@@ -804,21 +804,50 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-// The geometry tables of one image's content tiles (desc: its descriptor
-// row): per tile its U rectangle (first row, last row, first column, last
+// The geometry tables of one image geometry (desc: its descriptor row),
+// in one launch.  CTAs [0, n_tiles) make the footprint table: per
+// content tile its U rectangle (first row, last row, first column, last
 // column) and its footprint, the least and largest map row and column
 // (whole pixels) over that rectangle (the rectangle itself without a
 // map), (min y, max y, min x, max x), with min x kFarFootprint where a map
 // entry lies 1024 px or more from its pixel (the packed map cannot hold
-// it: the tile then reads the planes directly).
-__global__ void __launch_bounds__(kThreads)
-    footprint_kernel(const long long* __restrict__ desc, int th, int tw,
-                     int4* __restrict__ out) {
-  __shared__ int box[5];
-  const int tid = threadIdx.x;
-  if (tid < 5) box[tid] = tid == 4 ? 0 : (tid & 1) ? -(1 << 30) : (1 << 30);
-  __syncthreads();
+// it: the tile then reads the planes directly).  The CTAs after them write
+// the f32 resize's taps of every output row (then every column) as (s0,
+// s1, f's bits, 0), and 31 more past the last (copies of it), so a tile
+// reads 32 without a bound.
+// Bound: bytes, the map entries the tiles read and the tables written.
+// The descriptor row comes by value (no dependent load before the walk);
+// a tile's walk keeps kMapInFlight independent 8-byte map loads in flight
+// a thread, at 64 registers so that 4 CTAs an SM take a 1080p camera's
+// 510 tiles in one wave; its min / max reduce by warp (redux.sync), then
+// one shared write a warp.
+constexpr int kMapInFlight = 8;
+
+struct GeometryRow {
+  long long w[kDescWords];
+};
+
+__global__ void __launch_bounds__(kThreads, 4)
+    geometry_tables_kernel(const __grid_constant__ GeometryRow row, int th,
+                           int tw, int n_tiles, int4* __restrict__ out,
+                           int4* __restrict__ rows_out,
+                           int4* __restrict__ cols_out) {
+  __shared__ int box[kWarpsPerCta][5];
+  const long long* desc = row.w;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Img m = load_img(desc);
+  if (static_cast<int>(blockIdx.x) >= n_tiles) {
+    const int i = (blockIdx.x - n_tiles) * kThreads + tid;
+    const int nr = m.oh + 31, nc = m.ow + 31;
+    if (i < nr) {
+      const Tap t = axis_tap(min(i, m.oh - 1), m.fsy, m.u8h);
+      rows_out[i] = make_int4(t.s0, t.s1, __float_as_int(t.f), 0);
+    } else if (i - nr < nc) {
+      const Tap t = axis_tap(min(i - nr, m.ow - 1), m.fsx, m.u8w);
+      cols_out[i - nr] = make_int4(t.s0, t.s1, __float_as_int(t.f), 0);
+    }
+    return;
+  }
   const int rows = static_cast<int>(desc[22]) * kWarpsPerCta;
   const TileRect tr = tile_rect(m, blockIdx.x, rows, th, tw);
   if (!m.map) {
@@ -834,45 +863,55 @@ __global__ void __launch_bounds__(kThreads)
   bool far = false;
   const int2* mp = reinterpret_cast<const int2*>(m.map);
   Walk k(tid, uw);
-  for (int i = tid; i < un; i += kThreads, k.next()) {
-    const int2 e =
-        __ldg(mp + static_cast<long long>(tr.uy0 + k.r) * m.w + tr.ux0 + k.c);
-    const int ey = e.y >> 5, ex = e.x >> 5;
-    lo_y = min(lo_y, ey);
-    hi_y = max(hi_y, ey);
-    lo_x = min(lo_x, ex);
-    hi_x = max(hi_x, ex);
-    const int dy = ey - (tr.uy0 + k.r), dx = ex - (tr.ux0 + k.c);
-    far |= dy < -1024 || dy > 1023 || dx < -1024 || dx > 1023;
+  for (int i = tid; i < un; i += kMapInFlight * kThreads) {
+    int2 e[kMapInFlight];
+    int at[kMapInFlight];                    // row << 16 | column in the rectangle
+#pragma unroll
+    for (int j = 0; j < kMapInFlight; ++j) {
+      at[j] = k.r << 16 | k.c;
+      if (i + j * kThreads < un)
+        e[j] = __ldg(mp + static_cast<long long>(tr.uy0 + k.r) * m.w +
+                     tr.ux0 + k.c);
+      k.next();
+    }
+#pragma unroll
+    for (int j = 0; j < kMapInFlight; ++j) {
+      if (i + j * kThreads >= un) break;
+      const int ey = e[j].y >> 5, ex = e[j].x >> 5;
+      lo_y = min(lo_y, ey);
+      hi_y = max(hi_y, ey);
+      lo_x = min(lo_x, ex);
+      hi_x = max(hi_x, ex);
+      const int dy = ey - (tr.uy0 + (at[j] >> 16)),
+                dx = ex - (tr.ux0 + (at[j] & 0xFFFF));
+      far |= dy < -1024 || dy > 1023 || dx < -1024 || dx > 1023;
+    }
   }
-  atomicMin(&box[0], lo_y);
-  atomicMax(&box[1], hi_y);
-  atomicMin(&box[2], lo_x);
-  atomicMax(&box[3], hi_x);
-  if (far) box[4] = 1;
+  lo_y = __reduce_min_sync(0xFFFFFFFFu, lo_y);
+  hi_y = __reduce_max_sync(0xFFFFFFFFu, hi_y);
+  lo_x = __reduce_min_sync(0xFFFFFFFFu, lo_x);
+  hi_x = __reduce_max_sync(0xFFFFFFFFu, hi_x);
+  far = __any_sync(0xFFFFFFFFu, far);
+  if (lane == 0) {
+    box[warp][0] = lo_y;
+    box[warp][1] = hi_y;
+    box[warp][2] = lo_x;
+    box[warp][3] = hi_x;
+    box[warp][4] = far;
+  }
   __syncthreads();
   if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < kWarpsPerCta; ++w) {
+      lo_y = min(lo_y, box[w][0]);
+      hi_y = max(hi_y, box[w][1]);
+      lo_x = min(lo_x, box[w][2]);
+      hi_x = max(hi_x, box[w][3]);
+      far |= box[w][4] != 0;
+    }
     out[2 * blockIdx.x] = make_int4(tr.uy0, tr.uy1, tr.ux0, tr.ux1);
     out[2 * blockIdx.x + 1] =
-        make_int4(box[0], box[1], box[4] ? kFarFootprint : box[2], box[3]);
-  }
-}
-
-// The f32 resize's taps of every output row (then every column) of one
-// image, as (s0, s1, f's bits, 0), and 31 more past the last (copies of
-// it), so a tile reads 32 without a bound.
-__global__ void taps_kernel(const long long* __restrict__ desc,
-                            int4* __restrict__ rows_out,
-                            int4* __restrict__ cols_out) {
-  const Img m = load_img(desc);
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  const int nr = m.oh + 31, nc = m.ow + 31;
-  if (i < nr) {
-    const Tap t = axis_tap(min(i, m.oh - 1), m.fsy, m.u8h);
-    rows_out[i] = make_int4(t.s0, t.s1, __float_as_int(t.f), 0);
-  } else if (i - nr < nc) {
-    const Tap t = axis_tap(min(i - nr, m.ow - 1), m.fsx, m.u8w);
-    cols_out[i - nr] = make_int4(t.s0, t.s1, __float_as_int(t.f), 0);
+        make_int4(lo_y, hi_y, far ? kFarFootprint : lo_x, hi_x);
   }
 }
 
@@ -880,7 +919,7 @@ __global__ void taps_kernel(const long long* __restrict__ desc,
 // into 32 bits for the stage: its whole-pixel displacement from its own
 // pixel (x then y, 11 bits each, two's complement) and its fractions (x
 // then y, 5 bits each).  Entries 1024 px or more away wrap; their tiles
-// are marked far by footprint_kernel.
+// are marked far by geometry_tables_kernel.
 __global__ void pack_map_kernel(const int2* __restrict__ map, int h, int w,
                                 unsigned* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
@@ -902,10 +941,10 @@ __global__ void pack_map_kernel(const int2* __restrict__ map, int h, int w,
 // of images in consecutive rows that share a geometry and a map.  A row's
 // words: 0-21 the image (Img); 22 its tile height in warps' rows; 23 bits
 // 0-7 the Y plane's, 8-15 the chroma planes' copy alignment (16, 8 or 1
-// bytes); 24 its packed map (pack_map_kernel) or 0; 25 its geometry table
-// (footprint_kernel); 26, 27 its f32 resize taps (taps_kernel, 31 entries
-// past the last); 28 its content tiles, the rest of its tiles zero the
-// canvas around them.
+// bytes); 24 its packed map (pack_map_kernel) or 0; 25 its geometry
+// table, 26, 27 its f32 resize taps (31 entries past the last), both from
+// one geometry_tables_kernel launch; 28 its content tiles, the rest of
+// its tiles zero the canvas around them.
 // norm_lut (3, 256) f32: (v - mean[c]) / std[c].  Every image is written
 // to a (th, tw, 3) f32 canvas.  Returns a cudaError_t (0 on success).
 extern "C" int rectify_launch(const long long* desc, int n_img, int n_groups,
@@ -923,27 +962,24 @@ extern "C" int rectify_launch(const long long* desc, int n_img, int n_groups,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The footprint table of one image's content tiles (desc: its geometry
-// row on the card, kernels/rectify.py:_geometry_row): `table` (n_tiles, 2)
-// int4 (footprint_kernel).  Returns a cudaError_t (0 on success).
-extern "C" int rectify_footprint_launch(const long long* desc, int th, int tw,
-                                        int n_tiles, void* table,
-                                        void* stream) {
-  if (n_tiles <= 0) return 0;
-  footprint_kernel<<<n_tiles, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      desc, th, tw, static_cast<int4*>(table));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The f32 resize's taps of one image (desc as above): `row_taps` (oh + 31)
-// and `col_taps` (ow + 31) int4 (taps_kernel).  Returns a cudaError_t.
-extern "C" int rectify_taps_launch(const long long* desc, int oh, int ow,
-                                   void* row_taps, void* col_taps,
-                                   void* stream) {
-  taps_kernel<<<(oh + ow + 62 + 255) / 256, 256, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      desc, static_cast<int4*>(row_taps), static_cast<int4*>(col_taps));
+// The geometry tables of one image geometry (row: its geometry row in
+// host memory, kernels/rectify.py:_geometry_row, passed to the kernel by
+// value), in one launch: `table` (n_tiles, 2) int4, `row_taps` (oh + 31)
+// and `col_taps` (ow + 31) int4 (geometry_tables_kernel).  Returns a
+// cudaError_t (0 on success).
+extern "C" int rectify_tables_launch(const long long* row, int th, int tw,
+                                     int n_tiles, int oh, int ow, void* table,
+                                     void* row_taps, void* col_taps,
+                                     void* stream) {
+  if (n_tiles < 0 || oh <= 0 || ow <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GeometryRow r;
+  for (int i = 0; i < kDescWords; ++i) r.w[i] = row[i];
+  const int taps_ctas = (oh + ow + 62 + kThreads - 1) / kThreads;
+  geometry_tables_kernel<<<n_tiles + taps_ctas, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      r, th, tw, n_tiles, static_cast<int4*>(table),
+      static_cast<int4*>(row_taps), static_cast<int4*>(col_taps));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,6 +22,11 @@ blocks ``[first, first + rows * cols)`` of the int16 buffer (64 a block,
 natural order, row-major on the block grid), and its plane, ``rows * 8``
 by ``cols * 8`` u8, is the same byte range of the output.
 
+The kernel walks a table of chunks (:func:`idct_chunks`): each block
+row of each component cut into runs of up to :data:`CHUNK_BLOCKS`
+consecutive blocks, made here in NumPy and uploaded with the component
+rows, so no thread of the card searches or divides to find its block.
+
 The JAX package has no such kernel (``cv2.imread`` runs this on its
 host); bound: bytes, the coefficients read and the planes written once.
 """
@@ -104,14 +109,53 @@ def _rows(comps):
     return [tuple(int(v) for v in r[:3]) for r in np.asarray(comps)]
 
 
+# Blocks a chunk: one warp's lanes, one a block.  csrc/jpeg_idct.cu's
+# kChunk holds the same number, and its launch refuses any other.
+CHUNK_BLOCKS = 32
+
+
+def idct_chunks(comps) -> np.ndarray:
+    """The kernel's work list: ``(n_chunks, 5)`` int32 rows (first block,
+    component, block row, first block column, count), each a run of up
+    to :data:`CHUNK_BLOCKS` consecutive blocks of one block row of one
+    component, in buffer order (``comps`` as :func:`jpeg_idct` takes
+    it)."""
+    k = CHUNK_BLOCKS
+    table = np.asarray(comps, np.int64)[:, :3]
+    rows, cols = table[:, 1], table[:, 2]
+    per_row = -(-cols // k)
+    n_k = rows * per_row
+    comp = np.repeat(np.arange(len(table)), n_k)
+    j = np.arange(int(n_k.sum())) - np.repeat(np.cumsum(n_k) - n_k, n_k)
+    row, col = j // per_row[comp], j % per_row[comp] * k
+    count = np.minimum(k, cols[comp] - col)
+    first = table[comp, 0] + row * cols[comp] + col
+    return np.stack([first, comp, row, col, count], 1).astype(np.int32)
+
+
+def idct_descriptor(table: np.ndarray):
+    """What the kernel reads besides the coefficients and quant rows, as
+    one int32 CPU tensor: the component rows ``(n_comp, 4)`` (first
+    block, block rows, block columns, 0), then :func:`idct_chunks`.
+    Returns it with the chunk table's offset in bytes and its row
+    count."""
+    rows = np.zeros((len(table), 4), np.int32)
+    rows[:, :3] = table[:, :3]
+    chunks = idct_chunks(table)
+    desc = torch.from_numpy(np.concatenate([rows.reshape(-1),
+                                            chunks.reshape(-1)]))
+    return desc, rows.nbytes, len(chunks)
+
+
 def jpeg_idct(coefs: torch.Tensor, quant: torch.Tensor,
               comps) -> torch.Tensor:
     """u8 planes of a batch's int16 DCT coefficients (``(total,)``, see
     the module's layout), ``quant`` (n_comp, 64) int32 tables in natural
     order, ``comps`` (n_comp, >= 3) int64 rows (first block, block rows,
     block columns) -> ``(total,)`` u8.  CPU tensors go to
-    :func:`jpeg_idct_plain`; CUDA tensors launch the kernel once or
-    raise."""
+    :func:`jpeg_idct_plain`; CUDA tensors launch the kernel once (on the
+    descriptor of :func:`idct_descriptor`, built and uploaded pinned on
+    every call) or raise."""
     table = np.ascontiguousarray(np.asarray(comps, np.int64)[:, :3])
     n = table.shape[0]
     if coefs.dtype != torch.int16 or coefs.dim() != 1:
@@ -126,6 +170,8 @@ def jpeg_idct(coefs: torch.Tensor, quant: torch.Tensor,
             or ends[-1] * 64 != coefs.numel() or np.any(table[:, 1:] <= 0):
         raise ValueError('jpeg_idct: the components must tile the '
                          'coefficient buffer in order')
+    if ends[-1] >= 1 << 31:
+        raise ValueError('jpeg_idct: at most 2^31 - 1 blocks a call')
     dev = coefs.device
     if dev.type == 'cpu':
         return jpeg_idct_plain(coefs, quant, table)
@@ -135,13 +181,13 @@ def jpeg_idct(coefs: torch.Tensor, quant: torch.Tensor,
             and coefs.data_ptr() % 16 == 0 and quant.data_ptr() % 16 == 0):
         raise ValueError('jpeg_idct: contiguous, 16-byte aligned buffers')
     out = torch.empty(coefs.shape, dtype=torch.uint8, device=dev)
-    desc = np.zeros((n, 4), np.int64)
-    desc[:, :3] = table
-    desc = torch.from_numpy(desc).pin_memory().to(dev, non_blocking=True)
+    desc, chunks_at, n_chunks = idct_descriptor(table)
+    desc = desc.pin_memory().to(dev, non_blocking=True)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(coefs.data_ptr(), quant.data_ptr(), desc.data_ptr(),
-                        n, int(ends[-1]), out.data_ptr(), stream)
+                        desc.data_ptr() + chunks_at, n_chunks, CHUNK_BLOCKS,
+                        int(ends[-1]), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f'jpeg_idct kernel launch failed: CUDA error {err}')
     jpeg_idct.launches += 1
@@ -153,7 +199,8 @@ jpeg_idct.launches = 0
 
 def jpeg_idct_bytes(coefs: torch.Tensor) -> int:
     """Bytes the IDCT must move: the int16 coefficients in, the u8
-    planes out (the tables are a few hundred bytes)."""
+    planes out (the quant rows and the chunk table, 20 bytes a chunk of
+    up to 32 blocks, are under 0.4 % of that and left out)."""
     return int(coefs.numel()) * 3
 
 
@@ -163,8 +210,15 @@ def _kernel():
     signature."""
     from omnihd_scenes_tpu_torch.kernels._build import load_library
 
-    fn = load_library('jpeg_idct').jpeg_idct_launch
+    return bind_launch(load_library('jpeg_idct'))
+
+
+def bind_launch(lib: ctypes.CDLL):
+    """``jpeg_idct_launch`` of a built ``csrc/jpeg_idct.cu``, with its C
+    signature."""
+    fn = lib.jpeg_idct_launch
     ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_longlong, ptr, ptr]
+    fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ptr, ptr]
     fn.restype = ctypes.c_int
     return fn

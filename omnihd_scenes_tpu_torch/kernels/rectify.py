@@ -52,13 +52,13 @@ Bound: the bytes (each plane and each distinct map read once, the output
 written once) over the card's memory rate.  The kernel stages, per tile
 of output, the decoded pixels and map entries the tile reads in shared
 memory and computes each output pixel from them (``csrc/rectify.cu``).
-What it reads besides the planes comes from three setup kernels of the
+What it reads besides the planes comes from two setup kernels of the
 same file, each with its wrapper, plain version and launch count: the
 map's packed form (:func:`pack_map`, once per map, when a
-:class:`DeviceMap` is made), each content tile's source rectangle and
-its footprint on the map (:func:`footprint_table`) and the f32 resize's
-taps (:func:`resize_taps`), both once per map and image geometry, kept
-in the :class:`DeviceMap` (or by geometry for images without a map).
+:class:`DeviceMap` is made), and in one launch per map and image
+geometry (:func:`geometry_tables`) each content tile's source rectangle
+and its footprint on the map and the f32 resize's taps, kept in the
+:class:`DeviceMap` (or by geometry for images without a map).
 ``data/image_loading.py:_device_map`` keeps one :class:`DeviceMap` per
 calibration, so on the camera feed they run at a map's first use.
 Nothing here replaces a TPU kernel: the JAX package runs this chain in
@@ -411,18 +411,14 @@ def _f64(bits: int) -> float:
 
 def _geometry_row(geometry, map_ptr: int = 0) -> list:
     """A descriptor row (``csrc/rectify.cu`` ``Img``) of an image geometry
-    (:func:`_geometry`) without planes: the words the setup kernels read
-    (sizes, the map, scales, tile height, content tiles)."""
+    (:func:`_geometry`) without planes: the words
+    ``geometry_tables_kernel`` reads (sizes, the map, scales, tile height,
+    content tiles)."""
     sizes, scales, r, content, _ = geometry
     row = [0] * 30
     row[5:10], row[10], row[11:21] = sizes, map_ptr, scales
     row[22], row[28] = r, content
     return row
-
-
-def _upload_row(row: list, device) -> torch.Tensor:
-    return torch.tensor([row], dtype=torch.int64).pin_memory().to(
-        device, non_blocking=True)
 
 
 def _raise_on(err: int, what: str):
@@ -448,7 +444,7 @@ def pack_map(fixed: torch.Tensor) -> torch.Tensor:
     """The packed form (h, w) int32 of an undistortion map (h, w, 2) int32
     in 1/32 px, as the rectify kernel stages it: each entry's whole-pixel
     displacement from its own pixel (x, then y, 11 bits each, two's
-    complement: 1024 px or more wraps, and :func:`footprint_table` marks
+    complement: 1024 px or more wraps, and :func:`geometry_tables` marks
     such tiles) and its fractions (x, then y, 5 bits each).  CPU tensors
     go to :func:`pack_map_plain`; CUDA tensors launch ``pack_map_kernel``
     once or raise."""
@@ -471,8 +467,8 @@ def pack_map(fixed: torch.Tensor) -> torch.Tensor:
 
 def footprint_table_plain(fixed: Optional[torch.Tensor], geometry,
                           target_hw, device='cpu') -> torch.Tensor:
-    """Plain version of :func:`footprint_table`, on any device (the map's,
-    else ``device``)."""
+    """The footprint part of :func:`geometry_tables_plain`, on any device
+    (the map's, else ``device``)."""
     sizes, (u8h, u8w, kind, usy, usx, oh, ow, resize, fsy, fsx), r, \
         content, _ = geometry
     h, w = sizes[:2]
@@ -517,40 +513,8 @@ def footprint_table_plain(fixed: Optional[torch.Tensor], geometry,
     return torch.stack([rect, foot], 1).reshape(-1, 4).int()
 
 
-def footprint_table(fixed: Optional[torch.Tensor], geometry, target_hw,
-                    device=None) -> torch.Tensor:
-    """(2 content tiles, 4) int32: for each content tile of an image
-    geometry (:func:`_geometry`) on a ``target_hw`` canvas, the rectangle
-    of the undistorted image (U) its output pixels read (first row, last
-    row, first column, last column), then its footprint on the map: the
-    least and largest whole-pixel map row and column over that rectangle
-    (the rectangle itself, its last row and column less one, without a
-    map), with the least column ``_FAR_FOOTPRINT`` where an entry lies
-    1024 px or more from its pixel (the packed map cannot hold it; that
-    tile reads the planes directly).  On the map's device, else
-    ``device``: the CPU goes to :func:`footprint_table_plain`, the card
-    launches ``footprint_kernel`` once or raises."""
-    dev = fixed.device if fixed is not None else torch.device(device)
-    if dev.type == 'cpu':
-        return footprint_table_plain(fixed, geometry, target_hw)
-    if dev.type != 'cuda':
-        raise ValueError(f'no footprint_table for device {dev}')
-    th, tw = (int(v) for v in target_hw)
-    content = geometry[3]
-    out = torch.empty((2 * content, 4), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        desc = _upload_row(_geometry_row(
-            geometry, 0 if fixed is None else fixed.data_ptr()), dev)
-        err = _entry('rectify_footprint_launch')(
-            desc.data_ptr(), th, tw, content, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, 'footprint_table')
-    footprint_table.launches += 1
-    return out
-
-
 def resize_taps_plain(geometry, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`resize_taps`, on any device."""
+    """The taps part of :func:`geometry_tables_plain`, on any device."""
     _, (u8h, u8w, _, _, _, oh, ow, _, fsy, fsx), *_ = geometry
 
     def table(n, n_src, scale):
@@ -562,41 +526,68 @@ def resize_taps_plain(geometry, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return table(oh, u8h, fsy), table(ow, u8w, fsx)
 
 
-def resize_taps(geometry, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The f32 resize's taps of an image geometry (:func:`_geometry`):
+def geometry_tables_plain(fixed: Optional[torch.Tensor], geometry,
+                          target_hw, device=None) -> tuple:
+    """Plain version of :func:`geometry_tables`, on any device (the map's,
+    else ``device``)."""
+    dev = fixed.device if fixed is not None else torch.device(device)
+    return (footprint_table_plain(fixed, geometry, target_hw, dev),
+            *resize_taps_plain(geometry, dev))
+
+
+def geometry_tables(fixed: Optional[torch.Tensor], geometry, target_hw,
+                    device=None) -> tuple:
+    """The tables the rectify kernel reads for an image geometry
+    (:func:`_geometry`) on a ``target_hw`` canvas, with the map ``fixed``
+    or None: (footprint, row taps, column taps).
+
+    The footprint, (2 content tiles, 4) int32: for each content tile the
+    rectangle of the undistorted image (U) its output pixels read (first
+    row, last row, first column, last column), then its footprint on the
+    map: the least and largest whole-pixel map row and column over that
+    rectangle (the rectangle itself, its last row and column less one,
+    without a map), with the least column ``_FAR_FOOTPRINT`` where an
+    entry lies 1024 px or more from its pixel (the packed map cannot hold
+    it; that tile reads the planes directly).  The f32 resize's taps,
     (oh + 31, 4) for the output rows, then (ow + 31, 4) for the columns,
     int32 (s0, s1, the f32 weight's bits, 0) as :func:`_taps_at` gives
     them, the last one repeated 31 times so that a tile reads 32 without a
-    bound.  On ``device``: the CPU goes to :func:`resize_taps_plain`, the
-    card launches ``taps_kernel`` once or raises."""
-    dev = torch.device(device)
+    bound.  On the map's device, else ``device``: the CPU goes to
+    :func:`geometry_tables_plain`, the card launches
+    ``geometry_tables_kernel`` once for all three or raises."""
+    dev = fixed.device if fixed is not None else torch.device(device)
     if dev.type == 'cpu':
-        return resize_taps_plain(geometry, dev)
+        return geometry_tables_plain(fixed, geometry, target_hw, dev)
     if dev.type != 'cuda':
-        raise ValueError(f'no resize_taps for device {dev}')
+        raise ValueError(f'no geometry_tables for device {dev}')
+    th, tw = (int(v) for v in target_hw)
+    content = geometry[3]
     oh, ow = geometry[1][5:7]
+    table = torch.empty((2 * content, 4), dtype=torch.int32, device=dev)
     rows, cols = (torch.empty((n + 31, 4), dtype=torch.int32, device=dev)
                   for n in (oh, ow))
+    row = np.array(_geometry_row(
+        geometry, 0 if fixed is None else fixed.data_ptr()), np.int64)
     with torch.cuda.device(dev):
-        desc = _upload_row(_geometry_row(geometry), dev)
-        err = _entry('rectify_taps_launch')(
-            desc.data_ptr(), oh, ow, rows.data_ptr(), cols.data_ptr(),
+        err = _entry('rectify_tables_launch')(
+            row.ctypes.data, th, tw, content, oh, ow, table.data_ptr(),
+            rows.data_ptr(), cols.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, 'resize_taps')
-    resize_taps.launches += 1
-    return rows, cols
+    _raise_on(err, 'geometry_tables')
+    geometry_tables.launches += 1
+    return table, rows, cols
 
 
-pack_map.launches = footprint_table.launches = resize_taps.launches = 0
+pack_map.launches = geometry_tables.launches = 0
 
 
 class DeviceMap:
     """An undistortion map as the rectify kernel reads it: ``fixed`` (h, w,
     2) int32 in 1/32 px on the card, its :func:`pack_map` (made here) and,
-    by image geometry and canvas, the :func:`footprint_table` and
-    :func:`resize_taps` that :func:`rectify` makes at its first use of
-    them.  Keep one per calibration (``data/image_loading.py:_device_map``
-    does) so that they are made once."""
+    by image geometry and canvas, the :func:`geometry_tables` that
+    :func:`rectify` makes at its first use of them.  Keep one per
+    calibration (``data/image_loading.py:_device_map`` does) so that they
+    are made once."""
 
     def __init__(self, fixed: torch.Tensor):
         self.fixed = fixed.contiguous()
@@ -636,8 +627,7 @@ def _tables(m: Optional[DeviceMap], geometry, target_hw, device) -> tuple:
         store, key = m.tables, (geometry, target_hw)
     found = store.get(key)
     if found is None:
-        found = (footprint_table(_fixed(m), geometry, target_hw, device),
-                 *resize_taps(geometry, device))
+        found = geometry_tables(_fixed(m), geometry, target_hw, device)
         store[key] = found
     packed = 0 if m is None else m.packed.data_ptr()
     return (packed, *(t.data_ptr() for t in found))
@@ -777,8 +767,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entry points of csrc/rectify.cu and their argument types.
 _SIGNATURES = {
     'rectify_launch': [_P] + [_I] * 5 + [_P, _I, _P],
-    'rectify_footprint_launch': [_P, _I, _I, _I, _P, _P],
-    'rectify_taps_launch': [_P, _I, _I, _P, _P, _P],
+    'rectify_tables_launch': [_P] + [_I] * 5 + [_P] * 4,
     'rectify_pack_map_launch': [_P, _I, _I, _P, _P],
 }
 

@@ -32,6 +32,7 @@ import torch
 cv2 = pytest.importorskip('cv2')
 
 from omnihd_scenes_tpu.data import augmentation as JA  # noqa: E402
+from omnihd_scenes_tpu.data import image_loading as jax_image  # noqa: E402
 from omnihd_scenes_tpu.data import native as jax_native  # noqa: E402
 from omnihd_scenes_tpu.data.dataset import (  # noqa: E402
     NewScenesDetDataset as JaxDataset)
@@ -85,6 +86,11 @@ EXACT = ('camera only, scale 1, target, photometric only',)
 @pytest.fixture(scope='module')
 def dataroot(tmp_path_factory):
     root = str(tmp_path_factory.mktemp('camtrain'))
+    # The JAX loader keeps undistortion maps by scene token, camera and
+    # size, which every synthetic dataroot shares: drop the maps of a
+    # dataroot with another calibration that an earlier test module of
+    # this process read (tests/test_torch_port_camera_data.py's).
+    jax_image._REMAP_CACHE.clear()
     jax_generate(root, 'v1.0-mini', JaxSyntheticConfig(**SYNTH))
     jax_create_infos(root, root, 'synth', version='v1.0-mini', max_sweeps=1)
     for split in ('train', 'val'):

@@ -32,11 +32,14 @@ Bounds:
   statistics within 1e-4 of max|ref|, the parameters after AdamW within
   2.5 learning rates.
 * rectify (camera decode, planes to padded f32 images in one launch, and
-  its setup kernels: packed map, tile footprints, resize taps):
-  bit-equal to its plain version on the card (integer steps, then f32
-  steps rounded alike; the plain version emulates the FMA exactly).
+  its setup kernels: packed map; tile footprints and resize taps, both
+  from one launch a map and geometry): bit-equal to its plain version on
+  the card (integer steps, then f32 steps rounded alike; the plain
+  version emulates the FMA exactly).
 * jpeg_idct: bit-equal to its plain version (32-bit words that wrap
-  alike), on the fixtures' coefficients and on extreme random blocks.
+  alike), on the fixtures' coefficients and on extreme random blocks,
+  over odd block grids, the kernel's chunk edges and the b4 batch's
+  layout.
 * the card's JPEG decode (host entropy decode, the IDCT kernel, libjpeg's
   upsampling and colour tables in the rectify kernel) against the
   committed ``cv2.imdecode`` results of ``tests/torch_port_fixtures/
@@ -55,6 +58,7 @@ counts that are not multiples of the block's channel tile).
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -869,8 +873,10 @@ def test_msda_on_the_card_equals_the_cpu(dev, shape):
 
 # ---- camera decode on the card: the IDCT and rectify kernels ------------
 
-JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             'torch_port_fixtures', 'jpeg')
+JPEG_FIXTURES_ROOT = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), 'torch_port_fixtures')
+JPEG_FIXTURES = os.path.join(JPEG_FIXTURES_ROOT, 'jpeg')
+sys.path.insert(0, JPEG_FIXTURES_ROOT)      # idct_cases
 FIXTURE_NAMES = ('camera_1080p_420', 'noise_64x96_420', 'noise_64x96_444')
 
 
@@ -977,27 +983,27 @@ def test_rectify_per_camera_maps_match_plain(dev):
             [(270, 480) if f else (540, 960) for f in fb], (544, 960),
             R_MEAN, R_STD)
     want = R.rectify_plain(planes, maps, *args)
-    tables = R.footprint_table.launches
+    tables = R.geometry_tables.launches
     assert torch.equal(R.rectify(planes, maps, *args), want)
-    assert R.footprint_table.launches == tables + 6
+    assert R.geometry_tables.launches == tables + 6
     assert torch.equal(R._launch(planes, maps, *args, interleave=False),
                        want)
-    assert R.footprint_table.launches == tables + 6
+    assert R.geometry_tables.launches == tables + 6
 
 
 @pytest.mark.parametrize('hw', [(65, 97), (1080, 1920)])
 def test_rectify_setup_kernels_match_plain(dev, hw):
     """rectify's setup kernels bit-equal to their plain versions on the
-    card, one launch a call: the packed map, and each image geometry's
-    tile footprints (with and without a map) and resize taps, at the
-    u8 sizes and f32 resizes of the chain."""
+    card: the packed map (one launch), and each image geometry's tile
+    footprints (with and without a map) and resize taps, at the u8 sizes
+    and f32 resizes of the chain, all three tables from one launch a
+    (map, geometry)."""
     from omnihd_scenes_tpu_torch.kernels import rectify as R
 
     gen = torch.Generator().manual_seed(4)
     h, w = hw
     _, fixed = _planes_case(gen, hw, R.CHROMA_420, DIST, dev)
-    counts = (R.pack_map.launches, R.footprint_table.launches,
-              R.resize_taps.launches)
+    counts = (R.pack_map.launches, R.geometry_tables.launches)
     assert torch.equal(R.pack_map(fixed), R.pack_map_plain(fixed))
     calls = 0
     for u8 in ((h, w), (h // 2, w // 2), (int(h * 0.7), int(w * 0.7))):
@@ -1006,17 +1012,18 @@ def test_rectify_setup_kernels_match_plain(dev, hw):
             target = (out[0] + 8, out[1] - 3)
             geo = R._geometry(h, w, R.CHROMA_420, u8, out, target)
             for m in (fixed, None):
-                assert torch.equal(
-                    R.footprint_table(m, geo, target, dev),
-                    R.footprint_table_plain(m, geo, target, dev)), \
-                    (u8, out, m is None)
-            for a, b in zip(R.resize_taps(geo, dev),
-                            R.resize_taps_plain(geo, dev)):
-                assert torch.equal(a, b), (u8, out)
-            calls += 1
-    assert (R.pack_map.launches, R.footprint_table.launches,
-            R.resize_taps.launches) == (counts[0] + 1, counts[1] + 2 * calls,
-                                        counts[2] + calls)
+                before = R.geometry_tables.launches
+                got = R.geometry_tables(m, geo, target, dev)
+                assert R.geometry_tables.launches == before + 1
+                want = (R.footprint_table_plain(m, geo, target, dev),
+                        *R.resize_taps_plain(geo, dev))
+                assert len(got) == len(want) == 3
+                for a, b, what in zip(got, want,
+                                      ('footprint', 'row taps', 'col taps')):
+                    assert torch.equal(a, b), (u8, out, m is None, what)
+                calls += 1
+    assert (R.pack_map.launches, R.geometry_tables.launches) == (
+        counts[0] + 1, counts[1] + calls)
 
 
 def test_rectify_refuses_what_the_kernel_does_not_take(dev):
@@ -1067,7 +1074,10 @@ def test_jpeg_idct_matches_plain(dev):
     """The IDCT kernel bit-equal to ``jpeg_idct_plain`` on the card: on
     the fixtures' own coefficients and on seeded random int16 blocks with
     8- and 16-bit tables, extreme values included (every word wraps alike
-    in both), over a layout of odd block grids."""
+    in both), over a layout of odd block grids, at the edges of the
+    kernel's chunks (block rows of K, K + 1 and 2K - 1 blocks, K =
+    ``CHUNK_BLOCKS``; a 1x1-block image) and at the b4 camera batch's
+    layout (24 images, 1080p 4:2:0); one launch a call."""
     from omnihd_scenes_tpu_torch.data import jpeg as J
     from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
 
@@ -1076,24 +1086,42 @@ def test_jpeg_idct_matches_plain(dev):
     launches = JI.jpeg_idct.launches
     assert torch.equal(JI.jpeg_idct(coefs, quant, c.comps),
                        JI.jpeg_idct_plain(coefs, quant, c.comps))
+    from idct_cases import LAYOUTS, idct_case
+
     rng = np.random.RandomState(0)
-    grids = [(3, 5), (1, 1), (7, 2), (33, 61)]
-    n = sum(r * k for r, k in grids)
-    blocks = rng.randint(-32768, 32768, (n, 64)).astype(np.int16)
-    blocks[:n // 4] = rng.randint(-1024, 1024, (n // 4, 64))
-    blocks[n // 4:n // 4 + 8] = 32767
-    blocks[n // 4 + 8:n // 4 + 16] = -32768
-    tables = np.stack([rng.randint(1, 256, 64), np.ones(64, np.int64),
-                       rng.randint(1, 65536, 64), np.full(64, 65535)])
-    first = np.cumsum([0] + [r * k for r, k in grids])[:-1]
-    layout = np.array([[f, r, k] for f, (r, k) in zip(first, grids)])
-    coefs = torch.from_numpy(blocks.reshape(-1)).to(dev)
-    quant = torch.from_numpy(tables.astype(np.int32)).to(dev)
-    got = JI.jpeg_idct(coefs, quant, layout)
-    assert torch.equal(got, JI.jpeg_idct_plain(coefs, quant, layout))
-    assert torch.equal(got.cpu(), JI.jpeg_idct_plain(
-        coefs.cpu(), quant.cpu(), layout))
-    assert JI.jpeg_idct.launches == launches + 2
+    coefs, quant, layout = idct_case(rng, LAYOUTS['odd'])
+    got = JI.jpeg_idct(coefs.to(dev), quant.to(dev), layout)
+    assert torch.equal(got, JI.jpeg_idct_plain(coefs.to(dev), quant.to(dev),
+                                               layout))
+    assert torch.equal(got.cpu(), JI.jpeg_idct_plain(coefs, quant, layout))
+    for grids in (LAYOUTS['chunk_edges'], LAYOUTS['b4_1080p_420']):
+        coefs, quant, layout = idct_case(rng, grids)
+        coefs, quant = coefs.to(dev), quant.to(dev)
+        got = JI.jpeg_idct(coefs, quant, layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, JI.jpeg_idct_plain(coefs, quant, layout)), \
+            grids[:3]
+    assert JI.jpeg_idct.launches == launches + 4
+
+
+def test_jpeg_idct_launch_refuses_another_chunk_length(dev):
+    """The chunk length is fixed in ``csrc/jpeg_idct.cu`` (``kChunk``): a
+    launch given another one than ``CHUNK_BLOCKS`` returns
+    cudaErrorInvalidValue (1) and writes nothing."""
+    from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
+
+    coefs = torch.zeros(40 * 64, dtype=torch.int16, device=dev)
+    quant = torch.ones(1, 64, dtype=torch.int32, device=dev)
+    desc, chunks_at, n_chunks = JI.idct_descriptor(np.array([[0, 1, 40]]))
+    desc = desc.to(dev)
+    out = torch.zeros(coefs.shape, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k in (JI.CHUNK_BLOCKS // 2, JI.CHUNK_BLOCKS * 2):
+        assert JI._kernel()(coefs.data_ptr(), quant.data_ptr(),
+                            desc.data_ptr(), desc.data_ptr() + chunks_at,
+                            n_chunks, k, 40, out.data_ptr(), stream) == 1
+    torch.cuda.synchronize()
+    assert out.max() == 0
 
 
 @pytest.mark.parametrize('hw', [(65, 97), (1080, 1920)])
