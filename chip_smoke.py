@@ -332,6 +332,32 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``configs/synthetic/bevformer_synth.py`` (temporal queues) from the
    small JPEG dataroot as subprocesses: exit 0 on ``cuda``, finite
    losses, the decode kernels' launches in the log.
+36. conv-BN fusion (``serve/fuse.py``) of the full-width serving model,
+   seeded weights with BatchNorm statistics drawn away from (0, 1) as
+   JAX's ``_randomize_bn`` draws them, traced and verified on the card:
+   the pairs fused and skipped; f32 fused against f32 unfused (head maps
+   within F32_FUSE_TOL, TF32 off) and b4 bf16 fused against bf16 unfused
+   (HEAD_TOL and BOX_MATCH of phase 6), with the kept-row distances and
+   the largest score difference; the two bf16 Predictors' request ms (1 +
+   3 fresh b4 requests each, two rounds alternating); the BatchNorm
+   launches of one request of each by the profiler (``aten::batch_norm``
+   calls and device kernels), which must fall by the number of pairs;
+37. export (``serve/export.py``): the fused b4 bf16 model exported on the
+   card with the LSS kernel as the registered op ``omnihd::lss_sample_bev``
+   into a temporary bundle, loaded in a fresh process that must import no
+   ``omnihd_scenes_tpu_torch.models`` module (nor JAX), 1 + 3 fresh b4
+   requests there: ``lss_sample_bev`` launched once a request inside the
+   program, as many kept boxes as the live ``Predictor`` on the same
+   requests and at least EXPORT_BOX_MATCH of them matched (the bit-equal
+   requests counted, beside the live Predictor's own run-to-run count:
+   the dense pillar sums add with atomics), request ms, export and load
+   seconds;
+38. QAT: the serving model, b4 under the bf16 policy, 4
+   ``make_train_step`` steps in ``qat`` (finite losses, every QConv2d and
+   the stem with a finite ``act_amax`` > 0, one LSS forward and one
+   backward launch a step), then ``freeze`` and the int8 tier through
+   ``Predictor(quant_state=...)`` with TF32 on, as phase 10: 1 + 3 b4
+   requests, 36 ``qconv3x3`` launches a request, ms.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -344,7 +370,9 @@ too), the remat training run's (32) and BEVFusion-OCC int8's (33, qconv
 too), 0 on BEVFormer-T's training run (phase 25b) and
 R101-DCN's stream (26b); the rectify and IDCT kernels' from phase 34's
 main path; the augmentation kernels' from phase 35b's training run, and
-every kernel's there as ``launches_camera_train``), error against the plain
+every kernel's there as ``launches_camera_train``; phases 36-38's
+fused request, exported program, QAT training and QAT int8 request),
+error against the plain
 version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
 call's operations over the card's dense peak for their type and the
@@ -360,6 +388,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -423,6 +452,17 @@ QCONV_EDGES = {'1x1 image': ((4, 256, 1, 1), 256),
                'fuse.conv C=640 -> Co=384': ((4, 640, 160, 240), 384),
                'Co=136 (not a multiple of BN)': ((2, 128, 9, 13), 136)}
 BCONV_SHAPE = ((24, 256, 136, 240), 256)
+# Phase 36: f32 fused against f32 unfused at full width, TF32 off (each
+# conv then adds the folded bias in its own rounding).
+F32_FUSE_TOL = 1e-4
+# Phase 37: the exported program's kept boxes against the live
+# Predictor's on the same requests (both sum pillars with atomics, so a
+# near tie may keep another box).
+EXPORT_BOX_MATCH = 0.99
+# Phase 38: QAT steps, and the int8 tier's qconv launches a request (the
+# eligible 3x3 convs of the serving configuration, phase 10).
+QAT_STEPS = 4
+QCONV_PER_REQUEST = 36
 TRAIN_BATCHES = (1, 4)
 BCONV_DILATIONS = (1, 6, 12, 18)
 BCONV_EDGES = {'1x1 image': ((4, 128, 1, 1), 128, 1),
@@ -5689,6 +5729,403 @@ def phase_camera_train(dev, card, step_ms):
                 crop_resize_flip=crf_row)
 
 
+def randomize_bn(state_dict, seed):
+    """``state_dict`` with every BatchNorm's scale, bias and statistics
+    drawn away from (0, 1) as JAX's ``tests/test_fuse_conv_bn.py:
+    _randomize_bn`` draws them (scale U(0.5, 1.5), bias N(0, 0.1), mean
+    N(0, 0.3), var U(0.5, 1.5)), from ``seed``."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    sd = dict(state_dict)
+    for key in sorted(k[:-len('.running_mean')] for k in sd
+                      if k.endswith('.running_mean')):
+        n = sd[f'{key}.weight'].shape[0]
+        for leaf, v in (('weight', rng.rand(n) + 0.5),
+                        ('bias', rng.randn(n) * 0.1),
+                        ('running_mean', rng.randn(n) * 0.3),
+                        ('running_var', rng.rand(n) + 0.5)):
+            sd[f'{key}.{leaf}'] = torch.from_numpy(v.astype(np.float32))
+    return sd
+
+
+BN_KERNEL = re.compile(r'batch_norm|bn_fw|bn_inf', re.I)
+
+
+def _request_kernels(fn):
+    """One ``fn()`` under torch.profiler: (``aten::batch_norm`` calls,
+    {device kernel name: (launches, device us)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls, kernels = 0, {}
+    for e in prof.key_averages():
+        if e.key == 'aten::batch_norm':
+            calls += e.count
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, 'device_time_total', 0) or e.cuda_time_total
+            kernels[e.key] = (e.count, us)
+    return calls, kernels
+
+
+def phase_fuse(dev, card):
+    """36: conv-BN fusion of the full-width serving model (seeded weights,
+    BN statistics of ``randomize_bn``), traced on the card in f32: the
+    pairs fused and skipped; f32 fused against f32 unfused and b4 bf16
+    fused against bf16 unfused on one request; each bf16 Predictor's
+    request ms (1 + 3 fresh b4 requests each, two rounds alternating);
+    the BatchNorm launches of one request of each."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.config import serving_config
+    from omnihd_scenes_tpu_torch.models.anchor_head import (
+        anchor_head_get_bboxes)
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.serve.fuse import fuse_model
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_state_dict)
+    from omnihd_scenes_tpu_torch.weights import load_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = serving_config()
+    sd = randomize_bn(random_state_dict(cfg, seed=0), seed=36)
+    rng = np.random.RandomState(36)
+    model = BEVFusion(cfg)
+    load_state_dict(model, sd)
+    model.to(dev)
+    trace = [torch.from_numpy(x).to(dev)
+             for x in random_request(rng, cfg, 1)]
+    t0 = time.perf_counter()
+    fused, report = fuse_model(model, lambda: model(*trace))
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    fused = {k: v.cpu() for k, v in fused.items()}
+    del model, trace
+    torch.cuda.empty_cache()
+    pairs, skipped = len(report['fused']), report['skipped']
+    print(f'[36 fuse] serving_config(): {pairs} BN folded, {len(skipped)} '
+          f'skipped {skipped[:5]}; traced, fused and verified on the card '
+          f'in {fuse_s:.1f} s ({card})')
+    check(pairs > 0 and not skipped and report.get('verified'),
+          f'fusion: {pairs} fused, skipped {skipped}')
+
+    keys = ('bev', 'cls_score', 'bbox_pred', 'dir_pred')
+    request = random_request(rng, cfg, BATCH)
+    for dtype, limit in ((torch.float32, F32_FUSE_TOL),
+                         (torch.bfloat16, HEAD_TOL)):
+        outs, dets = [], []
+        for s in (sd, fused):
+            p = Predictor(cfg, s, device=dev, dtype=dtype)
+            outs.append({k: v.float() for k, v in p.forward(*request).items()
+                         if k in keys})
+            dets.append([t.cpu() for t in anchor_head_get_bboxes(
+                *(outs[-1][k] for k in keys[1:]), p.anchors)])
+            del p
+            torch.cuda.empty_cache()
+        want, got = outs
+        rel = {k: float((got[k] - want[k]).abs().max()
+                        / want[k].abs().max()) for k in keys}
+        score_d = float((torch.sigmoid(got['cls_score'])
+                         - torch.sigmoid(want['cls_score'])).abs().max())
+        rows = [kept_row_distance(dets[1], dets[0], s) for s in range(BATCH)]
+        kept = [int(d[3].sum()) for d in dets]
+        share = box_match(dets[1][0], dets[1][2], dets[1][3], dets[0][0],
+                          dets[0][2], dets[0][3])
+        name = str(dtype).split('.')[-1]
+        print(f'[36 fuse {name}] fused vs unfused, b{BATCH}: head maps off '
+              f'by ' + ', '.join(f'{k} {v:.3e}' for k, v in rel.items())
+              + f' of max|unfused| (limit {limit}); largest score '
+              f'difference {score_d:.3e}; kept boxes {kept[1]} / {kept[0]}, '
+              f'kept-row distance per sample {[f"{r:.2e}" for r in rows]}, '
+              f'{share:.4f} of fused boxes matched')
+        check(all(v <= limit for v in rel.values()),
+              f'{name} fused head maps off the unfused ones: {rel}')
+        check(kept[0] > 0 and share >= BOX_MATCH,
+              f'{name} fused kept boxes match for only {share:.4f}')
+
+    preds = {'unfused': Predictor(cfg, sd, device=dev, dtype=torch.bfloat16),
+             'fused': Predictor(cfg, fused, device=dev, dtype=torch.bfloat16)}
+    ms = {name: [] for name in preds}
+    for _ in range(2):
+        for name, p in preds.items():
+            reqs = [random_request(rng, cfg, BATCH)
+                    for _ in range(1 + N_TIMED)]
+            ms[name] += _timed_requests(dev, p, reqs)[0]
+    launches = _timed_requests(dev, preds['fused'], [request])[1][-1]
+    prof = {name: _request_kernels(lambda: p(*request))
+            for name, p in preds.items()}
+    calls = {name: v[0] for name, v in prof.items()}
+    bn = {name: sum(n for k, (n, _) in v[1].items() if BN_KERNEL.search(k))
+          for name, v in prof.items()}
+    mean = {name: float(np.mean(v)) for name, v in ms.items()}
+    print(f'[36 fuse bf16] b{BATCH} request: unfused {mean["unfused"]:.2f} '
+          f'ms ({np.round(ms["unfused"], 2).tolist()}), fused '
+          f'{mean["fused"]:.2f} ms ({np.round(ms["fused"], 2).tolist()}) by '
+          f'CUDA events, fresh inputs, two rounds alternating ({card}); '
+          f'BatchNorm in one request (aten::batch_norm calls, device '
+          f'kernels named like a BatchNorm): unfused ({calls["unfused"]}, '
+          f'{bn["unfused"]}), fused ({calls["fused"]}, {bn["fused"]}) for '
+          f'{pairs} pairs; lss_sample_bev {launches} a request')
+    # The kernels whose launches or device time moved most, by the
+    # profiler (us summed over one request).
+    names = set(prof['unfused'][1]) | set(prof['fused'][1])
+    moved = sorted(names, key=lambda k: -abs(
+        prof['fused'][1].get(k, (0, 0))[1]
+        - prof['unfused'][1].get(k, (0, 0))[1]))
+    for k in moved[:6]:
+        (n0, t0), (n1, t1) = (prof[name][1].get(k, (0, 0))
+                              for name in ('unfused', 'fused'))
+        print(f'[36 fuse bf16]   {k[:90]}: launches {n0} -> {n1}, device '
+              f'{t0 / 1e3:.3f} -> {t1 / 1e3:.3f} ms')
+    total = {name: sum(t for _, t in v[1].values()) / 1e3
+             for name, v in prof.items()}
+    print(f'[36 fuse bf16] device time of one profiled request: unfused '
+          f'{total["unfused"]:.2f} ms, fused {total["fused"]:.2f} ms')
+    per_bn = bn['unfused'] // max(calls['unfused'], 1)
+    check(calls['unfused'] - calls['fused'] == pairs and per_bn >= 1
+          and bn['unfused'] - bn['fused'] == per_bn * pairs,
+          f'the fused request\'s BatchNorm calls fell by '
+          f'{calls["unfused"] - calls["fused"]} and its kernels by '
+          f'{bn["unfused"] - bn["fused"]}, not {pairs} and {per_bn} x '
+          f'{pairs}')
+    del preds
+    torch.cuda.empty_cache()
+    print(f'[36 fuse] {time.perf_counter() - t_phase:.1f} s')
+    return dict(cfg=cfg, fused=fused, pairs=pairs, ms=mean,
+                request=launches)
+
+
+# The child process of phase 37: loads a bundle with no model code, runs
+# the saved requests on the card and reports (argv: bundle, inputs .npz,
+# outputs .pt, requests).
+EXPORT_CHILD = r'''
+import json, sys, time
+import numpy as np, torch
+bundle, inputs, outputs, n = sys.argv[1:5]
+t0 = time.perf_counter()
+from omnihd_scenes_tpu_torch.serve.export import load_exported
+from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample_bev
+model = load_exported(bundle, 'cuda')
+load_s = time.perf_counter() - t0
+arrays = np.load(inputs)
+k = len(model.input_specs)
+lss_sample_bev.launches = 0
+ms, outs = [], []
+for i in range(int(n)):
+    req = [arrays[f'arr_{i * k + j}'] for j in range(k)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = model(*req)
+    end.record()
+    torch.cuda.synchronize()
+    ms.append(start.elapsed_time(end))
+    outs.append([t.cpu() for t in out])
+torch.save(outs, outputs)
+print(json.dumps({'load_s': load_s, 'ms': ms,
+                  'launches': lss_sample_bev.launches,
+                  'models': sorted(m for m in sys.modules if m.startswith(
+                      'omnihd_scenes_tpu_torch.models')),
+                  'jax': 'jax' in sys.modules}))
+'''
+
+
+def phase_export(dev, card, cfg, fused):
+    """37: the fused b4 bf16 model exported (``serve/export.py``, the LSS
+    kernel as the registered op) into a temporary bundle, loaded in a
+    fresh process that imports no model code, 1 + 3 fresh b4 requests
+    there: outputs against the live ``Predictor``'s, the op's launches
+    inside the program, request ms, export seconds."""
+    import os
+    import sys
+    import tempfile
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.serve.export import META, export_model
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+
+    rng = np.random.RandomState(37)
+    requests = [random_request(rng, cfg, BATCH) for _ in range(1 + N_TIMED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, 'bundle')
+        t0 = time.perf_counter()
+        export_model(BEVFusion(cfg), 'bevfusion', fused, requests[0], bundle,
+                     anchors=cfg.pillars.anchors(), bf16=True, device=dev)
+        wall_s = time.perf_counter() - t0
+        meta = json.load(open(os.path.join(bundle, META)))
+        sizes = {f: os.path.getsize(os.path.join(bundle, f)) / 2 ** 20
+                 for f in sorted(os.listdir(bundle))}
+        torch.cuda.empty_cache()
+        inputs = os.path.join(tmp, 'inputs.npz')
+        outputs = os.path.join(tmp, 'outputs.pt')
+        np.savez(inputs, *[a for req in requests for a in req])
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-c', EXPORT_CHILD, bundle, inputs, outputs,
+             str(len(requests))], capture_output=True, text=True, cwd=root,
+            timeout=600, env=dict(os.environ, PYTHONPATH=root))
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f'the bundle\'s process failed: '
+              f'{proc.stderr[-3000:]}')
+        seen = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(outputs)
+    live = Predictor(cfg, fused, device=dev, dtype=torch.bfloat16)
+    want = [[t.cpu() for t in live(*req)] for req in requests]
+    again = [[t.cpu() for t in live(*req)] for req in requests]
+    del live
+    torch.cuda.empty_cache()
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    equal = sum(map(same, got, want))
+    self_equal = sum(map(same, again, want))
+    shares = [box_match(g[0], g[2], g[3], w[0], w[2], w[3])
+              for g, w in zip(got, want)]
+    self_shares = [box_match(a[0], a[2], a[3], w[0], w[2], w[3])
+                   for a, w in zip(again, want)]
+    kept = [(int(g[3].sum()), int(w[3].sum())) for g, w in zip(got, want)]
+    ms = float(np.mean(seen['ms'][1:]))
+    print(f'[37 export] fused b{BATCH} bf16 bundle '
+          f'{ {k: round(v, 2) for k, v in sizes.items()} } MiB: '
+          f'torch.export {meta["export_seconds"]:.1f} s, export_model in '
+          f'all {wall_s:.1f} s; a fresh process (models imported: '
+          f'{seen["models"]}, jax: {seen["jax"]}) loaded it in '
+          f'{seen["load_s"]:.1f} s ({child_s:.1f} s with its start) and ran '
+          f'1 + {N_TIMED} requests: {ms:.2f} ms/request by CUDA events '
+          f'({np.round(seen["ms"][1:], 2).tolist()}), lss_sample_bev '
+          f'launches inside the program {seen["launches"]} ({card})')
+    print(f'[37 export] against the live Predictor on the same requests: '
+          f'{equal} of {len(requests)} bit-equal, kept boxes {kept}, share '
+          f'of the bundle\'s kept boxes matched {np.round(shares, 4).tolist()}'
+          f'; the live Predictor against itself (the pillar sums add with '
+          f'atomics): {self_equal} of {len(requests)} bit-equal, '
+          f'{np.round(self_shares, 4).tolist()} matched')
+    check(not seen['models'] and not seen['jax'],
+          f'the bundle\'s process imported {seen["models"]} / jax')
+    check(seen['launches'] == len(requests),
+          f'lss_sample_bev launched {seen["launches"]} times in '
+          f'{len(requests)} requests of the exported program')
+    check(all(a == b for a, b in kept) and min(shares) >= EXPORT_BOX_MATCH,
+          f'the bundle\'s outputs are off the live Predictor\'s: kept '
+          f'{kept}, matched {shares}')
+    return dict(launches=seen['launches'], ms=ms,
+                export_s=meta['export_seconds'])
+
+
+def phase_qat(dev, card, cfg, state_dict):
+    """38: quantization-aware training of the full-width serving model, b4
+    under the bf16 policy: 4 ``make_train_step`` steps in ``qat`` (finite
+    losses, every QConv2d and the stem with a finite act_amax > 0, one
+    LSS forward and one backward launch a step), then ``freeze`` and the
+    int8 tier served: 1 + 3 fresh b4 requests, qconv once per eligible
+    layer (36) a request."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.kernels.qconv import qconv3x3
+    from omnihd_scenes_tpu_torch.models.quant import (QConv2d, quant_state,
+                                                      set_mode)
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                         random_train_batch)
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import batch_to, make_train_step
+
+    rng = np.random.RandomState(38)
+    state = _train_state(cfg, state_dict, dev, lr=2e-4)
+    model = state.model
+    set_mode(model, 'qat')
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        model, 'bevfusion', cfg.pillars.anchors(),
+        camera_depth_range=cfg.lss.camera_depth_range)))
+    batches = [batch_to(random_train_batch(rng, cfg, BATCH), dev)
+               for _ in range(QAT_STEPS)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lss_sample_bev.launches = lss_sample_bev_backward.launches = 0
+    dev_ms, losses = [], []
+    for b in batches:
+        start.record()
+        state, loss, _ = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    train = (lss_sample_bev.launches, lss_sample_bev_backward.launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del batches
+    amax = {n: m.act_amax for n, m in model.named_modules()
+            if isinstance(m, QConv2d)}
+    values = [float('nan') if v is None else float(v)
+              for v in amax.values()]
+    check(all(np.isfinite(losses)), f'QAT losses {losses}')
+    check(train == (QAT_STEPS, QAT_STEPS), f'QAT (LSS forward, backward) '
+          f'launches {train}, not one each a step')
+    check(all(np.isfinite(values)) and min(values) > 0,
+          f'act_amax not finite and positive: {min(values)}')
+    print(f'[38 qat] serving_config() b{BATCH}, bf16 policy, qat mode: '
+          f'{QAT_STEPS} steps {np.round(dev_ms, 2).tolist()} ms by CUDA '
+          f'events (first with warm-up), peak {peak:.2f} GiB ({card}); '
+          f'losses {[round(v, 4) for v in losses]}; act_amax of {len(amax)} '
+          f'QConv2d (the stem among them) in [{min(values):.3e}, '
+          f'{max(values):.3e}]; (LSS forward, backward) launches {train}')
+
+    set_mode(model, 'freeze')
+    model.eval()
+    with torch.no_grad():
+        model(*(None if x is None else torch.from_numpy(x).to(dev)
+                for x in random_request(rng, cfg, 1)))
+    qstate = quant_state(model)
+    weights = model.state_dict()
+    del state, step, model
+    torch.cuda.empty_cache()
+    int8 = Predictor(cfg, weights, device=dev, dtype=torch.bfloat16,
+                     quant_state=qstate)
+    eligible = _eligible_layers(int8.model)
+    requests = [random_request(rng, cfg, BATCH) for _ in range(1 + N_TIMED)]
+    qconv3x3.launches = 0
+    # Served as phase 10 serves the int8 tier: TF32 on (it holds the f32
+    # convs of int8 codes exactly).
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ms, lss, _, outs = _timed_requests(dev, int8, requests)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    q_launches = qconv3x3.launches
+    boxes, scores, _, valid = outs[-1]
+    check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all())
+          and int(valid.sum()) > 0, 'non-finite or empty QAT int8 output')
+    check(eligible == QCONV_PER_REQUEST
+          and q_launches == eligible * len(requests),
+          f'qconv launches {q_launches} for {len(requests)} requests, '
+          f'{eligible} eligible layers (expected {QCONV_PER_REQUEST})')
+    mean = float(np.mean(ms))
+    print(f'[38 qat int8] frozen after QAT ({len(qstate)} quant tensors): '
+          f'{N_TIMED} b{BATCH} requests (+1 warm-up) {mean:.2f} ms/request '
+          f'({np.round(ms, 2).tolist()}) by CUDA events ({card}); qconv3x3 '
+          f'{q_launches // len(requests)} launches a request, lss_sample_bev '
+          f'{lss}; kept boxes {int(valid.sum())}')
+    del int8
+    torch.cuda.empty_cache()
+    return dict(train_fwd=train[0], train_back=train[1],
+                qconv_request=q_launches // len(requests), ms=mean,
+                lss_request=lss[-1] // len(requests))
+
+
 def sca_hits(cfg, lidar2img):
     """Hit queries per camera of one rig (any z-anchor inside the image)."""
     import torch
@@ -5773,6 +6210,9 @@ def main():
     mtl_int8 = phase_mtl_int8(dev, card)
     camera = phase_camera_dataroot(dev, card)
     cam_train = phase_camera_train(dev, card, train[BATCH][0])
+    fuse = phase_fuse(dev, card)
+    export = phase_export(dev, card, fuse.pop('cfg'), fuse.pop('fused'))
+    qat = phase_qat(dev, card, cfg, state_dict)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -5876,6 +6316,19 @@ def main():
         camera['launches']['jpeg_decode']
     extra['jpeg_idct']['launches_nvjpeg_decode'] = \
         camera['launches']['nvjpeg_decode']
+    # Phases 36-38: the fused checkpoint served (one LSS launch a
+    # request), the exported program in its own process (the registered
+    # op, one launch a request: 1 + 3 requests), QAT training (one
+    # forward and one backward a step) and its int8 serving.
+    extra['lss_sample']['launches_fused'] = {'request_b4': fuse['request']}
+    extra['lss_sample']['launches_exported_program'] = {
+        'requests_b4': 1 + N_TIMED, 'launches': export['launches']}
+    extra['lss_sample']['launches_qat_train'] = {'train_b4': qat['train_fwd']}
+    extra['lss_sample_backward']['launches_qat_train'] = {
+        'train_b4': qat['train_back']}
+    extra['lss_sample']['launches_qat_int8'] = {
+        'request_b4': qat['lss_request']}
+    extra['qconv']['launches_qat_int8'] = {'request_b4': qat['qconv_request']}
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'{CSRC}{SOURCES.get(src, src + ".cu")}',

@@ -19,10 +19,15 @@ gather kernel:
   bucketed by pixel and each pixel's gradient summed over its bucket in
   cell order.  Its plain version is
   :func:`lss_sample_bev_backward_reference` (``index_add_``).
-  :class:`LSSSampleBEV` is the ``torch.autograd.Function`` of the pair,
-  the counterpart of the ``jax.custom_vjp`` of
-  ``omnihd_scenes_tpu/ops/pallas_splat.py:246-261``.  ``minv`` and ``mt``
-  get no gradient: they reach the output only through rounded indices.
+  The pair is registered with ``torch.library`` as the ops
+  ``omnihd::lss_sample_bev`` and ``omnihd::lss_sample_bev_backward``
+  (:func:`lss_sample_bev_op`, the second its autograd formula; the
+  counterpart of the ``jax.custom_vjp`` of
+  ``omnihd_scenes_tpu/ops/pallas_splat.py:246-261``), which the model
+  calls through :class:`LSSSampleBEV`, so that training, serving and an
+  exported program (``serve/export.py``) run the same op.  ``minv`` and
+  ``mt`` get no gradient: they reach the output only through rounded
+  indices.
 
 Layouts (one launch covers the whole batch and every camera):
 
@@ -46,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -630,28 +635,96 @@ def _backward_scratch(feat_shape, geom: _Geom, device):
     return buf.split(sizes)
 
 
-class LSSSampleBEV(torch.autograd.Function):
-    """:func:`lss_sample_bev` with :func:`lss_sample_bev_backward` as its
-    gradient for feat and depth (none for the geometry).
+# ---- the registered ops: what the model, training and export call -----------
 
-    ``LSSSampleBEV.apply(feat, depth, minv, mt, geom, solve_x)``, the
-    output in feat's dtype; one forward launch per call, one backward
-    launch per backward pass.
-    """
+def geom_values(geom: _Geom) -> list:
+    """A :class:`_Geom`'s constructor arguments as one flat float list,
+    the form the registered ops take it in (:func:`geom_of` inverts it)."""
+    return [float(v) for part in geom.args for v in part]
+
+
+@functools.lru_cache(maxsize=32)
+def _geom_of(values: tuple) -> _Geom:
+    v = values
+    return _Geom((int(v[0]), int(v[1])), (int(v[2]), int(v[3])), v[4:7],
+                 v[7:10], v[10:13], tuple(int(x) for x in v[13:16]))
+
+
+def geom_of(values) -> _Geom:
+    """The :class:`_Geom` of :func:`geom_values`' list."""
+    return _geom_of(tuple(float(x) for x in values))
+
+
+def _solve_x_of(mask: int, n_cams: int):
+    return tuple(bool(mask >> n & 1) for n in range(n_cams))
+
+
+@torch.library.custom_op('omnihd::lss_sample_bev', mutates_args=())
+def lss_sample_bev_op(feat: torch.Tensor, depth: torch.Tensor,
+                      minv: torch.Tensor, mt: torch.Tensor,
+                      geom: Sequence[float], solve_x: int) -> torch.Tensor:
+    """:func:`lss_sample_bev` (output in feat's dtype) as the registered
+    op ``torch.ops.omnihd.lss_sample_bev``: ``geom`` is
+    :func:`geom_values` of the :class:`_Geom`, ``solve_x`` the cameras'
+    bit mask.  A CUDA tensor launches the kernel (and counts it), a CPU
+    tensor runs the plain version, as the wrapper dispatches; the op
+    keeps ``torch.export`` from tracing into the ctypes launch."""
+    return lss_sample_bev(feat, depth, minv, mt, geom_of(geom),
+                          _solve_x_of(solve_x, feat.shape[1]))
+
+
+@lss_sample_bev_op.register_fake
+def _(feat, depth, minv, mt, geom, solve_x):
+    g = geom_of(geom)
+    return feat.new_empty((feat.shape[0], g.ny, g.nx, g.nz, feat.shape[-1]))
+
+
+@torch.library.custom_op('omnihd::lss_sample_bev_backward', mutates_args=())
+def lss_sample_bev_backward_op(grad: torch.Tensor, feat: torch.Tensor,
+                               depth: torch.Tensor, minv: torch.Tensor,
+                               mt: torch.Tensor, geom: Sequence[float],
+                               solve_x: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lss_sample_bev_backward` as the registered op
+    ``torch.ops.omnihd.lss_sample_bev_backward`` (arguments as
+    :func:`lss_sample_bev_op`'s)."""
+    return lss_sample_bev_backward(grad, feat, depth, minv, mt, geom_of(geom),
+                                   _solve_x_of(solve_x, feat.shape[1]))
+
+
+@lss_sample_bev_backward_op.register_fake
+def _(grad, feat, depth, minv, mt, geom, solve_x):
+    return torch.empty_like(feat), torch.empty_like(depth)
+
+
+def _setup_context(ctx, inputs, output):
+    feat, depth, minv, mt, geom, solve_x = inputs
+    ctx.save_for_backward(feat, depth, minv, mt)
+    ctx.geom, ctx.solve_x = geom, solve_x
+
+
+def _backward(ctx, grad):
+    feat, depth, minv, mt = ctx.saved_tensors
+    dfeat, ddepth = lss_sample_bev_backward_op(
+        grad.contiguous(), feat, depth, minv, mt, ctx.geom, ctx.solve_x)
+    return dfeat, ddepth, None, None, None, None
+
+
+lss_sample_bev_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+class LSSSampleBEV:
+    """The registered op under its earlier name:
+    ``LSSSampleBEV.apply(feat, depth, minv, mt, geom, solve_x)`` with a
+    :class:`_Geom` and a flag per camera, the output in feat's dtype; its
+    gradient for feat and depth is :func:`lss_sample_bev_backward_op`
+    (none for the geometry).  One forward launch per call, one backward
+    launch per backward pass."""
 
     @staticmethod
-    def forward(ctx, feat, depth, minv, mt, geom, solve_x):
-        ctx.save_for_backward(feat, depth, minv, mt)
-        ctx.geom, ctx.solve_x = geom, tuple(bool(s) for s in solve_x)
-        return lss_sample_bev(feat, depth, minv, mt, geom, solve_x)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        feat, depth, minv, mt = ctx.saved_tensors
-        dfeat, ddepth = lss_sample_bev_backward(
-            grad.contiguous(), feat, depth, minv, mt, ctx.geom, ctx.solve_x)
-        return dfeat, ddepth, None, None, None, None
+    def apply(feat, depth, minv, mt, geom: _Geom, solve_x):
+        return lss_sample_bev_op(feat, depth, minv, mt, geom_values(geom),
+                                 _mask(solve_x))
 
 
 def _mask(solve_x):

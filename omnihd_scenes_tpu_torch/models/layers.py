@@ -75,13 +75,15 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
 @contextlib.contextmanager
 def _recomputing(module: nn.Module):
-    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
-    for m in bns:
+    # BatchNorm's running statistics and QConv2d's QAT act_amax.
+    mods = [m for m in module.modules() if isinstance(m, (BatchNorm,
+                                                          QConv2d))]
+    for m in mods:
         m.recomputing = True
     try:
         yield
     finally:
-        for m in bns:
+        for m in mods:
             m.recomputing = False
 
 
@@ -93,7 +95,8 @@ def remat(module: nn.Module, *args):
     which under ``functional_call`` (the bf16 policy's copies) are not the
     ones it holds when the backward recomputes, so both runs take them
     explicitly.  The recomputation leaves BatchNorm's running statistics
-    alone: one update per step, as without remat."""
+    and the QAT ``act_amax`` alone: one update per step, as without
+    remat."""
     params = dict(module.named_parameters())
     return checkpoint(
         lambda *a: functional_call(module, params, a), *args,

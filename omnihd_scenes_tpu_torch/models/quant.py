@@ -1,22 +1,33 @@
-"""int8 post-training quantization of conv layers (counterpart of
-``omnihd_scenes_tpu/models/quant.py``, without QAT).
+"""int8 quantization of conv layers: post-training quantization and
+quantization-aware training (counterpart of
+``omnihd_scenes_tpu/models/quant.py``).
 
-Symmetric PTQ, no zero points: a per-tensor activation scale
-``sx = act_amax / 127`` from calibration and per-output-channel weight
-scales ``sw``; ``y = conv_s8(x8, w8) * (sx * sw) + bias`` summed exactly
-in integers and returned in the input's dtype.
+Symmetric, no zero points: a per-tensor activation scale
+``sx = act_amax / 127`` and per-output-channel weight scales ``sw``;
+``y = conv_s8(x8, w8) * (sx * sw) + bias`` summed exactly in integers and
+returned in the input's dtype.
 
 Flow, per model (the JAX package's mode is process-wide; here it is an
 attribute of each :class:`QConv2d`, set by :func:`set_mode`)::
 
-    set_mode(model, 'calib');  model(*batch)  # records act_amax
+    set_mode(model, 'calib');  model(*batch)  # PTQ: records act_amax
+    # or, QAT: set_mode(model, 'qat') and train (make_train_step): the
+    # convs run on fake-quantized operands, act_amax an EMA over steps
     set_mode(model, 'freeze'); model(*batch)  # stores w8, w_scale
     state = quant_state(model)                # the JAX 'quant' collection
     load_quant_state(model, state); set_mode(model, 'int8')
 
-:func:`calibrate_model` runs the first two steps for any model.  The
-space-to-depth stem (``models/resnet.py:S2DStem``) records its
-``act_amax`` and stays float, so its state has no ``w8`` / ``w_scale``.
+:func:`calibrate_model` runs the PTQ steps for any model.  ``qat`` is
+JAX's ``Conv._qat``: ``act_amax`` becomes ``0.99 a + 0.01 max|x|`` once
+a forward (the first batch sets it), not again while
+``models/layers.py:remat`` recomputes (``recomputing``); the conv runs in
+float on ``fake_quant(x, max(act_amax, 1e-6) / 127)`` and
+``fake_quant(W, max|W[o]| / 127)`` with a straight-through gradient.  As
+in JAX, no CLI or train loop has a QAT flag: ``make_train_step`` carries
+``act_amax`` in the modules' buffers, as it carries BatchNorm's running
+statistics.  The space-to-depth stem (``models/resnet.py:S2DStem``)
+records its ``act_amax`` in ``calib`` and ``qat`` and stays float, so its
+state has no ``w8`` / ``w_scale``.
 
 The quantization state lives in non-persistent buffers, so
 ``state_dict()`` stays the float checkpoint in every mode, as JAX keeps
@@ -34,10 +45,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from omnihd_scenes_tpu_torch.ops.qconv import (qconv3x3, quantize_act,
-                                               quantize_weights)
+from omnihd_scenes_tpu_torch.ops.qconv import (INV_127, qconv3x3,
+                                               quantize_act, quantize_weights)
 
-MODES = ('off', 'calib', 'freeze', 'int8')
+MODES = ('off', 'calib', 'freeze', 'int8', 'qat')
 QUANT_KEYS = ('act_amax', 'w8', 'w_scale')
 
 
@@ -62,13 +73,16 @@ class QConv2d(nn.Conv2d):
     its current dtype.  ``int8`` quantizes the input and runs the s8
     conv: eligible layers through :func:`qconv3x3`, the others as an f32
     conv of the int8 values (exact while partial sums stay below 2^24;
-    TF32 represents the values exactly too).  Without ``act_amax`` the
-    layer runs float in every mode but ``calib``, as JAX's does.
+    TF32 represents the values exactly too).  ``qat`` is JAX's
+    ``Conv._qat`` (module docstring).  Without ``act_amax`` the layer runs
+    float in ``freeze`` and ``int8``, as JAX's does.
     """
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.mode = 'off'
+        # Set by models/layers.py:remat while it recomputes a forward.
+        self.recomputing = False
         for key in QUANT_KEYS:
             self.register_buffer(key, None, persistent=False)
 
@@ -92,18 +106,53 @@ class QConv2d(nn.Conv2d):
             memory_format=torch.channels_last)
         self.w_scale = w_scale.to(device=dev, dtype=torch.float32)
 
+    def record_amax(self, x) -> torch.Tensor:
+        """``calib``: the running max of max|x|; ``qat``: its EMA
+        ``0.99 a + 0.01 max|x|`` (the first batch sets it), left as it is
+        while a remat recomputes (it already holds this step's value).
+        Returns the new ``act_amax``."""
+        if self.mode == 'qat' and self.recomputing:
+            return self.act_amax
+        amax = x.detach().abs().amax().float()
+        if self.act_amax is None:
+            self.act_amax = amax
+        elif self.mode == 'calib':
+            self.act_amax = torch.maximum(self.act_amax, amax)
+        else:
+            a = self.act_amax
+            self.act_amax = torch.where(a > 0, 0.99 * a + 0.01 * amax, amax)
+        return self.act_amax
+
     def forward(self, x):
         if self.mode == 'calib':
-            amax = x.detach().abs().amax().float()
-            self.act_amax = (amax if self.act_amax is None
-                             else torch.maximum(self.act_amax, amax))
+            self.record_amax(x)
             return super().forward(x)
+        if self.mode == 'qat':
+            return self._qat(x)
         if self.mode == 'off' or self.act_amax is None:
             return super().forward(x)
         if self.mode == 'freeze':
             self.set_weights(*quantize_weights(self.weight.detach()))
             return super().forward(x)
         return self._int8(x)
+
+    def _qat(self, x):
+        """Fake-quantized operands (quantize -> dequantize, straight-
+        through gradient), the conv in float, the bias added, the result
+        in x's dtype.  The scales multiply by float32(1/127) as jitted
+        JAX does (``ops/qconv.py``)."""
+        sx = torch.clamp_min(self.record_amax(x), 1e-6) * INV_127
+        w = self.weight
+        dims = tuple(range(1, w.dim()))
+        sw = torch.clamp_min(w.detach().float().abs().amax(dim=dims)
+                             * INV_127, 1e-12)
+        xq = _fake_quant(x, sx)
+        wq = _fake_quant(w, sw.view(-1, *(1,) * len(dims)))
+        dt = torch.promote_types(xq.dtype, wq.dtype)
+        y = self._conv_forward(xq.to(dt), wq.to(dt), None)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y.to(x.dtype)
 
     def _int8(self, x):
         x8, sx = quantize_act(x, self.act_amax)
@@ -125,6 +174,14 @@ class QConv2d(nn.Conv2d):
         if self.bias is not None:
             y = y + self.bias.float().view(1, -1, 1, 1)
         return y.to(x.dtype)
+
+
+def _fake_quant(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``clip(round(v / s), -127, 127) * s`` in f32, cast to v's dtype,
+    with the identity as its gradient (JAX ``Conv._qat``'s
+    ``fake_quant``)."""
+    q = torch.clamp(torch.round(v.float() / s), -127, 127) * s
+    return v + (q.to(v.dtype) - v).detach()
 
 
 def _qconvs(model: nn.Module):

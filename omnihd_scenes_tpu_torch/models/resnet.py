@@ -54,9 +54,9 @@ class S2DStem(QConv2d):
     and (F, C, 7, 7) shape; each call pads it at the front to 8x8 and
     rearranges it, so checkpoints and the weight bridge do not change.
 
-    ``calib`` records ``act_amax`` as the standard stem does (packing
-    moves pixels, so max|x| is the same); in every mode the conv runs in
-    float, and ``freeze`` stores no int8 weights: JAX leaves this stem
+    ``calib`` and ``qat`` record ``act_amax`` as the standard stem does
+    (packing moves pixels, so max|x| is the same; ``qat`` its EMA, JAX
+    ``resnet.py:89-100``); in every mode the conv runs in float, and ``freeze`` stores no int8 weights: JAX leaves this stem
     out of the int8 tier."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 64):
@@ -71,10 +71,8 @@ class S2DStem(QConv2d):
         return w8.reshape(f, 4 * c, 4, 4)
 
     def forward(self, x):
-        if self.mode == 'calib':
-            amax = x.detach().abs().amax().float()
-            self.act_amax = (amax if self.act_amax is None
-                             else torch.maximum(self.act_amax, amax))
+        if self.mode in ('calib', 'qat'):
+            self.record_amax(x)
         return F.conv2d(F.pad(x, (2, 1, 2, 1)), self.packed_weight(x.dtype))
 
 

@@ -6,10 +6,11 @@ read the depth-weighted feature there (Simple-BEV-style sampling; see the
 JAX module's docstring for the geometry).  The camera geometry (minv, mt)
 is inverted here in plain PyTorch, as the JAX module inverts it outside
 its kernel; the index fields and the gather-multiply-sum run in
-:class:`omnihd_scenes_tpu_torch.kernels.lss_sample.LSSSampleBEV` (one
-fused CUDA kernel on the card, its plain version, op for op the JAX
-``_sample_indices`` and a gather, on the CPU; its backward a CUDA
-scatter kernel on the card and ``index_add_`` on the CPU).  The JAX module's one-hot
+:class:`omnihd_scenes_tpu_torch.kernels.lss_sample.LSSSampleBEV`, the
+registered op ``omnihd::lss_sample_bev`` (one fused CUDA kernel on the
+card, its plain version, op for op the JAX ``_sample_indices`` and a
+gather, on the CPU; its backward a CUDA scatter kernel on the card and
+``index_add_`` on the CPU).  The JAX module's one-hot
 einsum forms and FOV ``b_windows`` are TPU workarounds for a gather and
 are not ported.
 """
@@ -39,16 +40,21 @@ def check_rotations(rots) -> None:
         raise ValueError('camera rotations must be finite and invertible')
 
 
-def camera_geometry(rots, trans):
-    """img->lidar (rots, trans) -> lidar->image (minv, mt), f32.
-
-    ``inv_ex`` is ``inv`` without the check of its error flags, which on
-    the card waits for the device; rotations on the host are checked
-    first (:func:`check_rotations`)."""
-    check_rotations(rots)
+def lidar_to_image(rots, trans):
+    """img->lidar (rots, trans) -> lidar->image (minv, mt), f32, with no
+    check: the model's path, which ``torch.export`` traces.  ``inv_ex``
+    is ``inv`` without the check of its error flags, which on the card
+    waits for the device; servers check the rotations on the host before
+    the upload (:func:`check_rotations`)."""
     minv = torch.linalg.inv_ex(rots.float())[0]
     mt = -torch.einsum('...ij,...j->...i', minv, trans.float())
     return minv, mt
+
+
+def camera_geometry(rots, trans):
+    """:func:`lidar_to_image` after :func:`check_rotations`."""
+    check_rotations(rots)
+    return lidar_to_image(rots, trans)
 
 
 def sample_fields(rots, trans, g: _Geom, solve_x: Sequence[bool]) -> SampleFields:
@@ -80,7 +86,7 @@ def lss_sample_bev(depth: torch.Tensor,
         raise ValueError(f'{len(solve_x)} solve_x flags for {n_cams} cameras')
     g = _Geom(image_size, (f_h, f_w), depth_range, bev_start, bev_voxel,
               bev_nx)
-    minv, mt = camera_geometry(rots, trans)
+    minv, mt = lidar_to_image(rots, trans)
     out = lss_kernel.LSSSampleBEV.apply(
         feat.contiguous(), depth.contiguous(), minv.contiguous(),
         mt.contiguous(), g, solve_x)

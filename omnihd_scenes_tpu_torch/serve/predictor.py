@@ -28,8 +28,9 @@ branch and ``make_predict_stream_batched``, ``train/builder.py:252-263,
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
@@ -42,13 +43,45 @@ from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.mtl import BEVFusionMTL
 from omnihd_scenes_tpu_torch.models.quant import (calibrate_model,
                                                   load_quant_state, set_mode)
-from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
+from omnihd_scenes_tpu_torch.serve.fuse import (fold_passthroughs,
+                                                passthrough_bns)
+from omnihd_scenes_tpu_torch.serve.inputs import (CAMERA_INPUTS, as_tensor,
+                                                  upload)
+from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
+                                                     random_stream_frame)
 from omnihd_scenes_tpu_torch.weights import load_state_dict
 
 
-def _as_tensor(x, device, dtype=None):
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
-    return t.to(device=device, dtype=dtype)
+def serving_model(model: torch.nn.Module, device, dtype: torch.dtype,
+                  request: Callable[[], Sequence],
+                  method: str = 'forward') -> torch.nn.Module:
+    """``model`` (weights loaded, on the host) on ``device`` in ``dtype``
+    with channels_last activations, in eval mode.  A fused checkpoint's
+    passthrough BNs (``serve/fuse.py``; found on the host, before the
+    upload) are first folded into their producers in f32, on the device,
+    traced on one call of ``model.<method>`` with the positional inputs
+    ``request()`` builds (NumPy arrays, tensors or None): a passthrough
+    cast to bf16 would scale its input by 0.99771.  An unfused checkpoint
+    has none and builds no request.  Raises ``ValueError`` where a
+    passthrough the trace cannot fold (no producer, or one that feeds two
+    BNs) would be served in another dtype than f32, the one where it is
+    exact."""
+    names = passthrough_bns(model)
+    if names:
+        model.to(device)
+        run = getattr(model, method)
+        inputs = [None if x is None else as_tensor(x, device)
+                  for x in request()]
+        folded = fold_passthroughs(model, names, lambda: run(*inputs))
+        left = [n for n in names if n not in folded]
+        if left and dtype != torch.float32:
+            raise ValueError(
+                f'{len(left)} passthrough BN(s) of a fused checkpoint have '
+                f'no producer of their own to fold into ({left[:3]} ...); '
+                f'in {dtype} each would scale its input by 0.99771: serve '
+                f'this checkpoint in float32')
+    return model.to(device=device, dtype=dtype,
+                    memory_format=torch.channels_last).eval()
 
 
 class Predictor:
@@ -65,8 +98,10 @@ class Predictor:
     (``camera_stream=False``).
 
     With ``quant_state`` (from :func:`calibrate`, or the JAX ``quant``
-    collection through ``weights.flax_quant_to_torch``) the network runs
-    in the int8 PTQ tier.
+    collection through ``weights.flax_quant_to_torch``, or after QAT and
+    ``freeze``) the network runs in the int8 tier.  A fused checkpoint
+    (``tools/fuse_conv_bn.py``) is served with its passthrough BNs folded
+    (:func:`serving_model`, traced on one synthetic b1 request).
     """
 
     def __init__(self, cfg: Union[BEVFusionConfig, MTLConfig],
@@ -82,8 +117,10 @@ class Predictor:
         fcfg = cfg.fusion if isinstance(cfg, MTLConfig) else cfg
         self.img_channels = 12 if fcfg.stem_s2d else 3
         load_state_dict(model, state_dict)
-        self.model = model.to(device=self.device, dtype=dtype,
-                              memory_format=torch.channels_last).eval()
+        self.model = serving_model(
+            model, self.device, dtype,
+            lambda: random_request(np.random.RandomState(0), cfg, batch=1,
+                                   n_points=1024))
         if quant_state is not None:
             load_quant_state(self.model, quant_state)
             set_mode(self.model, 'int8')
@@ -92,20 +129,14 @@ class Predictor:
     @torch.inference_mode()
     def forward(self, points, points_mask, imgs, rots, trans):
         """The network alone: the model's dict of JAX-layout outputs."""
-        dev = self.device
-        if points is not None:               # None: camera-only model
-            points = _as_tensor(points, dev, torch.float32)
-            points_mask = _as_tensor(points_mask, dev, torch.bool)
-        if imgs is not None:                 # None: radar-only model
-            if imgs.shape[-1] != self.img_channels:
-                raise ValueError(
-                    f'images of {imgs.shape[-1]} channels; this model takes '
-                    f'{self.img_channels} (12: space_to_depth packed, '
-                    f'stem_s2d)')
-            check_rotations(rots)
-            imgs = _as_tensor(imgs, dev, self.dtype)
-            rots = _as_tensor(rots, dev, torch.float32)
-            trans = _as_tensor(trans, dev, torch.float32)
+        if imgs is not None and imgs.shape[-1] != self.img_channels:
+            raise ValueError(
+                f'images of {imgs.shape[-1]} channels; this model takes '
+                f'{self.img_channels} (12: space_to_depth packed, '
+                f'stem_s2d)')
+        points, points_mask, imgs, rots, trans = upload(
+            CAMERA_INPUTS, (points, points_mask, imgs, rots, trans),
+            self.device, self.dtype)
         return self.model(points, points_mask, imgs, rots, trans)
 
     @torch.inference_mode()
@@ -149,10 +180,10 @@ def predict_stream(model: BEVFormerDetector, imgs, can_bus, lidar2img,
     p = model.pts_bbox_head.bev_embedding
     dev, dtype = p.device, p.dtype
     out = model.forward_stream(
-        _as_tensor(imgs, dev, dtype), _as_tensor(can_bus, dev, torch.float32),
-        _as_tensor(lidar2img, dev, torch.float32),
-        _as_tensor(prev_bev, dev, dtype), _as_tensor(has_prev, dev,
-                                                     torch.bool))
+        as_tensor(imgs, dev, dtype), as_tensor(can_bus, dev, torch.float32),
+        as_tensor(lidar2img, dev, torch.float32),
+        as_tensor(prev_bev, dev, dtype), as_tensor(has_prev, dev,
+                                                   torch.bool))
     dets = nms_free_decode(out['all_cls_scores'][:, -1],
                            out['all_bbox_preds'][:, -1], coder_cfg)
     return dets, out['bev_embed']
@@ -166,7 +197,9 @@ class StreamPredictor:
     channels_last images.  B = 1 is the latency mode; B > 1 serves B
     independent streams per call (``has_prev`` per stream).  Pass the
     returned ``bev_embed`` back as the next call's ``prev_bev`` and it
-    stays on the card; :meth:`zero_bev` is the state of a new stream."""
+    stays on the card; :meth:`zero_bev` is the state of a new stream.  A
+    fused checkpoint is served with its passthrough BNs folded
+    (:func:`serving_model`, traced on one synthetic b1 frame)."""
 
     def __init__(self, cfg: BEVFormerConfig,
                  state_dict: Mapping[str, torch.Tensor], device='cuda',
@@ -176,8 +209,18 @@ class StreamPredictor:
         self.device, self.dtype = torch.device(device), dtype
         model = BEVFormerDetector(cfg)
         load_state_dict(model, state_dict)
-        self.model = model.to(device=self.device, dtype=dtype,
-                              memory_format=torch.channels_last).eval()
+        self.model = serving_model(model, self.device, dtype,
+                                   lambda: self._zero_frame(cfg),
+                                   method='forward_stream')
+
+    @staticmethod
+    def _zero_frame(cfg: BEVFormerConfig):
+        """One synthetic b1 frame of a new stream (zero previous BEV),
+        ``forward_stream``'s positional inputs, as
+        ``tools/fuse_conv_bn.py`` traces a BEVFormer."""
+        frame = random_stream_frame(np.random.RandomState(0), cfg, 1)
+        return (*frame, np.zeros((1, cfg.bev_h * cfg.bev_w, cfg.embed_dims),
+                                 np.float32), np.zeros(1, bool))
 
     def zero_bev(self, batch: int) -> torch.Tensor:
         cfg = self.cfg

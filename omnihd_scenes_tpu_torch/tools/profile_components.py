@@ -59,10 +59,9 @@ from omnihd_scenes_tpu_torch.models.anchor_head import (
     anchor_head_decode_candidates)
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
 from omnihd_scenes_tpu_torch.models.lss import _nhwc
-from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
-from omnihd_scenes_tpu_torch.serve.predictor import (Predictor, _as_tensor,
-                                                     calibrate)
+from omnihd_scenes_tpu_torch.serve.inputs import CAMERA_INPUTS, upload
+from omnihd_scenes_tpu_torch.serve.predictor import Predictor, calibrate
 from omnihd_scenes_tpu_torch.serve.synthetic import (
     random_bevformer_state_dict, random_queue_batch, random_request,
     random_state_dict, random_train_batch)
@@ -87,13 +86,8 @@ def staged_call(predictor: Predictor, request, mark):
     m, dev = predictor.model, predictor.device
     if not m.lss.use_depthnet:
         raise NotImplementedError('staged_call follows the DepthNet path')
-    points, points_mask, imgs, rots, trans = request
-    points = _as_tensor(points, dev, torch.float32)
-    points_mask = _as_tensor(points_mask, dev, torch.bool)
-    imgs = _as_tensor(imgs, dev, predictor.dtype)
-    check_rotations(rots)
-    rots = _as_tensor(rots, dev, torch.float32)
-    trans = _as_tensor(trans, dev, torch.float32)
+    points, points_mask, imgs, rots, trans = upload(
+        CAMERA_INPUTS, request, dev, predictor.dtype)
     mark('inputs to the device')
 
     pts_bev = m.pillar_canvas(points, points_mask)

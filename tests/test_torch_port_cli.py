@@ -549,3 +549,54 @@ def test_int8_calibrates_bevformer_on_a_cold_stream():
             torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
         else:
             assert torch.equal(got[k], want[k]), k
+
+
+def test_fuse_and_export_clis(trained, dataroot, tmp_path, capsys):
+    """``tools.fuse_conv_bn`` then ``tools.export --no-bf16`` on the
+    pillar model's checkpoint (CPU): every BN of the pillar stream folds,
+    the fused checkpoint loads, and the bundle's detections on a val
+    sample keep the unfused model's rows (matched as multisets within
+    1e-4: fusion moves f32 roundings only)."""
+    from chip_smoke import kept_row_distance
+    from omnihd_scenes_tpu_torch.data.loader import EvalLoader
+    from omnihd_scenes_tpu_torch.serve.export import load_exported
+    from omnihd_scenes_tpu_torch.tools import export as export_cli
+    from omnihd_scenes_tpu_torch.tools import fuse_conv_bn as fuse_cli
+    from omnihd_scenes_tpu_torch.train.builder import (
+        anchors_for, make_predict_fn_generic, model_inputs)
+    from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
+    from omnihd_scenes_tpu_torch.train.loop import checkpoint_file
+
+    work, _ = trained
+    opts = ['--device', 'cpu', '--cfg-options', *cfg_options(dataroot)]
+    fused_dir = str(tmp_path / 'fused')
+    report = fuse_cli.main([SYNTH, os.path.join(work, 'ckpts'), '--out',
+                            fused_dir, *opts])
+    assert 'BN folded, 0 skipped' in capsys.readouterr().out
+    cfg = Config.fromfile(SYNTH)
+    cfg.merge_from_options(cfg_options(dataroot))
+    model, mtype = build_model_from_cfg(cfg)
+    n_bn = sum(type(m).__name__ == 'BatchNorm' for m in model.modules())
+    assert len(report['fused']) == n_bn and not report['skipped']
+    bundle = export_cli.main([SYNTH, fused_dir, '--out',
+                              str(tmp_path / 'bundle'), '--no-bf16', *opts])
+    loaded = load_exported(bundle, 'cpu')
+    assert not loaded.meta['bf16'] and loaded.meta['mtype'] == mtype
+
+    dataset = build_dataset_single(cfg.data.val, 'det')
+    batch, _ = next(iter(EvalLoader(dataset, 1)))
+    points, mask = model_inputs(batch, mtype)
+    n = loaded.input_specs[0]['shape'][1]
+    pts = np.zeros((1, n, points.shape[-1]), np.float32)
+    keep = np.zeros((1, n), bool)
+    m = min(n, points.shape[1])
+    pts[:, :m], keep[:, :m] = points[:, :m], mask[:, :m]
+    got = loaded(pts, keep)
+    model.load_state_dict(torch.load(
+        checkpoint_file(os.path.join(work, 'ckpts')),
+        weights_only=True)['model'])
+    want, _ = make_predict_fn_generic(model, mtype, anchors_for(model, mtype))(
+        model, {'points': pts, 'points_mask': keep})
+    assert int(got[3].sum()) == int(want[3].sum())
+    if int(want[3].sum()):
+        assert kept_row_distance(list(got), list(want), 0) < 1e-4

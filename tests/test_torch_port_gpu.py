@@ -3,8 +3,9 @@ their plain PyTorch versions, on the card, and small train steps (BEVFusion,
 with the scatter splat and with remat too, the camera-only model,
 BEVFusion-OCC in each trunk mode, RCFusion, the pillar families) and
 small serving runs (BN-folded pillars, the space-to-depth stem, the
-scatter splat) on the card against the CPU.  Every test here needs a CUDA
-device and skips without one.
+scatter splat) on the card against the CPU; the registered LSS ops, a
+fused checkpoint served and a bundle exported on the card.  Every test
+here needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1305,3 +1306,102 @@ def test_prefetch_decodes_on_its_stream_as_on_the_current(dev, tmp_path):
         assert tuple(g['imgs'].shape) == (2, 6, 96, 160, 3)
         for k in w:
             assert torch.equal(g[k].cpu(), w[k].cpu()), k
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_registered_op_matches_plain(dev, dtype):
+    """``torch.ops.omnihd.lss_sample_bev`` (what the model and an exported
+    program call) on card tensors: one launch of the fused kernel, within
+    the wrapper's bound of the plain version; its backward op one launch
+    of the backward kernel, within its bound of the plain scatter."""
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        _mask, geom_values, lss_sample_bev_backward_op, lss_sample_bev_op)
+
+    grad, feat, depth, minv, mt, g = _grad_case(dev, 2, dtype, seed=12)
+    args = (geom_values(g), _mask(SOLVE_X))
+    before = (lss_sample_bev.launches, lss_sample_bev_backward.launches)
+    got = torch.ops.omnihd.lss_sample_bev(feat, depth, minv, mt, *args)
+    back = lss_sample_bev_backward_op(grad, feat, depth, minv, mt, *args)
+    torch.cuda.synchronize()
+    assert (lss_sample_bev.launches, lss_sample_bev_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype
+    want = lss_sample_bev_reference(feat, depth, minv, mt, g, SOLVE_X,
+                                    torch.float32)
+    if dtype == torch.bfloat16:
+        want = want.to(torch.bfloat16).float()
+    _check(got, want)
+    _check_backward(back, lss_sample_bev_backward_reference(
+        grad, feat, depth, minv, mt, g, SOLVE_X))
+    assert torch.equal(got, lss_sample_bev_op(feat, depth, minv, mt, *args))
+
+
+def _fused_case(seed=9):
+    """The small config's weights with BN statistics away from (0, 1), and
+    their fused state dict (``serve/fuse.py``, traced on the CPU)."""
+    import numpy as np
+
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.serve.fuse import fuse_model
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+    from omnihd_scenes_tpu_torch.weights import load_state_dict
+
+    cfg, sd, _ = _small_train_case(seed=seed)
+    rng = np.random.RandomState(seed)
+    for k in [k for k in sd if k.endswith('.running_var')]:
+        sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, sd[k].shape)
+                                 .astype(np.float32))
+    request = random_request(np.random.RandomState(seed), cfg, 2, 600)
+    model = BEVFusion(cfg)
+    load_state_dict(model, sd)
+    inputs = [torch.from_numpy(x) for x in request]
+    fused, report = fuse_model(model, lambda: model(*inputs))
+    assert report['fused'] and not report['skipped']
+    return cfg, sd, fused, request
+
+
+def test_fused_serving_on_the_card_equals_unfused(dev):
+    """f32 ``Predictor`` on the card (TF32 off): the fused checkpoint's
+    network (passthroughs folded) within 1e-4 of max|ref| of the unfused
+    one's, the same kept rows."""
+    from chip_smoke import kept_row_distance
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sd, fused, request = _fused_case()
+    preds = [Predictor(cfg, s, device=dev, dtype=torch.float32)
+             for s in (sd, fused)]
+    want, got = (p.forward(*request) for p in preds)
+    for key in ('bev', 'cls_score', 'bbox_pred', 'dir_pred'):
+        assert float((got[key] - want[key]).abs().max()) <= 1e-4 * float(
+            want[key].abs().max()), key
+    dets = [[t.cpu() for t in p(*request)] for p in preds]
+    for s in range(2):
+        assert int(dets[0][3][s].sum()) == int(dets[1][3][s].sum())
+        assert kept_row_distance(dets[1], dets[0], s) < 1e-3
+
+
+def test_bundle_exported_on_the_card(dev, tmp_path):
+    """A bf16 bundle of the small fused model exported on the card: loaded
+    back it launches the LSS kernel once a request inside the program and
+    equals the live bf16 ``Predictor``'s kept rows."""
+    from chip_smoke import kept_row_distance
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.serve.export import (export_model,
+                                                      load_exported)
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+
+    cfg, _, fused, request = _fused_case(seed=10)
+    out = export_model(BEVFusion(cfg), 'bevfusion', fused, request,
+                       str(tmp_path / 'bundle'),
+                       anchors=cfg.pillars.anchors(), device=dev)
+    loaded = load_exported(out, dev)
+    before = lss_sample_bev.launches
+    got = [t.cpu() for t in loaded(*request)]
+    torch.cuda.synchronize()
+    assert lss_sample_bev.launches == before + 1
+    want = [t.cpu() for t in Predictor(cfg, fused, device=dev)(*request)]
+    for s in range(2):
+        assert int(got[3][s].sum()) == int(want[3][s].sum())
+        assert kept_row_distance(got, want, s) < 1e-3
