@@ -357,7 +357,22 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    the stem with a finite ``act_amax`` > 0, one LSS forward and one
    backward launch a step), then ``freeze`` and the int8 tier through
    ``Predictor(quant_state=...)`` with TF32 on, as phase 10: 1 + 3 b4
-   requests, 36 ``qconv3x3`` launches a request, ms.
+   requests, 36 ``qconv3x3`` launches a request, ms;
+39. data-parallel training (``parallel/``) of full-width
+   ``configs/bevfusion.py`` under the bf16 policy, global b4, 1 + 3 steps:
+   39a one rank over NCCL (an all-reduce probe): no collective inside
+   its steps, the first loss bit-equal to the same steps without a group
+   and the rest within 39b's bounds of them (the one-process steps do
+   not repeat bit for bit on the card: atomic backward kernels; a second
+   run's spread is printed beside), ms beside phase 15's b4; 39b DP_RANKS spawned ranks of DP_LOCAL samples
+   on cuda:0 over gloo (NCCL refuses two ranks on one card): every rank's
+   state bit-equal to rank 0's, losses within DP_LOSS_TOL and parameters
+   within DP_PARAM_LR learning rates a step of the one-process b4 run,
+   a rank's step ms, its gradient all-reduce ms (gloo through the host)
+   and peak GiB, one LSS forward and one backward launch a rank a step;
+   39c one rank a GPU over NCCL (up to DP_MAX_GPUS) when the machine has
+   several, else ``39c not run: 1 device``; 39d ``tools.train`` under
+   ``torchrun --nproc_per_node 1`` on a synthetic radar dataroot.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -371,7 +386,8 @@ too), 0 on BEVFormer-T's training run (phase 25b) and
 R101-DCN's stream (26b); the rectify and IDCT kernels' from phase 34's
 main path; the augmentation kernels' from phase 35b's training run, and
 every kernel's there as ``launches_camera_train``; phases 36-38's
-fused request, exported program, QAT training and QAT int8 request),
+fused request, exported program, QAT training and QAT int8 request;
+phase 39's per rank, ``launches_data_parallel``),
 error against the plain
 version, kernel / plain /
 library ms, and the bound of ``tools/roofline.py``: the larger of the
@@ -6140,6 +6156,364 @@ def sca_hits(cfg, lidar2img):
     return mask[0].any(-1).sum(-1)
 
 
+# Phase 39: data-parallel training.  39b runs DP_RANKS ranks of
+# DP_LOCAL samples on cuda:0 over gloo; 39c one rank a GPU over NCCL on
+# up to DP_MAX_GPUS cards.  Bounds against the one-process run of the
+# same global batch under the bf16 policy: two one-process runs of its
+# 1 + 3 steps differed by 1.12e-4 in a loss and 7.53 learning rates in a
+# parameter on one H100 (atomic backward kernels; AdamW moves a weight
+# whose gradient is near 0 by up to a learning rate either way a step).
+DP_RANKS = 2
+DP_LOCAL = 2
+DP_MAX_GPUS = 4
+DP_LR = 2e-4
+DP_LOSS_TOL = 1e-2
+DP_PARAM_LR = 2.5
+
+
+@contextlib.contextmanager
+def _counted_collectives():
+    """Count the ``torch.distributed`` collectives issued inside."""
+    import torch.distributed as dist
+
+    names = ('all_reduce', 'broadcast', 'all_gather', 'barrier')
+    saved = {n: getattr(dist, n) for n in names}
+    count = [0]
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            count[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(saved[n]))
+    try:
+        yield count
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+
+
+def _dp_steps(dev, cfg, state_dict, batches):
+    """1 + N_TIMED bf16-policy steps of full-width BEVFusion from
+    ``state_dict`` on this process's rows of each global batch (the whole
+    batch without a data-parallel group; rank 0's weights broadcast
+    first): {'losses' (the ranks' means), 'ms' (a step, CUDA events),
+    'all_reduce_ms' (the gradients' all-reduce), 'peak_gib', 'launches'
+    ((LSS forward, backward) after each step), 'collectives' (issued in
+    the steps, the loss reads included), 'state' (floating state after
+    the last step, on the host)}."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import (
+        lss_sample_bev, lss_sample_bev_backward)
+    from omnihd_scenes_tpu_torch.parallel import mesh
+    from omnihd_scenes_tpu_torch.train.amp import bf16_policy
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+    from omnihd_scenes_tpu_torch.train.loop import (_read_scalars, batch_to,
+                                                    make_train_step)
+
+    state = _train_state(cfg, state_dict, dev, DP_LR)
+    mesh.broadcast_state(state.model)
+    events = {}
+
+    def mark(stage):
+        events[stage] = torch.cuda.Event(enable_timing=True)
+        events[stage].record()
+
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        state.model, 'bevfusion', cfg.pillars.anchors(),
+        camera_depth_range=cfg.lss.camera_depth_range)), mark=mark)
+    local = [batch_to(mesh.shard_batch(b), dev) for b in batches]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = {'losses': [], 'ms': [], 'all_reduce_ms': [], 'launches': []}
+    lss_sample_bev.launches = lss_sample_bev_backward.launches = 0
+    with _counted_collectives() as collectives:
+        for b in local:
+            events.clear()
+            start.record()
+            state, loss, _ = step(state, b)
+            end.record()
+            torch.cuda.synchronize(dev)
+            out['ms'].append(start.elapsed_time(end))
+            if 'all_reduce' in events:
+                out['all_reduce_ms'].append(
+                    events['backward'].elapsed_time(events['all_reduce']))
+            out['launches'].append((lss_sample_bev.launches,
+                                    lss_sample_bev_backward.launches))
+            out['losses'].append(_read_scalars(loss, {})['loss'])
+    out['collectives'] = collectives[0]
+    out['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out['state'] = {k: v.cpu() for k, v in state.model.state_dict().items()
+                    if v.is_floating_point()}
+    del state, step, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank, world, backend, same_device, directory):
+    """One rank of phases 39b / 39c (a spawned process): the group from a
+    file rendezvous in ``directory``, :func:`_dp_steps` on its rows of the
+    spec's batches, its result saved to ``rank<r>.pt`` (or its error)."""
+    import os
+    import traceback
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.parallel import distributed
+
+    result = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device('cuda', 0 if same_device else rank)
+        torch.cuda.set_device(dev)
+        distributed.init_distributed(
+            'cuda', backend=backend, rank=rank, world_size=world,
+            init_method=f'file://{os.path.join(directory, "rdzv")}')
+        spec = torch.load(os.path.join(directory, 'spec.pt'),
+                          weights_only=False)
+        result = _dp_steps(dev, spec['cfg'], spec['state_dict'],
+                           spec['batches'])
+    except BaseException:
+        result = {'error': f'rank {rank}: {traceback.format_exc()}'}
+    finally:
+        distributed.destroy_distributed()
+        torch.save(result, os.path.join(directory, f'rank{rank}.pt'))
+
+
+def _dp_launch(world, backend, same_device, cfg, state_dict, batches,
+               timeout=900):
+    """Run :func:`_dp_rank` on ``world`` spawned ranks; their results."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({'cfg': cfg, 'state_dict': state_dict,
+                    'batches': batches}, os.path.join(tmp, 'spec.pt'))
+        ctx = mp.get_context('spawn')
+        procs = [ctx.Process(target=_dp_rank,
+                             args=(r, world, backend, same_device, tmp))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(not hung, f'ranks {hung} did not finish in {timeout} s')
+        out = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                          weights_only=False) for r in range(world)]
+    errors = [o['error'] for o in out if 'error' in o]
+    check(not errors, 'a data-parallel rank failed:\n' + '\n'.join(errors))
+    return out
+
+
+def _dp_against(ranks, one, label):
+    """Every rank's state equal to rank 0's bit for bit; losses and
+    parameters against the one-process run: (max relative loss gap, max
+    parameter gap in learning rates)."""
+    import torch
+
+    for r, res in enumerate(ranks[1:], 1):
+        check(res['losses'] == ranks[0]['losses'],
+              f'{label}: rank {r} logged other losses')
+        for k, v in ranks[0]['state'].items():
+            check(torch.equal(res['state'][k], v),
+                  f'{label}: rank {r} differs from rank 0 in {k}')
+    loss_gap = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]['losses'], one['losses']))
+    param_gap = max(float((ranks[0]['state'][k] - v).abs().max())
+                    for k, v in one['state'].items()
+                    if 'running' not in k) / DP_LR
+    return loss_gap, param_gap
+
+
+def _dp_torchrun(card):
+    """39d: ``tools.train`` under ``torchrun --nproc_per_node 1`` on a
+    synthetic radar dataroot on the card."""
+    import os
+    import sys
+    import tempfile
+
+    from omnihd_scenes_tpu_torch.devkit.converter import (
+        create_newscenes_infos)
+    from omnihd_scenes_tpu_torch.devkit.synthetic import (SyntheticConfig,
+                                                          generate)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, work = os.path.join(tmp, 'synth'), os.path.join(tmp, 'work')
+        generate(root, 'v1.0-mini', SyntheticConfig(), images=False)
+        create_newscenes_infos(root, root, 'synth', version='v1.0-mini',
+                               max_sweeps=0)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+             '--nproc_per_node', '1', '-m',
+             'omnihd_scenes_tpu_torch.tools.train',
+             'configs/synthetic/pointpillars_radar_synth.py', '--work-dir',
+             work, '--cfg-options', f'dataroot={root}',
+             f'data.train.ann_file={root}/synth_infos_temporal_train.pkl',
+             f'data.val.ann_file={root}/synth_infos_temporal_val.pkl'],
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f'torchrun tools.train exited '
+              f'{proc.returncode}: {proc.stderr[-3000:]}')
+        with open(os.path.join(work, 'train.log.json')) as f:
+            records = [json.loads(line) for line in f]
+        ckpts = sorted(os.listdir(os.path.join(work, 'ckpts')))
+    done, env = records[-1], records[0]
+    val = [r for r in records if r['mode'] == 'val']
+    check(done['mode'] == 'done' and done['world_size'] == 1
+          and env['device'].startswith('cuda') and ckpts == ['ckpt_2.pt']
+          and len(val) == 1 and np.isfinite(val[0]['NOS']),
+          f'torchrun tools.train: {done}, {env}, {ckpts}, {val}')
+    print(f'[39d torchrun] tools.train under torchrun --nproc_per_node 1 '
+          f'({env["device_name"]}, {card}): {seconds:.1f} s (whole '
+          f'launch), {done["final_step"]} steps, world_size '
+          f'{done["world_size"]}, backend {done["backend"]}, NOS '
+          f'{val[0]["NOS"]:.4f}, {ckpts}')
+
+
+def phase_data_parallel(dev, card, b4_ms):
+    """Phase 39: data-parallel training of full-width ``configs/
+    bevfusion.py`` under the bf16 policy, global batch DP_RANKS x
+    DP_LOCAL, 1 + N_TIMED steps (TF32 off): 39a one rank over NCCL
+    against the one-process run; 39b DP_RANKS ranks on cuda:0 over gloo;
+    39c one rank a GPU over NCCL when there are several; 39d
+    ``tools.train`` under torchrun.  Returns {run: (LSS forward, backward)
+    launches a rank after its steps}.
+
+    The one-process steps do not repeat bit for bit on the card (cuDNN's
+    weight gradients, the bilinear upsampling's and max pooling's
+    backward add with atomics; deterministic cuDNN alone made a step
+    5.7 s and still did not repeat), so 39a holds the W = 1 run to the
+    first step's loss bit for bit (the forward is deterministic), to no
+    collective inside its steps (at W = 1 every reduction is skipped:
+    the one-process path), and to 39b's bounds, beside a second
+    one-process run's spread."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from omnihd_scenes_tpu_torch.config import BEVFusionConfig
+    from omnihd_scenes_tpu_torch.parallel import distributed
+    from omnihd_scenes_tpu_torch.serve.synthetic import (random_state_dict,
+                                                         random_train_batch)
+
+    cfg = BEVFusionConfig()
+    sd = random_state_dict(cfg, seed=0)
+    rng = np.random.RandomState(390)
+    batches = [random_train_batch(rng, cfg, DP_RANKS * DP_LOCAL)
+               for _ in range(1 + N_TIMED)]
+    launches = {}
+    one = _dp_steps(dev, cfg, sd, batches)
+    again = _dp_steps(dev, cfg, sd, batches)
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    distributed.init_distributed(
+        'cuda', backend='nccl', init_method=f'tcp://localhost:{port}',
+        rank=0, world_size=1)
+    try:
+        probe = torch.full((4,), 3.0, device=dev)
+        dist.all_reduce(probe)
+        check(bool((probe == 3.0).all()), 'NCCL all-reduce of one rank')
+        w1 = _dp_steps(dev, cfg, sd, batches)
+        backend = dist.get_backend()
+    finally:
+        distributed.destroy_distributed()
+    spread = _dp_against([again], one, '39a')
+    loss_gap, param_gap = _dp_against([w1], one, '39a')
+    ms1, ms0 = float(np.mean(w1['ms'][1:])), float(np.mean(one['ms'][1:]))
+    print(f'[39a data parallel W=1] {backend}, b{DP_RANKS * DP_LOCAL}, '
+          f'{N_TIMED} steps (+1): {ms1:.2f} ms/step ({w1["ms"][1:]}) vs '
+          f'{ms0:.2f} without a group and phase 15 b4 {b4_ms:.2f} ({card}); '
+          f'peak {w1["peak_gib"]:.2f} GiB; {w1["collectives"]} collectives '
+          f'in its steps; first loss {w1["losses"][0]!r} vs {one["losses"][0]!r}'
+          f' without a group; against that run: losses {loss_gap:.2e}, '
+          f'parameters {param_gap:.3f} learning rates (a second run without '
+          f'a group: {spread[0]:.2e}, {spread[1]:.3f}); (LSS forward, '
+          f'backward) launches after each step {w1["launches"]}')
+    check(w1['collectives'] == 0, 'the W = 1 steps issued collectives')
+    check(w1['losses'][0] == one['losses'][0],
+          'the W = 1 forward differs from the one-process forward')
+    check(loss_gap <= DP_LOSS_TOL
+          and param_gap <= DP_PARAM_LR * (1 + N_TIMED),
+          'the W = 1 run is off the one-process run')
+    launches['w1_nccl'] = w1['launches'][-1]
+
+    ranks = _dp_launch(DP_RANKS, 'gloo', True, cfg, sd, batches)
+    loss_gap, param_gap = _dp_against(ranks, one, '39b')
+    for r, res in enumerate(ranks):
+        print(f'[39b data parallel W={DP_RANKS} gloo] rank {r} on cuda:0, '
+              f'b{DP_LOCAL} of b{DP_RANKS * DP_LOCAL}: '
+              f'{np.mean(res["ms"][1:]):.2f} ms/step ({res["ms"][1:]}), '
+              f'gradient all-reduce (gloo through the host) '
+              f'{np.mean(res["all_reduce_ms"][1:]):.2f} ms '
+              f'({res["all_reduce_ms"][1:]}), '
+              f'{res["collectives"] / (1 + N_TIMED):.0f} collectives a step '
+              f'(BatchNorm moments and their gradients, the depth loss\'s '
+              f'count, the gradients, the loss read), peak '
+              f'{res["peak_gib"]:.2f} GiB ({card}); (LSS forward, backward) '
+              f'launches after each step {res["launches"]}')
+        check(res['launches'] == [(k, k) for k in range(1, 2 + N_TIMED)],
+              f'rank {r}: (LSS forward, backward) launches '
+              f'{res["launches"]}, not one each a step')
+        launches[f'w{DP_RANKS}_gloo_rank{r}'] = res['launches'][-1]
+    print(f'[39b data parallel W={DP_RANKS} gloo] every rank\'s state '
+          f'bit-equal to rank 0\'s; against the one-process b'
+          f'{DP_RANKS * DP_LOCAL} run: losses {ranks[0]["losses"]} vs '
+          f'{one["losses"]} (worst {loss_gap:.2e} relative, bound '
+          f'{DP_LOSS_TOL}), parameters within {param_gap:.3f} learning '
+          f'rates (bound {DP_PARAM_LR} a step, {1 + N_TIMED} steps)')
+    check(all(np.isfinite(ranks[0]['losses'])), 'non-finite losses')
+    check(loss_gap <= DP_LOSS_TOL
+          and param_gap <= DP_PARAM_LR * (1 + N_TIMED),
+          'the data-parallel run is off the one-process run')
+    del ranks
+
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        print(f'[39c data parallel NCCL] 39c not run: {n_gpus} device')
+    else:
+        world = min(n_gpus, DP_MAX_GPUS)
+        rng = np.random.RandomState(391)
+        batches = [random_train_batch(rng, cfg, world * DP_LOCAL)
+                   for _ in range(1 + N_TIMED)]
+        one = _dp_steps(dev, cfg, sd, batches)
+        ranks = _dp_launch(world, 'nccl', False, cfg, sd, batches)
+        loss_gap, param_gap = _dp_against(ranks, one, '39c')
+        print(f'[39c data parallel W={world} NCCL] one rank a GPU, '
+              f'b{DP_LOCAL} each: rank 0 {np.mean(ranks[0]["ms"][1:]):.2f} '
+              f'ms/step ({ranks[0]["ms"][1:]}), all-reduce '
+              f'{np.mean(ranks[0]["all_reduce_ms"][1:]):.2f} ms, peak '
+              f'{ranks[0]["peak_gib"]:.2f} GiB; states bit-equal across '
+              f'ranks; against one process: losses {loss_gap:.2e}, '
+              f'parameters {param_gap:.3f} learning rates ({card})')
+        check(loss_gap <= DP_LOSS_TOL
+              and param_gap <= DP_PARAM_LR * (1 + N_TIMED),
+              '39c is off the one-process run')
+        for r, res in enumerate(ranks):
+            check(res['launches'][-1] == (1 + N_TIMED, 1 + N_TIMED),
+                  f'39c rank {r} launches {res["launches"]}')
+            launches[f'w{world}_nccl_rank{r}'] = res['launches'][-1]
+    _dp_torchrun(card)
+    return launches
+
+
 def main():
     card = phase_device()
     import torch
@@ -6213,6 +6587,7 @@ def main():
     fuse = phase_fuse(dev, card)
     export = phase_export(dev, card, fuse.pop('cfg'), fuse.pop('fused'))
     qat = phase_qat(dev, card, cfg, state_dict)
+    dp = phase_data_parallel(dev, card, train[BATCH][0])
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -6329,6 +6704,12 @@ def main():
     extra['lss_sample']['launches_qat_int8'] = {
         'request_b4': qat['lss_request']}
     extra['qconv']['launches_qat_int8'] = {'request_b4': qat['qconv_request']}
+    # Phase 39: each rank's LSS forward and backward launches over its
+    # 1 + N_TIMED data-parallel steps (one each a step).
+    extra['lss_sample']['launches_data_parallel'] = {
+        run: fwd for run, (fwd, _) in dp.items()}
+    extra['lss_sample_backward']['launches_data_parallel'] = {
+        run: back for run, (_, back) in dp.items()}
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'{CSRC}{SOURCES.get(src, src + ".cu")}',

@@ -47,7 +47,9 @@ def reseed(dataset, worker_id: int) -> None:
     it and takes ``RandomState(base + worker_id)``; NumPy's global
     generator is reseeded from itself plus the worker id.  Which worker
     takes which index is a race, so draws differ from run to run, as in
-    JAX."""
+    JAX.  A data-parallel rank r numbers its workers from ``r *
+    num_workers`` (``data/loader.py:TrainLoader``), so that ranks draw
+    different streams."""
     if hasattr(dataset, 'rng') and isinstance(dataset.rng,
                                               np.random.RandomState):
         base = dataset.rng.randint(0, 2 ** 31 - 1)
@@ -111,9 +113,11 @@ def _worker_main(dataset, worker_id, task_q, result_q):
 
 
 class WorkerPool:
-    """Ordered, bounded, multi-process index -> sample map."""
+    """Ordered, bounded, multi-process index -> sample map; the workers'
+    ids (their reseed) run from ``first_worker_id``."""
 
-    def __init__(self, dataset, num_workers: int, window: int = 16):
+    def __init__(self, dataset, num_workers: int, window: int = 16,
+                 first_worker_id: int = 0):
         if num_workers <= 0:
             raise ValueError(f'num_workers must be positive, got '
                              f'{num_workers}')
@@ -124,7 +128,8 @@ class WorkerPool:
         self._gen = 0
         self._procs = [
             ctx.Process(target=_worker_main,
-                        args=(dataset, wid, self._task_q, self._result_q),
+                        args=(dataset, first_worker_id + wid, self._task_q,
+                              self._result_q),
                         daemon=True)
             for wid in range(num_workers)]
         for p in self._procs:

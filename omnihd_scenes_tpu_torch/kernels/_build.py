@@ -99,3 +99,14 @@ def load_library(name: str) -> ctypes.CDLL:
     if not out.exists():
         compile_library(name, out)
     return ctypes.CDLL(str(out))
+
+
+def build_libraries(names) -> None:
+    """Build every missing library of ``names`` at once, one ``nvcc`` each
+    (a data-parallel run's rank 0 does this before the others load
+    them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        list(pool.map(load_library, names))

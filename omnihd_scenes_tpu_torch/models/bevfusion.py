@@ -35,6 +35,7 @@ from omnihd_scenes_tpu_torch.models.fpnc import FPNC, resize_bilinear
 from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, SEBlock, remat
 from omnihd_scenes_tpu_torch.models.lss import LiftSplatShoot
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
+from omnihd_scenes_tpu_torch.parallel import mesh as dp
 
 
 def check_supported(cfg: BEVFusionConfig) -> None:
@@ -176,11 +177,21 @@ def depth_dist_loss(pred_depth, gt_gaussian, gt_min_depth,
     target distributions; gt_min_depth (...) per-pixel min depth (0 = no
     observation).  Averaged over the pixels whose min depth lies in the
     camera's depth range.
+
+    With a data-parallel group of W > 1 ranks (``parallel/mesh.py:
+    sync_group``) the pixels are those of the global batch, as in JAX: the
+    denominator is the mask count summed over the ranks, and each rank's
+    sum is scaled by W, so that the mean of the ranks' losses (and of
+    their gradients) is the global loss (and its gradient).
     """
     pred, gt = pred_depth, gt_gaussian
     mask = ((gt_min_depth >= camera_depth_range[0])
             & (gt_min_depth <= camera_depth_range[1]))
-    denom = mask.sum().clamp(min=1)
+    count = mask.sum()
+    group = dp.sync_group()
+    if group is not None:
+        torch.distributed.all_reduce(count, group=group)
+    denom = count.clamp(min=1)
     if method == 'kld':
         # F.kl_div(log(pred + 1e-4), target, 'batchmean').
         per = (gt * (torch.log(gt.clamp(min=1e-12))
@@ -189,4 +200,5 @@ def depth_dist_loss(pred_depth, gt_gaussian, gt_min_depth,
         per = ((pred - gt) ** 2).mean(-1)
     else:
         raise NotImplementedError(method)
-    return torch.where(mask, per, 0.0).sum() / denom
+    loss = torch.where(mask, per, 0.0).sum() / denom
+    return loss if group is None else loss * dp.data_parallel_size()

@@ -18,6 +18,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from omnihd_scenes_tpu_torch.models.quant import QConv2d
+from omnihd_scenes_tpu_torch.parallel import mesh as dp
 
 BN_EPS = 1e-3
 FLAX_BN_EPS = 1e-5
@@ -42,6 +43,18 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     keep their own dtype (f32 under the bf16 policy) and the update runs
     in it.  While :func:`remat` recomputes a forward, ``recomputing`` is
     set and the update is skipped, as flax's ``nn.remat`` records one.
+
+    With a data-parallel group of more than one rank
+    (``parallel/mesh.py:sync_group``), train mode normalises with the
+    statistics of the global batch, as flax does over JAX's sharded batch
+    and the reference's naiveSyncBN over its ranks: the mean from the
+    all-reduced sums and counts, then the biased variance from the
+    all-reduced sums of (x - mean)^2 (two passes: E[x^2] - E[x]^2 loses
+    its digits where a channel's mean dwarfs its spread), in at least
+    f32.  The gradient flows through both all-reduces; the running
+    statistics update from the global values, so they stay equal on
+    every rank.  A recomputation under :func:`remat` issues the same
+    collectives again and skips the update.
     """
 
     def __init__(self, num_features: int, eps: float, frozen: bool = False):
@@ -59,18 +72,47 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight.to(dt), self.bias.to(dt), False,
                                 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        group = dp.sync_group()
+        if group is None:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        else:
+            y, mean, var = _global_batch_norm(x, self.weight, self.bias,
+                                              self.eps, group)
         if self.recomputing:
             return y
         with torch.no_grad():
             m = 1 - FLAX_BN_MOMENTUM
-            var = (invstd.double() ** -2 - self.eps).clamp_(min=0.0)
+            if group is None:
+                var = (invstd.double() ** -2 - self.eps).clamp_(min=0.0)
             self.running_mean.mul_(FLAX_BN_MOMENTUM).add_(
                 mean.to(self.running_mean.dtype), alpha=m)
             self.running_var.mul_(FLAX_BN_MOMENTUM).add_(
                 var.to(self.running_var.dtype), alpha=m)
         return y
+
+
+def _global_batch_norm(x, weight, bias, eps: float, group):
+    """(y, mean, biased variance) of a train-mode BatchNorm over the
+    concatenation of every rank's ``x`` along dim 0; y in x's dtype, the
+    statistics in at least f32."""
+    dims = [0, *range(2, x.dim())]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    # The count travels in f64 beside the sums (exact at any size).
+    local = torch.cat([xf.sum(dims).double(),
+                       xf.new_full((1,), x.numel() // x.shape[1],
+                                   dtype=torch.float64)])
+    total = dp.all_reduce_sum(local, group)
+    count = total[-1]
+    mean = (total[:-1] / count).to(xf.dtype)
+    centred = xf - mean.reshape(shape)
+    var = dp.all_reduce_sum(centred.square().sum(dims), group) / count.to(
+        xf.dtype)
+    y = centred * torch.rsqrt(var + eps).reshape(shape)
+    y = y * weight.to(xf.dtype).reshape(shape) + bias.to(xf.dtype).reshape(
+        shape)
+    return y.to(x.dtype), mean, var
 
 
 @contextlib.contextmanager

@@ -33,12 +33,33 @@ JAX package: ``pretrained`` / ``load_img_from`` through
 (a checkpoint of the port, file or directory) through
 ``train/ckpt_remap.py``; each logs ``{'mode': key, 'loaded': ...}``.
 The last log line (``'mode': 'done'``) carries the hand kernels' launch
-counts of the run (``kernels.launch_counts``), periodic eval included.
+counts of the run (``kernels.launch_counts``), periodic eval included,
+the number of ranks and the process group's backend.
+
+On W GPUs, one rank a GPU (data parallel, as the reference's
+``tools/dist_train.sh``):
+
+    torchrun --nproc_per_node W -m omnihd_scenes_tpu_torch.tools.train \
+        CONFIG --cfg-options ...
+
+``WORLD_SIZE`` > 1 joins the process group (``parallel/distributed.py``:
+NCCL, or gloo with ``--device cpu``), each rank on ``cuda:LOCAL_RANK``.
+A step takes the global batch of ``samples_per_device x W``, each rank
+its rows (``TrainLoader``), as the JAX package takes ``samples_per_device
+x device_count`` over its mesh; BatchNorm and the depth loss take their
+statistics over the global batch and the gradients are averaged before
+the clip; ``auto_scale_lr`` scales the lr by W / 8.  Rank 0's weights are
+broadcast after the init and the staged weights (a resume loads the same
+file on every rank); rank 0 alone writes the work dir (config, log,
+checkpoints, eval files); the periodic eval infers each rank's block of
+the val set, rank 0 evaluates the collected results and every rank
+receives the metrics.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import os.path as osp
 import time
@@ -72,9 +93,54 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def rank_device(device: torch.device, local_rank: int) -> torch.device:
+    """A rank's device: ``cuda:LOCAL_RANK`` for a CUDA run, which must
+    exist; the CPU as asked."""
+    if device.type != 'cuda':
+        return device
+    count = torch.cuda.device_count()
+    if local_rank >= count:
+        raise SystemExit(f'LOCAL_RANK {local_rank} has no GPU: this machine '
+                         f'has {count} CUDA device(s)')
+    torch.cuda.set_device(local_rank)
+    return torch.device('cuda', local_rank)
+
+
+# The hand kernels a CUDA training run of each kind may load.
+_CAMERA_KERNELS = ('jpeg_idct', 'rectify', 'photometric', 'crop_resize_flip')
+
+
+def _build_kernels_on_rank0(mtype: str) -> None:
+    """Rank 0 builds the kernels the run may load (one ``nvcc`` each, all
+    at once), then every rank meets at a barrier, so the ranks do not all
+    compile the same sources."""
+    from omnihd_scenes_tpu_torch.kernels._build import build_libraries
+    from omnihd_scenes_tpu_torch.parallel import distributed
+    from omnihd_scenes_tpu_torch.parallel.mesh import data_parallel_rank
+    from omnihd_scenes_tpu_torch.train.builder import CAMERA_FAMILIES
+
+    names = ()
+    if mtype in CAMERA_FAMILIES:
+        names = ('lss_sample',) + _CAMERA_KERNELS
+    elif mtype == 'bevformer':
+        names = _CAMERA_KERNELS
+    if data_parallel_rank() == 0:
+        build_libraries(names)
+    distributed.barrier()
+
+
 def main(argv=None):
+    with contextlib.ExitStack() as stack:
+        return _main(argv, stack)
+
+
+def _main(argv, stack):
     from omnihd_scenes_tpu_torch.data.loader import TrainLoader
     from omnihd_scenes_tpu_torch.kernels import launch_counts
+    from omnihd_scenes_tpu_torch.parallel import distributed
+    from omnihd_scenes_tpu_torch.parallel.mesh import (broadcast_state,
+                                                       data_parallel_rank,
+                                                       data_parallel_size)
     from omnihd_scenes_tpu_torch.data.sampling import wrap_dataset
     from omnihd_scenes_tpu_torch.train.amp import bf16_policy
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
@@ -97,15 +163,21 @@ def main(argv=None):
 
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if int(os.environ.get('WORLD_SIZE', '1')) > 1:
+        device = rank_device(device, int(os.environ.get('LOCAL_RANK', '0')))
+        distributed.init_distributed(device.type)
+        stack.callback(distributed.destroy_distributed)
+    world, rank = data_parallel_size(), data_parallel_rank()
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_options)
     check_family(cfg.get('model_type', 'pointpillars'))
     if args.work_dir:
         cfg.work_dir = args.work_dir
-    os.makedirs(cfg.work_dir, exist_ok=True)
-    cfg.dump(osp.join(cfg.work_dir, 'config.py'))
+    if rank == 0:
+        os.makedirs(cfg.work_dir, exist_ok=True)
+        cfg.dump(osp.join(cfg.work_dir, 'config.py'))
 
-    logger = JsonLogger(cfg.work_dir)
+    logger = JsonLogger(cfg.work_dir)        # writes on rank 0 only
     logger.log({'mode': 'env', 'device': str(device),
                 'device_name': (torch.cuda.get_device_name(device)
                                 if device.type == 'cuda' else 'cpu'),
@@ -117,22 +189,29 @@ def main(argv=None):
     train_ds, val_ds = build_datasets(
         cfg, image_decode='device' if device.type == 'cuda' else 'host')
     train_ds = wrap_dataset(train_ds, cfg.data.train.get('wrapper'))
-    batch_size = cfg.data.samples_per_device
+    # The global batch, as JAX's samples_per_device x device_count.
+    batch_size = cfg.data.samples_per_device * world
     train_loader = TrainLoader(
         train_ds, batch_size, seed=args.seed,
         num_workers=int(cfg.data.get('workers_per_device',
                                      cfg.data.get('workers_per_gpu', 0))),
-        group_flags=getattr(train_ds, 'group_flags', None))
+        group_flags=getattr(train_ds, 'group_flags', None),
+        rank=rank, world_size=world)
+    stack.callback(train_loader.close)
 
     model, mtype = build_model_from_cfg(cfg)
     init_model(model, torch.Generator().manual_seed(args.seed))
     model.to(device)
+    if world > 1 and device.type == 'cuda':
+        _build_kernels_on_rank0(mtype)
 
     steps_per_epoch = len(train_loader)
     total_steps = steps_per_epoch * cfg.total_epochs
     opt_cfg = cfg.optimizer
-    # Linear LR scaling (reference tools/train.py:173-175) for one device.
-    lr = opt_cfg.lr / 8 if cfg.get('auto_scale_lr', False) else opt_cfg.lr
+    # Linear LR scaling (reference tools/train.py:173-175; JAX
+    # tools/train.py:95-96): lr x ranks / 8.
+    lr = (opt_cfg.lr * world / 8 if cfg.get('auto_scale_lr', False)
+          else opt_cfg.lr)
     schedule = make_lr_schedule(
         lr, total_steps,
         policy=cfg.lr_config.get('policy', 'cosine'),
@@ -149,6 +228,7 @@ def main(argv=None):
         logger.log({'mode': 'resume', 'step': int(state.step)})
     else:
         apply_staged_weights(cfg, model, logger)
+    broadcast_state(model)              # rank 0's weights on every rank
 
     anchors_np = anchors_for(model, mtype)
     loss_fn = make_loss_fn_generic(
@@ -163,25 +243,27 @@ def main(argv=None):
         predict_fn = make_predict_fn_generic(model, mtype, anchors_np)
 
         def eval_fn(state):
+            # Every rank infers its block; rank 0 evaluates them all.
             outputs = run_inference_generic(
                 predict_fn, state.model, val_ds, cfg.data.samples_per_device)
-            return evaluate_results(
-                val_ds, outputs, cfg.dataroot, cfg.version, cfg.eval_set,
-                osp.join(cfg.work_dir, 'eval'))
+            metrics = None
+            if rank == 0:
+                metrics = evaluate_results(
+                    val_ds, outputs, cfg.dataroot, cfg.version, cfg.eval_set,
+                    osp.join(cfg.work_dir, 'eval'))
+            return distributed.broadcast_object(metrics)
 
     t0 = time.time()
-    try:
-        state = run_training(
-            state, train_step, train_loader, cfg.total_epochs, logger=logger,
-            log_interval=cfg.get('log_interval', 50),
-            ckpt_dir=osp.join(cfg.work_dir, 'ckpts'),
-            ckpt_interval=cfg.get('ckpt_interval', 1),
-            eval_fn=eval_fn, eval_interval=cfg.get('eval_interval', 1))
-    finally:
-        train_loader.close()
+    state = run_training(
+        state, train_step, train_loader, cfg.total_epochs, logger=logger,
+        log_interval=cfg.get('log_interval', 50),
+        ckpt_dir=osp.join(cfg.work_dir, 'ckpts'),
+        ckpt_interval=cfg.get('ckpt_interval', 1),
+        eval_fn=eval_fn, eval_interval=cfg.get('eval_interval', 1))
     logger.log({'mode': 'done', 'wall_time': time.time() - t0,
                 'final_step': int(state.step),
-                'kernel_launches': launch_counts()})
+                'kernel_launches': launch_counts(), 'world_size': world,
+                'backend': distributed.backend()})
     return state
 
 

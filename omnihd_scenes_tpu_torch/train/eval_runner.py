@@ -35,6 +35,8 @@ from omnihd_scenes_tpu_torch.data.loader import EvalLoader, collate
 from omnihd_scenes_tpu_torch.data.temporal_dataset import StreamingEvalState
 from omnihd_scenes_tpu_torch.eval.occupancy import (evaluation_semantic,
                                                     summarize_occ_scores)
+from omnihd_scenes_tpu_torch.parallel import distributed
+from omnihd_scenes_tpu_torch.parallel import mesh as dp
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 
 
@@ -80,12 +82,19 @@ def run_inference_generic(predict_fn, model, dataset, batch_size: int,
     """Batched inference -> {'bbox_results': per-sample detections in
     dataset order, 'occ_results': per-sample occupancy argmax grids, or
     None when the model predicts none}.  ``predict_fn(model, batch)`` is
-    :func:`train.builder.make_predict_fn_generic`'s."""
+    :func:`train.builder.make_predict_fn_generic`'s.
+
+    With more than one rank, each rank infers its contiguous block of the
+    dataset (``EvalLoader``'s ``block``), and :func:`parallel.distributed.
+    collect_results` gathers the blocks in rank order, trimmed to the
+    dataset, so every rank returns the whole dataset's results."""
     timer = timer or _Untimed()
     results: List = [None] * len(dataset)
     occ_results: List = [None] * len(dataset)
     dev = model_device(model)
-    batches = iter(EvalLoader(dataset, batch_size))
+    loader = EvalLoader(dataset, batch_size, dp.data_parallel_rank(),
+                        dp.data_parallel_size())
+    batches = iter(loader)
     while True:
         timer.mark('load')
         item = next(batches, None)
@@ -112,9 +121,23 @@ def run_inference_generic(predict_fn, model, dataset, batch_size: int,
                     occ_results[int(indices[i])] = occ_pred[i]
         if timer.batch_done(int(np.sum(valid))):
             break
+    if dp.data_parallel_size() > 1:
+        results, occ_results = _collect_blocks(results, occ_results,
+                                               loader.block, len(dataset))
     return {'bbox_results': results,
             'occ_results': occ_results if occ_results[0] is not None
             else None}
+
+
+def _collect_blocks(results: List, occ_results: List, block, n: int):
+    """Every rank's results of its ``block``, gathered in dataset order."""
+    occ = occ_results[int(block[0])] is not None
+    local = [dict(results[int(i)], **({'occ': occ_results[int(i)]}
+                                     if occ else {})) for i in block]
+    gathered = distributed.collect_results(local, total_size=n)
+    results = [{k: r[k] for k in ('boxes', 'scores', 'labels', 'valid')}
+               for r in gathered]
+    return results, ([r['occ'] for r in gathered] if occ else [None] * n)
 
 
 def run_streaming_inference(predict_stream, model, dataset,

@@ -14,6 +14,12 @@ device in one copy, only at the log interval and at the end of an epoch
 that did not end on a logged step (the reference's ``GradChecker`` becomes
 that finite-loss guard), so the host never waits for the device inside a
 step.
+
+Data parallel (``parallel/``, one rank a process under ``torchrun``): each
+rank steps on its rows of the global batch, the gradients are averaged
+over the ranks before the clip, the logged scalars are the ranks' means,
+and rank 0 alone writes checkpoints.  With one rank every step and every
+file is as before.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from omnihd_scenes_tpu_torch.parallel import distributed
+from omnihd_scenes_tpu_torch.parallel import mesh as dp
 from omnihd_scenes_tpu_torch.train.optim import AdamW
 
 
@@ -82,7 +90,19 @@ def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None,
     stays 0 says the same; JAX ``train/loop.py:45-78``).  Everything
     returned stays on the device.  ``mark(stage)``, if given, is called
     after the loss, the backward and the optimizer (the stage profiler
-    records a CUDA event there).
+    records a CUDA event there), and after the gradients' all-reduce
+    (``'all_reduce'``) when there is more than one rank.
+
+    Data parallel: the gradients are averaged over the ranks
+    (``parallel/mesh.py:all_reduce_gradients``) between ``backward`` and
+    the optimizer, so the clip's norm and ``grad_norm`` are the global
+    gradient's.  The mean is the gradient of the global loss because
+    every loss term is a mean over equal per-rank shares: the anchor
+    head's, the DETR and the occupancy losses are per-sample losses
+    averaged over the batch, and the two batch-wide statistics, the train-
+    mode BatchNorm moments and the depth loss's pixel count, are reduced
+    over the ranks inside the forward (``models/layers.py:BatchNorm``,
+    ``models/bevfusion.py:depth_dist_loss``).
     """
 
     def train_step(state: TrainState, batch: Mapping):
@@ -100,6 +120,10 @@ def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None,
             mark('backward')
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params.values()]
+        if dp.data_parallel_size() > 1:
+            dp.all_reduce_gradients(grads)
+            if mark is not None:
+                mark('all_reduce')
         aux = {k: v.detach() for k, v in aux.items()}
         if check_unused_params:
             groups: Dict[str, list] = {}
@@ -178,13 +202,19 @@ def load_checkpoint(ckpt_dir: str, state: TrainState,
 
 class JsonLogger:
     """Append-only ``<name>.log.json`` metric stream (the reference
-    TextLoggerHook's ``.log.json``), echoed to stdout."""
+    TextLoggerHook's ``.log.json``), echoed to stdout.  With more than one
+    rank only rank 0 writes and echoes (the reference's ``master_only``
+    logger hooks)."""
 
     def __init__(self, work_dir: str, name: str = 'train'):
-        os.makedirs(work_dir, exist_ok=True)
+        self.writes = dp.data_parallel_rank() == 0
+        if self.writes:
+            os.makedirs(work_dir, exist_ok=True)
         self.path = os.path.join(work_dir, f'{name}.log.json')
 
     def log(self, record: Dict, echo: bool = True):
+        if not self.writes:
+            return
         record = {k: (float(v) if isinstance(v, (np.floating, np.ndarray,
                                                  torch.Tensor)) else v)
                   for k, v in record.items()}
@@ -203,10 +233,13 @@ def _check_finite(value: float, where: str) -> float:
 
 
 def _read_scalars(loss, aux) -> Dict[str, float]:
-    """The loss and the step's scalars in one device-to-host copy."""
-    keys = ['loss', *aux]
+    """The loss and the step's scalars in one device-to-host copy; with
+    more than one rank, their means over the ranks (every rank reads at
+    the same steps, so all of them see, and raise on, the same loss)."""
+    values = dp.reduce_scalars({'loss': loss, **aux})
+    keys = list(values)
     values = torch.stack([v.detach().double().reshape(())
-                          for v in (loss, *aux.values())]).tolist()
+                          for v in values.values()]).tolist()
     return dict(zip(keys, values))
 
 
@@ -221,7 +254,10 @@ def run_training(state: TrainState, train_step, train_loader,
     device, as in JAX ``loop.py:174-183``; a batch of camera sources
     (``image_decode='device'``) is decoded there, on the card's side
     stream or, on the CPU, by the kernels' plain versions, before
-    ``train_step`` sees it."""
+    ``train_step`` sees it.  With more than one rank, rank 0 writes the
+    checkpoints and every rank meets the others at a barrier after each;
+    ``eval_fn`` runs on every rank (``train/eval_runner.py`` collects
+    the ranks' results); pass ``logger`` on rank 0 only."""
     from omnihd_scenes_tpu_torch.data.prefetch import prefetch
 
     device = next(state.model.parameters()).device
@@ -246,9 +282,12 @@ def run_training(state: TrainState, train_step, train_loader,
         # A non-finite loss after the last logged step must not reach the
         # checkpoint (rotation could evict the last good one).
         if loss is not None and not checked:
-            _check_finite(float(loss), f'end of epoch {epoch}')
+            _check_finite(_read_scalars(loss, {})['loss'],
+                          f'end of epoch {epoch}')
         if ckpt_dir and (epoch + 1) % ckpt_interval == 0:
-            save_checkpoint(ckpt_dir, state, epoch + 1)
+            if dp.data_parallel_rank() == 0:
+                save_checkpoint(ckpt_dir, state, epoch + 1)
+            distributed.barrier()
         if eval_fn and (epoch + 1) % eval_interval == 0:
             metrics = eval_fn(state)
             if logger:

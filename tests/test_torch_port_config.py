@@ -171,7 +171,7 @@ def test_package_imports_without_jax():
     """Every module of the port imports with jax, flax, the JAX package,
     OpenCV and matplotlib blocked (the card's machine has neither of the
     last two), the occupancy, multi-task, camera, depth and deployment
-    (fuse, export) modules among them."""
+    (fuse, export) and data-parallel (``parallel``) modules among them."""
     modules = sorted(
         'omnihd_scenes_tpu_torch.' + '.'.join(
             p.relative_to(PACKAGE).with_suffix('').parts)
@@ -185,7 +185,8 @@ def test_package_imports_without_jax():
         'ops.bev_pool', 'data.undistort', 'data.jpeg', 'kernels.rectify',
         'kernels.jpeg_idct',
         'ops.nms_host', 'tools.benchmark', 'serve.fuse', 'serve.export',
-        'tools.fuse_conv_bn', 'tools.export', 'serve.inputs')} <= set(modules)
+        'tools.fuse_conv_bn', 'tools.export', 'serve.inputs',
+        'parallel.distributed', 'parallel.mesh')} <= set(modules)
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '
             '"omnihd_scenes_tpu", "cv2", "matplotlib"):\n'

@@ -4,7 +4,8 @@ with the scatter splat and with remat too, the camera-only model,
 BEVFusion-OCC in each trunk mode, RCFusion, the pillar families) and
 small serving runs (BN-folded pillars, the space-to-depth stem, the
 scatter splat) on the card against the CPU; the registered LSS ops, a
-fused checkpoint served and a bundle exported on the card.  Every test
+fused checkpoint served and a bundle exported on the card; a
+data-parallel step of two ranks on the card over gloo.  Every test
 here needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -444,6 +445,55 @@ def _small_train_case(seed, camera_only=False):
     if camera_only:
         del batch['points'], batch['points_mask']
     return cfg, sd, batch
+
+
+def test_data_parallel_step_on_two_ranks(dev, tmp_path):
+    """``chip_smoke.py`` phase 39b at small size: two ranks on one card
+    over gloo, one sample each, one f32 step (TF32 off) against the
+    one-process step on both samples on the card, phase 14's bounds (the
+    loss within 1e-5, the gradient after the reduction within 1e-4 in
+    relative L2, the BatchNorm statistics within 1e-4 of max|ref|, the
+    parameters within 2.5 learning rates); both ranks end bit-equal, each
+    launching the LSS forward and backward kernels once."""
+    from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
+    from omnihd_scenes_tpu_torch.train.builder import make_loss_fn_generic
+
+    # By path: another installed package may own the name ``tests``.
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__),
+                                    'torch_port_fixtures'))
+    from dp_worker import run_ranks, train_step_record
+
+    cfg, sd, batch = _small_train_case(seed=9)
+    lr = 1e-3
+    r0, r1 = (r['card_step'] for r in run_ranks(
+        {'card_step': {'cfg': cfg, 'state_dict': sd, 'batch': batch,
+                       'lr': lr}}, str(tmp_path), timeout=300))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = BEVFusion(cfg)
+    model.load_state_dict(sd)
+    model.to(dev)
+    one = train_step_record(model, make_loss_fn_generic(
+        model, 'bevfusion', cfg.pillars.anchors(),
+        camera_depth_range=cfg.lss.camera_depth_range), batch, lr)
+    assert r0['digest'] == r1['digest'] and r0['loss'] == r1['loss']
+    assert r0['launches'] == r1['launches'] == (1, 1)
+    assert abs(r0['loss'] - one['scalars']['loss']) <= 1e-5 * abs(
+        one['scalars']['loss'])
+    want = {k: g.cpu() for k, g in one['grads'].items()}
+    diff = sum(float((r0['grads'][k] - w).square().sum())
+               for k, w in want.items())
+    assert (diff / sum(float(w.square().sum()) for w in want.values())
+            ) ** 0.5 <= 1e-4
+    for k, w in one['state'].items():
+        w = w.cpu()
+        if not w.is_floating_point():
+            assert torch.equal(r0['state'][k], w), k
+        elif 'running' in k:
+            assert float((r0['state'][k] - w).abs().max()) <= 1e-4 * float(
+                w.abs().max()), k
+        else:
+            assert float((r0['state'][k] - w).abs().max()) <= 2.5 * lr, k
 
 
 def _small_mtl_case(seed, mode, rc_fusion='concat'):
