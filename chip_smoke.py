@@ -373,6 +373,27 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    39c one rank a GPU over NCCL (up to DP_MAX_GPUS) when the machine has
    several, else ``39c not run: 1 device``; 39d ``tools.train`` under
    ``torchrun --nproc_per_node 1`` on a synthetic radar dataroot.
+40. the remaining modules at the shipped widths, TF32 off, each new
+   forward under ``torch.cuda.set_sync_debug_mode('error')``: 40a the
+   CenterPoint head (``models/centerpoint_head.py``) on b4 fused BEVs of
+   ``configs/bevfusion.py`` (384 x 160 x 240), 50 padded GT boxes a
+   sample: forward, targets + loss, backward and decode (500) on the
+   card, the f32 forward within 1e-4 of max|ref| of the same module on
+   the CPU, the decoded boxes the CPU's as multisets, forward / loss /
+   decode ms and peak GiB; 40b ``MMBEVFormerLayer`` at
+   ``configs/bevformer_t_r50.py``'s widths (256 channels, 8 heads, FFN
+   512, 6 cameras of 17 x 30 values, BEV 160 x 240) with a 384-channel
+   radar BEV (``configs/bevfusion.py``'s SECOND-FPN output): f32 card
+   within 1e-4 of max|ref| of the CPU, bf16 within MM_BF16_TOL of f32, ms
+   beside ``BEVFormerLayer``'s; 40c chamfer of two 100k-point clouds: the
+   card within 1e-6 relative of the CPU on an 8k-point subset, the same
+   bits at two chunk sizes, ms and peak GiB; 40d ``tools/get_flops.py``
+   on ``configs/bevfusion.py``: parameters equal to the state_dict's
+   parameter numels, the card's FLOPs equal to the CPU's (the LSS kernel
+   counted by its formula on both, launched once on the card); 40e
+   ``utils/timing.py:device_trace`` around one b4 bf16 ``Predictor``
+   request: a non-empty Chrome trace naming the LSS kernel and its
+   registered op, one ``lss_sample_bev`` launch.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -6514,7 +6535,340 @@ def phase_data_parallel(dev, card, b4_ms):
     return launches
 
 
+# Phase 40: the modules of the last bring-up slice.  MM_BF16_TOL bounds
+# the bf16 multi-modal BEVFormer layer against its f32 run, as a share of
+# max|f32| (the layer ends in a LayerNorm, so its outputs are O(1)).
+CENTER_GT = 50
+CENTER_VALID = 40
+MM_BF16_TOL = 5e-2
+CHAMFER_POINTS = 100_000
+CHAMFER_SUBSET = 8000
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Raise on any host sync inside the block."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def _center_gt(rng, pc_range):
+    """CENTER_GT padded boxes a sample, the first CENTER_VALID valid:
+    centres inside the range (1 m margin), sizes 0.5-4 m, yaw over a
+    turn, velocities up to 5 m/s, labels over 4 classes."""
+    import torch
+
+    x0, y0, z0, x1, y1, z1 = pc_range
+    shape = (BATCH, CENTER_GT)
+    boxes = np.stack([rng.uniform(x0 + 1, x1 - 1, shape),
+                      rng.uniform(y0 + 1, y1 - 1, shape),
+                      rng.uniform(z0, z1 - 4, shape),
+                      *rng.uniform(0.5, 4.0, (3,) + shape),
+                      rng.uniform(-np.pi, np.pi, shape),
+                      *rng.uniform(-5, 5, (2,) + shape)], -1)
+    labels = rng.randint(0, 4, shape)
+    mask = np.zeros(shape, bool)
+    mask[:, :CENTER_VALID] = True
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(labels), torch.from_numpy(mask))
+
+
+def phase_center_head(dev, card, fcfg):
+    """40a: the CenterPoint head on b4 fused BEVs of the shipped BEVFusion
+    (its head's input width over the LSS grid)."""
+    import copy
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.centerpoint_head import (
+        CenterHead, CenterTargetCfg, center_head_decode, center_head_loss)
+
+    nx, ny, _ = fcfg.lss.bev_nx
+    tcfg = CenterTargetCfg(pc_range=tuple(fcfg.lss.pc_range), out_hw=(ny, nx))
+    torch.manual_seed(40)
+    head = CenterHead(fcfg.head_channels, num_classes=4, share_channels=64,
+                      head_channels=64).eval()
+    bev = torch.randn(BATCH, fcfg.head_channels, ny, nx,
+                      generator=torch.Generator().manual_seed(40))
+    gt = _center_gt(np.random.RandomState(40), tcfg.pc_range)
+    with torch.no_grad():
+        ref = head(bev)
+        ref_dec = center_head_decode(ref, tcfg, max_num=500)
+    card_head = copy.deepcopy(head).to(dev)
+    x = bev.to(dev)
+    gt_d = [t.to(dev) for t in gt]
+    with torch.no_grad(), _no_host_sync():
+        out = card_head(x)
+        dec = center_head_decode(out, tcfg, max_num=500)
+    errs = {k: _share(out[k].cpu(), ref[k]) for k in ref}
+    check(max(errs.values()) <= 1e-4, f'40a CenterHead card vs CPU {errs}')
+    check(tuple(dec[0].shape) == (BATCH, 500, 9), f'decode {dec[0].shape}')
+    dec = [t.cpu() for t in dec]
+    kept = dec[3].sum(-1).tolist()
+    check(kept == ref_dec[3].sum(-1).tolist(),
+          f'40a kept rows {kept} on the card, {ref_dec[3].sum(-1).tolist()} '
+          f'on the CPU')
+    row_err = max(kept_row_distance(dec, ref_dec, s) for s in range(BATCH))
+    check(row_err <= 1e-4, f'40a kept rows differ by {row_err}')
+    card_head.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _no_host_sync():
+        preds = card_head(x)
+        losses = center_head_loss(preds, *gt_d, tcfg)
+        total = (losses['loss_heatmap'] + losses['loss_bbox']).mean()
+        total.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    grad = card_head.heatmap_out.weight.grad
+    check(bool(torch.isfinite(total)) and grad is not None
+          and bool(grad.abs().sum() > 0), '40a loss or gradient')
+    card_head.eval()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: card_head(x), 10, 2)
+        loss_ms = cuda_ms(lambda: center_head_loss(out, *gt_d, tcfg), 10, 2)
+        dec_ms = cuda_ms(lambda: center_head_decode(out, tcfg, max_num=500),
+                         10, 2)
+    print(f'[40a CenterPoint] b{BATCH} {fcfg.head_channels}x{ny}x{nx} -> '
+          f'4 classes, {CENTER_GT} GT a sample: card vs CPU f32 '
+          f'{max(errs.values()):.2e} of max|ref| (bound 1e-4), kept rows '
+          f'{kept} matched to the CPU\'s as multisets within {row_err:.1e} '
+          f'(bound 1e-4); losses '
+          f'{[round(float(v), 4) for v in losses["loss_heatmap"].detach()]} / '
+          f'{[round(float(v), 4) for v in losses["loss_bbox"].detach()]}; forward '
+          f'{fwd_ms:.3f} ms, targets + loss {loss_ms:.3f} ms, decode '
+          f'{dec_ms:.3f} ms by CUDA events; train step peak {peak:.2f} GiB; '
+          f'no host sync ({card})')
+
+
+def phase_mm_bevformer(dev, card, c_pts):
+    """40b: ``MMBEVFormerLayer`` at BEVFormer-T R50's widths with the
+    shipped BEVFusion's radar BEV width."""
+    import copy
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer.encoder import (
+        BEVFormerLayer, MMBEVFormerLayer, get_reference_points_2d,
+        get_reference_points_3d, point_sampling)
+    from omnihd_scenes_tpu_torch.serve.synthetic import OFFSET_STD
+    from omnihd_scenes_tpu_torch.utils.rig import ring_rig_lidar2img
+    from omnihd_scenes_tpu_torch.weights import init_weights
+
+    bcfg = _bevformer_cfg('configs/bevformer_t_r50.py')
+    c, h, w, cams = bcfg.embed_dims, bcfg.bev_h, bcfg.bev_w, bcfg.num_cams
+    nq = h * w
+    cam_hw = tuple(-(-s // 32) for s in bcfg.img_hw)     # ResNet C5
+    gen = torch.Generator().manual_seed(40)
+    layer = init_weights(MMBEVFormerLayer(c_pts, c, num_cams=cams), gen)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.endswith(('sampling_offsets.weight',
+                              'attention_weights.weight')):
+                p.copy_(torch.randn(p.shape, generator=gen) * OFFSET_STD)
+        layer.fusion_w_cam.fill_(0.7)
+        layer.fusion_w_pts.fill_(-0.4)
+    layer.eval()
+    pc = bcfg.pc_range
+    ref_3d = torch.from_numpy(get_reference_points_3d(h, w, 4, pc[5] - pc[2]))
+    l2i = torch.from_numpy(ring_rig_lidar2img(img_hw=bcfg.img_hw))[None]
+    ref_cam, mask = point_sampling(ref_3d, pc, l2i, bcfg.img_hw)
+    ref2d = torch.from_numpy(get_reference_points_2d(h, w))
+    q, prev = (torch.randn(1, nq, c, generator=gen) for _ in range(2))
+    inputs = {'query': q, 'pos': torch.randn(nq, c, generator=gen),
+              'values': torch.stack([prev, q], 1),
+              'ref_2d': torch.stack([ref2d + 0.01, ref2d])[None],
+              'cam': torch.randn(1, cams, cam_hw[0] * cam_hw[1], c,
+                                 generator=gen),
+              'ref_cam': ref_cam, 'mask': mask,
+              'lidar': torch.randn(1, nq, c_pts, generator=gen)}
+    shapes = (((h, w),), (cam_hw,))
+
+    def run(m, t, lidar=True):
+        return m(t['query'], t['pos'], t['values'], t['ref_2d'], t['cam'],
+                 t['ref_cam'], t['mask'], *shapes,
+                 *((t['lidar'],) if lidar else ()))
+
+    with torch.no_grad():
+        ref = run(layer, inputs)
+    card32 = copy.deepcopy(layer).to(dev)
+    in32 = {k: v.to(dev) for k, v in inputs.items()}
+    card16 = copy.deepcopy(card32).to(torch.bfloat16)
+    in16 = {k: v.to(torch.bfloat16) if k not in ('ref_2d', 'ref_cam', 'mask')
+            else v for k, v in in32.items()}
+    with torch.no_grad():
+        run(card32, in32)     # makes the per-device offset normaliser
+        with _no_host_sync():
+            got32 = run(card32, in32)
+            got16 = run(card16, in16)
+    err32, err16 = _share(got32.cpu(), ref), _share(got16, got32)
+    check(err32 <= 1e-4, f'40b MM layer card f32 vs CPU {err32:.2e}')
+    check(err16 <= MM_BF16_TOL, f'40b MM layer bf16 vs f32 {err16:.2e}')
+    cam_only = BEVFormerLayer(c, num_cams=cams).to(dev)
+    cam_only.load_state_dict({k: v for k, v in card32.state_dict().items()
+                              if k in cam_only.state_dict()})
+    cam16 = copy.deepcopy(cam_only).to(torch.bfloat16)
+    with torch.no_grad():
+        ms = {'mm_f32': cuda_ms(lambda: run(card32, in32), 5, 1),
+              'mm_bf16': cuda_ms(lambda: run(card16, in16), 5, 1),
+              'cam_f32': cuda_ms(lambda: run(cam_only, in32, False), 5, 1),
+              'cam_bf16': cuda_ms(lambda: run(cam16, in16, False), 5, 1)}
+    print(f'[40b MMBEVFormerLayer] {nq} queries x {c}, {cams} cameras of '
+          f'{cam_hw[0]}x{cam_hw[1]}, radar BEV {c_pts} channels: card f32 vs '
+          f'CPU {err32:.2e} of max|ref| (bound 1e-4), bf16 vs f32 '
+          f'{err16:.2e} (bound {MM_BF16_TOL}); ms by CUDA events f32 / bf16 '
+          f'{ms["mm_f32"]:.3f} / {ms["mm_bf16"]:.3f} against '
+          f'BEVFormerLayer\'s {ms["cam_f32"]:.3f} / {ms["cam_bf16"]:.3f}; no '
+          f'host sync ({card})')
+
+
+def phase_chamfer(dev, card):
+    """40c: chamfer between two 100k-point clouds on the card."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.ops.chamfer import chamfer_distance
+
+    gen = torch.Generator().manual_seed(40)
+    scale = torch.tensor([50.0, 40.0, 4.0])
+    a, b = ((torch.rand(CHAMFER_POINTS, 3, generator=gen) * 2 - 1) * scale
+            for _ in range(2))
+    sub = slice(0, CHAMFER_SUBSET)
+    want = [float(t) for t in chamfer_distance(a[sub], b[sub])]
+    a_d, b_d = a.to(dev), b.to(dev)
+    with _no_host_sync():
+        got_sub = chamfer_distance(a_d[sub], b_d[sub])
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        full = chamfer_distance(a_d, b_d)
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        again = chamfer_distance(a_d, b_d, chunk=2048)
+    rel = max(abs(float(g) - w) / w for g, w in zip(got_sub, want))
+    check(rel <= 1e-6, f'40c chamfer card vs CPU {rel:.2e} relative')
+    check(all(bool(x == y) for x, y in zip(full, again)),
+          f'40c chamfer depends on the chunk: {full} vs {again}')
+    ms = cuda_ms(lambda: chamfer_distance(a_d, b_d), 3, 1)
+    print(f'[40c chamfer] {CHAMFER_POINTS} x {CHAMFER_POINTS} f32 points: '
+          f'{[float(t) for t in full]} m^2, bit-equal at chunk 4096 and '
+          f'2048; {CHAMFER_SUBSET}-point subset card vs CPU {rel:.2e} '
+          f'relative (bound 1e-6); {ms:.2f} ms by CUDA events, peak '
+          f'{peak:.3f} GiB above the clouds; no host sync ({card})')
+
+
+def phase_get_flops(dev, card, cfg, model):
+    """40d: ``tools/get_flops.py`` on the shipped BEVFusion (``cfg``, and
+    ``model`` built from it), card and CPU.  Returns the LSS kernel's
+    launches of the card's count."""
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample_bev
+    from omnihd_scenes_tpu_torch.tools.get_flops import count
+
+    lss_sample_bev.launches = 0
+    t0 = time.perf_counter()
+    on_card = count(cfg, dev)
+    card_s = time.perf_counter() - t0
+    launches = lss_sample_bev.launches
+    t0 = time.perf_counter()
+    on_cpu = count(cfg, 'cpu')
+    cpu_s = time.perf_counter() - t0
+    sd = model.state_dict()
+    sd_params = sum(sd[k].numel() for k, _ in model.named_parameters())
+    check(on_card['params'] == on_cpu['params'] == sd_params,
+          f'40d params {on_card["params"]} / {on_cpu["params"]} / '
+          f'state_dict {sd_params}')
+    check(on_card['flops'] == on_cpu['flops'],
+          f'40d FLOPs card {on_card["flops"]} vs CPU {on_cpu["flops"]}')
+    check(launches == 1, f'40d LSS launches {launches}, not 1')
+    print(f'[40d get_flops] configs/bevfusion.py b1: params '
+          f'{on_card["params"]} (= the state_dict\'s parameters), forward '
+          f'flops (convs, matmuls, LSS) {on_card["flops"] / 1e9:.2f} GFLOPs '
+          f'on the card = the CPU\'s; lss_sample_bev launches {launches}; '
+          f'{card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU ({card})')
+    return launches
+
+
+def phase_device_trace(dev, card, cfg, state_dict):
+    """40e: ``device_trace`` around one b4 bf16 serving request.  Returns
+    the LSS kernel's launches in the traced request."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample_bev
+    from omnihd_scenes_tpu_torch.serve.predictor import Predictor
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_request
+    from omnihd_scenes_tpu_torch.utils.timing import device_trace
+
+    predictor = Predictor(cfg, state_dict, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(40)
+    warm, request = (random_request(rng, cfg, BATCH) for _ in range(2))
+    predictor(*warm)
+    torch.cuda.synchronize()
+    logdir = tempfile.mkdtemp(prefix='smoke_trace_')
+    try:
+        lss_sample_bev.launches = 0
+        t0 = time.perf_counter()
+        with device_trace(logdir):
+            boxes = predictor(*request)[0]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lss_sample_bev.launches
+        files = os.listdir(logdir)
+        check(len(files) == 1, f'40e trace files {files}')
+        path = os.path.join(logdir, files[0])
+        size = os.path.getsize(path)
+        events = json.load(open(path))['traceEvents']
+    finally:
+        shutil.rmtree(logdir)
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    lss = [k for k in kernels if 'lss_sample_kernel' in k]
+    ops = {e['name'] for e in events if e.get('cat') == 'cpu_op'}
+    check(size > 0 and len(lss) == 1 and 'omnihd::lss_sample_bev' in ops,
+          f'40e trace of {size} bytes: LSS kernels {lss}, op present '
+          f'{"omnihd::lss_sample_bev" in ops}')
+    check(launches == 1 and bool(torch.isfinite(boxes).all()),
+          f'40e LSS launches {launches}')
+    print(f'[40e device_trace] one b{BATCH} bf16 request traced in '
+          f'{wall:.1f} s (export included): {size / 2 ** 20:.1f} MiB, '
+          f'{len(kernels)} kernel events, the LSS kernel '
+          f'{re.search(r"lss_sample_kernel<[^(]*", lss[0]).group(0)[:80]!r} '
+          f'once under '
+          f'omnihd::lss_sample_bev; lss_sample_bev launches {launches} '
+          f'({card})')
+    return launches
+
+
+def phase_remaining_modules(dev, card, cfg, state_dict):
+    """Phase 40 -> the LSS kernel's launches in 40d and 40e."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.train.builder import build_model_from_cfg
+    from omnihd_scenes_tpu_torch.train.config import Config
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shipped = Config.fromfile('configs/bevfusion.py')
+    model = build_model_from_cfg(shipped)[0]
+    fcfg = model.cfg
+    phase_center_head(dev, card, fcfg)
+    phase_mm_bevformer(dev, card, sum(fcfg.pillars.fpn_channels))
+    phase_chamfer(dev, card)
+    launches = {'get_flops': phase_get_flops(dev, card, shipped, model),
+                'device_trace': phase_device_trace(dev, card, cfg,
+                                                   state_dict)}
+    torch.cuda.empty_cache()
+    print(f'[40 remaining modules] {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     import torch
 
@@ -6588,6 +6942,7 @@ def main():
     export = phase_export(dev, card, fuse.pop('cfg'), fuse.pop('fused'))
     qat = phase_qat(dev, card, cfg, state_dict)
     dp = phase_data_parallel(dev, card, train[BATCH][0])
+    p40 = phase_remaining_modules(dev, card, cfg, state_dict)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -6710,6 +7065,14 @@ def main():
         run: fwd for run, (fwd, _) in dp.items()}
     extra['lss_sample_backward']['launches_data_parallel'] = {
         run: back for run, (_, back) in dp.items()}
+    # Phase 40: the b1 forward that get_flops counts on the card and the
+    # b4 bf16 request traced by device_trace, one launch each.
+    extra['lss_sample']['launches_get_flops'] = {
+        'forward_b1': p40['get_flops']}
+    extra['lss_sample']['launches_device_trace'] = {
+        'request_b4': p40['device_trace']}
+    print(f'[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s to '
+          f'the kernels line ({card})')
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'{CSRC}{SOURCES.get(src, src + ".cu")}',

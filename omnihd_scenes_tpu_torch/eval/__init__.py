@@ -1,2 +1,3 @@
-"""Evaluation suite: the devkit detection eval (mAP, TP errors, NOS) and
-the semantic occupancy eval (IoU, mIoU)."""
+"""Evaluation suite: the devkit detection eval (mAP, TP errors, NOS, the
+PR / TP curve plots), the semantic occupancy eval (IoU, mIoU) and the
+tracking eval (AMOTA / AMOTP and the MOT metrics)."""

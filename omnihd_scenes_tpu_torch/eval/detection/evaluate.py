@@ -5,8 +5,9 @@ loads prediction JSON + GT from the DB, applies the OmniHD filters
 (rectangular range, camera visibility, optional rainy/night slice),
 accumulates PR per (class x dist_th), computes mAP + 4 TP errors at the
 TP threshold, the NOS ("ODS") summary, and writes
-``metrics_summary.json`` / ``metrics_details.json`` (the PR/TP curve
-plots are not ported).
+``metrics_summary.json`` / ``metrics_details.json`` plus PR/TP curves
+(``render.py``, which needs matplotlib; ``--render_curves 0`` skips
+them).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from omnihd_scenes_tpu_torch.eval.detection.config import config_factory
 from omnihd_scenes_tpu_torch.eval.detection.constants import TP_METRICS
 from omnihd_scenes_tpu_torch.eval.detection.data_classes import (
     DetectionBox, DetectionConfig, DetectionMetricDataList, DetectionMetrics)
+from omnihd_scenes_tpu_torch.eval.detection.render import (
+    _plt, class_pr_curve, class_tp_curve, dist_pr_curve, summary_plot)
 
 _ERR_NAME_MAPPING = {
     'trans_err': 'mATE',
@@ -119,15 +122,33 @@ class DetectionEval:
 
     def render(self, metrics: DetectionMetrics,
                md_list: DetectionMetricDataList) -> None:
-        """PR and TP curve PNGs: the JAX package's ``render.py`` (needs
-        matplotlib) is not ported; evaluate with ``render_curves=False``
-        (CLI ``--render_curves 0``)."""
-        raise NotImplementedError(
-            'curve rendering is not ported (ROADMAP queue 1 item 3); '
-            'pass --render_curves 0')
+        """PR and TP curve PNGs under ``output_dir/plots`` (needs
+        matplotlib: without it an ``ImportError`` names
+        ``--render_curves 0``)."""
+        if self.verbose:
+            print('Rendering PR and TP curves')
+
+        def savepath(name):
+            return os.path.join(self.plot_dir, name + '.png')
+
+        summary_plot(md_list, metrics, min_precision=self.cfg.min_precision,
+                     min_recall=self.cfg.min_recall,
+                     dist_th_tp=self.cfg.dist_th_tp,
+                     savepath=savepath('summary'))
+        for name in self.cfg.class_names:
+            class_pr_curve(md_list, metrics, name, self.cfg.min_precision,
+                           self.cfg.min_recall, savepath=savepath(name + '_pr'))
+            class_tp_curve(md_list, metrics, name, self.cfg.min_recall,
+                           self.cfg.dist_th_tp, savepath=savepath(name + '_tp'))
+        for dist_th in self.cfg.dist_ths:
+            dist_pr_curve(md_list, metrics, dist_th, self.cfg.min_precision,
+                          self.cfg.min_recall,
+                          savepath=savepath('dist_pr_' + str(dist_th)))
 
     def main(self, plot_examples: int = 0,
-             render_curves: bool = False) -> Dict[str, Any]:
+             render_curves: bool = True) -> Dict[str, Any]:
+        if render_curves:
+            _plt()  # without matplotlib, fail before evaluating
         metrics, metric_data_list = self.evaluate()
 
         if render_curves:
@@ -181,7 +202,7 @@ def _main():
     parser.add_argument('--version', type=str, default='v1.0-trainval')
     parser.add_argument('--config_path', type=str, default='')
     parser.add_argument('--plot_examples', type=int, default=0)
-    parser.add_argument('--render_curves', type=int, default=0)
+    parser.add_argument('--render_curves', type=int, default=1)
     parser.add_argument('--verbose', type=int, default=1)
     parser.add_argument('--bad_conditions', type=int, default=0)
     args = parser.parse_args()

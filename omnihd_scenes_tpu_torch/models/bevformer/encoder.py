@@ -10,10 +10,10 @@ camera projection, layers.
 - per layer TSA -> LN -> SCA -> LN -> FFN -> LN (``:282-284``);
 - the TSA queue stacks [shifted prev refs, current refs]; at a scene
   boundary (``has_prev`` false for that stream) both slots are the
-  current BEV with unshifted references (``:203-211``).
-
-The JAX package's ``MMBEVFormerLayer`` (camera + LiDAR gates), which no
-configuration uses, is not ported.
+  current BEV with unshifted references (``:203-211``);
+- :class:`MMBEVFormerLayer`, the multi-modal layer (reference
+  ``MM_BEVFormerLayer``, ``encoder.py:415-592``): the camera BEV after SCA
+  fused with a LiDAR / radar BEV through sigmoid gates.
 """
 
 from __future__ import annotations
@@ -114,6 +114,36 @@ class BEVFormerLayer(nn.Module):
         x = self.norm2(self.sca(x, cam_values, reference_points_cam,
                                 bev_mask, cam_spatial_shapes))
         return self.norm3(self.ffn(x))
+
+
+class MMBEVFormerLayer(BEVFormerLayer):
+    """TSA -> LN -> SCA -> gated fusion -> LN -> FFN -> LN: after the
+    spatial cross-attention the camera BEV ``x`` becomes ``x *
+    sigmoid(fusion_w_cam) + lidar_proj(lidar_bev) * sigmoid(fusion_w_pts)``
+    (both gates (1,) parameters, zero at initialisation); ``lidar_bev``
+    (B, nq, ``lidar_channels``) is the LiDAR / radar BEV, one row a
+    query."""
+
+    def __init__(self, lidar_channels: int, embed_dims: int = 256,
+                 num_heads: int = NUM_HEADS, feedforward_channels: int = 512,
+                 tsa_points: int = 4, sca_points: int = 8, num_cams: int = 6,
+                 sca_query_cap: float = 1.0):
+        super().__init__(embed_dims, num_heads, feedforward_channels,
+                         tsa_points, sca_points, num_cams, sca_query_cap)
+        self.fusion_w_cam = nn.Parameter(torch.zeros(1))
+        self.fusion_w_pts = nn.Parameter(torch.zeros(1))
+        self.lidar_proj = nn.Linear(lidar_channels, embed_dims)
+
+    def forward(self, bev_query, bev_pos, value_queue, ref_2d_queue,
+                cam_values, reference_points_cam, bev_mask,
+                bev_spatial_shapes, cam_spatial_shapes, lidar_bev):
+        x = self.norm1(self.tsa(bev_query, value_queue, ref_2d_queue,
+                                bev_spatial_shapes, query_pos=bev_pos))
+        x = self.sca(x, cam_values, reference_points_cam, bev_mask,
+                     cam_spatial_shapes)
+        x = (x * torch.sigmoid(self.fusion_w_cam)
+             + self.lidar_proj(lidar_bev) * torch.sigmoid(self.fusion_w_pts))
+        return self.norm3(self.ffn(self.norm2(x)))
 
 
 class BEVFormerEncoder(nn.Module):

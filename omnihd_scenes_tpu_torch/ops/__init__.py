@@ -1,2 +1,2 @@
 """Tensor operations of the serving path: LSS index fields, 3D boxes,
-rotated NMS."""
+rotated NMS; and the chamfer distance of the occupancy eval."""

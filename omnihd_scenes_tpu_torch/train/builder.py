@@ -54,6 +54,8 @@ from omnihd_scenes_tpu_torch.models.occ_head import occ_head_loss
 from omnihd_scenes_tpu_torch.ops.nms_host import (
     nms_rotated_multiclass_host_batch)
 from omnihd_scenes_tpu_torch.serve.predictor import predict_stream
+from omnihd_scenes_tpu_torch.serve.synthetic import (random_queue_batch,
+                                                     random_request)
 from omnihd_scenes_tpu_torch.train.loop import batch_to
 from omnihd_scenes_tpu_torch.weights import init_weights
 
@@ -118,6 +120,34 @@ def init_model(model, generator: torch.Generator):
     if isinstance(model, BEVFormerDetector):
         init_bevformer(model, generator)
     return model
+
+
+EXAMPLE_POINTS = 20000
+
+
+def example_batch_for(model, mtype: str, device=None) -> tuple:
+    """Positional inputs of one forward at the model's widths, batch 1
+    (the JAX package's ``example_batch_for``; FLOP counts and parameter
+    walks), drawn from ``RandomState(0)``: for the pillar families
+    ``EXAMPLE_POINTS`` (20000, as JAX's) points uniform over +-50 m, all
+    valid; for the camera families ``serve/synthetic.py:random_request``
+    (images, the ring rig and ``EXAMPLE_POINTS`` radar points); for
+    BEVFormer one queue of ``random_queue_batch``.  Tensors on
+    ``device``; an input the model lacks is None."""
+    check_family(mtype)
+    rng = np.random.RandomState(0)
+    if mtype in PILLAR_FAMILIES:
+        pts = rng.uniform(-50, 50, (1, EXAMPLE_POINTS, model.point_dims))
+        inputs = (pts.astype(np.float32),
+                  np.ones((1, EXAMPLE_POINTS), bool))
+    elif mtype == 'bevformer':
+        queue = random_queue_batch(rng, model.cfg, 1)
+        inputs = tuple(queue[k] for k in ('imgs', 'can_bus', 'lidar2img',
+                                          'has_prev'))
+    else:
+        inputs = random_request(rng, model.cfg, 1, EXAMPLE_POINTS)
+    return tuple(None if x is None else torch.from_numpy(x).to(device)
+                 for x in inputs)
 
 
 def anchors_for(model, mtype: str) -> Optional[np.ndarray]:

@@ -1,1 +1,2 @@
-"""Host-side helpers (NumPy) of the port."""
+"""Host-side helpers of the port: quaternions and camera rigs (NumPy),
+timing and device traces."""

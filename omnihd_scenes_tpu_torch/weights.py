@@ -8,8 +8,11 @@ ported configurations, RCFusion's included), given an ``MTLConfig`` of
 ``PointPillarsConfig`` of
 :class:`omnihd_scenes_tpu_torch.models.detectors.PointPillars`, and given
 an :class:`OccHeadSpec` of a bare occupancy head of
-``models/occ_head.py``, and given a ``BEVFormerConfig`` of
-:class:`omnihd_scenes_tpu_torch.models.bevformer.BEVFormerDetector`;
+``models/occ_head.py``, given a ``BEVFormerConfig`` of
+:class:`omnihd_scenes_tpu_torch.models.bevformer.BEVFormerDetector`, and
+given a :class:`CenterHeadSpec` or an :class:`MMBEVFormerLayerSpec` of a
+bare ``models/centerpoint_head.py:CenterHead`` or
+``models/bevformer/encoder.py:MMBEVFormerLayer``;
 :func:`torch_to_flax` goes back.  Layouts: conv
 HWIO <-> OIHW, 3D conv DHWIO <-> OIDHW;
 ConvTranspose (kh, kw, in, out) <-> (in, out, kh, kw) flipped in both
@@ -48,6 +51,7 @@ from torch import nn
 from omnihd_scenes_tpu_torch.config import (BEVFormerConfig, BEVFusionConfig,
                                             MTLConfig, PointPillarsConfig)
 from omnihd_scenes_tpu_torch.models.bevformer.attention import NUM_HEADS
+from omnihd_scenes_tpu_torch.models.centerpoint_head import REG_BRANCHES
 from omnihd_scenes_tpu_torch.models.dcn import DeformConv
 from omnihd_scenes_tpu_torch.models.lss import ASPP
 from omnihd_scenes_tpu_torch.models.quant import QUANT_KEYS
@@ -63,8 +67,18 @@ class OccHeadSpec(NamedTuple):
     kind: str = '2d'
 
 
+class CenterHeadSpec(NamedTuple):
+    """A bare ``CenterHead``, the flax module at the top of its tree."""
+
+
+class MMBEVFormerLayerSpec(NamedTuple):
+    """A bare ``MMBEVFormerLayer``, the flax module at the top of its
+    tree."""
+
+
 ModelConfig = Union[BEVFusionConfig, MTLConfig, PointPillarsConfig,
-                    OccHeadSpec, BEVFormerConfig]
+                    OccHeadSpec, BEVFormerConfig, CenterHeadSpec,
+                    MMBEVFormerLayerSpec]
 _MHA_PROJ = ('query', 'key', 'value', 'out')
 
 
@@ -169,6 +183,10 @@ def name_map(cfg: ModelConfig) -> Dict[str, FlaxPath]:
         m = _NameMap()
         (_occ_head_2d if cfg.kind == '2d' else _occ_head_3d)(m, ())
         return m.pairs
+    if isinstance(cfg, CenterHeadSpec):
+        return center_head_name_map()
+    if isinstance(cfg, MMBEVFormerLayerSpec):
+        return mm_bevformer_layer_name_map()
     m = _NameMap()
     if cfg.camera_stream:
         _camera_block(m, cfg)
@@ -329,34 +347,15 @@ def _bevformer_map(cfg: BEVFormerConfig) -> _NameMap:
                bias=True)
     m.conv(f'{tt}.reference_points_fc', tf + ('reference_points_fc',),
            bias=True)
-
-    def deform(tk, fk, output_proj=True):
-        names = ('sampling_offsets', 'attention_weights', 'value_proj') \
-            + (('output_proj',) if output_proj else ())
-        for name in names:
-            m.conv(f'{tk}.{name}', fk + (name,), bias=True)
-
-    def norms_ffn(tk, fk):
-        for j in range(3):
-            m.layer_norm(f'{tk}.norm{j + 1}', fk + (f'LayerNorm_{j}',))
-        for j in range(2):
-            m.conv(f'{tk}.ffn.fc{j + 1}', fk + ('FFN_0', f'Dense_{j}'),
-                   bias=True)
-
     for i in range(cfg.encoder_layers):
-        tk, fk = f'{tt}.encoder.layers.{i}', tf + ('encoder', f'layer_{i}')
-        deform(f'{tk}.tsa', fk + ('tsa',))
-        deform(f'{tk}.sca.deformable_attention',
-               fk + ('sca', 'deformable_attention'), output_proj=False)
-        m.conv(f'{tk}.sca.output_proj', fk + ('sca', 'output_proj'),
-               bias=True)
-        norms_ffn(tk, fk)
+        _encoder_layer(m, f'{tt}.encoder.layers.{i}.',
+                       tf + ('encoder', f'layer_{i}'))
     for i in range(cfg.decoder_layers):
-        tk, fk = f'{tt}.decoder.layers.{i}', tf + ('decoder', f'layer_{i}')
-        m.mha(f'{tk}.self_attn',
+        tk, fk = f'{tt}.decoder.layers.{i}.', tf + ('decoder', f'layer_{i}')
+        m.mha(f'{tk}self_attn',
               fk + ('self_attn', 'MultiHeadDotProductAttention_0'), NUM_HEADS)
-        deform(f'{tk}.cross_attn', fk + ('cross_attn',))
-        norms_ffn(tk, fk)
+        _deform(m, f'{tk}cross_attn', fk + ('cross_attn',))
+        _norms_ffn(m, tk, fk)
     bf = f + ('branches',)
     for lvl in range(cfg.decoder_layers):
         for j in (0, 3, 6):
@@ -369,6 +368,57 @@ def _bevformer_map(cfg: BEVFormerConfig) -> _NameMap:
             m.conv(f'{t}.reg_branches.{lvl}.{j}',
                    bf + (f'reg_branches_{lvl}', f'layers_{j}'), bias=True)
     return m
+
+
+def _deform(m: _NameMap, t: str, f: FlaxPath, output_proj: bool = True):
+    """A deformable attention's projections."""
+    names = ('sampling_offsets', 'attention_weights', 'value_proj') \
+        + (('output_proj',) if output_proj else ())
+    for name in names:
+        m.conv(f'{t}.{name}', f + (name,), bias=True)
+
+
+def _norms_ffn(m: _NameMap, p: str, f: FlaxPath):
+    """A BEVFormer layer's three LayerNorms and FFN, torch names after the
+    prefix ``p`` ('' or ending in '.')."""
+    for j in range(3):
+        m.layer_norm(f'{p}norm{j + 1}', f + (f'LayerNorm_{j}',))
+    for j in range(2):
+        m.conv(f'{p}ffn.fc{j + 1}', f + ('FFN_0', f'Dense_{j}'), bias=True)
+
+
+def _encoder_layer(m: _NameMap, p: str, f: FlaxPath):
+    """A ``BEVFormerLayer`` (and the part of an ``MMBEVFormerLayer`` it
+    shares): TSA, SCA, the norms and the FFN."""
+    _deform(m, f'{p}tsa', f + ('tsa',))
+    _deform(m, f'{p}sca.deformable_attention',
+            f + ('sca', 'deformable_attention'), output_proj=False)
+    m.conv(f'{p}sca.output_proj', f + ('sca', 'output_proj'), bias=True)
+    _norms_ffn(m, p, f)
+
+
+def mm_bevformer_layer_name_map() -> Dict[str, FlaxPath]:
+    """torch state_dict key -> flax (collection, *path) for a bare
+    ``MMBEVFormerLayer``: a ``BEVFormerLayer``'s keys, the two (1,) gates
+    and ``lidar_proj``."""
+    m = _NameMap()
+    _encoder_layer(m, '', ())
+    for name in ('fusion_w_cam', 'fusion_w_pts'):
+        m.pairs[name] = ('params', name)
+    m.conv('lidar_proj', ('lidar_proj',), bias=True)
+    return m.pairs
+
+
+def center_head_name_map() -> Dict[str, FlaxPath]:
+    """torch state_dict key -> flax (collection, *path) for a bare
+    ``CenterHead``: the shared block is flax's ``ConvBNReLU_0``, each
+    branch ``<name>_conv`` (ConvBNReLU) and ``<name>_out`` (1x1 conv)."""
+    m = _NameMap()
+    m.conv_bn('shared', ('ConvBNReLU_0',))
+    for name, _ in (('heatmap', 0),) + REG_BRANCHES:
+        m.conv_bn(f'{name}_conv', (f'{name}_conv',))
+        m.conv(f'{name}_out', (f'{name}_out',), bias=True)
+    return m.pairs
 
 
 def _pillar_block(m: _NameMap, pc: PointPillarsConfig):

@@ -171,7 +171,9 @@ def test_package_imports_without_jax():
     """Every module of the port imports with jax, flax, the JAX package,
     OpenCV and matplotlib blocked (the card's machine has neither of the
     last two), the occupancy, multi-task, camera, depth and deployment
-    (fuse, export) and data-parallel (``parallel``) modules among them."""
+    (fuse, export) and data-parallel (``parallel``) modules among them,
+    and the tracking eval, the curve plots and the analysis tools, which
+    draw with matplotlib only when asked."""
     modules = sorted(
         'omnihd_scenes_tpu_torch.' + '.'.join(
             p.relative_to(PACKAGE).with_suffix('').parts)
@@ -186,7 +188,13 @@ def test_package_imports_without_jax():
         'kernels.jpeg_idct',
         'ops.nms_host', 'tools.benchmark', 'serve.fuse', 'serve.export',
         'tools.fuse_conv_bn', 'tools.export', 'serve.inputs',
-        'parallel.distributed', 'parallel.mesh')} <= set(modules)
+        'parallel.distributed', 'parallel.mesh', 'eval.tracking',
+        'eval.tracking.algo', 'eval.tracking.data_classes',
+        'eval.tracking.evaluate', 'eval.tracking.render',
+        'eval.detection.render', 'models.centerpoint_head', 'ops.chamfer',
+        'data.beam_reduction', 'utils.timing', 'tools.get_flops',
+        'tools.analyze_logs', 'tools.misc', 'tools.visualize',
+        'tools.download')} <= set(modules)
     code = ('import sys\n'
             'for name in ("jax", "flax", "jaxlib", "optax", '
             '"omnihd_scenes_tpu", "cv2", "matplotlib"):\n'

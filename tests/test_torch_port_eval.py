@@ -129,14 +129,17 @@ def test_cli_without_curves(dbs, synthetic_dataroot, tmp_path):
     assert 'NOS: 1.0000' in proc.stdout
 
 
-def test_curve_rendering_is_refused(dbs, tmp_path):
+def test_curve_rendering_is_refused(dbs, tmp_path, monkeypatch):
+    """Without matplotlib, rendering the curves (the default) raises an
+    ImportError that names the switch that evaluates without them."""
     _, db = dbs
     path = write_fake_result(db, str(tmp_path / 'fake.json'))
     ev = DetectionEval(db, config=config_factory(CONFIG), result_path=path,
                        eval_set='val_mini', output_dir=str(tmp_path / 'o'),
                        verbose=False)
-    with pytest.raises(NotImplementedError, match='render_curves 0'):
-        ev.main(render_curves=True)
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    with pytest.raises(ImportError, match='render_curves 0'):
+        ev.main()
 
 
 @pytest.fixture(scope='module')

@@ -59,6 +59,7 @@ counts that are not multiples of the block's channel tile).
   max|ref| for cancellation near zero.
 """
 
+import copy
 import os
 import sys
 
@@ -1455,3 +1456,143 @@ def test_bundle_exported_on_the_card(dev, tmp_path):
     for s in range(2):
         assert int(got[3][s].sum()) == int(want[3][s].sum())
         assert kept_row_distance(got, want, s) < 1e-3
+
+
+@pytest.fixture
+def no_tf32(dev):
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield dev
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_center_head_on_the_card_equals_cpu(no_tf32):
+    """CenterPoint on the card (TF32 off) against the CPU: the f32
+    forward within 1e-4 of max|ref| per map, the targets' grid indices
+    equal (centres on cell boundaries included: both divide by the cell
+    sizes as tensors), the loss within 1e-5 relative, the decoded boxes
+    equal as multisets; no host sync in the forward, targets, loss or
+    decode."""
+    from chip_smoke import kept_row_distance
+    from omnihd_scenes_tpu_torch.models.centerpoint_head import (
+        CenterHead, CenterTargetCfg, build_center_targets,
+        center_head_decode, center_head_loss)
+
+    dev = no_tf32
+    torch.manual_seed(0)
+    head = CenterHead(32).eval()
+    cfg = CenterTargetCfg(pc_range=(-8, -8, -3.0, 8, 8, 5.0),
+                          out_hw=(16, 24))
+    bev = torch.randn(2, 32, 16, 24)
+    gen = np.random.RandomState(1)
+    boxes = torch.from_numpy(gen.uniform(-7.5, 7.5, (2, 8, 9)).astype(
+        np.float32))
+    boxes[..., 3:6] = boxes[..., 3:6].abs() + 0.5
+    boxes[0, 0, :2] = torch.tensor([-8 + 7 * 16 / 24, -5.0])
+    labels = torch.from_numpy(gen.randint(0, 4, (2, 8)))
+    mask = torch.ones(2, 8, dtype=torch.bool)
+    outs = []
+    for d in ('cpu', dev):
+        h = copy.deepcopy(head).to(d)
+        x, *args = (t.to(d) for t in (bev, boxes, labels, mask))
+        with torch.no_grad():
+            if d != 'cpu':
+                torch.cuda.set_sync_debug_mode('error')
+            try:
+                preds = h(x)
+                tgt = build_center_targets(*args, cfg)
+                loss = center_head_loss(preds, *args, cfg)
+                dec = center_head_decode(preds, cfg, max_num=100)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        outs.append((preds, tgt, loss, dec))
+    (p0, t0, l0, d0), (p1, t1, l1, d1) = outs
+    for k in p0:
+        assert float((p1[k].cpu() - p0[k]).abs().max()) <= 1e-4 * float(
+            p0[k].abs().max()), k
+    for k in ('gy', 'gx', 'valid'):
+        assert torch.equal(t1[k].cpu(), t0[k]), k
+    assert float((t1['heatmap'].cpu() - t0['heatmap']).abs().max()) < 1e-6
+    for k in l0:
+        assert torch.allclose(l1[k].cpu(), l0[k], rtol=1e-5, atol=0), k
+    d1 = [t.cpu() for t in d1]
+    assert torch.equal(d1[3].sum(-1), d0[3].sum(-1)) and d0[3].any()
+    assert max(kept_row_distance(d1, d0, s) for s in range(2)) < 1e-4
+
+
+def test_mm_bevformer_layer_on_the_card_equals_cpu(no_tf32):
+    """The multi-modal BEVFormer layer on the card against the CPU (f32,
+    TF32 off), within 1e-4 of max|ref|, and without a host sync after its
+    first call."""
+    from omnihd_scenes_tpu_torch.models.bevformer.encoder import (
+        MMBEVFormerLayer, get_reference_points_2d)
+
+    dev = no_tf32
+    torch.manual_seed(0)
+    layer = MMBEVFormerLayer(16, embed_dims=32, num_heads=4, num_cams=2,
+                             feedforward_channels=64).eval()
+    with torch.no_grad():
+        layer.fusion_w_cam.fill_(0.7)
+        layer.fusion_w_pts.fill_(-0.4)
+    nq = 48
+    ref2d = torch.from_numpy(get_reference_points_2d(6, 8))
+    q = torch.randn(2, nq, 32)
+    args = (q, torch.randn(nq, 32), torch.stack([torch.randn(2, nq, 32), q],
+                                                 1),
+            torch.stack([ref2d + 0.05, ref2d])[None].expand(2, -1, -1, -1,
+                                                            -1),
+            torch.randn(2, 2, 24, 32), torch.rand(2, 2, nq, 4, 2) * 0.6 + 0.2,
+            torch.rand(2, 2, nq, 4) < 0.7)
+    lidar = torch.randn(2, nq, 16)
+    with torch.no_grad():
+        want = layer(*args, ((6, 8),), ((4, 6),), lidar)
+        card = copy.deepcopy(layer).to(dev)
+        card_args = [a.to(dev) for a in args + (lidar,)]
+        # The first call makes the per-device offset normaliser.
+        card(*card_args[:-1], ((6, 8),), ((4, 6),), card_args[-1])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = card(*card_args[:-1], ((6, 8),), ((4, 6),), card_args[-1])
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def test_chamfer_on_the_card_equals_cpu(dev):
+    """Chamfer on the card against the CPU on 5000 / 7000 f32 points:
+    within 1e-6 relative, the same for any chunk, no host sync."""
+    from omnihd_scenes_tpu_torch.ops.chamfer import chamfer_distance
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(5000, 3, generator=gen)
+    b = torch.randn(7000, 3, generator=gen) * 1.5
+    want = [t.item() for t in chamfer_distance(a, b)]
+    a_d, b_d = a.to(dev), b.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = {c: chamfer_distance(a_d, b_d, chunk=c) for c in (512, 4096)}
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    for c, (ab, ba) in got.items():
+        assert np.allclose([ab.item(), ba.item()], want, rtol=1e-6, atol=0)
+    assert [t.item() for t in got[512]] == [t.item() for t in got[4096]]
+
+
+def test_get_flops_on_the_card_equals_cpu(dev):
+    """``tools/get_flops.py`` counts the same FLOPs and parameters on the
+    card as on the CPU (the LSS kernel by its formula on both)."""
+    from omnihd_scenes_tpu_torch.tools.get_flops import count
+    from omnihd_scenes_tpu_torch.train.config import Config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(
+        root, 'configs/synthetic/bevfusion_synth.py'))
+    before = lss_sample_bev.launches
+    assert count(cfg, dev) == count(cfg, 'cpu')
+    assert lss_sample_bev.launches == before + 1
