@@ -394,6 +394,26 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``utils/timing.py:device_trace`` around one b4 bf16 ``Predictor``
    request: a non-empty Chrome trace naming the LSS kernel and its
    registered op, one ``lss_sample_bev`` launch.
+41. the last gaps against the JAX package: 41a ``image_fast_decode`` on
+   phase 34's dataroot (inside phase 34, on its checkpoint): one b4 batch
+   (16 side cameras decoded at 1/2, 8 front and back ones at 1/4) through
+   the reduced IDCT (``jidctred.c``) and the fast ``rectify`` (one remap
+   on the output-sized fused map), each bit-equal to its plain version on
+   the card, 1/8 on one image, each kernel's ms by the profiler against
+   its byte bound, rectify's library time F.grid_sample of the reduced
+   images on the fused grids; the main path (the val set's inference
+   with the flag) in this process with the counts zeroed before and read
+   after; ``tools.test --eval`` with the flag beside 34c's runs and
+   ``tools.benchmark`` with it after 34e's (samples/s and ms a sample by
+   stage beside the full decode's); no cv2 module in the process. 41b
+   BEVFormer-T export (``serve/export.py``, the queue forward's outputs
+   undecoded): ``configs/bevformer_t_r50.py`` at full width fused
+   (``randomize_bn``) in bf16 and in f32 and ``configs/bevformer_t_r101.py``
+   in bf16, each exported by ``tools.export`` from a checkpoint file
+   (three processes at once), each bundle loaded in a fresh process that imports no model code (phase 37's child) and run
+   on 1 + 3 fresh b1 queue requests (R101 one): f32 within
+   EXPORT_F32_TOL of the live f32 forward with TF32 off, bf16 BEV within
+   HEAD_TOL of the live bf16 forward; request ms, export s, load s, MiB.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -405,7 +425,7 @@ which must be 0), dense_fold's (30), s2d's and int8 + s2d's (31, qconv
 too), the remat training run's (32) and BEVFusion-OCC int8's (33, qconv
 too), 0 on BEVFormer-T's training run (phase 25b) and
 R101-DCN's stream (26b); the rectify and IDCT kernels' from phase 34's
-main path; the augmentation kernels' from phase 35b's training run, and
+main path, and as ``rectify_fast`` / ``jpeg_idct_reduced`` from 41a's; the augmentation kernels' from phase 35b's training run, and
 every kernel's there as ``launches_camera_train``; phases 36-38's
 fused request, exported program, QAT training and QAT int8 request;
 phase 39's per rank, ``launches_data_parallel``),
@@ -472,6 +492,12 @@ KERNEL_REPLACES = {
     'rectify_footprint': ('omnihd_scenes_tpu/data/image_loading.py:133',),
     'rectify_taps': ('omnihd_scenes_tpu/data/image_loading.py:139',),
     'jpeg_idct': ('omnihd_scenes_tpu/data/image_loading.py:177',),
+    # The same two kernels on image_fast_decode's chain (phase 41a): the
+    # reduced cv2.imread (IMREAD_REDUCED_COLOR_k, :124-126), then one
+    # cv2.remap on the fused map (:133), or a u8 cv2.resize (:135).
+    'jpeg_idct_reduced': ('omnihd_scenes_tpu/data/image_loading.py:124',),
+    'rectify_fast': ('omnihd_scenes_tpu/data/image_loading.py:133',
+                     'omnihd_scenes_tpu/data/image_loading.py:135'),
     # The training augmentations' pixel work, NumPy and cv2.resize on the
     # JAX package's host (photometric_distortion, crop_resize_flip_images).
     'photometric': ('omnihd_scenes_tpu/data/augmentation.py:55',),
@@ -2192,9 +2218,10 @@ def phase_lss_camera(dev, card):
 def phase_cli(dev, card):
     """The CLIs on the card: a synthetic dataroot without images, its
     infos, ``tools.train`` on ``configs/synthetic/pointpillars_radar_synth.py``
-    and ``tools.test --eval`` as subprocesses (finite mAP and NOS in the
-    metrics JSON), then the micro-train recipe of
-    ``tests/test_learning_quick.py`` on the card (mAP > 0.5, NOS > 0.45)."""
+    and ``tools.test --eval`` (and ``--int8``) as subprocesses (finite mAP
+    and NOS in the metrics JSON), beside the micro-train recipe of
+    ``tests/test_learning_quick.py`` on the card in this process (mAP >
+    0.5, NOS > 0.45)."""
     import os
     import subprocess
     import sys
@@ -2215,21 +2242,36 @@ def phase_cli(dev, card):
                 f'data.train.ann_file={root}/synth_infos_temporal_train.pkl',
                 f'data.val.ann_file={root}/synth_infos_temporal_val.pkl']
         work = os.path.join(tmp, 'work')
-        times, outs = [], []
         test = ['omnihd_scenes_tpu_torch.tools.test', config,
                 os.path.join(work, 'ckpts'), '--eval', '--out-dir']
-        for args in (['omnihd_scenes_tpu_torch.tools.train', config,
-                      '--work-dir', work],
-                     test + [os.path.join(work, 'test')],
-                     test + [os.path.join(work, 'int8'), '--int8']):
+
+        def cli(args):
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, '-m', *args, *opts],
                                   capture_output=True, text=True,
                                   timeout=600)
-            times.append(time.perf_counter() - t0)
-            outs.append(proc.stdout)
             check(proc.returncode == 0, f'{args[0]} exited '
                   f'{proc.returncode}: {proc.stderr[-2000:]}')
+            return time.perf_counter() - t0, proc.stdout
+
+        def clis():
+            # tools.train, then its two tools.test runs at once.
+            runs = [cli(['omnihd_scenes_tpu_torch.tools.train', config,
+                         '--work-dir', work])]
+            with ThreadPoolExecutor(2) as pool:
+                runs += list(pool.map(cli, (
+                    test + [os.path.join(work, 'test')],
+                    test + [os.path.join(work, 'int8'), '--int8'])))
+            return runs
+
+        # The CLIs as subprocesses beside the micro-train in this process.
+        with ThreadPoolExecutor(1) as pool:
+            running = pool.submit(clis)
+            t0 = time.perf_counter()
+            micro, losses = micro_train(root, os.path.join(tmp, 'micro'),
+                                        dev)
+            seconds = time.perf_counter() - t0
+            times, outs = zip(*running.result())
         metrics, int8 = ({}, {})
         for name, m in (('test', metrics), ('int8', int8)):
             with open(os.path.join(work, name, 'metrics.json')) as f:
@@ -2248,16 +2290,14 @@ def phase_cli(dev, card):
               f'(whole processes): mAP {metrics["mAP"]:.4f}, NOS '
               f'{metrics["NOS"]:.4f}; tools.test --int8 --eval '
               f'{times[2]:.1f} s: {calibrated[0]}, mAP {int8["mAP"]:.4f}, '
-              f'NOS {int8["NOS"]:.4f}')
-        t0 = time.perf_counter()
-        metrics, losses = micro_train(root, os.path.join(tmp, 'micro'), dev)
-        seconds = time.perf_counter() - t0
+              f'NOS {int8["NOS"]:.4f} (the two tests at once, all three '
+              f'beside the micro-train)')
     print(f'[19 micro-train] 350 epochs of the quick recipe on the card in '
-          f'{seconds:.1f} s ({card}): loss {losses[0]:.3f} -> '
-          f'{losses[-1]:.3f}, mAP {metrics["mAP"]:.4f}, NOS '
-          f'{metrics["NOS"]:.4f}')
-    check(metrics['mAP'] > 0.5 and metrics['NOS'] > 0.45,
-          f'micro-train missed the bound: {metrics}')
+          f'{seconds:.1f} s ({card}; the CLIs ran beside it): loss '
+          f'{losses[0]:.3f} -> {losses[-1]:.3f}, mAP {micro["mAP"]:.4f}, NOS '
+          f'{micro["NOS"]:.4f}')
+    check(micro['mAP'] > 0.5 and micro['NOS'] > 0.45,
+          f'micro-train missed the bound: {micro}')
 
 
 MICRO_RANGE = (-40.0, -30.0, -3.0, 40.0, 30.0, 5.0)
@@ -4547,6 +4587,8 @@ CAMERA_SYNTH = dict(n_scenes=2, samples_per_scene=4, image_hw=(1080, 1920),
 CAMERA_CONFIGS = ('configs/lss_camera.py', 'configs/rcfusion.py',
                   'configs/bevfusion_occ.py', 'configs/bevformer_t_r50.py')
 BEVFUSION_CONFIG = 'configs/bevfusion.py'
+# Phase 41a: the JAX serving decode (reduced IDCT + one fused remap).
+FAST_OPTION = 'data.val.image_fast_decode=True'
 BENCH_SAMPLES = 24
 JPEG_FIXTURES = 'tests/torch_port_fixtures/jpeg/'
 JPEG_FIXTURE_NAMES = ('camera_1080p_420', 'noise_64x96_420',
@@ -4835,6 +4877,132 @@ def _decode_on_batch(dev, card, batch):
             (idct_err, idct_ms, idct_plain, idct_bound, 'bytes', None), host,
             dict(call_ms=call_ms, layout_ms=layouts,
                  bound_ms_per_camera_maps=per_camera_bound), setup)
+
+
+def _fused_grid(images, maps, target):
+    """F.grid_sample's grid (N, th, tw, 2) of the fast chain's fused maps:
+    each output pixel's map entry (the map is output-sized) normalised to
+    the reduced image it samples (align_corners=False); the pad lies off
+    the image (zeros)."""
+    import torch
+
+    th, tw = target
+    grids = []
+    for img, m in zip(images, maps):
+        h, w = img.shape[:2]
+        oh, ow = m.shape[:2]
+        src = m.double() / 32
+        g = torch.stack([(src[..., 0] + 0.5) / w, (src[..., 1] + 0.5) / h],
+                        -1) * 2 - 1
+        full = torch.full((th, tw, 2), -2.0, dtype=torch.float64,
+                          device=m.device)
+        full[:min(oh, th), :min(ow, tw)] = g[:th, :tw]
+        grids.append(full.float())
+    return torch.stack(grids)
+
+
+def _fast_decode_on_batch(dev, card, batch):
+    """41a: one b4 batch of phase 34's dataroot with ``image_fast_decode``
+    (the 16 side cameras decoded at 1/2, the 8 front and back ones at 1/4):
+    the reduced IDCT and the fast rectify against their plain versions on
+    the card (bit-equal), 1/8 on one image, each kernel's ms by the
+    profiler, its byte bound; rectify's library time one F.grid_sample a
+    size of the reduced images on the fused grid -> the kernels line's
+    rows (max |d|, ms, plain ms, bound ms, bound_by, library ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omnihd_scenes_tpu_torch.data import image_loading as IL
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+    from omnihd_scenes_tpu_torch.tools.roofline import HBM_BYTES_PER_S
+
+    offsets, data = batch[IL.JPEG_OFFSETS], batch[IL.JPEG_BYTES]
+    blobs = [data[offsets[i, c]:offsets[i, c + 1]]
+             for i in range(offsets.shape[0])
+             for c in range(offsets.shape[1] - 1)]
+    factors = IL.decode_factors(IL._host_array(batch['cam_scales']))
+    check(sorted(set(factors)) == [2, 4] and factors.count(4) * 2
+          == factors.count(2), f'41a decode factors {factors}')
+    c = J.entropy_decode(blobs, pin=True, factors=factors)
+    coefs = c.coefs.to(dev, non_blocking=True)
+    quant = c.quant.to(dev, non_blocking=True)
+
+    def idct():
+        return JI.jpeg_idct(coefs, quant, c.comps, c.scaled)
+
+    buf = idct()
+    plain_buf = JI.jpeg_idct_plain(coefs, quant, c.comps, c.scaled)
+    idct_err = float((buf.int() - plain_buf.int()).abs().max())
+    check(buf.shape == plain_buf.shape and idct_err == 0,
+          f'reduced jpeg_idct != plain (max |d| {idct_err})')
+    idct_ms = kernel_ms(idct, 'jpeg_idct_kernel', 20, 3)
+    idct_plain = cuda_ms(
+        lambda: JI.jpeg_idct_plain(coefs, quant, c.comps, c.scaled), 2, 1)
+    idct_bytes = JI.jpeg_idct_bytes(coefs, c.comps, c.scaled)
+    idct_bound = idct_bytes / HBM_BYTES_PER_S * 1e3
+    # 1/8 on one image: luma 1x1, chroma 2x2.
+    c8 = J.entropy_decode(blobs[:1], pin=True, factors=[8])
+    args8 = (c8.coefs.to(dev), c8.quant.to(dev), c8.comps, c8.scaled)
+    err8 = float((JI.jpeg_idct(*args8).int()
+                  - JI.jpeg_idct_plain(*args8).int()).abs().max())
+    check(err8 == 0 and sorted(set(c8.scaled.tolist())) == [1, 2],
+          f'1/8 jpeg_idct != plain (max |d| {err8}, sizes {c8.scaled})')
+    sizes = sorted({tuple(c.comps[3 * i, 3:].tolist()) + (factors[i],)
+                    for i in range(len(blobs))})
+    print(f'[41a jpeg_idct reduced] {len(blobs)} JPEGs, every coefficient '
+          f'decoded ({c.coefs.numel() * 2 / 1e6:.1f} MB), planes (h, w, '
+          f'factor) {sizes}, one launch: bit-equal to plain, and at 1/8 on '
+          f'one image; {idct_ms:.4f} ms against {idct_bound:.4f} ms (bytes, '
+          f'{idct_bytes / 1e6:.1f} MB; share {idct_bound / idct_ms:.3f}), '
+          f'plain {idct_plain:.2f} ms ({card})')
+
+    planes, (maps, u8_hws, out_hws, target, mean, std, to_rgb) = \
+        IL.decoded_sources(batch, dev)
+    check(all(torch.equal(a, b) for p, q in zip(J.planes_of(buf, c), planes)
+              for a, b in zip(p[:3], q[:3])),
+          'decoded_sources does not return the reduced IDCT\'s planes')
+    check(all(isinstance(m, R.DeviceMap) for m in maps)
+          and all(tuple(m.fixed.shape[:2]) == tuple(hw)
+                  for m, hw in zip(maps, out_hws))
+          and list(u8_hws) == list(out_hws),
+          '41a: the fast chain remaps on output-sized fused maps')
+    args = (u8_hws, out_hws, target, mean, std, to_rgb)
+
+    def call():
+        return R.rectify(planes, maps, *args)
+
+    whole = call()
+    plain = R.rectify_plain(planes, maps, *args)
+    err = float((whole - plain).abs().max())
+    check(torch.equal(whole, plain), f'fast rectify != plain (max |d| {err})')
+    check(bool(torch.isfinite(whole).all()), 'fast rectify: non-finite')
+    ms = kernel_ms(call, 'rectify_kernel', 20, 3)
+    call_ms = cuda_ms(call, 20, 3)
+    plain_ms = cuda_ms(lambda: R.rectify_plain(planes, maps, *args), 2, 1)
+    nbytes = R.rectify_bytes(planes, maps, target)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    images = R.planes_to_bgr(planes)
+    groups = {}
+    for img, m in zip(images, maps):
+        groups.setdefault(tuple(img.shape), []).append((img, m.fixed))
+    inputs = [(torch.stack([i.permute(2, 0, 1).float() for i, _ in g]),
+               _fused_grid([i for i, _ in g], [m for _, m in g], target))
+              for g in groups.values()]
+    lib_ms = cuda_ms(lambda: [F.grid_sample(x, grid, align_corners=False)
+                              for x, grid in inputs], 20, 3)
+    print(f'[41a rectify fast] b{offsets.shape[0]} ({len(planes)} reduced '
+          f'planes {sorted({tuple(p.y.shape) for p in planes})} -> '
+          f'{target}, the fused maps {sorted({tuple(h) for h in out_hws})}), '
+          f'one launch: bit-equal to plain; {ms:.4f} ms (kernel; the '
+          f'wrapper\'s call {call_ms:.4f} ms) against {bound_ms:.4f} ms '
+          f'(bytes, {nbytes / 1e6:.1f} MB; share {bound_ms / ms:.3f}), plain '
+          f'{plain_ms:.2f} ms, F.grid_sample of the reduced images on the '
+          f'fused grids ({len(inputs)} calls) {lib_ms:.4f} ms ({card})')
+    return ((idct_err, idct_ms, idct_plain, idct_bound, 'bytes', None),
+            (err, ms, plain_ms, bound_ms, 'bytes', lib_ms),
+            dict(call_ms=call_ms, one_eighth_max_abs_err=err8))
 
 
 def _idct_sass(n_blocks, n_chunks):
@@ -5164,9 +5332,14 @@ def phase_decode_kernels(dev, card):
 
 
 def phase_camera_dataroot(dev, card):
-    """34: camera dataroots on the card, with cv2 and PIL blocked."""
+    """34: camera dataroots on the card, with cv2 and PIL blocked; and 41a,
+    the same dataroot's val set with ``image_fast_decode`` (the reduced
+    IDCT and the fast rectify: their kernels on a batch, the main path's
+    launches in this process, ``tools.test --eval`` beside 34c's and
+    ``tools.benchmark`` after 34e's)."""
     import math
     import os
+    import sys
     import tempfile
 
     import torch
@@ -5181,6 +5354,7 @@ def phase_camera_dataroot(dev, card):
     from omnihd_scenes_tpu_torch.kernels import rectify as R
     from omnihd_scenes_tpu_torch.train.builder import (anchors_for,
                                                        make_predict_fn_generic)
+    from omnihd_scenes_tpu_torch.train.config import Config
     from omnihd_scenes_tpu_torch.train.detection import build_dataset_single
     from omnihd_scenes_tpu_torch.train.eval_runner import (
         detections_to_host, run_inference_generic)
@@ -5208,6 +5382,13 @@ def phase_camera_dataroot(dev, card):
         batch, _ = next(iter(EvalLoader(dataset, BATCH)))
         rect_row, idct_row, host, rect_extra, setup_rows = _decode_on_batch(
             dev, card, batch)
+        fast_cfg = Config.fromfile(BEVFUSION_CONFIG)
+        fast_cfg.merge_from_options(opts + [FAST_OPTION])
+        fast_dataset = build_dataset_single(fast_cfg.data.val, 'det',
+                                            image_decode='device')
+        fast_batch, _ = next(iter(EvalLoader(fast_dataset, BATCH)))
+        fast_idct, fast_rect, fast_extra = _fast_decode_on_batch(
+            dev, card, fast_batch)
 
         # The main path in this process: tools.test's inference over the
         # val set at b4 (decode + rectify + the model), the counts zeroed
@@ -5255,6 +5436,32 @@ def phase_camera_dataroot(dev, card):
         print(f'[34 main path] {len(dataset)} val samples, {n_batches} b{BATCH} '
               f'batches: launches {launches}; host syncs of one batch '
               + '; '.join(f'{k}: {len(v)} at {v}' for k, v in syncs.items()))
+        # 41a's main path: the same inference over the val set with the
+        # fast decode, from no fused map on the card, the counts zeroed
+        # just before and read just after.
+        run_inference_generic(predict, model, fast_dataset, BATCH)  # warm
+        IL._DEVICE_MAPS.clear()
+        R._TABLES.clear()
+        _zero_launches()
+        decode_jpeg_planes.calls = nvjpeg_decode_planes.calls = 0
+        fast_out = run_inference_generic(predict, model, fast_dataset, BATCH)
+        fast_launches = dict(_read_launches(),
+                             jpeg_decode=decode_jpeg_planes.calls,
+                             nvjpeg_decode=nvjpeg_decode_planes.calls)
+        n_fused = len(IL._DEVICE_MAPS)
+        check(fast_launches['lss_sample'] == fast_launches['rectify']
+              == fast_launches['jpeg_idct'] == fast_launches['jpeg_decode']
+              == n_batches and fast_launches['nvjpeg_decode'] == 0
+              and fast_launches['rectify_pack_map'] == n_fused >= 2
+              and fast_launches['rectify_footprint'] >= 2
+              and sys.modules.get('cv2') is None
+              and len(fast_out['bbox_results']) == len(fast_dataset),
+              f'41a main path launches {fast_launches} for {n_batches} '
+              f'b{BATCH} batches, {n_fused} fused maps (one a net scale), '
+              f'cv2 {sys.modules.get("cv2")}')
+        print(f'[41a main path] {len(fast_dataset)} val samples with '
+              f'image_fast_decode, {n_batches} b{BATCH} batches: launches '
+              f'{fast_launches}; no cv2 module')
         check(len(syncs['in-graph NMS']) == 1 and _in_function(
             syncs['in-graph NMS'][0], detections_to_host)
             and len(syncs['host NMS']) == 1,
@@ -5285,24 +5492,43 @@ def phase_camera_dataroot(dev, card):
 
         # 34c-f: the CLIs as subprocesses on the dataroot.
         test = 'omnihd_scenes_tpu_torch.tools.test'
-        outs = {k: os.path.join(tmp, k) for k in ('graph', 'host')}
+        outs = {k: os.path.join(tmp, k) for k in ('graph', 'host', 'fast')}
         args = {k: [BEVFUSION_CONFIG, ckpts[BEVFUSION_CONFIG], '--eval',
                     '--out-dir', outs[k], '--cfg-options', *opts]
                 for k in outs}
         args['host'].insert(3, '--host-nms')
-        with ThreadPoolExecutor(2) as pool:
+        args['fast'].append(FAST_OPTION)
+
+        def other(path):
+            out = os.path.join(tmp, 'test_' + os.path.basename(path)[:-3])
+            stdout, seconds = _cli(test, path, ckpts[path], '--eval',
+                                   '--out-dir', out, '--cfg-options',
+                                   *_camera_options(root, 1))
+            return path, _finite_metrics(out, path), seconds, \
+                _printed_launches(stdout)
+
+        # 34c's three runs and 34f's, all at once (before 34e's benchmarks,
+        # which run alone).
+        with ThreadPoolExecutor(len(outs) + len(CAMERA_CONFIGS)) as pool:
+            others = [pool.submit(other, path) for path in CAMERA_CONFIGS]
             runs = dict(zip(outs, pool.map(lambda k: _cli(test, *args[k]),
                                            outs)))
+            others = [f.result() for f in others]
         metrics = {k: _finite_metrics(outs[k], f'tools.test {k}')
                    for k in outs}
         for k, (stdout, _) in runs.items():
             printed = _printed_launches(stdout)
+            setup = fast_launches if k == 'fast' else launches
             check(printed['lss_sample_bev'] == n_batches
                   and printed['rectify'] == printed['jpeg_idct']
                   == printed['jpeg_decode'] == n_batches
                   and printed['nvjpeg_decode'] == 0
-                  and all(printed[n] == launches[n] for n in SETUP_KERNELS),
-                  f'tools.test ({k} NMS) launches {printed}')
+                  and all(printed[n] == setup[n] for n in SETUP_KERNELS),
+                  f'tools.test ({k}) launches {printed}')
+        print(f'[41a tools.test --eval] image_fast_decode, b{BATCH}: mAP '
+              f'{metrics["fast"]["mAP"]:.4f}, NOS {metrics["fast"]["NOS"]:.4f}'
+              f' in {runs["fast"][1]:.1f} s (whole process, beside 34c\'s two '
+              f'runs and 34f\'s); launches {_printed_launches(runs["fast"][0])}')
         graph_rows, host_rows, inproc_rows = (
             _kept_rows(d) for d in (outs['graph'], outs['host'], inproc))
         same = {tok: graph_rows[tok] == host_rows.get(tok) for tok in
@@ -5339,34 +5565,46 @@ def phase_camera_dataroot(dev, card):
               f'a sample: ' + ', '.join(
                   f'{k} {v:.3f}' for k, v in bench['ms_per_sample'].items())
               + f' ({bench_s:.1f} s whole process; {card})')
+        stdout, fast_bench_s = _cli(
+            'omnihd_scenes_tpu_torch.tools.benchmark', BEVFUSION_CONFIG,
+            '--checkpoint', ckpts[BEVFUSION_CONFIG], '--samples',
+            str(BENCH_SAMPLES), '--warmup', '2', '--cfg-options', *opts,
+            FAST_OPTION)
+        fast_bench = json.loads(stdout.strip().splitlines()[-1])
+        check(fast_bench['samples'] >= BENCH_SAMPLES and fast_bench['fps'] > 0
+              and fast_bench['decode'] == 'device',
+              f'tools.benchmark (fast decode) {fast_bench}')
+        print(f'[41a tools.benchmark] image_fast_decode, the same b{BATCH} '
+              f'run: {fast_bench["fps"]:.3f} samples/s against 34e\'s '
+              f'{bench["fps"]:.3f}; ms a sample: ' + ', '.join(
+                  f'{k} {v:.3f} ({bench["ms_per_sample"].get(k, float("nan")):.3f})'
+                  for k, v in fast_bench['ms_per_sample'].items())
+              + f' (34e\'s in brackets; {fast_bench_s:.1f} s whole process; '
+              f'{card})')
 
-        def other(path):
-            out = os.path.join(tmp, 'test_' + os.path.basename(path)[:-3])
-            stdout, seconds = _cli(test, path, ckpts[path], '--eval',
-                                   '--out-dir', out, '--cfg-options',
-                                   *_camera_options(root, 1))
-            return path, _finite_metrics(out, path), seconds, \
-                _printed_launches(stdout)
-
-        with ThreadPoolExecutor(len(CAMERA_CONFIGS)) as pool:
-            for path, m, seconds, printed in pool.map(other, CAMERA_CONFIGS):
-                lss = 0 if 'bevformer' in path else len(dataset)
-                check(printed['lss_sample_bev'] == lss
-                      and printed['jpeg_decode'] == printed['jpeg_idct']
-                      == printed['rectify'] == len(dataset)
-                      and printed['nvjpeg_decode'] == 0
-                      and all(printed[n] >= 1 for n in SETUP_KERNELS),
-                      f'{path} launches {printed}')
-                print(f'[34f tools.test --eval] {path} b1: mAP '
-                      f'{m["mAP"]:.4f}, NOS {m["NOS"]:.4f}'
-                      + (f', occ mIoU {m["occ_mIoU"]:.4f}'
-                         if 'occ_mIoU' in m else '')
-                      + f' in {seconds:.1f} s; launches {printed}')
+        for path, m, seconds, printed in others:
+            lss = 0 if 'bevformer' in path else len(dataset)
+            check(printed['lss_sample_bev'] == lss
+                  and printed['jpeg_decode'] == printed['jpeg_idct']
+                  == printed['rectify'] == len(dataset)
+                  and printed['nvjpeg_decode'] == 0
+                  and all(printed[n] >= 1 for n in SETUP_KERNELS),
+                  f'{path} launches {printed}')
+            print(f'[34f tools.test --eval] {path} b1: mAP '
+                  f'{m["mAP"]:.4f}, NOS {m["NOS"]:.4f}'
+                  + (f', occ mIoU {m["occ_mIoU"]:.4f}'
+                     if 'occ_mIoU' in m else '')
+                  + f' in {seconds:.1f} s (beside 34c\'s); launches '
+                  f'{printed}')
+    check('cv2' not in sys.modules, 'phase 34 / 41a imported cv2')
     print(f'[34 camera dataroots] {time.perf_counter() - t_phase:.1f} s with '
           f'cv2 and PIL blocked ({card})')
     return dict(launches=launches, rectify=rect_row, idct=idct_row,
                 jpeg_max=jpeg_max, host=host, rectify_extra=rect_extra,
-                setup=setup_rows)
+                setup=setup_rows,
+                fast=dict(launches=fast_launches, idct=fast_idct,
+                          rectify=fast_rect, extra=fast_extra,
+                          bench=fast_bench, bench_full=bench))
 
 
 # Phase 35: the full-width training run (configs/bevfusion.py, b4, two
@@ -5945,6 +6183,10 @@ EXPORT_CHILD = r'''
 import json, sys, time
 import numpy as np, torch
 bundle, inputs, outputs, n = sys.argv[1:5]
+flags = dict(a.partition('=')[::2] for a in sys.argv[5:])
+if 'no-tf32' in flags:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 t0 = time.perf_counter()
 from omnihd_scenes_tpu_torch.serve.export import load_exported
 from omnihd_scenes_tpu_torch.kernels.lss_sample import lss_sample_bev
@@ -5952,6 +6194,10 @@ model = load_exported(bundle, 'cuda')
 load_s = time.perf_counter() - t0
 arrays = np.load(inputs)
 k = len(model.input_specs)
+if 'lock' in flags:                 # one process at a time runs requests
+    import fcntl
+    held = open(flags['lock'], 'w')
+    fcntl.flock(held, fcntl.LOCK_EX)
 lss_sample_bev.launches = 0
 ms, outs = [], []
 for i in range(int(n)):
@@ -5963,7 +6209,8 @@ for i in range(int(n)):
     end.record()
     torch.cuda.synchronize()
     ms.append(start.elapsed_time(end))
-    outs.append([t.cpu() for t in out])
+    outs.append({k: t.cpu() for k, t in out.items()} if isinstance(out, dict)
+                else [t.cpu() for t in out])
 torch.save(outs, outputs)
 print(json.dumps({'load_s': load_s, 'ms': ms,
                   'launches': lss_sample_bev.launches,
@@ -6058,6 +6305,266 @@ def phase_export(dev, card, cfg, fused):
           f'{kept}, matched {shares}')
     return dict(launches=seen['launches'], ms=ms,
                 export_s=meta['export_seconds'])
+
+
+# 41b: the f32 bundle against the live f32 forward, TF32 off.
+EXPORT_F32_TOL = 1e-4
+
+
+def _queue_requests(rng, cfg, n):
+    """``n`` fresh b1 queue requests (imgs, can_bus, lidar2img, has_prev)
+    of ``serve/synthetic.py:random_queue_batch``; the third (when there
+    is one) ends at a scene boundary."""
+    from omnihd_scenes_tpu_torch.serve.synthetic import random_queue_batch
+
+    out = []
+    for i in range(n):
+        q = random_queue_batch(rng, cfg, 1)
+        has_prev = q['has_prev'].copy()
+        if i == 2:
+            has_prev[:, -1] = False
+        out.append((q['imgs'], q['can_bus'], q['lidar2img'], has_prev))
+    return out
+
+
+def _live_queue(cfg, state, dev, dtype, requests):
+    """The live ``serving_model`` forward of ``state`` in ``dtype`` on the
+    requests, cast as a bundle casts them -> their outputs on the CPU."""
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
+    from omnihd_scenes_tpu_torch.serve.inputs import BEVFORMER_INPUTS, upload
+    from omnihd_scenes_tpu_torch.serve.predictor import serving_model
+    from omnihd_scenes_tpu_torch.weights import load_state_dict
+
+    model = BEVFormerDetector(cfg)
+    load_state_dict(model, state)
+    model = serving_model(model, dev, dtype, lambda: requests[0])
+    outs = []
+    with torch.inference_mode():
+        for req in requests:
+            out = model(*upload(BEVFORMER_INPUTS, req, dev, dtype))
+            outs.append({k: v.cpu() for k, v in out.items()})
+    del model
+    torch.cuda.empty_cache()
+    return outs
+
+
+# Processes started in the background (phase 41b's exports and loads),
+# killed if the smoke exits before it waits for them.
+_BACKGROUND = []
+
+
+def _spawn(args, **kw):
+    import atexit
+
+    if not _BACKGROUND:
+        atexit.register(lambda: [q.kill() for q in _BACKGROUND
+                                 if q.poll() is None])
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, **kw)
+    _BACKGROUND.append(proc)
+    return proc
+
+
+def start_bevformer_export(dev):
+    """41b, started: BEVFormer-T's weights, requests and bundles made
+    ready, then for each bundle a background thread that exports it with
+    ``tools.export`` in a process of its own and loads it in a fresh one
+    (phase 37's child), whose requests wait for the lock this process
+    holds until :func:`phase_bevformer_export` has run the live forwards:
+    the export and load, host work but for the fused model's fold, run
+    beside the phases in between -> the handle
+    :func:`phase_bevformer_export` takes."""
+    import fcntl
+    import os
+    import sys
+    import tempfile
+    import threading
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
+    from omnihd_scenes_tpu_torch.serve.fuse import fuse_model
+    from omnihd_scenes_tpu_torch.serve.inputs import BEVFORMER_INPUTS, upload
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict)
+    from omnihd_scenes_tpu_torch.weights import load_state_dict
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r50, r101 = _bevformer_cfg(BEVFORMER_FULL), _bevformer_cfg(BEVFORMER_R101)
+    rng = np.random.RandomState(41)
+    requests = {'r50': _queue_requests(rng, r50, 1 + N_TIMED),
+                'r101': _queue_requests(rng, r101, 1)}
+    model = BEVFormerDetector(r50)
+    load_state_dict(model, randomize_bn(random_bevformer_state_dict(r50, 0),
+                                        41))
+    model.to(dev).eval()
+    queue = upload(BEVFORMER_INPUTS, requests['r50'][0], dev, torch.float32)
+    fused, report = fuse_model(model, lambda: model(*queue), verify=False)
+    check(len(report['fused']) > 0, f'41b fused nothing: {report}')
+    del model, queue
+    torch.cuda.empty_cache()
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    states = {'r50': fused, 'r101': random_bevformer_state_dict(r101, 0)}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    jobs = {'r50_bf16': ('r50', BEVFORMER_FULL, []),
+            'r50_f32': ('r50', BEVFORMER_FULL, ['--no-bf16']),
+            'r101_bf16': ('r101', BEVFORMER_R101, [])}
+    tmp = tempfile.mkdtemp(prefix='smoke_41b_')
+    paths = {}
+    for name, reqs in requests.items():
+        paths[name] = (os.path.join(tmp, f'{name}.pt'),
+                       os.path.join(tmp, f'{name}.npz'))
+        torch.save({'model': states[name]}, paths[name][0])
+        np.savez(paths[name][1], *[a for req in reqs for a in req])
+    bundles = {job: os.path.join(tmp, job) for job in jobs}
+    lock_path = os.path.join(tmp, 'requests.lock')
+    lock = open(lock_path, 'w')
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    results = {}
+
+    def run(job):
+        try:
+            model_name, config, flags = jobs[job]
+            t0 = time.perf_counter()
+            proc = _spawn(
+                [sys.executable, '-m', 'omnihd_scenes_tpu_torch.tools.export',
+                 config, paths[model_name][0], '--out', bundles[job],
+                 *flags], cwd=root, env=env)
+            _, err = proc.communicate(timeout=900)
+            build_s = time.perf_counter() - t0
+            check(proc.returncode == 0, f'41b export of {job} failed: '
+                  f'{err[-3000:]}')
+            outputs = os.path.join(tmp, f'{job}_out.pt')
+            t0 = time.perf_counter()
+            proc = _spawn(
+                [sys.executable, '-c', EXPORT_CHILD, bundles[job],
+                 paths[model_name][1], outputs,
+                 str(len(requests[model_name])), 'no-tf32',
+                 f'lock={lock_path}'], cwd=root, env=env)
+            out, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f'41b: the {job} bundle\'s process '
+                  f'failed: {err[-3000:]}')
+            results[job] = dict(build_s=build_s,
+                                child_s=time.perf_counter() - t0,
+                                got=torch.load(outputs),
+                                seen=json.loads(out.strip().splitlines()[-1]))
+        except BaseException as e:            # raised again by the phase
+            results[job] = e
+
+    threads = [threading.Thread(target=run, args=(job,), daemon=True)
+               for job in jobs]
+    for t in threads:
+        t.start()
+    return dict(tmp=tmp, lock=lock, threads=threads, results=results,
+                jobs=jobs, bundles=bundles, requests=requests, states=states,
+                cfgs={'r50': r50, 'r101': r101},
+                prep_s=time.perf_counter() - t0)
+
+
+def phase_bevformer_export(dev, card, started=None):
+    """41b: BEVFormer-T exported (``serve/export.py``: the queue forward,
+    outputs undecoded).  ``configs/bevformer_t_r50.py`` at full width,
+    fused (BN statistics of ``randomize_bn``, traced on the card in f32),
+    in bf16 and in f32, and ``configs/bevformer_t_r101.py`` (26 DCNv2
+    layers, 6 x 864x1536) in bf16, each exported by ``tools.export`` from
+    a checkpoint file (:func:`start_bevformer_export`, which ``main``
+    calls before phase 36 so that the exports and loads run beside phases
+    36-40; here if not started); each bundle loaded in a fresh process
+    that imports no model code (phase 37's child) and run on 1 + 3 fresh
+    b1 queue requests (R101 on one), one bundle's requests at a time once
+    the live forwards are done: the f32 bundle within 1e-4 of max|ref| of
+    the live f32 ``serving_model`` forward (TF32 off), the bf16 ones' BEV
+    within phase 24's bf16 limit of the live bf16 forward; request ms,
+    export s, load s, MiB."""
+    import fcntl
+    import os
+    import shutil
+
+    import torch
+
+    from omnihd_scenes_tpu_torch.serve.export import META
+
+    t_phase = time.perf_counter()
+    h = started or start_bevformer_export(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfgs, states, requests = h['cfgs'], h['states'], h['requests']
+    try:
+        live = {'r50_f32': _live_queue(cfgs['r50'], states['r50'], dev,
+                                       torch.float32, requests['r50']),
+                'r50_bf16': _live_queue(cfgs['r50'], states['r50'], dev,
+                                        torch.bfloat16, requests['r50']),
+                'r101_bf16': _live_queue(cfgs['r101'], states['r101'], dev,
+                                         torch.bfloat16, requests['r101'])}
+        fcntl.flock(h['lock'], fcntl.LOCK_UN)   # the bundles' requests
+        t_wait = time.perf_counter()
+        for t in h['threads']:
+            t.join(timeout=900)
+        wait_s = time.perf_counter() - t_wait
+        results = h['results']
+        for job in h['jobs']:
+            r = results.get(job)
+            if isinstance(r, BaseException):
+                raise r
+            check(r is not None, f'41b: {job} did not finish')
+            r['meta'] = json.load(open(os.path.join(h['bundles'][job], META)))
+            r['mib'] = {f: round(os.path.getsize(os.path.join(
+                h['bundles'][job], f)) / 2 ** 20, 2)
+                for f in sorted(os.listdir(h['bundles'][job]))}
+    finally:
+        h['lock'].close()
+        shutil.rmtree(h['tmp'], ignore_errors=True)
+    for job, r in results.items():
+        seen, meta, got, want = r['seen'], r['meta'], r['got'], live[job]
+        shares = {k: max(_share(g[k], w[k]) for g, w in zip(got, want))
+                  for k in ('bev_embed', 'all_cls_scores', 'all_bbox_preds')}
+        first = {k: max(_share(g[k][:, 0], w[k][:, 0])
+                        for g, w in zip(got, want))
+                 for k in ('all_cls_scores', 'all_bbox_preds')}
+        finite = all(bool(torch.isfinite(t.float()).all()) for g in got
+                     for t in g.values())
+        ms = seen['ms'][1:] or seen['ms']
+        print(f'[41b export {job}] bundle {r["mib"]} MiB; torch.export '
+              f'{meta["export_seconds"]:.1f} s, the tools.export process '
+              f'{r["build_s"]:.1f} s (three at once, beside phases 36-40); '
+              f'then a fresh process (models imported: {seen["models"]}, '
+              f'jax: {seen["jax"]}) loaded it in {seen["load_s"]:.1f} s and '
+              f'ran {len(seen["ms"])} b1 queue requests: '
+              f'{float(np.mean(ms)):.2f} ms/request by CUDA events '
+              f'({np.round(seen["ms"], 2).tolist()}); against the live '
+              f'serving_model forward, max shares of max|ref|: '
+              + ', '.join(f'{k} {v:.3e}' for k, v in shares.items())
+              + ', the first decoder layer\'s ' + ', '.join(
+                  f'{k} {v:.3e}' for k, v in first.items())
+              + ' (checked: the BEV in bf16, every output in f32; the '
+              f'reference refinement compounds a rounding from decoder '
+              f'layer to layer, as phase 24b prints) ({card})')
+        check(not seen['models'] and not seen['jax'] and finite
+              and meta['decode'] is None and meta['mtype'] == 'bevformer',
+              f'41b {job}: models {seen["models"]}, jax {seen["jax"]}, '
+              f'finite {finite}, meta {meta}')
+        if job == 'r50_f32':
+            check(max(shares.values()) <= EXPORT_F32_TOL,
+                  f'41b f32 bundle against the live f32 forward: {shares}')
+        else:
+            check(shares['bev_embed'] <= HEAD_TOL,
+                  f'41b {job} BEV against the live bf16 forward: {shares}')
+        r['ms'], r['shares'] = float(np.mean(ms)), shares
+    print(f'[41b BEVFormer-T export] {time.perf_counter() - t_phase:.1f} s '
+          f'here (the weights, fuse and launch {h["prep_s"]:.1f} s before '
+          f'phase 36; the wait for the bundles\' requests {wait_s:.1f} s; '
+          f'{card})')
+    return {job: dict(ms=r['ms'], export_s=r['meta']['export_seconds'],
+                      load_s=r['seen']['load_s'], mib=r['mib'])
+            for job, r in results.items()}
 
 
 def phase_qat(dev, card, cfg, state_dict):
@@ -6938,11 +7445,13 @@ def main():
     mtl_int8 = phase_mtl_int8(dev, card)
     camera = phase_camera_dataroot(dev, card)
     cam_train = phase_camera_train(dev, card, train[BATCH][0])
+    bevformer_export = start_bevformer_export(dev)      # 41b, beside 36-40
     fuse = phase_fuse(dev, card)
     export = phase_export(dev, card, fuse.pop('cfg'), fuse.pop('fused'))
     qat = phase_qat(dev, card, cfg, state_dict)
     dp = phase_data_parallel(dev, card, train[BATCH][0])
     p40 = phase_remaining_modules(dev, card, cfg, state_dict)
+    p41 = phase_bevformer_export(dev, card, bevformer_export)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -6968,6 +7477,15 @@ def main():
             # library call computes islow); 1 launch a batch.
             'jpeg_idct': ('jpeg_idct', camera['launches']['jpeg_idct'],
                           *camera['idct']),
+            # The same kernels on phase 41a's image_fast_decode batch (16
+            # side cameras at 1/2, 8 front / back at 1/4; rectify on the
+            # fused maps; library: F.grid_sample of the reduced images on
+            # the fused grids); launches of 41a's main path (1 a batch).
+            'jpeg_idct_reduced': ('jpeg_idct',
+                                  camera['fast']['launches']['jpeg_idct'],
+                                  *camera['fast']['idct']),
+            'rectify_fast': ('rectify', camera['fast']['launches']['rectify'],
+                             *camera['fast']['rectify']),
             # rectify's setup kernels at the batch's shapes (the map, the
             # full-size cameras' geometry); launches of phase 34's main
             # path (1 a map, 1 a map geometry for both tables, at their
@@ -7046,6 +7564,13 @@ def main():
         camera['launches']['jpeg_decode']
     extra['jpeg_idct']['launches_nvjpeg_decode'] = \
         camera['launches']['nvjpeg_decode']
+    extra['jpeg_idct_reduced']['library'] = 'none'
+    extra['rectify_fast'].update(camera['fast']['extra'])
+    extra['rectify_fast']['benchmark_fast_vs_full'] = {
+        'samples_per_s': (camera['fast']['bench']['fps'],
+                          camera['fast']['bench_full']['fps']),
+        'ms_per_sample': (camera['fast']['bench']['ms_per_sample'],
+                          camera['fast']['bench_full']['ms_per_sample'])}
     # Phases 36-38: the fused checkpoint served (one LSS launch a
     # request), the exported program in its own process (the registered
     # op, one launch a request: 1 + 3 requests), QAT training (one
@@ -7071,6 +7596,10 @@ def main():
         'forward_b1': p40['get_flops']}
     extra['lss_sample']['launches_device_trace'] = {
         'request_b4': p40['device_trace']}
+    # Phase 41b: BEVFormer-T's bundles run no hand kernel (its path holds
+    # none); their request ms, export and load seconds ride on the LSS row
+    # as the other deployment numbers do.
+    extra['lss_sample']['bevformer_export'] = p41
     print(f'[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s to '
           f'the kernels line ({card})')
     print(json.dumps({'kernels': [{

@@ -91,11 +91,6 @@ class NewScenesDetDataset:
         if image_decode not in ('host', 'device'):
             raise ValueError(f"image_decode must be 'host' or 'device', got "
                              f'{image_decode!r}')
-        if image_decode == 'device' and image_fast_decode:
-            raise ValueError(
-                "image_decode='device' has no counterpart of "
-                'image_fast_decode=True (the reduced-DCT JPEG decode, '
-                'ROADMAP queue 1 item 3.10)')
         self.infos = load_infos(ann_file)
         self.modality = modality
         self.classes = list(classes)
@@ -116,7 +111,8 @@ class NewScenesDetDataset:
         self.image_target_hw = (tuple(image_target_hw)
                                 if image_target_hw else None)
         # Serving decode path: reduced-res JPEG decode + fused
-        # undistort/rescale remap (image_loading._load_cam_fast).
+        # undistort/rescale remap (image_loading._load_cam_fast; on the
+        # device path the reduced IDCTs and rectify on the fused map).
         self.image_fast_decode = image_fast_decode
         self.image_decode = image_decode
         self.load_depth_gt = load_depth_gt

@@ -38,6 +38,13 @@ kernels' plain versions, bit-equal to ``cv2.imdecode`` and OpenCV's
 chain (the f32 resizes within 1e-5).  :func:`camera_sizes` is the one
 rule for the sizes a decode gives, so a dataset can take its depth
 targets' size from the JPEG headers (:func:`source_canvas_hw`).
+
+With ``fast_decode`` (the JAX serving decode, :func:`_load_cam_fast`)
+the device path decodes each camera at ``1 / k`` of its size (libjpeg's
+reduced IDCTs, ``k`` by ``data/jpeg.py:decode_factor`` from its net
+scale) and ``rectify`` takes it to the output size in one remap on the
+fused map (``data/undistort.py:fused_rectify_map``), or one u8 resize
+without distortion; OpenCV is not imported.
 """
 
 from __future__ import annotations
@@ -191,13 +198,8 @@ def load_camera_data(info: Dict,
     :func:`decode_camera_batch`.
     """
     if decode == 'device':
-        if fast_decode:
-            raise ValueError(
-                'image_fast_decode=True (the reduced-DCT JPEG decode, '
-                'IMREAD_REDUCED_COLOR_*) has no device counterpart yet: '
-                'the device decode refuses it (ROADMAP queue 1 item 3.10)')
         return camera_sources(info, scale, front_back_scale, pad_divisor,
-                              mean, std, to_rgb, target_hw)
+                              mean, std, to_rgb, target_hw, fast_decode)
     if decode != 'host':
         raise ValueError(f"decode must be 'host' or 'device', got {decode!r}")
     cv2 = require_cv2()
@@ -307,22 +309,35 @@ def camera_sources(info: Dict, scale: float = 0.5,
                    front_back_scale: float = 0.5, pad_divisor: int = 32,
                    mean: Sequence[float] = IMAGENET_MEAN,
                    std: Sequence[float] = IMAGENET_STD, to_rgb: bool = True,
-                   target_hw: Tuple[int, int] = None) -> Dict[str, np.ndarray]:
+                   target_hw: Tuple[int, int] = None,
+                   fast_decode: bool = False) -> Dict[str, np.ndarray]:
     """One frame's cameras for the device decode: the files' bytes
     (``jpeg_bytes`` u8, the files concatenated; ``jpeg_offsets`` (N + 1,)
     int64), per camera the camera matrix and plumb-bob coefficients of its
     undistortion map (``cam_intrinsics`` (N, 3, 3), ``cam_distortion`` (N,
-    5) f64) and its two resize factors (``cam_scales`` (N, 2) f64: the u8
+    5) f64) and its resize factors (``cam_scales`` (N, 3) f64: the u8
     downscale, ``front_back_scale`` for the front and back cameras and 1
-    for the others, then ``scale``), ``image_layout`` [target_h,
-    target_w, pad_divisor] int64 (0, 0 when ``target_hw`` is None),
-    ``image_norm`` [mean, std, to_rgb] f32, and the host path's
+    for the others, then ``scale``, then 0; with ``fast_decode`` 1, 1 and
+    the net scale, ``scale`` times the u8 downscale), ``image_layout``
+    [target_h, target_w, pad_divisor] int64 (0, 0 when ``target_hw`` is
+    None), ``image_norm`` [mean, std, to_rgb] f32, and the host path's
     ``lidar2img`` / ``img2lidar_*``, computed by the same f64 operations
-    (the scale matrices applied when the host path applies them)."""
+    (the scale matrices applied when the host path applies them: with
+    ``fast_decode`` one of the net scale)."""
     blobs, ks, dists, scales, l2is = [], [], [], [], []
     for cam_type, cam_info in info['cams'].items():
         lidar2img, _, viewpad = build_lidar2img(cam_info)
         is_fb = cam_type in ('camera_front', 'camera_back')
+        blobs.append(np.fromfile(cam_info['data_path'], np.uint8))
+        ks.append(np.asarray(viewpad[:3, :3], np.float64))
+        dists.append(_plumb_bob(cam_info['cam_distortion']))
+        if fast_decode:
+            net = scale * (front_back_scale if is_fb else 1.0)
+            s = np.eye(4)
+            s[0, 0] = s[1, 1] = net
+            scales.append((1.0, 1.0, float(net)))
+            l2is.append(s @ lidar2img)
+            continue
         u8_scale = 1.0
         if is_fb and front_back_scale != 1.0:
             u8_scale = float(front_back_scale)
@@ -333,10 +348,7 @@ def camera_sources(info: Dict, scale: float = 0.5,
             s = np.eye(4)
             s[0, 0] = s[1, 1] = scale
             lidar2img = s @ lidar2img
-        blobs.append(np.fromfile(cam_info['data_path'], np.uint8))
-        ks.append(np.asarray(viewpad[:3, :3], np.float64))
-        dists.append(_plumb_bob(cam_info['cam_distortion']))
-        scales.append((u8_scale, float(scale)))
+        scales.append((u8_scale, float(scale), 0.0))
         l2is.append(lidar2img)
     offsets = np.zeros(len(blobs) + 1, np.int64)
     offsets[1:] = np.cumsum([b.size for b in blobs])
@@ -389,24 +401,29 @@ def _host_array(v) -> np.ndarray:
     return np.asarray(v)
 
 
-def _device_map(k: np.ndarray, dist: np.ndarray, hw, device):
+def _device_map(k: np.ndarray, dist: np.ndarray, hw, device, net: float = 0.0,
+                factor: int = 1):
     """The undistortion map of one camera on ``device`` (None without
     distortion): on the CPU the (h, w, 2) int32 map; on the card a
     :class:`kernels.rectify.DeviceMap`, made (uploaded and packed) once
-    per calibration and device and kept, with the tables ``rectify``
-    adds to it."""
+    per calibration, size, fast-decode net scale and factor and device
+    and kept, with the tables ``rectify`` adds to it.  With a net scale
+    (``net`` > 0), the fused map of the fast decode of an ``hw`` image
+    (``data/undistort.py:fused_rectify_map``)."""
     import torch
 
-    from omnihd_scenes_tpu_torch.data.undistort import rectify_map
+    from omnihd_scenes_tpu_torch.data.undistort import (fused_rectify_map,
+                                                        rectify_map)
     from omnihd_scenes_tpu_torch.kernels.rectify import DeviceMap
 
-    fixed = rectify_map(k, dist, hw)
+    fixed = (fused_rectify_map(k, dist, hw, net, factor) if net > 0
+             else rectify_map(k, dist, hw))
     if fixed is None:
         return None
     if device.type == 'cpu':
         return torch.from_numpy(fixed)
     key = (np.ascontiguousarray(k).tobytes(), dist.tobytes(), tuple(hw),
-           str(device))
+           float(net), int(factor), str(device))
     t = _DEVICE_MAPS.get(key)
     if t is None:
         t = DeviceMap(torch.from_numpy(fixed).pin_memory().to(
@@ -422,16 +439,42 @@ def _resized(hw, factor: float):
     return int(hw[0] * factor), int(hw[1] * factor)
 
 
+def decode_factors(cam_scales) -> List[int]:
+    """Each camera's reduced-decode factor (:func:`camera_sources` rows):
+    by its net scale with the fast decode, else 1."""
+    from omnihd_scenes_tpu_torch.data.jpeg import decode_factor
+
+    return [decode_factor(float(r[2])) if r[2] > 0 else 1
+            for r in np.asarray(cam_scales, np.float64).reshape(-1, 3)]
+
+
+def _fast_sizes(hw, net: float, factor: int):
+    """JAX's fast-decode sizes of an ``hw`` JPEG (``_load_cam_fast``): the
+    source size, the reduced decode's size times the factor (1081 rows at
+    1/2 count as 1082), and the output size ``int(src * net)``."""
+    src = tuple(-(-int(v) // factor) * factor for v in hw)
+    return src, (int(src[0] * net), int(src[1] * net))
+
+
 def camera_sizes(src_hws, cam_scales, layout):
     """The sizes the host path's steps give a frame's (or batch's) cameras
-    from their decoded sizes ``src_hws`` [(h, w), ...]: each one's u8 size
+    from their JPEGs' sizes ``src_hws`` [(h, w), ...]: each one's u8 size
     after the front / back downscale and its size after ``scale``
-    (``cam_scales`` rows, :func:`camera_sources`), and the padded canvas
+    (``cam_scales`` rows, :func:`camera_sources`; with the fast decode
+    both are :func:`_fast_sizes`' output size), and the padded canvas
     (``image_layout``: the target, else every output size's maximum
     rounded up to the divisor) -> (u8_hws, out_hws, (th, tw))."""
-    factors = np.asarray(cam_scales, np.float64).reshape(-1, 2)
-    u8_hws = [_resized(hw, float(f[0])) for hw, f in zip(src_hws, factors)]
-    out_hws = [_resized(hw, float(f[1])) for hw, f in zip(u8_hws, factors)]
+    factors = np.asarray(cam_scales, np.float64).reshape(-1, 3)
+    u8_hws, out_hws = [], []
+    for hw, f, k in zip(src_hws, factors, decode_factors(factors)):
+        if f[2] > 0:
+            out = _fast_sizes(hw, float(f[2]), k)[1]
+            u8_hws.append(out)
+            out_hws.append(out)
+            continue
+        u8 = _resized(hw, float(f[0]))
+        u8_hws.append(u8)
+        out_hws.append(_resized(u8, float(f[1])))
     th, tw, pad = (int(v) for v in np.asarray(layout).reshape(-1)[:3])
     if th <= 0:
         th = int(np.ceil(max(h for h, _ in out_hws) / pad) * pad)
@@ -439,19 +482,22 @@ def camera_sizes(src_hws, cam_scales, layout):
     return u8_hws, out_hws, (th, tw)
 
 
+def _frame_sizes(data: np.ndarray, offsets) -> list:
+    """The (h, w) of each JPEG ``data[a:b]`` from its header."""
+    from omnihd_scenes_tpu_torch.data.jpeg import jpeg_header
+
+    return [(h.height, h.width) for h in
+            (jpeg_header(data[a:b]) for a, b in zip(offsets[:-1],
+                                                     offsets[1:]))]
+
+
 def source_canvas_hw(sources: Dict) -> Tuple[int, int]:
     """The padded (h, w) that decoding one frame's camera sources gives,
     the host path's ``imgs.shape[1:3]``, from the JPEG headers alone (no
     decode): :func:`camera_sizes` on the frame sizes."""
-    from omnihd_scenes_tpu_torch.data.jpeg import jpeg_header
-
     data = np.asarray(sources[JPEG_BYTES])
     offsets = np.asarray(sources[JPEG_OFFSETS])
-    hws = []
-    for a, b in zip(offsets[:-1], offsets[1:]):
-        head = jpeg_header(data[a:b])
-        hws.append((head.height, head.width))
-    return camera_sizes(hws, sources['cam_scales'],
+    return camera_sizes(_frame_sizes(data, offsets), sources['cam_scales'],
                         sources['image_layout'])[2]
 
 
@@ -476,15 +522,21 @@ def decoded_sources(batch: Dict, device):
     if not (np.all(layouts == layout) and np.all(norms == norm)):
         raise ValueError('decode_camera_batch: samples of one batch must '
                          'share the image layout and normalisation')
+    scales = src['cam_scales'].reshape(-1, 3)
+    factors = decode_factors(scales)
     planes = decode_jpeg_planes([data[a:b] for row in offsets
                                  for a, b in zip(row[:-1], row[1:])],
-                                device)
+                                device, factors=factors)
     k = src['cam_intrinsics'].reshape(-1, 3, 3)
     dist = src['cam_distortion'].reshape(-1, 5)
-    u8_hws, out_hws, target = camera_sizes(
-        [tuple(p.y.shape) for p in planes], src['cam_scales'], layout)
-    maps = [_device_map(k[j], dist[j], tuple(p.y.shape), device)
-            for j, p in enumerate(planes)]
+    hws = [hw for row in offsets for hw in _frame_sizes(data, row)]
+    # A fused map is built at the source size JAX's fast decode takes (the
+    # frame's size at factor 1).
+    maps = [_device_map(k[j], dist[j], _fast_sizes(hw, net, n)[0], device,
+                        net, n)
+            for j, (hw, net, n) in enumerate(zip(hws, scales[:, 2].tolist(),
+                                                 factors))]
+    u8_hws, out_hws, target = camera_sizes(hws, scales, layout)
     return planes, (maps, u8_hws, out_hws, target, norm[:3], norm[3:6],
                     bool(norm[6]))
 

@@ -12,7 +12,12 @@
   decode, the coefficients' upload, then one launch of the IDCT kernel
   (``kernels/jpeg_idct.py``: libjpeg's ``jpeg_idct_islow``; its plain
   version on the CPU).  The planes are views of the padded component
-  planes, cut to libjpeg's ``downsampled_height`` / ``_width``.
+  planes, cut to libjpeg's ``downsampled_height`` / ``_width``.  With
+  ``factors``, an image decodes at ``1 / k`` of its size (k = 2, 4, 8),
+  as libjpeg with ``scale_denom = k`` and ``cv2.imread(...,
+  IMREAD_REDUCED_COLOR_k)`` decode it: every coefficient is still
+  entropy-decoded, and each component's IDCT runs at its scaled size
+  (:func:`scaled_sizes`: ``jidctred.c``'s 4x4, 2x2 or 1x1).
 * :func:`decode_jpegs` (list of bitstreams -> list of (h, w, 3) u8 BGR
   tensors on ``device``): the planes, then libjpeg's fancy chroma
   upsampling and colour tables (``kernels.rectify.planes_to_bgr``; the
@@ -25,9 +30,10 @@
   as the yardstick a chip run times the decode against; no path calls
   it.
 
-Every step is libjpeg's integer arithmetic (islow IDCT, fancy
-upsampling, ``jdcolor.c``'s tables), so the card's pixels and the CPU's
-equal ``cv2.imdecode``'s (the JAX package's ``cv2.imread``) bit for bit.
+Every step is libjpeg's integer arithmetic (islow or reduced IDCT,
+fancy or box upsampling, ``jdcolor.c``'s tables), so the card's pixels
+and the CPU's equal ``cv2.imdecode``'s (the JAX package's ``cv2.imread``,
+reduced or not) bit for bit.
 What the decode does not take is refused with an error before any CUDA
 call: a progressive or other non-baseline frame, one that is not three
 8-bit components, a non-interleaved scan, an RGB-coded frame, or a
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 from omnihd_scenes_tpu_torch.kernels.rectify import (CHROMA_420, CHROMA_422,
+                                                     CHROMA_422_BOX,
                                                      CHROMA_444, Planes,
                                                      chroma_shape,
                                                      planes_to_bgr)
@@ -137,31 +144,107 @@ def check_card_decodable(headers: Sequence[JpegHeader]) -> None:
                              '4:2:0 are)')
 
 
+# The IDCT scale denominators of a reduced decode (libjpeg's
+# scale_denom, cv2.IMREAD_REDUCED_COLOR_k), 1 for the full size.
+DECODE_FACTORS = (1, 2, 4, 8)
+
+
+def decode_factor(net_scale: float) -> int:
+    """The JAX fast decode's IDCT scale denominator for an image shown at
+    ``net_scale`` of its size: the first ``k`` of (8, 4, 2) with
+    ``net_scale <= 1 / k``, else 1 (``image_loading.py:_load_cam_fast``)."""
+    for k in (8, 4, 2):
+        if net_scale <= 1.0 / k:
+            return k
+    return 1
+
+
+def scaled_sizes(header: JpegHeader, factor: int):
+    """(each component's ``DCT_scaled_size``, the planes' chroma mode) of
+    a decode at ``1 / factor`` with libjpeg-turbo's rules
+    (``jdmaster.c:jpeg_core_output_dimensions``, ``jdsample.c``): the
+    luma's is ``8 / factor``, and a chroma component's doubles while it
+    stays below 8 and divides the sampling ratio, so the IDCT upsamples
+    what it can (4:2:0 at 1/2: luma 4x4, chroma 8x8, no upsampling
+    left); what is left is upsampled fancily, but with box replication
+    (:data:`kernels.rectify.CHROMA_422_BOX`) at 1/8 (libjpeg's
+    ``min_DCT_scaled_size`` is 1 there) or for a chroma plane at most 2
+    samples wide.  At ``factor`` 1: 8 each and the frame's own mode."""
+    if factor not in DECODE_FACTORS:
+        raise ValueError(f'decode factor {factor}: one of {DECODE_FACTORS}')
+    least = 8 // factor
+    hmax = max(h for h, _ in header.sampling)
+    vmax = max(v for _, v in header.sampling)
+    sizes = []
+    for h, v in header.sampling:
+        s = least
+        while (s < 8 and (hmax * least) % (h * s * 2) == 0
+               and (vmax * least) % (v * s * 2) == 0):
+            s *= 2
+        sizes.append(s)
+    if factor == 1:
+        return sizes, header.chroma
+    (ch, cv), cs = header.sampling[1], sizes[1]
+    ratio = (hmax * least // (ch * cs), vmax * least // (cv * cs))
+    mode = {(1, 1): CHROMA_444, (2, 1): CHROMA_422}.get(ratio)
+    if mode is None:
+        raise ValueError(f'chroma sampling {header.sampling} at 1/{factor} '
+                         'leaves an upsampling the card does not run')
+    width = -(-header.width * ch * cs // (hmax * 8))
+    if mode == CHROMA_422 and (least == 1 or width <= 2):
+        mode = CHROMA_422_BOX
+    return sizes, mode
+
+
 class Coefficients(NamedTuple):
     """A batch's entropy-decoded JPEGs on the host."""
     coefs: torch.Tensor      # (total,) int16, 64 a block, natural order
     quant: torch.Tensor      # (3 n, 64) int32, natural order
     # (3 n, 5) int64 per component (Y, Cb, Cr of each image): first
-    # block, block rows, block columns, downsampled height, width.
+    # block, block rows, block columns, downsampled height, width (at
+    # the component's scaled size).
     comps: np.ndarray
-    modes: List[int]         # each image's chroma mode
+    modes: List[int]         # each image's chroma mode (of its planes)
+    # (3 n,) int64: each component's DCT scaled size (8 at full size).
+    scaled: np.ndarray
 
 
 def entropy_decode(blobs: Sequence, pin: bool = False,
-                   threads: Optional[int] = None) -> Coefficients:
+                   threads: Optional[int] = None,
+                   factors: Optional[Sequence[int]] = None) -> Coefficients:
     """Huffman-decode baseline JPEGs (u8 arrays) into one int16 buffer
     (pinned when ``pin``), on ``threads`` threads (default ``min(images,
-    os.cpu_count())``); the result does not depend on the count.  Raises
-    on what the card's decode does not take."""
+    os.cpu_count())``); the result does not depend on the count.
+    ``factors`` (one of :data:`DECODE_FACTORS` an image, default 1) set
+    each image's scaled sizes and plane sizes (:func:`scaled_sizes`); the
+    coefficients do not depend on them.  Raises on what the card's decode
+    does not take."""
     from omnihd_scenes_tpu_torch.data import native
 
     arrays = [np.ascontiguousarray(b, np.uint8) for b in blobs]
     headers = [jpeg_header(a) for a in arrays]
     check_card_decodable(headers)
     n = len(arrays)
+    if factors is None:
+        factors = [1] * n
+    if len(factors) != n:
+        raise ValueError('entropy_decode: one factor an image')
     geom = native.jpeg_geometry(arrays)
     comps = np.zeros((3 * n, 5), np.int64)
     comps[:, 1:] = geom[:, 4:].reshape(3 * n, 4)
+    scaled = np.full(3 * n, 8, np.int64)
+    modes = []
+    for i, (h, k) in enumerate(zip(headers, factors)):
+        sizes, mode = scaled_sizes(h, int(k))
+        modes.append(mode)
+        if k == 1:
+            continue
+        hmax = max(a for a, _ in h.sampling)
+        vmax = max(b for _, b in h.sampling)
+        for c, ((ch, cv), s) in enumerate(zip(h.sampling, sizes)):
+            scaled[3 * i + c] = s
+            comps[3 * i + c, 3] = -(-h.height * cv * s // (vmax * 8))
+            comps[3 * i + c, 4] = -(-h.width * ch * s // (hmax * 8))
     blocks = comps[:, 1] * comps[:, 2]
     comps[1:, 0] = np.cumsum(blocks)[:-1]
     total = int(blocks.sum()) * 64
@@ -172,17 +255,21 @@ def entropy_decode(blobs: Sequence, pin: bool = False,
     native.jpeg_decode_coefficients(arrays, coefs.data_ptr(),
                                     comps[:, 0].reshape(n, 3) * 64,
                                     quant.numpy().reshape(n, 3, 64), threads)
-    return Coefficients(coefs, quant, comps, [h.chroma for h in headers])
+    return Coefficients(coefs, quant, comps, modes, scaled)
 
 
 def planes_of(buffer: torch.Tensor, c: Coefficients) -> List[Planes]:
-    """Each image's planes as views of the IDCT's output buffer, cut to
-    libjpeg's downsampled extent."""
+    """Each image's planes as views of the IDCT's output buffer
+    (``kernels/jpeg_idct.py:plane_offsets``), cut to libjpeg's
+    downsampled extent."""
+    from omnihd_scenes_tpu_torch.kernels.jpeg_idct import plane_offsets
+
     out = []
     views = []
-    for first, rows, cols, dh, dw in c.comps.tolist():
-        plane = buffer[first * 64:(first + rows * cols) * 64].view(
-            rows * 8, cols * 8)
+    starts = plane_offsets(c.comps, c.scaled)[0]
+    for (_, rows, cols, dh, dw), s, at in zip(c.comps.tolist(),
+                                              c.scaled.tolist(), starts):
+        plane = buffer[at:at + rows * cols * s * s].view(rows * s, cols * s)
         views.append(plane[:dh, :dw])
     for i, mode in enumerate(c.modes):
         out.append(Planes(*views[3 * i:3 * i + 3], mode))
@@ -190,11 +277,13 @@ def planes_of(buffer: torch.Tensor, c: Coefficients) -> List[Planes]:
 
 
 def decode_jpeg_planes(blobs: Sequence, device,
-                       threads: Optional[int] = None) -> List[Planes]:
-    """Decode JPEG bitstreams (u8 arrays) to their planes on ``device``:
-    the host entropy decode, the upload of the coefficients (pinned,
-    without a host wait) and one IDCT launch (its plain version on the
-    CPU)."""
+                       threads: Optional[int] = None,
+                       factors: Optional[Sequence[int]] = None
+                       ) -> List[Planes]:
+    """Decode JPEG bitstreams (u8 arrays) to their planes on ``device``,
+    each at ``1 / factors[i]`` of its size (default 1): the host entropy
+    decode, the upload of the coefficients (pinned, without a host wait)
+    and one IDCT launch (its plain version on the CPU)."""
     from omnihd_scenes_tpu_torch.kernels.jpeg_idct import jpeg_idct
 
     device = torch.device(device)
@@ -202,10 +291,11 @@ def decode_jpeg_planes(blobs: Sequence, device,
         raise ValueError(f'no JPEG decode for device {device}')
     if len(blobs) == 0:
         return []
-    c = entropy_decode(blobs, pin=device.type == 'cuda', threads=threads)
+    c = entropy_decode(blobs, pin=device.type == 'cuda', threads=threads,
+                       factors=factors)
     coefs = c.coefs.to(device, non_blocking=True)
     quant = c.quant.to(device, non_blocking=True)
-    planes = planes_of(jpeg_idct(coefs, quant, c.comps), c)
+    planes = planes_of(jpeg_idct(coefs, quant, c.comps, c.scaled), c)
     decode_jpeg_planes.calls += 1
     return planes
 
@@ -213,11 +303,13 @@ def decode_jpeg_planes(blobs: Sequence, device,
 decode_jpeg_planes.calls = 0
 
 
-def decode_jpegs(blobs: Sequence, device,
-                 threads: Optional[int] = None) -> List[torch.Tensor]:
+def decode_jpegs(blobs: Sequence, device, threads: Optional[int] = None,
+                 factors: Optional[Sequence[int]] = None
+                 ) -> List[torch.Tensor]:
     """Decode JPEG bitstreams (u8 arrays) to (h, w, 3) u8 BGR tensors on
-    ``device``, equal to ``cv2.imdecode``'s."""
-    planes = decode_jpeg_planes(blobs, device, threads)
+    ``device``, equal to ``cv2.imdecode``'s (with ``factors``, to
+    ``cv2.imdecode(..., IMREAD_REDUCED_COLOR_k)``'s)."""
+    planes = decode_jpeg_planes(blobs, device, threads, factors)
     return planes_to_bgr(planes) if planes else []
 
 

@@ -22,6 +22,13 @@ OpenCV may run a vectorised copy of the loop that fuses multiply-adds, so
 a few map entries that sit within an f64 rounding of a 1/64-px boundary
 can differ from it by one 1/32-px step (the tests bound their share).
 Zero distortion means no remap, as in the JAX loader (``:53``).
+
+:func:`fused_rectify_map` is the JAX fast decode's map
+(``image_loading.py:66-98``, ``_fused_rectify_map``): built at the
+output size with the new camera matrix ``K`` scaled by the net scale,
+stored as ``CV_32FC1`` (each coordinate rounded to f32), divided by the
+reduced decode's factor (exact at 2, 4, 8), then ``cv2.convertMaps`` to
+``CV_16SC2``: ``cvRound(x * 32)`` of the f32 value, half to even.
 """
 
 from __future__ import annotations
@@ -60,16 +67,19 @@ def _inv3(a: np.ndarray) -> np.ndarray:
 
 
 def undistort_map(intrinsic: np.ndarray, distortion,
-                  hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
-    """The f64 source coordinates (u, v), each (h, w), that undistort an
-    (h, w) image with camera matrix ``intrinsic`` (3x3, used as both the
-    camera and the new camera matrix) and plumb-bob ``distortion`` (k1,
-    k2, p1, p2, k3)."""
+                  hw: Tuple[int, int],
+                  new_intrinsic: Optional[np.ndarray] = None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The f64 source coordinates (u, v), each (h, w), of an (h, w) map
+    that undistorts an image with camera matrix ``intrinsic`` (3x3) and
+    plumb-bob ``distortion`` (k1, k2, p1, p2, k3) onto the new camera
+    matrix ``new_intrinsic`` (default ``intrinsic``)."""
     h, w = (int(v) for v in hw)
     k = np.asarray(intrinsic, np.float64)[:3, :3]
     k1, k2, p1, p2, k3 = (float(v) for v in
                           np.asarray(distortion, np.float64).reshape(-1)[:5])
-    ir = _inv3(k).reshape(-1)
+    ir = _inv3(k if new_intrinsic is None else
+               np.asarray(new_intrinsic, np.float64)[:3, :3]).reshape(-1)
     fx, fy, u0, v0 = float(k[0, 0]), float(k[1, 1]), float(k[0, 2]), \
         float(k[1, 2])
     rows = np.arange(h, dtype=np.float64)[:, None]
@@ -132,5 +142,39 @@ def rectify_map(intrinsic: np.ndarray, distortion,
     fixed = _MAP_CACHE.get(key)
     if fixed is None:
         fixed = fixed_point_map(*undistort_map(k, dist, hw))
+        _MAP_CACHE[key] = fixed
+    return fixed
+
+
+def fused_size(src_hw: Tuple[int, int], net_scale: float) -> Tuple[int, int]:
+    """The output (h, w) of the JAX fast decode of a ``src_hw`` image at
+    ``net_scale``: ``(int(h * net), int(w * net))``."""
+    return int(src_hw[0] * net_scale), int(src_hw[1] * net_scale)
+
+
+def fused_rectify_map(intrinsic: np.ndarray, distortion,
+                      src_hw: Tuple[int, int], net_scale: float,
+                      factor: int) -> Optional[np.ndarray]:
+    """The cached fixed-point map (out_h, out_w, 2) int32, in 1/32 px of
+    the image decoded at ``1 / factor``, that undistorts and rescales a
+    ``src_hw`` camera image to :func:`fused_size` in one remap (JAX's
+    ``_fused_rectify_map``), or None when ``distortion`` is all zero."""
+    dist = np.asarray(distortion, np.float64).reshape(-1)
+    if not np.any(dist):
+        return None
+    k = np.ascontiguousarray(np.asarray(intrinsic, np.float64)[:3, :3])
+    key = (k.tobytes(), dist.tobytes(), int(src_hw[0]), int(src_hw[1]),
+           float(net_scale), int(factor), 'fused')
+    fixed = _MAP_CACHE.get(key)
+    if fixed is None:
+        k_new = k.copy()
+        k_new[:2] *= net_scale
+        u, v = undistort_map(k, dist, fused_size(src_hw, net_scale), k_new)
+        u, v = u.astype(np.float32), v.astype(np.float32)
+        if factor != 1:
+            u, v = u / np.float32(factor), v / np.float32(factor)
+        scale = np.float32(INTER_TAB_SIZE)
+        fixed = np.stack([np.rint(u * scale), np.rint(v * scale)],
+                         -1).astype(np.int32)
         _MAP_CACHE[key] = fixed
     return fixed

@@ -1,10 +1,15 @@
 // JPEG inverse DCT for Hopper, sm_90a: libjpeg's jpeg_idct_islow
 // (jidctint.c) over every 8x8 block of a batch of decoded JPEGs, in one
-// launch.  No TPU kernel is replaced: the JAX package decodes its camera
-// JPEGs on the host with cv2.imread, i.e. libjpeg-turbo's islow IDCT
-// (omnihd_scenes_tpu/data/image_loading.py:177); the card's decode runs
-// the same integer arithmetic, so its planes equal libjpeg's bit for bit.
-// kernels/jpeg_idct.py holds the plain PyTorch version, op for op.
+// launch, or for a component decoded at a reduced size jidctred.c's
+// jpeg_idct_4x4 / 2x2 / 1x1 (the DCT-domain downscale of a decode with
+// scale_denom 2, 4 or 8), any mix of sizes in the launch.  No TPU kernel
+// is replaced: the JAX package decodes its camera JPEGs on the host with
+// cv2.imread, i.e. libjpeg-turbo's islow IDCT
+// (omnihd_scenes_tpu/data/image_loading.py:177), and with
+// image_fast_decode its reduced ones (IMREAD_REDUCED_COLOR_{2,4,8},
+// :124-126); the card's decode runs the same integer arithmetic, so its
+// planes equal libjpeg's bit for bit.  kernels/jpeg_idct.py holds the
+// plain PyTorch version, op for op.
 //
 // Arithmetic (jidctint.c, CONST_BITS 13, PASS1_BITS 2): each coefficient
 // times its quantisation step (DEQUANTIZE), the 1-D islow transform down
@@ -22,11 +27,19 @@
 // ((sum >> 18) & 1023) - 384, saturated to 0..255 -- the range limit, as
 // (idx ^ 512) - 512 + 128 == ((idx + 512) & 1023) - 384.
 //
+// The reduced transforms (jidctred.c) are the same arithmetic on fewer
+// terms, in the same wrapping words: 4x4 reads no coefficient row or
+// column 4 and descales by 12 and 19 bits, 2x2 reads rows and columns 0,
+// 1, 3, 5, 7 only and descales by 13 and 20, 1x1 is DESCALE(DC * q, 3);
+// each result goes through the same range limit.
+//
 // Layout: the coefficients of component k (int16, natural order) are
 // blocks [start_k, start_k + rows_k * cols_k) of one buffer, row-major on
-// its block grid; its plane (u8, rows_k * 8 by cols_k * 8) is the same
-// byte range of the output buffer, so a block's pixels sit where its 64
-// coefficients sat.
+// its block grid; its plane (u8, rows_k * s_k by cols_k * s_k at its
+// scaled size s_k) starts at byte out_k of the output buffer, the planes
+// one after the other, each from a 16-byte boundary
+// (kernels/jpeg_idct.py:plane_offsets), so a lane's s-byte row stores
+// align; at s = 8 a block's pixels sit where its 64 coefficients sat.
 //
 // Bound: bytes (int16 coefficients in, u8 planes out, once each) over the
 // memory rate.  Design (the host cuts the work, the card only streams):
@@ -54,7 +67,9 @@
 //     stores each pixel row with one 8-byte store: a warp writes whole
 //     256-byte runs of each of the chunk's 8 rows.  Every row of a plane
 //     starts on 8 bytes, so one store path serves every pitch (rows of
-//     8, 40 or 488 bytes alike).
+//     8, 40 or 488 bytes alike).  A reduced chunk (the size is the
+//     component's, so warp-uniform) runs its s x s transform and stores
+//     s rows of s bytes a lane, aligned to s as its plane is.
 // Per block a lane issues 1,118 SASS instructions, nearly all integer (16
 // transforms, the dequantise, the range limit; counted from the first
 // coefficient load to the last pixel store by chip_smoke.py phase 34b,
@@ -93,6 +108,7 @@ constexpr int kStages = JPEG_IDCT_RING * kConsumers;  // a ring a consumer
 constexpr int kBoxBlocks = 8;                // blocks a TMA box: 1024 B
 constexpr int kStageBytes = kChunk * 128;
 constexpr int kChunkWords = 5;               // a chunk table row
+constexpr int kCompWords = 6;                // a component row
 // Dynamic shared memory: the stages (1024-byte aligned for the swizzle),
 // the quant rows, each stage's (output offset, pitch, count), the full
 // and empty barriers, the component each quant slot holds; + 1 KB slack
@@ -180,13 +196,20 @@ __device__ __forceinline__ int limit_index(u32 x) {
   return static_cast<int>((x >> 18) & 1023u) - 384;
 }
 
-// One 8x8 block: `row(k)` gives coefficient row k as 8 int16 (a uint4),
-// `q` the component's 64 quant steps (16 int4, natural order); the 8 pixel
-// rows come back as 8 bytes each.
+// The same for a sum descaled by `shift`, the bias DESCALE's rounding
+// constant and 512 << shift, as at the top.
+__device__ __forceinline__ u32 limit_bias(int shift) {
+  return (1u << (shift - 1)) + (512u << shift);
+}
+__device__ __forceinline__ int limit_at(u32 x, int shift) {
+  return static_cast<int>((x >> shift) & 1023u) - 384;
+}
+
+// A block's coefficients dequantised, x[k][c] = row k, column c (as
+// idct_block loads them).
 template <class Rows>
-__device__ __forceinline__ void idct_block(const Rows& row, const int4* q,
-                                           uint2 (&px)[8]) {
-  u32 x[8][8];
+__device__ __forceinline__ void dequantise(const Rows& row, const int4* q,
+                                           u32 (&x)[8][8]) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const uint4 r = row(k);
@@ -202,6 +225,105 @@ __device__ __forceinline__ void idct_block(const Rows& row, const int4* q,
       x[k][2 * j + 1] = hi * static_cast<u32>(qs[2 * j + 1]);
     }
   }
+}
+
+constexpr int FIX_0_211164243 = 1730;
+constexpr int FIX_0_509795579 = 4176;
+constexpr int FIX_0_601344887 = 4926;
+constexpr int FIX_0_720959822 = 5906;
+constexpr int FIX_0_850430095 = 6967;
+constexpr int FIX_1_061594337 = 8697;
+constexpr int FIX_1_272758580 = 10426;
+constexpr int FIX_1_451774981 = 11893;
+constexpr int FIX_2_172734803 = 17799;
+constexpr int FIX_3_624509785 = 29692;
+
+// jpeg_idct_4x4's 1-D transform (v[4] unread): the 4 sums before the
+// shift, each with `bias` added.
+__device__ __forceinline__ void red4(const u32 (&v)[8], u32 bias,
+                                     u32 (&o)[4]) {
+  const u32 tmp0 = (v[0] << 14) + bias;
+  const u32 tmp2 = mul(v[2], FIX_1_847759065) + mul(v[6], -FIX_0_765366865);
+  const u32 tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+  const u32 t0 = mul(v[7], -FIX_0_211164243) + mul(v[5], FIX_1_451774981) +
+                 mul(v[3], -FIX_2_172734803) + mul(v[1], FIX_1_061594337);
+  const u32 t2 = mul(v[7], -FIX_0_509795579) + mul(v[5], -FIX_0_601344887) +
+                 mul(v[3], FIX_0_899976223) + mul(v[1], FIX_2_562915447);
+  o[0] = tmp10 + t2;
+  o[3] = tmp10 - t2;
+  o[1] = tmp12 + t0;
+  o[2] = tmp12 - t0;
+}
+
+// jpeg_idct_2x2's 1-D transform (v[0, 1, 3, 5, 7] read), as red4.
+__device__ __forceinline__ void red2(const u32 (&v)[8], u32 bias,
+                                     u32 (&o)[2]) {
+  const u32 tmp10 = (v[0] << 15) + bias;
+  const u32 t0 = mul(v[7], -FIX_0_720959822) + mul(v[5], FIX_0_850430095) +
+                 mul(v[3], -FIX_1_272758580) + mul(v[1], FIX_3_624509785);
+  o[0] = tmp10 + t0;
+  o[1] = tmp10 - t0;
+}
+
+// A reduced block, S = 4 or 2: the column pass, then the row pass to
+// pixels; row r comes back in px[r], S bytes from the low end.
+template <int S, class Rows>
+__device__ __forceinline__ void idct_block_reduced(const Rows& row,
+                                                   const int4* q,
+                                                   u32 (&px)[4]) {
+  constexpr int kExtra = S == 4 ? 1 : 2;     // bits more a pass than islow
+  constexpr int kShift1 = 11 + kExtra, kShift2 = 18 + kExtra;
+  u32 x[8][8];
+  dequantise(row, q, x);
+  u32 ws[S][8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {              // down each column
+    if (c == 4 || (S == 2 && (c == 2 || c == 6))) {
+#pragma unroll
+      for (int r = 0; r < S; ++r) ws[r][c] = 0u;   // never read
+      continue;
+    }
+    u32 v[8], o[S];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = x[k][c];
+    if constexpr (S == 4)
+      red4(v, 1u << (kShift1 - 1), o);
+    else
+      red2(v, 1u << (kShift1 - 1), o);
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+      ws[r][c] = static_cast<u32>(static_cast<int32_t>(o[r]) >> kShift1);
+  }
+#pragma unroll
+  for (int r = 0; r < S; ++r) {              // along each row
+    u32 o[S];
+    if constexpr (S == 4) {
+      red4(ws[r], limit_bias(kShift2), o);
+      px[r] = pack_sat_u8(limit_at(o[0], kShift2), limit_at(o[1], kShift2),
+                          pack_sat_u8(limit_at(o[2], kShift2),
+                                      limit_at(o[3], kShift2), 0));
+    } else {
+      red2(ws[r], limit_bias(kShift2), o);
+      px[r] = pack_sat_u8(limit_at(o[0], kShift2), limit_at(o[1], kShift2),
+                          0);
+    }
+  }
+}
+
+// jpeg_idct_1x1: the DC term, dequantised, DESCALEd by 3.
+__device__ __forceinline__ u32 idct_1x1(int16_t dc, int q) {
+  const u32 x = static_cast<u32>(static_cast<int>(dc)) * static_cast<u32>(q);
+  return pack_sat_u8(limit_at(x + limit_bias(3), 3), 0, 0) & 255u;
+}
+
+// One 8x8 block: `row(k)` gives coefficient row k as 8 int16 (a uint4),
+// `q` the component's 64 quant steps (16 int4, natural order); the 8 pixel
+// rows come back as 8 bytes each.
+template <class Rows>
+__device__ __forceinline__ void idct_block(const Rows& row, const int4* q,
+                                           uint2 (&px)[8]) {
+  u32 x[8][8];
+  dequantise(row, q, x);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {              // down each column
     u32 v[8], o[8];
@@ -245,27 +367,32 @@ struct SwizzledRows {
   }
 };
 
-// A chunk as the producer issues it: its first block, component and
-// count (0 past the last chunk), and its first block's pixel row 0 in the
-// output and the plane's pitch.
+// A chunk as the producer issues it: its first block, component, count
+// (0 past the last chunk) and scaled size, and its first block's pixel
+// row 0 in the output and the plane's pitch.
 struct Chunk {
-  int first, comp, count, pitch;
+  int first, comp, count, size, pitch;
   long long out;
 };
 
 __device__ __forceinline__ Chunk load_chunk(const int32_t* __restrict__ chunks,
                                             const int32_t* __restrict__ comps,
                                             int n_chunks, int c) {
-  Chunk k{0, 0, 0, 0, 0};
+  Chunk k{0, 0, 0, 0, 0, 0};
   if (c >= n_chunks) return k;
   const int32_t* ch = chunks + static_cast<long long>(c) * kChunkWords;
   k.first = __ldg(ch);
   k.comp = __ldg(ch + 1);
   const int row = __ldg(ch + 2), col = __ldg(ch + 3);
   k.count = __ldg(ch + 4);
-  k.pitch = __ldg(comps + 4 * k.comp + 2) * 8;
-  k.out = static_cast<long long>(__ldg(comps + 4 * k.comp)) * 64 +
-          static_cast<long long>(row) * 8 * k.pitch + col * 8LL;
+  const int32_t* cp = comps + kCompWords * k.comp;
+  k.size = __ldg(cp + 3);
+  k.pitch = __ldg(cp + 2) * k.size;
+  const long long start =
+      static_cast<long long>(static_cast<uint32_t>(__ldg(cp + 4))) |
+      static_cast<long long>(__ldg(cp + 5)) << 32;
+  k.out = start + static_cast<long long>(row) * k.size * k.pitch +
+          static_cast<long long>(col) * k.size;
   return k;
 }
 
@@ -314,11 +441,12 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
         const int comp = __shfl_sync(0xFFFFFFFFu, cur.comp, j);
         const long long off = __shfl_sync(0xFFFFFFFFu, cur.out, j);
         const int pitch = __shfl_sync(0xFFFFFFFFu, cur.pitch, j);
+        const int size = __shfl_sync(0xFFFFFFFFu, cur.size, j);
         const int i = ahead + j, s = i % kStages, round = i / kStages;
         if (lane == 0) {
           if (round > 0) conv3x3::mbar_wait(&empty[s], (round - 1) & 1);
-          where[s] =
-              make_longlong2(off, static_cast<long long>(pitch) << 32 | count);
+          where[s] = make_longlong2(
+              off, static_cast<long long>(pitch) << 32 | size << 8 | count);
           const int boxes = (count + kBoxBlocks - 1) / kBoxBlocks;
           const bool load_q = slot_comp[s] != comp;
           conv3x3::mbar_expect_tx(
@@ -343,22 +471,50 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
     const int s = i % kStages;
     conv3x3::mbar_wait(&full[s], (i / kStages) & 1);
     const longlong2 w = where[s];
-    const int count = static_cast<int>(w.y & 0xFFFFFFFF);
+    const int count = static_cast<int>(w.y & 0xFF);
+    const int size = static_cast<int>((w.y >> 8) & 0xFF);
     const long long pitch = w.y >> 32;
-    uint2 px[8];
+    const SwizzledRows rows{
+        reinterpret_cast<const uint4*>(stages + s * kStageBytes) + lane * 8,
+        lane & 7};
+    if (size == 8) {
+      uint2 px[8];
+      if (lane < count) idct_block(rows, qrows + s * 16, px);
+      __syncwarp();
+      if (lane == 0) conv3x3::mbar_arrive(&empty[s]);
+      if (lane < count) {
+        uint8_t* dst = out + w.x + lane * 8;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          *reinterpret_cast<uint2*>(dst + r * pitch) = px[r];
+      }
+      continue;
+    }
+    u32 px[4];
     if (lane < count) {
-      const SwizzledRows rows{
-          reinterpret_cast<const uint4*>(stages + s * kStageBytes) + lane * 8,
-          lane & 7};
-      idct_block(rows, qrows + s * 16, px);
+      if (size == 4)
+        idct_block_reduced<4>(rows, qrows + s * 16, px);
+      else if (size == 2)
+        idct_block_reduced<2>(rows, qrows + s * 16, px);
+      else   // the DC term: chunk word 0 of the block's swizzled row 0
+        px[0] = idct_1x1(static_cast<int16_t>(rows(0).x & 0xFFFFu),
+                         qrows[s * 16].x);
     }
     __syncwarp();
     if (lane == 0) conv3x3::mbar_arrive(&empty[s]);
     if (lane < count) {
-      uint8_t* dst = out + w.x + lane * 8;
+      uint8_t* dst = out + w.x + lane * size;
+      if (size == 4) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
-        *reinterpret_cast<uint2*>(dst + r * pitch) = px[r];
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<u32*>(dst + r * pitch) = px[r];
+      } else if (size == 2) {
+        *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(px[0]);
+        *reinterpret_cast<uint16_t*>(dst + pitch) =
+            static_cast<uint16_t>(px[1]);
+      } else {
+        *dst = static_cast<uint8_t>(px[0]);
+      }
     }
   }
 }
@@ -366,9 +522,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
 }  // namespace
 
 // One launch over every block of a batch: coefs (total_blocks * 64)
-// int16 and out (total_blocks * 64) u8 on the card, 16-byte aligned;
-// quant (n_comp, 64) int32; comps (n_comp, 4) int32: first block, block
-// rows, block columns, 0, the components in order and tiling
+// int16 and out (the planes' bytes) u8 on the card, 16-byte aligned;
+// quant (n_comp, 64) int32; comps (n_comp, 6) int32: first block, block
+// rows, block columns, scaled size (8, 4, 2 or 1), the plane's start in
+// out (low, high word), the components in order and tiling
 // [0, total_blocks); chunks (n_chunks, 5) int32
 // (kernels/jpeg_idct.py:idct_chunks), each of at most chunk_blocks
 // blocks, which must be kChunk.  Returns a cudaError_t (0 on success) or

@@ -9,10 +9,15 @@
 // file computes the same, op for op, at every pixel it needs:
 //
 //   I  the decoded BGR image: libjpeg's fancy chroma upsampling (jdsample.c
-//      h2v1 / h2v2, edges replicated) and YCbCr -> BGR tables (jdcolor.c);
-//   U  the undistorted image (when the camera has a map): the map's
-//      1/32-px coordinates, OpenCV's 15-bit integer bilinear weights, taps
-//      outside the image read 0 (cv2.remap BORDER_CONSTANT);
+//      h2v1 / h2v2, edges replicated; h2v1 box replication for what a
+//      1/8 reduced decode leaves) and YCbCr -> BGR tables (jdcolor.c);
+//   U  the undistorted image (when the camera has a map), the map's size:
+//      the map's 1/32-px coordinates, OpenCV's 15-bit integer bilinear
+//      weights, taps outside the image read 0 (cv2.remap
+//      BORDER_CONSTANT).  The map of JAX's fast decode
+//      (image_loading.py:133, 135: a reduced decode, then one remap on a
+//      map that folds the undistortion and the net scale) is output-sized,
+//      so U and I differ in size there;
 //   S  the u8 image at its downscaled size (front and back cameras): the
 //      exact 2x area mean (a + b + c + d + 2) >> 2, or 11-bit fixed-point
 //      bilinear at another factor;
@@ -71,7 +76,7 @@ constexpr int kRawC = 2560;
 constexpr int kDynamicSmem =
     (kStagePixels + kMapEntries) * 4 + kRawY + 2 * kRawC;
 constexpr int kFarFootprint = -(1 << 30);
-enum Chroma { k444 = 0, k422 = 1, k420 = 2 };
+enum Chroma { k444 = 0, k422 = 1, k420 = 2, k422Box = 3 };
 enum U8Kind { kU8Same = 0, kU8Area2 = 1, kU8Bilinear = 2 };
 
 // One image, as kernels/rectify.py packs it (int64 words): the Y plane
@@ -79,7 +84,8 @@ enum U8Kind { kU8Same = 0, kU8Area2 = 1, kU8Bilinear = 2 };
 // image h, w, the chroma planes' h, w, the chroma mode; the undistortion
 // map (h, w, 2) int32 in 1/32 px, or 0; the u8 size, its kind and f64
 // scales; the resized size, whether it resizes, its f64 scales; the
-// output image's pointer (target_h, target_w, 3) f32.
+// output image's pointer (target_h, target_w, 3) f32; the undistorted
+// image's h, w (the map's, else the image's).
 struct Img {
   const uint8_t* y;
   long long ypitch;
@@ -93,6 +99,7 @@ struct Img {
   int oh, ow, resize;
   double fsy, fsx;
   float* dst;
+  int uh, uw;
 };
 
 __device__ __forceinline__ Img load_img(const long long* d) {
@@ -119,6 +126,8 @@ __device__ __forceinline__ Img load_img(const long long* d) {
   m.fsy = __longlong_as_double(d[19]);
   m.fsx = __longlong_as_double(d[20]);
   m.dst = reinterpret_cast<float*>(d[21]);
+  m.uh = static_cast<int>(d[29] & 0xFFFFFFFFLL);
+  m.uw = static_cast<int>(d[29] >> 32);
   return m;
 }
 
@@ -165,6 +174,7 @@ __device__ __forceinline__ int chroma_at(const Img& m, const uint8_t* c,
                                          int y, int x) {
   if (m.mode == k444) return plane_at(c, m.cpitch, y, x);
   const int col = x >> 1, odd = x & 1;
+  if (m.mode == k422Box) return plane_at(c, m.cpitch, y, col);
   const int side = odd ? min(col + 1, m.cw - 1) : max(col - 1, 0);
   if (m.mode == k422)
     return (plane_at(c, m.cpitch, y, col) * 3 +
@@ -224,6 +234,10 @@ __device__ __forceinline__ void chroma_quad(const Img& m, const uint8_t* c,
     if (m.mode == k444) {
       q[i][0] = v[i][0];
       q[i][1] = v[i][1];
+    } else if (m.mode == k422Box) {
+      // Columns x0 >> 1 (patch column 1), then (x0 + 1) >> 1.
+      q[i][0] = v[i][1];
+      q[i][1] = xo ? v[i][2] : v[i][1];
     } else {
       // x0 even: (near 1, side 0, even), (1, 2, odd); x0 odd: (1, 2, odd),
       // (2, 1, even).
@@ -253,7 +267,7 @@ __device__ __noinline__ void undistorted_px(const long long* d, int uy,
     return;
   }
   const int2 e = __ldg(reinterpret_cast<const int2*>(m.map) +
-                       static_cast<long long>(uy) * m.w + ux);
+                       static_cast<long long>(uy) * m.uw + ux);
   const int x0 = e.x >> 5, y0 = e.y >> 5, fx = e.x & 31, fy = e.y & 31;
   int acc[3] = {0, 0, 0};
   if (x0 >= -1 && x0 < m.w && y0 >= -1 && y0 < m.h) {
@@ -313,7 +327,7 @@ __device__ __forceinline__ void staged_px(const Img& m, const U& u, int sy,
     for (int c = 0; c < 3; ++c) o[c] = s[c] >> 2;
     return;
   }
-  const Tap ty = axis_tap(sy, m.usy, m.h), tx = axis_tap(sx, m.usx, m.w);
+  const Tap ty = axis_tap(sy, m.usy, m.uh), tx = axis_tap(sx, m.usx, m.uw);
   const int ax1 = __float2int_rn(__fmul_rn(tx.f, 2048.f)), ax0 = 2048 - ax1;
   const int by1 = __float2int_rn(__fmul_rn(ty.f, 2048.f)), by0 = 2048 - by1;
   int a[3], b[3], e[3], g[3];
@@ -389,7 +403,7 @@ __device__ __forceinline__ void source_span(const Img& m, bool rows, int& lo,
     hi = 2 * hi + 1;
   } else if (m.u8kind == kU8Bilinear) {
     const double f = rows ? m.usy : m.usx;
-    const int n = rows ? m.h : m.w;
+    const int n = rows ? m.uh : m.uw;
     const int a = axis_tap(lo, f, n).s0, b = axis_tap(hi, f, n).s1;
     lo = a;
     hi = b;
@@ -518,6 +532,9 @@ __device__ __forceinline__ void bgr_quad(const Img& m, const RawPlane& py,
     for (int i = 0; i < 2; ++i) {
       if (m.mode == k444) {
         up[p][i][0] = v[i][0];
+        up[p][i][1] = v[i][1];
+      } else if (m.mode == k422Box) {        // both read column x >> 1
+        up[p][i][0] = v[i][1];
         up[p][i][1] = v[i][1];
       } else if (m.mode == k422) {
         up[p][i][0] = (3 * v[i][1] + v[i][0] + 1) >> 2;
@@ -734,7 +751,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int cx0 = clampi(sh ? (bx0 >> 1) - 1 : bx0, 0, m.cw - 1);
   const int cx1 = clampi(sh ? (bx1 >> 1) + 1 : bx1, 0, m.cw - 1);
   // The map entries' row stride: whole 16-byte copies where they align.
-  const bool wide = ((ux0 | m.w) & 3) == 0 && ux0 + ((uw + 3) & ~3) <= m.w;
+  const bool wide = ((ux0 | m.uw) & 3) == 0 && ux0 + ((uw + 3) & ~3) <= m.uw;
   const int mstride = wide ? (uw + 3) & ~3 : uw;
   bool staged = f.z != kFarFootprint && bh * bw <= kStagePixels &&
                 (!m.map || uh * mstride <= kMapEntries);
@@ -754,13 +771,13 @@ __global__ void __launch_bounds__(kThreads, 4)
       Walk w(tid, ws);
       for (int i = tid; i < uh * ws; i += kThreads, w.next())
         copy_async<16>(mps + 4 * i, packed + static_cast<long long>(
-                                                 uy0 + w.r) * m.w +
+                                                 uy0 + w.r) * m.uw +
                                         ux0 + 4 * w.c);
     } else {
       Walk w(tid, uw);
       for (int i = tid; i < uh * uw; i += kThreads, w.next())
         copy_async<4>(mps + i, packed + static_cast<long long>(uy0 + w.r) *
-                                            m.w + ux0 + w.c);
+                                            m.uw + ux0 + w.c);
     }
   }
   copy_async_wait();
@@ -870,7 +887,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     for (int j = 0; j < kMapInFlight; ++j) {
       at[j] = k.r << 16 | k.c;
       if (i + j * kThreads < un)
-        e[j] = __ldg(mp + static_cast<long long>(tr.uy0 + k.r) * m.w +
+        e[j] = __ldg(mp + static_cast<long long>(tr.uy0 + k.r) * m.uw +
                      tr.ux0 + k.c);
       k.next();
     }
@@ -944,7 +961,8 @@ __global__ void pack_map_kernel(const int2* __restrict__ map, int h, int w,
 // bytes); 24 its packed map (pack_map_kernel) or 0; 25 its geometry
 // table, 26, 27 its f32 resize taps (31 entries past the last), both from
 // one geometry_tables_kernel launch; 28 its content tiles, the rest of
-// its tiles zero the canvas around them.
+// its tiles zero the canvas around them; 29 the undistorted image's h |
+// w << 32 (the map's size, else the image's).
 // norm_lut (3, 256) f32: (v - mean[c]) / std[c].  Every image is written
 // to a (th, tw, 3) f32 canvas.  Returns a cudaError_t (0 on success).
 extern "C" int rectify_launch(const long long* desc, int n_img, int n_groups,

@@ -17,9 +17,14 @@ runs the steps one after the other:
    steps, as ``cv2.imdecode`` runs them: the "fancy" chroma upsampling of
    4:2:2 / 4:2:0 streams (``jdsample.c`` ``h2v1`` / ``h2v2_fancy_upsample``:
    3/4 of the nearer and 1/4 of the farther sample per axis, edges
-   replicated, rounding biases 1 / 2 and 8 / 7) and the YCbCr -> BGR
-   tables of ``jdcolor.c`` (16-bit fixed point, clamped).
-1. :func:`remap_u8_plain` (u8 -> u8), a per-pixel source map: the map's
+   replicated, rounding biases 1 / 2 and 8 / 7), or the box replication
+   ``h2v1_upsample`` that a reduced decode leaves at 1/8
+   (:data:`CHROMA_422_BOX`), and the YCbCr -> BGR tables of
+   ``jdcolor.c`` (16-bit fixed point, clamped).
+1. :func:`remap_u8_plain` (u8 -> u8), a per-pixel source map (the
+   undistorted image U has the map's size, which is the decoded one's
+   but for the fused map of a reduced decode, ``data/undistort.py:
+   fused_rectify_map``, whose size is the output's): the map's
    1/32-px coordinates, OpenCV's 15-bit integer bilinear weights, ``(32 -
    fy) (32 - fx) 32`` ..., ``(sum + 2^14) >> 15``; ``BORDER_CONSTANT`` 0:
    a tap outside the image reads 0 and the taps inside still count.  This
@@ -42,6 +47,11 @@ runs the steps one after the other:
    ``fma(b - a, f, a)`` (rounded once: :func:`_lerp` emulates the fused
    multiply-add exactly); the result goes into the zero-padded
    ``target_hw`` output.
+
+The JAX fast decode (``image_fast_decode``) is this chain with a
+reduced decode's planes, the fused map (or, without distortion, the u8
+resize to the output size) and no f32 resize: ``u8_hws`` and
+``out_hws`` are then both the output size.
 
 Every intermediate before the f32 resize is an integer, and the kernel
 rounds its f32 steps as the plain version does (``__fsub_rn``,
@@ -78,8 +88,9 @@ import torch
 INTER_BITS = 5
 REMAP_BITS = 15
 RESIZE_BITS = 11
-# Chroma sampling of a planar decode (kernels/csrc/rectify.cu).
-CHROMA_444, CHROMA_422, CHROMA_420 = 0, 1, 2
+# Chroma sampling of a planar decode (kernels/csrc/rectify.cu); 4:2:2
+# chroma upsampled by box replication (a reduced decode at 1/8).
+CHROMA_444, CHROMA_422, CHROMA_420, CHROMA_422_BOX = 0, 1, 2, 3
 # How the u8 image reaches its size (csrc/rectify.cu U8Kind).
 _U8_SAME, _U8_AREA2, _U8_BILINEAR = 0, 1, 2
 # csrc/rectify.cu: a CTA's tile is 32 output columns by 8, 16 or 32 rows;
@@ -175,6 +186,8 @@ def upsample_chroma_plain(c: torch.Tensor, hw, mode: int) -> torch.Tensor:
     ch, cw = c.shape
     x = torch.arange(w, device=c.device)
     col, odd = x // 2, (x % 2) == 1
+    if mode == CHROMA_422_BOX:
+        return c[:h, col]
     side = torch.where(odd, (col + 1).clamp(max=cw - 1),
                        (col - 1).clamp(min=0))
     if mode == CHROMA_422:
@@ -209,7 +222,7 @@ def ycbcr_to_bgr_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
 def remap_u8_plain(src: torch.Tensor, fixed_map: torch.Tensor) -> torch.Tensor:
     """``cv2.remap(src, *to_cv16sc2(fixed_map), INTER_LINEAR)`` with
     ``BORDER_CONSTANT`` 0: src (h, w, 3) u8, fixed_map (H, W, 2) int32 in
-    1/32 px -> (H, W, 3) u8."""
+    1/32 px (any H, W) -> (H, W, 3) u8."""
     h, w = src.shape[:2]
     iu, iv = fixed_map[..., 0], fixed_map[..., 1]
     x0, y0 = iu >> INTER_BITS, iv >> INTER_BITS
@@ -324,7 +337,8 @@ def _check_planes(planes: Sequence[Planes], maps) -> torch.device:
     for (y, cb, cr, mode), m in zip(planes, maps):
         m = _fixed(m)
         hw = y.shape
-        shape = chroma_shape(hw, mode) if len(hw) == 2 else None
+        shape = chroma_shape(hw, mode) if len(hw) == 2 and mode in (
+            CHROMA_444, CHROMA_422, CHROMA_420, CHROMA_422_BOX) else None
         if (shape is None or cb.shape != shape or cr.shape != shape
                 or y.dtype is not u8 or cb.dtype is not u8
                 or cr.dtype is not u8 or y.device != dev
@@ -332,9 +346,9 @@ def _check_planes(planes: Sequence[Planes], maps) -> torch.device:
             raise ValueError(f'rectify: planes {tuple(hw)} / '
                              f'{tuple(cb.shape)} / {tuple(cr.shape)} do '
                              f'not fit chroma mode {mode}')
-        if m is not None and (m.dtype is not torch.int32
-                              or m.shape != (*hw, 2) or m.device != dev):
-            raise ValueError('rectify: maps must be (h, w, 2) int32 on the '
+        if m is not None and (m.dtype is not torch.int32 or m.dim() != 3
+                              or m.shape[2] != 2 or m.device != dev):
+            raise ValueError('rectify: maps must be (H, W, 2) int32 on the '
                              'planes\' device')
         if cuda and (y.stride(1) != 1 or cb.stride(1) != 1
                      or cb.stride() != cr.stride()
@@ -377,17 +391,20 @@ def _tiles(r: int, out_hw, target_hw) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def _geometry(h, w, mode, u8_hw, out_hw, target_hw):
+def _geometry(h, w, mode, u8_hw, out_hw, target_hw, u_hw=None):
     """The descriptor words of an image's sizes, sampling and scales (words
-    5-9 and 11-20), its tile height and its (content, all) tile counts."""
+    5-9 and 11-20, then the undistorted image's size ``u_hw``, the map's,
+    default (h, w), for word 29), its tile height and its (content, all)
+    tile counts."""
     u8h, u8w = u8_hw
     oh, ow = out_hw
-    area2, usy, usx = resize_scales((h, w), (u8h, u8w))
-    kind = (_U8_SAME if (u8h, u8w) == (h, w)
+    uh, uw = u_hw if u_hw is not None else (h, w)
+    area2, usy, usx = resize_scales((uh, uw), (u8h, u8w))
+    kind = (_U8_SAME if (u8h, u8w) == (uh, uw)
             else _U8_AREA2 if area2 else _U8_BILINEAR)
     _, fsy, fsx = resize_scales((u8h, u8w), (oh, ow))
     r = _tile_rows((h, w), (oh, ow))
-    return ((h, w, *chroma_shape((h, w), mode), int(mode)),
+    return ((h, w, *chroma_shape((h, w), mode), int(mode), uh, uw),
             (u8h, u8w, kind, _f64_bits(usy), _f64_bits(usx), oh, ow,
              int((oh, ow) != (u8h, u8w)), _f64_bits(fsy), _f64_bits(fsx)),
             r, *_tiles(r, out_hw, target_hw))
@@ -416,9 +433,15 @@ def _geometry_row(geometry, map_ptr: int = 0) -> list:
     content tiles)."""
     sizes, scales, r, content, _ = geometry
     row = [0] * 30
-    row[5:10], row[10], row[11:21] = sizes, map_ptr, scales
-    row[22], row[28] = r, content
+    row[5:10], row[10], row[11:21] = sizes[:5], map_ptr, scales
+    row[22], row[28], row[29] = r, content, _u_word(sizes)
     return row
+
+
+def _u_word(sizes) -> int:
+    """Descriptor word 29: the undistorted image's (h, w) as h | w <<
+    32."""
+    return int(sizes[5]) | int(sizes[6]) << 32
 
 
 def _raise_on(err: int, what: str):
@@ -471,7 +494,7 @@ def footprint_table_plain(fixed: Optional[torch.Tensor], geometry,
     (the map's, else ``device``)."""
     sizes, (u8h, u8w, kind, usy, usx, oh, ow, resize, fsy, fsx), r, \
         content, _ = geometry
-    h, w = sizes[:2]
+    h, w = sizes[5:7]                                    # U's size
     th, tw = (int(v) for v in target_hw)
     dev = fixed.device if fixed is not None else torch.device(device)
     tiles_x = -(-min(ow, tw) // _TILE_W)
@@ -648,16 +671,18 @@ def _descriptor_rows(planes, maps, u8_hws, out_hws, out, target_hw,
             zip(planes, maps, u8_hws, out_hws)):
         h, w = y.shape
         geometry = _geometry(h, w, int(mode), tuple(int(v) for v in u8),
-                             tuple(int(v) for v in hw), target)
+                             tuple(int(v) for v in hw), target,
+                             None if m is None else tuple(m.fixed.shape[:2]))
         sizes, scales, r, content, tiles = geometry
         yp, cp, rp = y.data_ptr(), cb.data_ptr(), cr.data_ptr()
         ypitch, cpitch = y.stride(0), cb.stride(0)
         flags = (_align((yp,), ypitch, w)
                  | _align((cp, rp), cpitch, sizes[3]) << 8)
         mp = 0 if m is None else m.fixed.data_ptr()
-        row = [yp, ypitch, cp, rp, cpitch, *sizes, mp, *scales,
+        row = [yp, ypitch, cp, rp, cpitch, *sizes[:5], mp, *scales,
                dst + i * dst_step, r, flags,
-               *_tables(m, geometry, target, out.device), content, 0]
+               *_tables(m, geometry, target, out.device), content,
+               _u_word(sizes)]
         key = (sizes, scales, mp) if interleave else i
         groups.setdefault(key, []).append((row, tiles))
     rows, heads, first = [], [], 0

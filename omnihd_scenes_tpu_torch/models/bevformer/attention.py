@@ -68,17 +68,28 @@ def reset_offset_linears(model: nn.Module) -> nn.Module:
     return model
 
 
-@functools.lru_cache(maxsize=None)
 def _normalizer(spatial_shapes: Tuple[Tuple[int, int], ...],
                 device: torch.device) -> torch.Tensor:
     """(L, 2) reciprocal (W, H) per level: the jitted JAX package divides
     the offsets by (W, H) as a multiply by the f32 reciprocal.  Made once
     per device: a copy from host memory would make the host wait for the
     card at every call.  Made outside inference mode, so that a training
-    step may use it after a served frame made it."""
+    step may use it after a served frame made it.  While a program is
+    traced (``torch.export``) it is a constant of the trace, made anew and
+    not kept: a traced tensor holds no data."""
+    if torch.compiler.is_compiling():
+        return _normalizer_table(spatial_shapes, device)
+    return _kept_normalizer(spatial_shapes, device)
+
+
+def _normalizer_table(spatial_shapes, device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor([[1.0 / w, 1.0 / h] for h, w in spatial_shapes],
                             dtype=torch.float32, device=device)
+
+
+_kept_normalizer = functools.lru_cache(maxsize=None)(_normalizer_table)
+_normalizer.cache_clear = _kept_normalizer.cache_clear
 
 
 def _softmax_weights(weights, shape):

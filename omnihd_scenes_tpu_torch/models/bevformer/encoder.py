@@ -179,11 +179,17 @@ class BEVFormerEncoder(nn.Module):
         true when prev_bev is given)."""
         b = bev_query.shape[0]
         dev = bev_query.device
-        if dev not in self._refs:
-            with torch.inference_mode(False):   # serving and training share it
-                self._refs[dev] = tuple(torch.from_numpy(r).to(dev)
-                                        for r in self._ref_np)
-        ref_3d, ref_2d = self._refs[dev]
+        if torch.compiler.is_compiling():
+            # A traced program's constants, not kept: a traced tensor
+            # holds no data for a later eager call.
+            ref_3d, ref_2d = (torch.from_numpy(r).to(dev)
+                              for r in self._ref_np)
+        else:
+            if dev not in self._refs:
+                with torch.inference_mode(False):   # serving and training
+                    self._refs[dev] = tuple(torch.from_numpy(r).to(dev)
+                                            for r in self._ref_np)
+            ref_3d, ref_2d = self._refs[dev]
         reference_points_cam, bev_mask = point_sampling(
             ref_3d, self.pc_range, lidar2img, img_hw)
         if shift is None:

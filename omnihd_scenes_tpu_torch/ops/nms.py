@@ -38,6 +38,22 @@ def _greedy_fixpoint(s_mat, prec, valid, max_iters=MAX_FIXPOINT_ITERS):
     return alive
 
 
+def nms_rotated(boxes, scores, iou_threshold: float, valid=None):
+    """Greedy rotated-BEV NMS of one class: (..., N, D) boxes, (..., N)
+    scores, optional (..., N) bool ``valid`` -> the (..., N) bool keep
+    mask (JAX's ``ops/nms.py:nms_rotated``; its IoU matrix is made
+    symmetric as JAX mirrors its tiles)."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    s_mat = rotated_iou_bev(boxes, boxes) > iou_threshold
+    s_mat = s_mat | s_mat.transpose(-1, -2)
+    neg_inf = torch.full((), -torch.inf, dtype=scores.dtype,
+                         device=scores.device)
+    return _greedy_fixpoint(s_mat, _precedence(
+        torch.where(valid, scores, neg_inf)), valid)
+
+
 def multiclass_nms_rotated(boxes, scores, score_thr: float,
                            iou_threshold: float, max_num: int):
     """Per-class rotated NMS over (..., N, num_classes) scores.

@@ -21,15 +21,25 @@ A bundle is a directory:
 
 The exported function is JAX's ``infer``: the network, then
 ``anchor_head_get_bboxes`` in f32 (decode and the rotated NMS), and for
-BEVFusion-OCC the occupancy argmax after the boxes.  Precision follows
-``Predictor`` (ROADMAP queue 3 item 1): with ``bf16`` the weights and the
-images are bf16 and points, geometry and anchors stay f32, where JAX's
-``_to_bf16`` casts every f32 input.  A fused checkpoint's passthrough BNs
-are folded first, as ``Predictor`` folds them (``serve/fuse.py``).  The
-program is traced for one device; JAX's ``--platforms`` (lowering for
-several backends at once) has no counterpart, and :func:`load_exported`
-moves a program to another device when asked.  Not ported: the int8 tier
-(JAX's ``export_model`` drops the ``quant`` collection too) and BEVFormer.
+BEVFusion-OCC the occupancy argmax after the boxes.  BEVFormer-T has no
+anchors, and JAX's ``infer`` then returns the network's outputs as they
+are: the queue forward (``BEVFormerDetector.forward``, inputs
+``imgs_queue``, ``can_bus_queue``, ``lidar2img_queue``,
+``has_prev_queue``) and its dict of ``bev_embed``, ``all_cls_scores``
+and ``all_bbox_preds``, undecoded (meta ``decode`` None, with the queue
+length and the SCA query cap; the bundle drops what the cap drops, as
+JAX's does).  JAX's docstring names ``forward_stream`` but its code
+exports the queue forward, which is what is ported.  Precision follows
+``Predictor`` and ``predict_stream`` (ROADMAP queue 3 items 1 and 21):
+with ``bf16`` the weights and the images are bf16 and points, geometry,
+CAN bus and anchors stay f32 (the masks bool), where JAX's ``_to_bf16``
+casts every f32 input.  A fused checkpoint's passthrough BNs are folded
+first, as ``Predictor`` folds them (``serve/fuse.py``; a BEVFormer's
+traced on the example queue).  The program is traced for one device;
+JAX's ``--platforms`` (lowering for several backends at once) has no
+counterpart, and :func:`load_exported` moves a program to another device
+when asked.  Not ported: the int8 tier (JAX's ``export_model`` drops the
+``quant`` collection too).
 """
 
 from __future__ import annotations
@@ -45,7 +55,8 @@ from torch.func import functional_call
 
 # Registers omnihd::lss_sample_bev, which a loaded program calls.
 from omnihd_scenes_tpu_torch.kernels import lss_sample  # noqa: F401
-from omnihd_scenes_tpu_torch.serve.inputs import (CAMERA_INPUTS,
+from omnihd_scenes_tpu_torch.serve.inputs import (BEVFORMER_INPUTS,
+                                                  CAMERA_INPUTS,
                                                   PILLAR_INPUTS, upload)
 
 PROGRAM, WEIGHTS, META = 'exported.pt2', 'weights.pt', 'meta.json'
@@ -59,10 +70,12 @@ def _device(device) -> torch.device:
 
 
 class ExportedModel:
-    """A loaded bundle: ``__call__(*inputs)`` runs inference.  Inputs are
-    NumPy arrays or tensors (None where the model has no such stream),
-    cast and uploaded by ``Predictor``'s rules (``serve/inputs.py``), the
-    camera rotations checked on the host first.
+    """A loaded bundle: ``__call__(*inputs)`` runs inference and returns
+    the decoded boxes (a tuple), or a BEVFormer's outputs (a dict).
+    Inputs are NumPy arrays or tensors (None where the model has no such
+    stream), cast and uploaded by ``Predictor``'s rules
+    (``serve/inputs.py``), the camera rotations checked on the host
+    first.
     ``program`` is the loaded ``ExportedProgram``, ``weights`` its first
     input (``weights.pt`` on the device)."""
 
@@ -116,6 +129,18 @@ class _Served(torch.nn.Module):
         return dets
 
 
+class _Raw(torch.nn.Module):
+    """The exported function of a model without anchors (BEVFormer-T):
+    the network's outputs as they are, as JAX's ``infer`` returns them."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *inputs):
+        return self.model(*inputs)
+
+
 class _Program(torch.nn.Module):
     """``forward(state, *inputs)``: the served module run on ``state`` (its
     state dict), which it does not hold (kept out of its submodules), so
@@ -133,16 +158,18 @@ def export_model(model: torch.nn.Module, mtype: str,
                  state_dict: Mapping[str, torch.Tensor], example_inputs,
                  out_dir: str, *, anchors: Optional[np.ndarray] = None,
                  bf16: bool = True, device='cuda', decode_cfg=None) -> str:
-    """Export ``model`` (an anchor-family detector, on the host) with
-    ``state_dict`` as a bundle in ``out_dir`` (created).
+    """Export ``model`` (an anchor-family detector or a BEVFormer-T, on
+    the host) with ``state_dict`` as a bundle in ``out_dir`` (created).
 
     ``example_inputs``: the model's positional inputs (points,
-    points_mask[, imgs, rots, trans]), NumPy arrays, tensors or None, or a
-    batch dict (``train.builder.model_inputs``); they fix the shapes, and
-    a fused checkpoint's passthroughs are traced on them.  ``anchors``:
-    the dense anchor grid (``train.builder.anchors_for``).  ``bf16``:
-    the deployment precision (bf16 weights and images).  Returns
-    ``out_dir``; ``meta.json`` records the export's seconds."""
+    points_mask[, imgs, rots, trans]; a BEVFormer's queue, imgs_queue,
+    can_bus_queue, lidar2img_queue, has_prev_queue), NumPy arrays,
+    tensors or None, or a batch dict (``train.builder.model_inputs``);
+    they fix the shapes, and a fused checkpoint's passthroughs are traced
+    on them.  ``anchors``: the dense anchor grid
+    (``train.builder.anchors_for``; None for BEVFormer).  ``bf16``: the
+    deployment precision (bf16 weights and images).  Returns ``out_dir``;
+    ``meta.json`` records the export's seconds."""
     from omnihd_scenes_tpu_torch.config import DecodeCfg
     from omnihd_scenes_tpu_torch.serve.predictor import serving_model
     from omnihd_scenes_tpu_torch.train.builder import (ANCHOR_FAMILIES,
@@ -150,22 +177,28 @@ def export_model(model: torch.nn.Module, mtype: str,
                                                        model_inputs)
     from omnihd_scenes_tpu_torch.weights import load_state_dict
 
-    if mtype not in ANCHOR_FAMILIES or anchors is None:
-        raise NotImplementedError(f'export covers the anchor families with '
-                                  f'their anchors, not {mtype!r}')
+    raw = mtype == 'bevformer'
+    if raw != (anchors is None) or (not raw and mtype not in ANCHOR_FAMILIES):
+        raise ValueError(f'export covers the anchor families with their '
+                         f'anchors and BEVFormer without, not {mtype!r} '
+                         f'with anchors {anchors is not None}')
     device = _device(device)
     dtype = torch.bfloat16 if bf16 else torch.float32
     decode_cfg = decode_cfg or DecodeCfg()
     if isinstance(example_inputs, Mapping):
         example_inputs = model_inputs(example_inputs, mtype)
-    names = PILLAR_INPUTS if mtype in PILLAR_FAMILIES else CAMERA_INPUTS
+    names = (BEVFORMER_INPUTS if raw else PILLAR_INPUTS
+             if mtype in PILLAR_FAMILIES else CAMERA_INPUTS)
     if len(example_inputs) != len(names):
         raise ValueError(f'{mtype} takes {names}, got {len(example_inputs)} '
                          f'inputs')
     load_state_dict(model, state_dict)
     model = serving_model(model, device, dtype, lambda: example_inputs)
-    served = _Served(model, torch.from_numpy(np.asarray(
-        anchors, np.float32)).to(device), decode_cfg).eval()
+    if raw:
+        served = _Raw(model).eval()
+    else:
+        served = _Served(model, torch.from_numpy(np.asarray(
+            anchors, np.float32)).to(device), decode_cfg).eval()
     args = tuple(upload(names, example_inputs, device, dtype))
     # JAX's params-as-inputs: the program takes the served module's state
     # (weights, buffers, anchors) as its first input and holds none.
@@ -191,10 +224,13 @@ def export_model(model: torch.nn.Module, mtype: str,
                     'dtype': (None if a is None
                               else str(a.dtype).split('.')[-1])}
                    for n, a in zip(names, args)],
-        'decode': {'nms_pre': decode_cfg.nms_pre,
-                   'max_num': decode_cfg.max_num},
+        'decode': None if raw else {'nms_pre': decode_cfg.nms_pre,
+                                    'max_num': decode_cfg.max_num},
         'export_seconds': seconds,
     }
+    if raw:
+        meta['queue_length'] = int(model.cfg.queue_length)
+        meta['sca_query_cap'] = float(model.cfg.sca_query_cap)
     with open(os.path.join(out_dir, META), 'w') as f:
         json.dump(meta, f, indent=1)
     return out_dir

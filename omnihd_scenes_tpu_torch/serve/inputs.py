@@ -3,7 +3,11 @@
 (``serve/export.py:ExportedModel``), which imports no model code.
 
 Images go in the model's dtype, the points mask as bool, points and
-geometry (rots, trans) in f32 (ROADMAP queue 3 item 1).  The camera
+geometry (rots, trans) in f32 (ROADMAP queue 3 item 1).  A BEVFormer-T
+queue likewise: ``imgs_queue`` in the model's dtype, ``has_prev_queue``
+bool, the CAN bus and ``lidar2img`` f32, as ``predict_stream`` casts a
+frame (item 21; JAX's ``_to_bf16`` casts every f32 input of a bf16
+export).  The camera
 rotations are checked on the host before the upload
 (``ops/lss_project.py:check_rotations``), outside any traced program.
 """
@@ -21,12 +25,15 @@ from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
 # camera families, BEVFusion's order.
 PILLAR_INPUTS = ('points', 'points_mask')
 CAMERA_INPUTS = ('points', 'points_mask', 'imgs', 'rots', 'trans')
+# BEVFormer-T's queue forward (models/bevformer/detector.py:forward).
+BEVFORMER_INPUTS = ('imgs_queue', 'can_bus_queue', 'lidar2img_queue',
+                    'has_prev_queue')
 
 
 def input_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     """The dtype of input ``name`` for a model served in ``dtype``."""
-    return {'imgs': dtype, 'points_mask': torch.bool}.get(name,
-                                                         torch.float32)
+    return {'imgs': dtype, 'imgs_queue': dtype, 'points_mask': torch.bool,
+            'has_prev_queue': torch.bool}.get(name, torch.float32)
 
 
 def as_tensor(x, device, dtype=None) -> torch.Tensor:

@@ -8,11 +8,12 @@ Builds the model from the config, loads the checkpoint (a fused one from
 ``tools/fuse_conv_bn.py`` too) and writes the bundle of
 ``serve/export.py:export_model`` for synthetic b1 inputs at the config's
 shapes (JAX ``train/builder.py:example_batch_for``: 20000 radar points,
-the images at ``final_dim``, a scaled-identity rig).  The bundle loads
-with ``omnihd_scenes_tpu_torch.serve.export.load_exported(DIR, device)``
+the images at ``final_dim``, a scaled-identity rig; for BEVFormer-T a
+queue of ``queue_length`` frames at ``img_hw``, zero CAN bus, identity
+``lidar2img``, no previous frame).  The bundle loads with
+``omnihd_scenes_tpu_torch.serve.export.load_exported(DIR, device)``
 without model code.  It is traced on one CUDA device unless ``--device
-cpu``; JAX's ``--platforms`` has no counterpart.  The anchor families
-only (not BEVFormer).
+cpu``; JAX's ``--platforms`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -34,12 +35,20 @@ def parse_args(argv=None):
 
 def example_inputs(model, mtype: str):
     """JAX ``example_batch_for``: seeded b1 inputs at the config's shapes
-    (the camera families' rig a scaled identity, as JAX's)."""
+    (the camera families' rig a scaled identity, as JAX's; BEVFormer's
+    queue with a leading batch of 1)."""
     import numpy as np
 
     from omnihd_scenes_tpu_torch.train.builder import PILLAR_FAMILIES
 
     rng = np.random.RandomState(0)
+    if mtype == 'bevformer':
+        cfg = model.cfg
+        q, nv, (h, w) = cfg.queue_length, cfg.num_cams, cfg.img_hw
+        imgs = rng.randn(1, q, nv, h, w, 3).astype(np.float32)
+        l2i = np.tile(np.eye(4, dtype=np.float32), (1, q, nv, 1, 1))
+        return (imgs, np.zeros((1, q, 18), np.float32), l2i,
+                np.zeros((1, q), bool))
     n = 20000
     pts = rng.uniform(-50, 50, (1, n, getattr(model, 'point_dims', 8)))
     pts = pts.astype(np.float32)

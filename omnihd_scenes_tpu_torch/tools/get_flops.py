@@ -37,7 +37,7 @@ def lss_sample_bev_flops(feat_shape, depth_shape, minv_shape, mt_shape,
     return 2 * math.prod(out_shape) * feat_shape[1]
 
 
-def count(cfg, device='cpu') -> dict:
+def count(cfg, device='cuda') -> dict:
     """{'model_type', 'params', 'flops'} of ``cfg``'s model with seeded
     weights, one forward at batch 1 on ``device``."""
     from omnihd_scenes_tpu_torch.train.builder import (build_model_from_cfg,
@@ -48,7 +48,7 @@ def count(cfg, device='cpu') -> dict:
     return count_model(model, mtype, device)
 
 
-def count_model(model, mtype: str, device='cpu') -> dict:
+def count_model(model, mtype: str, device='cuda') -> dict:
     """:func:`count` of a built model, which it moves to ``device`` in
     eval mode with no parameter needing a gradient."""
     from torch.utils.flop_counter import FlopCounterMode

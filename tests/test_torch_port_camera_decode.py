@@ -434,20 +434,26 @@ def test_headers_and_what_the_card_refuses():
 def test_device_decode_refusals(dataroots):
     root = dataroots['plain']
     ds = _dataset(root, 'host')
-    with pytest.raises(ValueError, match='fast_decode'):
-        IL.load_camera_data(ds.infos[0], fast_decode=True, decode='device')
     with pytest.raises(ValueError, match='decode'):
         IL.load_camera_data(ds.infos[0], decode='gpu')
-    # Training and depth targets take the device decode; the
-    # reduced-DCT fast decode (ROADMAP queue 1 item 3.10) stays refused.
+    # The reduced-DCT fast decode is no longer refused: its sources carry
+    # each camera's net scale.
+    fast = IL.load_camera_data(ds.infos[0], fast_decode=True,
+                               decode='device')
+    np.testing.assert_array_equal(fast['cam_scales'][:, 2], [
+        0.25 if cam in ('camera_front', 'camera_back') else 0.5
+        for cam in ds.infos[0]['cams']])
+    # Training, depth targets and the fast decode take the device decode;
+    # another decode name stays refused.
     for kw in (dict(test_mode=False), dict(test_mode=True,
                                            load_depth_gt=True)):
-        ds = NewScenesDetDataset(f'{root}/synth_infos_temporal_val.pkl',
-                                 modality='camera', use_camera=True,
-                                 image_decode='device', **kw)
-        assert ds.image_decode == 'device'
+        for fast_decode in (False, True):
+            ds = NewScenesDetDataset(f'{root}/synth_infos_temporal_val.pkl',
+                                     modality='camera', use_camera=True,
+                                     image_decode='device',
+                                     image_fast_decode=fast_decode, **kw)
+            assert ds.image_decode == 'device'
         with pytest.raises(ValueError, match='image_decode'):
             NewScenesDetDataset(f'{root}/synth_infos_temporal_val.pkl',
                                 modality='camera', use_camera=True,
-                                image_decode='device',
-                                image_fast_decode=True, **kw)
+                                image_decode='gpu', **kw)

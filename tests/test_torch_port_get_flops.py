@@ -58,7 +58,7 @@ def jax_params(path):
 @pytest.mark.parametrize('name', sorted(CONFIGS))
 def test_params_equal_jax(name):
     path = os.path.join(ROOT, CONFIGS[name])
-    info = get_flops.count(Config.fromfile(path))
+    info = get_flops.count(Config.fromfile(path), device='cpu')
     assert info['params'] == jax_params(path)
     assert info['flops'] > 0
 
@@ -77,7 +77,8 @@ def test_lss_op_is_counted_by_its_formula():
     # (B, ny, nx, nz, camC) outputs, each a sum over the cameras.
     assert counts['omnihd.lss_sample_bev'] == (
         2 * math.prod(lss.bev_nx) * lss.camC * lss.num_views)
-    assert counter.get_total_flops() == get_flops.count(cfg)['flops']
+    assert counter.get_total_flops() == get_flops.count(cfg, device='cpu')[
+        'flops']
     assert get_flops.lss_sample_bev_flops(
         (2, 6, 8, 8, 16), None, None, None, [], 0,
         out_shape=(2, 4, 5, 3, 16)) == 2 * math.prod((2, 4, 5, 3, 16)) * 6
@@ -93,7 +94,7 @@ def _printed(fn, *args):
 def test_cli_and_get_params_print_the_counts():
     path = os.path.join(ROOT, CONFIGS['pillars'])
     text = _printed(get_flops.main, [path, '--device', 'cpu'])
-    info = get_flops.count(Config.fromfile(path))
+    info = get_flops.count(Config.fromfile(path), device='cpu')
     assert f"params: {info['params'] / 1e6:.2f} M" in text
     assert ('forward flops (convs, matmuls, LSS): '
             f"{info['flops'] / 1e9:.2f} GFLOPs") in text

@@ -41,7 +41,15 @@ Bounds:
 * jpeg_idct: bit-equal to its plain version (32-bit words that wrap
   alike), on the fixtures' coefficients and on extreme random blocks,
   over odd block grids, the kernel's chunk edges and the b4 batch's
-  layout.
+  layout; so are its reduced IDCTs (4x4, 2x2, 1x1, any mix in a launch),
+  and the card's reduced decode equals the CPU's, which equals
+  ``cv2.imread(..., IMREAD_REDUCED_COLOR_k)`` (``tests/
+  test_torch_port_fast_decode.py``).
+* the fast decode's rectify (a fused map of the output's size, not the
+  planes', and the box-upsampled 4:2:2 chroma of a 1/8 decode):
+  bit-equal to its plain version.
+* a BEVFormer-T bundle (the synthetic model, f32) exported on the card:
+  within 1e-4 of max|ref| of the live forward, TF32 off.
 * the card's JPEG decode (host entropy decode, the IDCT kernel, libjpeg's
   upsampling and colour tables in the rectify kernel) against the
   committed ``cv2.imdecode`` results of ``tests/torch_port_fixtures/
@@ -1176,6 +1184,81 @@ def test_jpeg_idct_launch_refuses_another_chunk_length(dev):
     assert out.max() == 0
 
 
+def test_jpeg_idct_reduced_matches_plain(dev):
+    """The reduced IDCTs bit-equal to ``jpeg_idct_plain`` on the card, one
+    launch a call: extreme random blocks over the odd grids and the chunk
+    edges with each component at another scaled size (8, 4, 2, 1 in
+    turn), the b4 batch's layout at the fast decode's sizes (side cameras
+    luma 4 / chroma 8, front and back 2 / 4); and the card's reduced
+    decode of the fixtures at 1/2, 1/4, 1/8 in one call equals the
+    CPU's."""
+    from omnihd_scenes_tpu_torch.data import jpeg as J
+    from omnihd_scenes_tpu_torch.kernels import jpeg_idct as JI
+    from idct_cases import LAYOUTS, idct_case
+
+    rng = np.random.RandomState(1)
+    launches = JI.jpeg_idct.launches
+    calls = 0
+    for grids in (LAYOUTS['odd'], LAYOUTS['chunk_edges']):
+        coefs, quant, layout = idct_case(rng, grids)
+        sizes = [JI.SCALED_SIZES[i % 4] for i in range(len(grids))]
+        coefs, quant = coefs.to(dev), quant.to(dev)
+        got = JI.jpeg_idct(coefs, quant, layout, sizes)
+        calls += 1
+        assert torch.equal(got, JI.jpeg_idct_plain(coefs, quant, layout,
+                                                   sizes)), grids[:3]
+    coefs, quant, layout = idct_case(rng, LAYOUTS['b4_1080p_420'])
+    side = [4, 8, 8] * 4 + [2, 4, 4] * 2
+    sizes = side * 4
+    coefs, quant = coefs.to(dev), quant.to(dev)
+    got = JI.jpeg_idct(coefs, quant, layout, sizes)
+    calls += 1
+    assert got.numel() == JI.plane_offsets(layout, sizes)[1]
+    assert torch.equal(got, JI.jpeg_idct_plain(coefs, quant, layout, sizes))
+    assert JI.jpeg_idct.launches == launches + calls
+    blobs = [_fixture(n)[0] for n in FIXTURE_NAMES]
+    factors = [2, 4, 8] * len(blobs)
+    blobs = [b for b in blobs for _ in range(3)]
+    for g, c in zip(J.decode_jpegs(blobs, dev, factors=factors),
+                    J.decode_jpegs(blobs, 'cpu', factors=factors)):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_rectify_fast_chain_matches_plain(dev):
+    """The fast decode's chain in one launch, bit-equal to
+    ``rectify_plain``: reduced 4:4:4 planes remapped on fused maps of the
+    output's size (the planes' at net = 1 / factor, smaller at 0.375 of a
+    1/2 decode), without a map resized in u8 to the output size, and
+    4:2:2 planes with box-upsampled chroma (a 1/8 decode's), padded."""
+    from omnihd_scenes_tpu_torch.data.undistort import fused_rectify_map
+    from omnihd_scenes_tpu_torch.kernels import rectify as R
+
+    gen = torch.Generator().manual_seed(6)
+    planes, maps, outs = [], [], []
+    for (src, net, factor, mode, dist) in (
+            ((1080, 1920), 0.5, 2, R.CHROMA_444, DIST),
+            ((1080, 1920), 0.25, 4, R.CHROMA_444, DIST),
+            ((1082, 1920), 0.375, 2, R.CHROMA_444, DIST),
+            ((1082, 1920), 0.375, 2, R.CHROMA_444, (0.0,) * 5),
+            ((1080, 1920), 0.125, 8, R.CHROMA_422_BOX, DIST),
+            ((1080, 1920), 0.125, 8, R.CHROMA_422_BOX, (0.0,) * 5)):
+        hw = (-(-src[0] // factor), -(-src[1] // factor))
+        p, _ = _planes_case(gen, hw, mode, (0.0,) * 5, dev)
+        k = [[1536.0, 0.0, 960.0], [0.0, 1536.0, src[0] / 2.0],
+             [0.0, 0.0, 1.0]]
+        fixed = fused_rectify_map(k, dist, src, net, factor)
+        planes.append(p)
+        maps.append(None if fixed is None else torch.from_numpy(fixed).to(dev))
+        outs.append((int(src[0] * net), int(src[1] * net)))
+    args = (outs, outs, (544, 960), R_MEAN, R_STD)
+    launches = R.rectify.launches
+    got = R.rectify(planes, maps, *args)
+    assert R.rectify.launches == launches + 1
+    assert torch.equal(got, R.rectify_plain(planes, maps, *args))
+    assert torch.equal(R.planes_to_bgr(planes[4:5])[0],
+                       R.ycbcr_to_bgr_plain(*planes[4]))
+
+
 @pytest.mark.parametrize('hw', [(65, 97), (1080, 1920)])
 def test_ycbcr_pass_matches_plain(dev, hw):
     """The rectify kernel's colour step alone (``planes_to_bgr``: libjpeg's
@@ -1596,3 +1679,38 @@ def test_get_flops_on_the_card_equals_cpu(dev):
     before = lss_sample_bev.launches
     assert count(cfg, dev) == count(cfg, 'cpu')
     assert lss_sample_bev.launches == before + 1
+
+
+def test_bevformer_bundle_exported_on_the_card(no_tf32, tmp_path):
+    """The synthetic BEVFormer-T exported in f32 on the card (the queue
+    forward, outputs undecoded) and loaded back: within 1e-4 of max|ref|
+    of the live forward on a fresh queue, TF32 off."""
+    from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
+    from omnihd_scenes_tpu_torch.serve.export import (export_model,
+                                                      load_exported)
+    from omnihd_scenes_tpu_torch.serve.synthetic import (
+        random_bevformer_state_dict, random_queue_batch)
+    from omnihd_scenes_tpu_torch.tools.export import example_inputs
+    from omnihd_scenes_tpu_torch.train.builder import build_model_from_cfg
+    from omnihd_scenes_tpu_torch.train.config import Config
+    from omnihd_scenes_tpu_torch.weights import load_state_dict
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model, mtype = build_model_from_cfg(Config.fromfile(os.path.join(
+        root, 'configs', 'synthetic', 'bevformer_synth.py')))
+    sd = random_bevformer_state_dict(model.cfg, seed=3)
+    out = export_model(model, mtype, sd, example_inputs(model, mtype),
+                       str(tmp_path / 'bundle'), bf16=False,
+                       device=no_tf32)
+    loaded = load_exported(out, no_tf32)
+    q = random_queue_batch(np.random.RandomState(4), model.cfg, 1)
+    request = (q['imgs'], q['can_bus'], q['lidar2img'], q['has_prev'])
+    got = loaded(*request)
+    live = BEVFormerDetector(model.cfg)
+    load_state_dict(live, sd)
+    live.to(no_tf32).eval()
+    with torch.no_grad():
+        want = live(*(torch.from_numpy(x).to(no_tf32) for x in request))
+    for k in ('bev_embed', 'all_cls_scores', 'all_bbox_preds'):
+        tol = 1e-4 * float(want[k].abs().max())
+        assert float((got[k] - want[k]).abs().max()) <= tol, k
