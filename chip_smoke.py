@@ -36,10 +36,12 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    head maps keeping the same boxes;
 5. serving: the full-width serving configuration (R50 + FPNC + DepthNet
    + LSS 16x160x240 + dense pillars 320x480 + SECOND/FPN + head) in bf16
-   channels_last with seeded random weights answers one warm-up and 3
+   channels_last with seeded random weights answers one warm-up and 2
    timed batch-4 requests of fresh inputs; outputs must be finite and
    (4, 500, .), ``lss_sample_bev`` must launch once per request and the
-   fields-in entry never;
+   fields-in entry never; then the last request twice more by stage
+   (``tools/profile_components.py:staged_call``, CUDA events), the second
+   split printed for phase 42;
 6. bf16 vs f32: the last timed request again, through the bf16 network
    and through an f32 Predictor on the same weights: head maps and the
    fused BEV within HEAD_TOL of max|f32|, and at least BOX_MATCH of the
@@ -71,7 +73,7 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    response to a one-ulp change of the images; qconv launched once per
    eligible layer;
 10. int8 serving: calibrate (+ freeze) on one fresh full-width b4 request
-   in bf16, then 1 warm-up and 3 timed requests of fresh inputs through
+   in bf16, then 1 warm-up and 2 timed requests of fresh inputs through
    ``Predictor(quant_state=...)``; finite (4, 500, .) outputs, qconv
    launches = eligible layers x requests, ``lss_sample_bev`` once per
    request and the fields-in entry never;
@@ -111,7 +113,7 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 15. training at full width: the shipped ``configs/bevfusion.py`` model
    (``BEVFusionConfig()``: sorted pillars, the sampling splat, DepthNet)
    under the bf16 policy, f32 master weights, AdamW + clip 35, at b1 and
-   b4: 1 warm-up and 3 timed steps of fresh synthetic batches with depth
+   b4: 1 warm-up and 2 timed steps of fresh synthetic batches with depth
    targets (on the card before the timing), CUDA events per step;
    ms/step, samples/s, peak GiB, finite losses; the LSS forward and
    backward kernels launch exactly once per step, and DepthNet's
@@ -130,10 +132,10 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``build_model_from_cfg``: b8 synthetic batches (radar 40,000 points x
    8 dims, LiDAR 120,000 x 4, 64 GT boxes): one b8 eval-mode forward +
    decode + NMS on the seeded weights (ms, peak GiB, finite boxes), then
-   1 warm-up and 3 timed f32 steps (ms/step, peak GiB, finite and falling
+   1 warm-up and 2 timed f32 steps (ms/step, peak GiB, finite and falling
    losses);
 18. the LSS camera-only model of ``configs/lss_camera.py`` at full width:
-   1 + 3 b4 bf16-policy train steps as phase 15 (one LSS forward and one
+   1 + 2 b4 bf16-policy train steps as phase 15 (one LSS forward and one
    backward launch per step, finite and falling losses, ms, peak GiB) and
    one b4 bf16 request (one ``lss_sample_bev`` launch, ms);
 19. the CLIs on the card: a synthetic dataroot written without images,
@@ -152,19 +154,19 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    printed), one train step's loss within 1e-5 and gradient within 1e-4
    in relative L2 (BatchNorm biases +4), one LSS backward launch;
 21. BEVFusion-OCC serving at full width (``bench.py --mtl``'s model: the
-   serving configuration inside ``MTLConfig``), b4 bf16, 1 + 3 requests
+   serving configuration inside ``MTLConfig``), b4 bf16, 1 + 2 requests
    of fresh inputs: ms by CUDA events, samples/s, the difference to phase
    5's request, peak GiB, one ``lss_sample_bev`` launch per request, the
    (4, 240, 160, 16) int64 occupancy argmax on the card, in the class
    range and moving with the input;
 22. BEVFusion-OCC training at full width (``configs/bevfusion_occ.py``
    built by ``build_model_from_cfg``: sorted pillars, synthetic ``gt_occ``
-   of ``serve/synthetic.py``), 1 + 3 b4 bf16-policy steps as phase 15:
+   of ``serve/synthetic.py``), 1 + 2 b4 bf16-policy steps as phase 15:
    ms, peak GiB, finite losses with the total, ``loss_occ`` and
    ``loss_ssc`` falling, one LSS forward and one backward launch per step;
 23. RCFusion: the small GPU-vs-CPU checks of phase 20 (no occupancy), 1 +
-   3 b4 bf16 requests of the serving configuration with the cross-modal
-   fuser (ms, peak GiB, one LSS launch each), and 1 + 3 b4 bf16-policy
+   2 b4 bf16 requests of the serving configuration with the cross-modal
+   fuser (ms, peak GiB, one LSS launch each), and 1 + 2 b4 bf16-policy
    steps of ``configs/rcfusion.py`` as phase 22.
 24. BEVFormer-T R50 streaming inference (``serve/predictor.py:
    StreamPredictor``, seeded random weights with query-dependent
@@ -183,7 +185,7 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    bound and ``F.grid_sample`` alone; the SCA cap: 0 hit queries dropped
    on the ring rig at 0.375, the stream served at 0.375 beside 1.0; bf16
    against an f32 stream on the same weights (BEV error, kept-box match);
-   (c) four scene-parallel bf16 streams, 1 + 3 frames, one stream at a
+   (c) four scene-parallel bf16 streams, 1 + 2 frames, one stream at a
    scene boundary mid-way: ms, samples/s, peak GiB in all and per stream.
 25. BEVFormer-T training: (a) one step of the synthetic config's model
    (B=2 queues of 2 frames, 10 of 16 GTs) on the CPU in f64, then in f32
@@ -194,7 +196,7 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    equal in matches and losses; printed beside it, the sides the CPU's
    f32 step takes on its own and their cost against the f64 step; (b)
    ``configs/bevformer_t_r50.py`` at full width under the bf16 policy
-   with AdamW + clip 35, B=1, 1 warm-up and 3 timed steps of fresh
+   with AdamW + clip 35, B=1, 1 warm-up and 2 timed steps of fresh
    ``random_queue_batch`` queues (40 of 128 GTs): ms per step by CUDA
    events, samples/s, peak GiB, finite losses and parameters; the
    split of one more step (history replay, last-frame forward, matching
@@ -215,7 +217,7 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    convs (every tap on a texel centre): its offset-conv gradient on the
    card equals the CPU port's (both the floor side) within GRAD_SHARE;
 27. augmented BEVFusion training at full width: ``configs/bevfusion.py``'s
-   model, b4 under the bf16 policy, 1 warm-up + 3 timed steps, each
+   model, b4 under the bf16 policy, 1 warm-up + 2 timed steps, each
    sample through the port's ``photometric_distortion`` and
    ``global_rot_scale_trans_image`` with the draws forced over the
    rotation range's two ends and flip_dx / flip_dy on and off (the
@@ -242,27 +244,27 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
 29. the scatter splat (``splat_mode='scatter'``, plain ``index_add_``,
    no LSS kernel): small f32 on the card against the CPU (1e-4 of
    max|ref|) with the difference of two card runs printed; the serving
-   configuration in scatter mode, b4 bf16, 1 + 3 requests (ms, peak GiB,
+   configuration in scatter mode, b4 bf16, 1 + 2 requests (ms, peak GiB,
    B splats and no LSS launch a request); the b4 view transform alone
    (frustum ids, their share, and ``lss_splat``) beside its byte bound
    and the sampling kernel on the same inputs (printed, not checked),
-   two runs' difference; ``configs/bevfusion.py`` in scatter mode, 1 + 3
+   two runs' difference; ``configs/bevfusion.py`` in scatter mode, 1 + 2
    b4 bf16-policy steps as phase 15, no LSS launch;
 30. ``pillar_impl='dense_fold'`` against ``'dense'`` serving, b4 bf16 on
-   the same weights, alternating over 1 + 3 requests: ms of each, the
+   the same weights, alternating over 1 + 2 requests: ms of each, the
    pillar canvas and head maps within HEAD_TOL of max|dense|;
-31. the s2d stem: 1 + 3 b4 bf16 requests of host-packed images (ms,
+31. the s2d stem: 1 + 2 b4 bf16 requests of host-packed images (ms,
    peak), the head maps within HEAD_TOL of the standard stem's on the
    unpacked request; int8 + s2d: calibrate on a packed request (the stem
-   keeps act_amax only), 1 + 3 requests, qconv once per eligible layer;
+   keeps act_amax only), 1 + 2 requests, qconv once per eligible layer;
 32. remat on ``configs/bevfusion.py``: cold b4 bf16-policy first steps
    plain / remat / plain / remat from the same weights and batch (ms,
    peak; running statistics within the plain runs' rounding, so a
    second update on recomputation fails; LSS forward twice, backward
    once a remat step), b2 f32 gradients of remat within GRAD_SHARE of
-   each leaf's max|plain|, then warm remat steps at b4 (with the sync
-   check of phase 27) and b8;
-33. BEVFusion-OCC in int8 (``bench.py --mtl --int8``): calibrate, 1 + 3
+   each leaf's max|plain|, then warm remat steps at b4 (1 + 2, with the
+   sync check of phase 27) and b8 (1 + 1);
+33. BEVFusion-OCC in int8 (``bench.py --mtl --int8``): calibrate, 1 + 2
    b4 requests (qconv once per eligible layer, the occupancy argmax on
    the card), phase 11's checks against bf16 and the share of equal
    occupancy voxels printed.  Phase 19 also runs ``tools.test --int8
@@ -339,13 +341,13 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    within F32_FUSE_TOL, TF32 off) and b4 bf16 fused against bf16 unfused
    (HEAD_TOL and BOX_MATCH of phase 6), with the kept-row distances and
    the largest score difference; the two bf16 Predictors' request ms (1 +
-   3 fresh b4 requests each, two rounds alternating); the BatchNorm
+   2 fresh b4 requests each, two rounds alternating); the BatchNorm
    launches of one request of each by the profiler (``aten::batch_norm``
    calls and device kernels), which must fall by the number of pairs;
 37. export (``serve/export.py``): the fused b4 bf16 model exported on the
    card with the LSS kernel as the registered op ``omnihd::lss_sample_bev``
    into a temporary bundle, loaded in a fresh process that must import no
-   ``omnihd_scenes_tpu_torch.models`` module (nor JAX), 1 + 3 fresh b4
+   ``omnihd_scenes_tpu_torch.models`` module (nor JAX), 1 + 2 fresh b4
    requests there: ``lss_sample_bev`` launched once a request inside the
    program, as many kept boxes as the live ``Predictor`` on the same
    requests and at least EXPORT_BOX_MATCH of them matched (the bit-equal
@@ -356,10 +358,10 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``make_train_step`` steps in ``qat`` (finite losses, every QConv2d and
    the stem with a finite ``act_amax`` > 0, one LSS forward and one
    backward launch a step), then ``freeze`` and the int8 tier through
-   ``Predictor(quant_state=...)`` with TF32 on, as phase 10: 1 + 3 b4
+   ``Predictor(quant_state=...)`` with TF32 on, as phase 10: 1 + 2 b4
    requests, 36 ``qconv3x3`` launches a request, ms;
 39. data-parallel training (``parallel/``) of full-width
-   ``configs/bevfusion.py`` under the bf16 policy, global b4, 1 + 3 steps:
+   ``configs/bevfusion.py`` under the bf16 policy, global b4, 1 + 1 steps:
    39a one rank over NCCL (an all-reduce probe): no collective inside
    its steps, the first loss bit-equal to the same steps without a group
    and the rest within 39b's bounds of them (the one-process steps do
@@ -411,9 +413,25 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    (``randomize_bn``) in bf16 and in f32 and ``configs/bevformer_t_r101.py``
    in bf16, each exported by ``tools.export`` from a checkpoint file
    (three processes at once), each bundle loaded in a fresh process that imports no model code (phase 37's child) and run
-   on 1 + 3 fresh b1 queue requests (R101 one): f32 within
+   on 1 + 2 fresh b1 queue requests (R101 one): f32 within
    EXPORT_F32_TOL of the live f32 forward with TF32 off, bf16 BEV within
-   HEAD_TOL of the live bf16 forward; request ms, export s, load s, MiB.
+   HEAD_TOL of the live bf16 forward and every decoder layer within
+   EXPORT_BF16_TOL; request ms, export s, load s, MiB.
+42. measured peaks and isolated components, each CLI in a process of its
+   own, started before phase 36 with ``--wait-for`` a lock so that it
+   draws its inputs beside phases 36-41 and times here, one after the
+   other: ``tools/roofline.py`` at full shapes (bf16 matmul at 4096^3 and
+   8192^3 chained, the fit of their rate and per-iteration cost, cuDNN's
+   bf16 3x3 convs 256 -> 256 and 768 -> 256 at 6 x 136 x 240,
+   ``torch._int_mm`` at 4096^3): every ms > 0, a fitted bf16 peak that
+   is not null and at most PEAK_FIT_LIMIT of the data sheet's; then
+   ``tools/profile_components.py --probe`` (all eleven components alone,
+   b4 bf16, ``--iters 4``, one more iteration of each profiled): every
+   ms > 0, the splat
+   probe's LSS kernel launched once an iteration (``launches_probe_splat``
+   on the kernels line), the sub-millisecond probes' event ms beside one
+   profiled iteration's device kernel ms, and the request's components
+   summed beside phase 5's stage split of one request.
 
 The line before the last is a JSON object of the kernels (launches on
 the main paths: the serving path's for the forward kernels, the b4
@@ -453,7 +471,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 BATCH = 4
-N_TIMED = 3
+# Timed requests or steps after the warm-up (the smoke's 1200 s limit).
+N_TIMED = 2
 # Phase 6 limits; one H100 run with the seeded weights read 1.3e-2 and
 # 0.956, so bf16 rounding alone stays well inside them.
 HEAD_TOL = 3e-2
@@ -2188,7 +2207,7 @@ def phase_lss_camera(dev, card):
     del model
     _, (back, fwd) = phase_train(
         dev, card, BATCH, sd, cfg=cfg, mtype=mtype,
-        label='18 LSS camera-only train step', falling=True)
+        label='18 LSS camera-only train step', falling=True, timed=2)
     predictor = Predictor(cfg, sd, device=dev, dtype=torch.bfloat16)
     _, _, imgs, rots, trans = random_request(np.random.RandomState(9), cfg,
                                              BATCH, n_points=1)
@@ -2548,7 +2567,7 @@ def _train_from_config(dev, card, path, label):
     cfg = model.cfg
     del model
     _, (back, fwd) = phase_train(dev, card, BATCH, sd, cfg=cfg, mtype=mtype,
-                                 label=label, falling=True)
+                                 label=label, falling=True, timed=2)
     return {'train_fwd': fwd, 'train_back': back}
 
 
@@ -3921,7 +3940,8 @@ def phase_aug_train(dev, card):
     del probe
     sd = random_state_dict(cfg, seed=0)
     _, launches = phase_train(dev, card, BATCH, sd, label='27 aug train',
-                              augment=lambda b: augment_batch(b, rng))
+                              augment=lambda b: augment_batch(b, rng),
+                              timed=2)
     del sd
     torch.cuda.empty_cache()
     return launches
@@ -4509,10 +4529,10 @@ def phase_remat(dev, card, sd):
     del f32
     b4_ms, (b4_back, b4_fwd) = phase_train(
         dev, card, BATCH, sd, cfg=remat_cfg, label='32 remat train step',
-        per_step=(2, 1), sync_check=True)
+        per_step=(2, 1), sync_check=True, timed=2)
     b8_ms, _ = phase_train(dev, card, 8, sd, cfg=remat_cfg,
                            label='32 remat train step', per_step=(2, 1),
-                           timed=2)
+                           timed=1)
     torch.cuda.empty_cache()
     return dict(train_fwd=b4_fwd, train_back=b4_back, b4_ms=b4_ms,
                 b8_ms=b8_ms)
@@ -6053,7 +6073,7 @@ def phase_fuse(dev, card):
     BN statistics of ``randomize_bn``), traced on the card in f32: the
     pairs fused and skipped; f32 fused against f32 unfused and b4 bf16
     fused against bf16 unfused on one request; each bf16 Predictor's
-    request ms (1 + 3 fresh b4 requests each, two rounds alternating);
+    request ms (1 + N_TIMED fresh b4 requests each, two rounds alternating);
     the BatchNorm launches of one request of each."""
     import torch
 
@@ -6223,7 +6243,7 @@ print(json.dumps({'load_s': load_s, 'ms': ms,
 def phase_export(dev, card, cfg, fused):
     """37: the fused b4 bf16 model exported (``serve/export.py``, the LSS
     kernel as the registered op) into a temporary bundle, loaded in a
-    fresh process that imports no model code, 1 + 3 fresh b4 requests
+    fresh process that imports no model code, 1 + N_TIMED fresh b4 requests
     there: outputs against the live ``Predictor``'s, the op's launches
     inside the program, request ms, export seconds."""
     import os
@@ -6309,6 +6329,10 @@ def phase_export(dev, card, cfg, fused):
 
 # 41b: the f32 bundle against the live f32 forward, TF32 off.
 EXPORT_F32_TOL = 1e-4
+# A bf16 bundle's decoder layers against the live bf16 forward: the same
+# operations on the same weights (ROADMAP queue 3 item 22: the decoder's
+# self-attention no longer lets the card pick its kernel per process).
+EXPORT_BF16_TOL = 2e-2
 
 
 def _queue_requests(rng, cfg, n):
@@ -6478,11 +6502,12 @@ def phase_bevformer_export(dev, card, started=None):
     a checkpoint file (:func:`start_bevformer_export`, which ``main``
     calls before phase 36 so that the exports and loads run beside phases
     36-40; here if not started); each bundle loaded in a fresh process
-    that imports no model code (phase 37's child) and run on 1 + 3 fresh
+    that imports no model code (phase 37's child) and run on 1 + N_TIMED fresh
     b1 queue requests (R101 on one), one bundle's requests at a time once
     the live forwards are done: the f32 bundle within 1e-4 of max|ref| of
     the live f32 ``serving_model`` forward (TF32 off), the bf16 ones' BEV
-    within phase 24's bf16 limit of the live bf16 forward; request ms,
+    within phase 24's bf16 limit of the live bf16 forward and every
+    decoder layer's scores and boxes within EXPORT_BF16_TOL; request ms,
     export s, load s, MiB."""
     import fcntl
     import os
@@ -6526,9 +6551,10 @@ def phase_bevformer_export(dev, card, started=None):
         seen, meta, got, want = r['seen'], r['meta'], r['got'], live[job]
         shares = {k: max(_share(g[k], w[k]) for g, w in zip(got, want))
                   for k in ('bev_embed', 'all_cls_scores', 'all_bbox_preds')}
-        first = {k: max(_share(g[k][:, 0], w[k][:, 0])
-                        for g, w in zip(got, want))
-                 for k in ('all_cls_scores', 'all_bbox_preds')}
+        layers = {k: [max(_share(g[k][:, i], w[k][:, i])
+                          for g, w in zip(got, want))
+                      for i in range(want[0][k].shape[1])]
+                  for k in ('all_cls_scores', 'all_bbox_preds')}
         finite = all(bool(torch.isfinite(t.float()).all()) for g in got
                      for t in g.values())
         ms = seen['ms'][1:] or seen['ms']
@@ -6542,11 +6568,11 @@ def phase_bevformer_export(dev, card, started=None):
               f'({np.round(seen["ms"], 2).tolist()}); against the live '
               f'serving_model forward, max shares of max|ref|: '
               + ', '.join(f'{k} {v:.3e}' for k, v in shares.items())
-              + ', the first decoder layer\'s ' + ', '.join(
-                  f'{k} {v:.3e}' for k, v in first.items())
-              + ' (checked: the BEV in bf16, every output in f32; the '
-              f'reference refinement compounds a rounding from decoder '
-              f'layer to layer, as phase 24b prints) ({card})')
+              + ', decoder layer by layer ' + ', '.join(
+                  f'{k} {[float(f"{v:.3e}") for v in vs]}'
+                  for k, vs in layers.items())
+              + f' (checked: the BEV and every decoder layer in bf16, '
+              f'every output in f32) ({card})')
         check(not seen['models'] and not seen['jax'] and finite
               and meta['decode'] is None and meta['mtype'] == 'bevformer',
               f'41b {job}: models {seen["models"]}, jax {seen["jax"]}, '
@@ -6555,8 +6581,11 @@ def phase_bevformer_export(dev, card, started=None):
             check(max(shares.values()) <= EXPORT_F32_TOL,
                   f'41b f32 bundle against the live f32 forward: {shares}')
         else:
-            check(shares['bev_embed'] <= HEAD_TOL,
-                  f'41b {job} BEV against the live bf16 forward: {shares}')
+            check(shares['bev_embed'] <= HEAD_TOL
+                  and max(max(v) for v in layers.values()) <= EXPORT_BF16_TOL,
+                  f'41b {job} against the live bf16 forward: BEV '
+                  f'{shares["bev_embed"]:.3e} (limit {HEAD_TOL}), decoder '
+                  f'layers {layers} (limit {EXPORT_BF16_TOL})')
         r['ms'], r['shares'] = float(np.mean(ms)), shares
     print(f'[41b BEVFormer-T export] {time.perf_counter() - t_phase:.1f} s '
           f'here (the weights, fuse and launch {h["prep_s"]:.1f} s before '
@@ -6572,7 +6601,7 @@ def phase_qat(dev, card, cfg, state_dict):
     under the bf16 policy: 4 ``make_train_step`` steps in ``qat`` (finite
     losses, every QConv2d and the stem with a finite act_amax > 0, one
     LSS forward and one backward launch a step), then ``freeze`` and the
-    int8 tier served: 1 + 3 fresh b4 requests, qconv once per eligible
+    int8 tier served: 1 + N_TIMED fresh b4 requests, qconv once per eligible
     layer (36) a request."""
     import torch
 
@@ -6687,11 +6716,15 @@ def sca_hits(cfg, lidar2img):
 # Phase 39: data-parallel training.  39b runs DP_RANKS ranks of
 # DP_LOCAL samples on cuda:0 over gloo; 39c one rank a GPU over NCCL on
 # up to DP_MAX_GPUS cards.  Bounds against the one-process run of the
-# same global batch under the bf16 policy: two one-process runs of its
+# same global batch under the bf16 policy: two one-process runs of
 # 1 + 3 steps differed by 1.12e-4 in a loss and 7.53 learning rates in a
-# parameter on one H100 (atomic backward kernels; AdamW moves a weight
-# whose gradient is near 0 by up to a learning rate either way a step).
+# parameter on one H100 (PR 18; atomic backward kernels; AdamW moves a
+# weight whose gradient is near 0 by up to a learning rate either way a
+# step, so the parameter bound grows with the steps).
 DP_RANKS = 2
+# Timed steps after the warm-up in each phase-39 run (the W = 2 gloo
+# steps take ~5.2 s each on one card).
+DP_TIMED = 1
 DP_LOCAL = 2
 DP_MAX_GPUS = 4
 DP_LR = 2e-4
@@ -6724,7 +6757,7 @@ def _counted_collectives():
 
 
 def _dp_steps(dev, cfg, state_dict, batches):
-    """1 + N_TIMED bf16-policy steps of full-width BEVFusion from
+    """1 + DP_TIMED bf16-policy steps of full-width BEVFusion from
     ``state_dict`` on this process's rows of each global batch (the whole
     batch without a data-parallel group; rank 0's weights broadcast
     first): {'losses' (the ranks' means), 'ms' (a step, CUDA events),
@@ -6917,7 +6950,7 @@ def _dp_torchrun(card):
 def phase_data_parallel(dev, card, b4_ms):
     """Phase 39: data-parallel training of full-width ``configs/
     bevfusion.py`` under the bf16 policy, global batch DP_RANKS x
-    DP_LOCAL, 1 + N_TIMED steps (TF32 off): 39a one rank over NCCL
+    DP_LOCAL, 1 + DP_TIMED steps (TF32 off): 39a one rank over NCCL
     against the one-process run; 39b DP_RANKS ranks on cuda:0 over gloo;
     39c one rank a GPU over NCCL when there are several; 39d
     ``tools.train`` under torchrun.  Returns {run: (LSS forward, backward)
@@ -6945,7 +6978,7 @@ def phase_data_parallel(dev, card, b4_ms):
     sd = random_state_dict(cfg, seed=0)
     rng = np.random.RandomState(390)
     batches = [random_train_batch(rng, cfg, DP_RANKS * DP_LOCAL)
-               for _ in range(1 + N_TIMED)]
+               for _ in range(1 + DP_TIMED)]
     launches = {}
     one = _dp_steps(dev, cfg, sd, batches)
     again = _dp_steps(dev, cfg, sd, batches)
@@ -6967,7 +7000,7 @@ def phase_data_parallel(dev, card, b4_ms):
     loss_gap, param_gap = _dp_against([w1], one, '39a')
     ms1, ms0 = float(np.mean(w1['ms'][1:])), float(np.mean(one['ms'][1:]))
     print(f'[39a data parallel W=1] {backend}, b{DP_RANKS * DP_LOCAL}, '
-          f'{N_TIMED} steps (+1): {ms1:.2f} ms/step ({w1["ms"][1:]}) vs '
+          f'{DP_TIMED} steps (+1): {ms1:.2f} ms/step ({w1["ms"][1:]}) vs '
           f'{ms0:.2f} without a group and phase 15 b4 {b4_ms:.2f} ({card}); '
           f'peak {w1["peak_gib"]:.2f} GiB; {w1["collectives"]} collectives '
           f'in its steps; first loss {w1["losses"][0]!r} vs {one["losses"][0]!r}'
@@ -6979,7 +7012,7 @@ def phase_data_parallel(dev, card, b4_ms):
     check(w1['losses'][0] == one['losses'][0],
           'the W = 1 forward differs from the one-process forward')
     check(loss_gap <= DP_LOSS_TOL
-          and param_gap <= DP_PARAM_LR * (1 + N_TIMED),
+          and param_gap <= DP_PARAM_LR * (1 + DP_TIMED),
           'the W = 1 run is off the one-process run')
     launches['w1_nccl'] = w1['launches'][-1]
 
@@ -6992,12 +7025,12 @@ def phase_data_parallel(dev, card, b4_ms):
               f'gradient all-reduce (gloo through the host) '
               f'{np.mean(res["all_reduce_ms"][1:]):.2f} ms '
               f'({res["all_reduce_ms"][1:]}), '
-              f'{res["collectives"] / (1 + N_TIMED):.0f} collectives a step '
+              f'{res["collectives"] / (1 + DP_TIMED):.0f} collectives a step '
               f'(BatchNorm moments and their gradients, the depth loss\'s '
               f'count, the gradients, the loss read), peak '
               f'{res["peak_gib"]:.2f} GiB ({card}); (LSS forward, backward) '
               f'launches after each step {res["launches"]}')
-        check(res['launches'] == [(k, k) for k in range(1, 2 + N_TIMED)],
+        check(res['launches'] == [(k, k) for k in range(1, 2 + DP_TIMED)],
               f'rank {r}: (LSS forward, backward) launches '
               f'{res["launches"]}, not one each a step')
         launches[f'w{DP_RANKS}_gloo_rank{r}'] = res['launches'][-1]
@@ -7006,10 +7039,10 @@ def phase_data_parallel(dev, card, b4_ms):
           f'{DP_RANKS * DP_LOCAL} run: losses {ranks[0]["losses"]} vs '
           f'{one["losses"]} (worst {loss_gap:.2e} relative, bound '
           f'{DP_LOSS_TOL}), parameters within {param_gap:.3f} learning '
-          f'rates (bound {DP_PARAM_LR} a step, {1 + N_TIMED} steps)')
+          f'rates (bound {DP_PARAM_LR} a step, {1 + DP_TIMED} steps)')
     check(all(np.isfinite(ranks[0]['losses'])), 'non-finite losses')
     check(loss_gap <= DP_LOSS_TOL
-          and param_gap <= DP_PARAM_LR * (1 + N_TIMED),
+          and param_gap <= DP_PARAM_LR * (1 + DP_TIMED),
           'the data-parallel run is off the one-process run')
     del ranks
 
@@ -7020,7 +7053,7 @@ def phase_data_parallel(dev, card, b4_ms):
         world = min(n_gpus, DP_MAX_GPUS)
         rng = np.random.RandomState(391)
         batches = [random_train_batch(rng, cfg, world * DP_LOCAL)
-                   for _ in range(1 + N_TIMED)]
+                   for _ in range(1 + DP_TIMED)]
         one = _dp_steps(dev, cfg, sd, batches)
         ranks = _dp_launch(world, 'nccl', False, cfg, sd, batches)
         loss_gap, param_gap = _dp_against(ranks, one, '39c')
@@ -7032,10 +7065,10 @@ def phase_data_parallel(dev, card, b4_ms):
               f'ranks; against one process: losses {loss_gap:.2e}, '
               f'parameters {param_gap:.3f} learning rates ({card})')
         check(loss_gap <= DP_LOSS_TOL
-              and param_gap <= DP_PARAM_LR * (1 + N_TIMED),
+              and param_gap <= DP_PARAM_LR * (1 + DP_TIMED),
               '39c is off the one-process run')
         for r, res in enumerate(ranks):
-            check(res['launches'][-1] == (1 + N_TIMED, 1 + N_TIMED),
+            check(res['launches'][-1] == (1 + DP_TIMED, 1 + DP_TIMED),
                   f'39c rank {r} launches {res["launches"]}')
             launches[f'w{world}_nccl_rank{r}'] = res['launches'][-1]
     _dp_torchrun(card)
@@ -7374,8 +7407,184 @@ def phase_remaining_modules(dev, card, cfg, state_dict):
     return launches
 
 
+# Phase 42: a fitted bf16 matmul peak above this share of the data sheet's
+# 989 TFLOP/s is a timing fault, not a measurement.
+PEAK_FIT_LIMIT = 1.05
+PROBE_ITERS = 4
+# Probes whose iteration is near a millisecond: CUDA events around them
+# can read the host's launches; one iteration is profiled as well.
+SHORT_PROBES = ('stem', 'splat', 'scatter_floor', 'decode', 'pillar_encode')
+# The probes that together make a request's components (the stem is
+# inside resnet, the pillar encoders inside radar; scatter_floor and the
+# folded encoder are studies of the pillar encoder).
+REQUEST_PROBES = ('resnet', 'fpnc', 'depthnet', 'splat', 'bevencode',
+                  'radar', 'decode')
+
+
+def serving_stage_split(predictor, request):
+    """Phase 5's request through ``tools/profile_components.py``'s
+    ``staged_call`` (the ops of ``Predictor.__call__`` in order, a CUDA
+    event between stages), twice -> the second's {stage: ms}."""
+    from omnihd_scenes_tpu_torch.tools.profile_components import (
+        StageMarks, stage_ms, staged_call)
+
+    mark = StageMarks()
+    split = [stage_ms(lambda: staged_call(predictor, request, mark), mark)
+             for _ in range(2)][-1]
+    print(f'[5 stage split] one more b{BATCH} bf16 request by stage, ms by '
+          f'CUDA events: ' + ', '.join(f'{k} {v:.3f}' for k, v in
+                                      split.items())
+          + f'; sum {sum(split.values()):.3f}')
+    return split
+
+
+PEAK_CLIS = {
+    'roofline': ('omnihd_scenes_tpu_torch.tools.roofline', '--iters', '16'),
+    'probes': ('omnihd_scenes_tpu_torch.tools.profile_components', '--probe',
+               '--batch', str(BATCH), '--iters', str(PROBE_ITERS))}
+
+
+def start_measured_peaks():
+    """42, started: both CLIs of the phase spawned, each in a process of
+    its own with ``--wait-for`` a lock this process holds: they draw their
+    inputs (the JAX tools' NumPy draws, ~700M normals) beside the phases
+    in between, and each times only once :func:`phase_measured_peaks`
+    lets it, one after the other -> the handle that phase takes."""
+    import fcntl
+    import os
+    import sys
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    tmp = tempfile.mkdtemp(prefix='smoke_42_')
+    locks, procs = {}, {}
+    for name, (module, *args) in PEAK_CLIS.items():
+        path = os.path.join(tmp, f'{name}.lock')
+        locks[name] = open(path, 'w')
+        fcntl.flock(locks[name], fcntl.LOCK_EX)
+        procs[name] = _spawn([sys.executable, '-m', module, *args,
+                              '--wait-for', path], cwd=root, env=env)
+    return dict(tmp=tmp, locks=locks, procs=procs, t0=time.perf_counter())
+
+
+def _timed_cli(h, name):
+    """Let the started CLI ``name`` time, wait for it -> (stdout, seconds
+    from the release to its exit)."""
+    import fcntl
+
+    t0 = time.perf_counter()
+    fcntl.flock(h['locks'][name], fcntl.LOCK_UN)
+    h['locks'][name].close()
+    out, err = h['procs'][name].communicate(timeout=600)
+    check(h['procs'][name].returncode == 0,
+          f'42 {PEAK_CLIS[name][0]} exited {h["procs"][name].returncode}: '
+          f'{err[-3000:]}')
+    return out, time.perf_counter() - t0
+
+
+def phase_measured_peaks(card, split, started=None):
+    """42: ``tools/roofline.py`` at full shapes and every isolated
+    component probe of ``tools/profile_components.py --probe`` (b4 bf16,
+    PROBE_ITERS chained iterations, one more profiled), each CLI in a
+    process of its own (:func:`start_measured_peaks`, which ``main``
+    calls before phase 36 so that their host draws run beside phases
+    36-41; here if not started), one after the other -> {'peaks': the
+    roofline records, 'probes': the probe records, 'splat_launches': the
+    LSS kernel's launches in the splat probe's run}."""
+    import shutil
+
+    from omnihd_scenes_tpu_torch.tools.profile_components import PROBES
+    from omnihd_scenes_tpu_torch.tools.roofline import PEAK_OPS
+
+    t0 = time.perf_counter()
+    h = started or start_measured_peaks()
+    try:
+        out, roof_s = _timed_cli(h, 'roofline')
+        probe_out, probe_s = _timed_cli(h, 'probes')
+    finally:
+        shutil.rmtree(h['tmp'], ignore_errors=True)
+    lines = out.strip().splitlines()
+    peaks = [json.loads(line) for line in lines[1:]]
+    check(lines[0] == card, f'42 roofline card line {lines[0]!r}')
+    check([r['probe'] for r in peaks] == [
+        'dot_4096_bfloat16', 'dot_8192_bfloat16', 'fitted',
+        'conv3x3_256to256_136x240_bfloat16',
+        'conv3x3_768to256_136x240_bfloat16', 'dot_4096_int8'],
+        f'42 roofline probes {[r["probe"] for r in peaks]}')
+    for r in peaks:
+        print(f'[42 roofline] {json.dumps(r)} ({card})')
+    fitted = peaks[2]['practical_peak_tflops']
+    limit = PEAK_FIT_LIMIT * PEAK_OPS['bf16'] / 1e12
+    check(fitted is not None and 0 < fitted <= limit,
+          f'42 fitted bf16 peak {peaks[2]} (limit {limit:.1f} TFLOP/s)')
+    check(all(r['ms'] > 0 for r in peaks if 'ms' in r),
+          f'42 a roofline time is not positive: {peaks}')
+    lines = probe_out.strip().splitlines()
+    probes = [json.loads(line) for line in lines[1:]]
+    check(lines[0] == card, f'42 probe card line {lines[0]!r}')
+    check([r['probe'] for r in probes] == list(PROBES),
+          f'42 probes {[r["probe"] for r in probes]}')
+    check(all(r['ms_per_iter'] > 0 and r['ms_per_sample'] > 0
+              and r['profiled_device_ms'] > 0 for r in probes),
+          f'42 a probe time is not positive: {probes}')
+    by = {r['probe']: r for r in probes}
+    splat = by['splat']['launches'].get('lss_sample_bev', 0)
+    check(splat == by['splat']['calls'],
+          f'42 splat probe: {splat} LSS launches in {by["splat"]["calls"]} '
+          f'chained calls, not one each')
+    for r in probes:
+        note = (f'; one profiled iteration: device kernels '
+                f'{r["profiled_device_ms"]:.4f} ms, wall '
+                f'{r["profiled_wall_ms"]:.4f} ms'
+                if r['probe'] in SHORT_PROBES else '')
+        print(f'[42 probe] {r["probe"]}: {r["ms_per_sample"]:.4f} ms a '
+              f'sample, {r["ms_per_iter"]:.4f} ms a b{BATCH} iteration '
+              f'(CUDA events over {PROBE_ITERS} chained, least of 3)'
+              f'{note}; hand-kernel launches {r["launches"]} in '
+              f'{r["calls"]} calls ({card})')
+    total = sum(by[n]['ms_per_iter'] for n in REQUEST_PROBES)
+    print(f'[42 sum] the request\'s components alone '
+          f'({", ".join(REQUEST_PROBES)}) sum to {total:.3f} ms a b{BATCH} '
+          f'iteration, against phase 5\'s staged request '
+          f'{sum(split.values()):.3f} ms (' + ', '.join(
+              f'{k} {v:.3f}' for k, v in split.items())
+          + '); isolated components read their own inputs, and the '
+          'request has upload, fusion and head stages no probe holds')
+    print(f'[wall] 42 measured peaks and probes {time.perf_counter() - t0:.1f}'
+          f' s here (roofline {roof_s:.1f} s and probes {probe_s:.1f} s '
+          f'from their release; both processes started '
+          f'{t0 - h["t0"]:.1f} s before, to draw their inputs; {card})')
+    return {'peaks': peaks, 'probes': probes, 'splat_launches': splat}
+
+
+# Wall seconds of every phase function of this run (a nested call counts
+# in its caller too), printed before the kernels line: where the smoke's
+# time limit goes.
+PHASE_WALLS = {}
+
+
+def _time_phases():
+    """Wrap each ``phase_*`` / ``start_*`` function of this module so that
+    it adds its wall seconds to PHASE_WALLS."""
+    import functools
+
+    g = globals()
+    for name in [n for n in g if n.startswith(('phase_', 'start_'))]:
+        @functools.wraps(g[name])
+        def timed(*args, _fn=g[name], _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                PHASE_WALLS[_name] = (PHASE_WALLS.get(_name, 0.0)
+                                      + time.perf_counter() - t0)
+        g[name] = timed
+
+
 def main():
     t_start = time.perf_counter()
+    _time_phases()
     card = phase_device()
     import torch
 
@@ -7390,6 +7599,7 @@ def main():
     state_dict = random_state_dict(cfg, seed=0)
     (launches, fields_launches), predictor, request, bf16_ms = \
         phase_serving(dev, card, cfg, state_dict)
+    split = serving_stage_split(predictor, request)
     aspp_in = phase_bf16_vs_f32(dev, cfg, state_dict, predictor, request)
     q_row = phase_qconv(dev, card)
     *b_row, b_launches = phase_bconv(
@@ -7437,7 +7647,7 @@ def main():
     train_sd = random_state_dict(BEVFusionConfig(), seed=0)
     _, (scatter['train_back'], scatter['train_fwd']) = phase_train(
         dev, card, BATCH, train_sd, cfg=_scatter_config(BEVFusionConfig()),
-        label='29 scatter train step', per_step=(0, 0))
+        label='29 scatter train step', per_step=(0, 0), timed=2)
     fold = phase_dense_fold(dev, card, cfg, state_dict)
     s2d = phase_s2d(dev, card, cfg, state_dict, bf16_ms)
     remat = phase_remat(dev, card, train_sd)
@@ -7446,12 +7656,14 @@ def main():
     camera = phase_camera_dataroot(dev, card)
     cam_train = phase_camera_train(dev, card, train[BATCH][0])
     bevformer_export = start_bevformer_export(dev)      # 41b, beside 36-40
+    peaks = start_measured_peaks()                       # 42's draws
     fuse = phase_fuse(dev, card)
     export = phase_export(dev, card, fuse.pop('cfg'), fuse.pop('fused'))
     qat = phase_qat(dev, card, cfg, state_dict)
     dp = phase_data_parallel(dev, card, train[BATCH][0])
     p40 = phase_remaining_modules(dev, card, cfg, state_dict)
     p41 = phase_bevformer_export(dev, card, bevformer_export)
+    p42 = phase_measured_peaks(card, split, peaks)
     # (source, launches, max |d|, ms, plain ms, bound ms, bound_by, library
     # ms): lss_sample is the fused kernel (launches of the bf16 serving
     # path; the int8 one and training launched it once per request or
@@ -7573,7 +7785,7 @@ def main():
                           camera['fast']['bench_full']['ms_per_sample'])}
     # Phases 36-38: the fused checkpoint served (one LSS launch a
     # request), the exported program in its own process (the registered
-    # op, one launch a request: 1 + 3 requests), QAT training (one
+    # op, one launch a request: 1 + N_TIMED requests), QAT training (one
     # forward and one backward a step) and its int8 serving.
     extra['lss_sample']['launches_fused'] = {'request_b4': fuse['request']}
     extra['lss_sample']['launches_exported_program'] = {
@@ -7585,7 +7797,7 @@ def main():
         'request_b4': qat['lss_request']}
     extra['qconv']['launches_qat_int8'] = {'request_b4': qat['qconv_request']}
     # Phase 39: each rank's LSS forward and backward launches over its
-    # 1 + N_TIMED data-parallel steps (one each a step).
+    # 1 + DP_TIMED data-parallel steps (one each a step).
     extra['lss_sample']['launches_data_parallel'] = {
         run: fwd for run, (fwd, _) in dp.items()}
     extra['lss_sample_backward']['launches_data_parallel'] = {
@@ -7600,6 +7812,16 @@ def main():
     # none); their request ms, export and load seconds ride on the LSS row
     # as the other deployment numbers do.
     extra['lss_sample']['bevformer_export'] = p41
+    # Phase 42: the splat probe's LSS launches (one a chained call, in a
+    # process of its own), and the measured peaks beside the data sheet's.
+    extra['lss_sample']['launches_probe_splat'] = {
+        'calls': next(r['calls'] for r in p42['probes']
+                      if r['probe'] == 'splat'),
+        'launches': p42['splat_launches']}
+    extra['qconv']['measured_peaks'] = {r['probe']: r for r in p42['peaks']}
+    print('[wall] phases, s (a nested phase counts in its caller too): '
+          + json.dumps({k: round(v, 1) for k, v in sorted(
+              PHASE_WALLS.items(), key=lambda kv: -kv[1])}))
     print(f'[wall] chip_smoke.py {time.perf_counter() - t_start:.1f} s to '
           f'the kernels line ({card})')
     print(json.dumps({'kernels': [{

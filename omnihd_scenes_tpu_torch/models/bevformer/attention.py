@@ -304,7 +304,16 @@ class MultiheadAttention(nn.Module):
     """Multi-head self-attention with a residual: q = k = query + pos and
     v = query (flax ``MultiHeadDotProductAttention`` with ``qkv_features
     = embed_dims``; its (C, heads, head_dim) kernels are ``weights.py``'s
-    (heads * head_dim, C) ``Linear`` weights)."""
+    (heads * head_dim, C) ``Linear`` weights).
+
+    The attention is written out as flax writes it: the scores as a
+    batched matmul in the activations' dtype, the scale and the softmax in
+    at least f32, the weights back in that dtype for the product with v.  Not
+    ``F.scaled_dot_product_attention``: on the card it picks its backend
+    per process (cuDNN's attention in a fresh process, another after some
+    calls), whose bf16 results differ in the last bit, so a bf16 bundle
+    run in its own process drifted from the live forward from the first
+    decoder layer on (ROADMAP queue 3 item 22)."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = NUM_HEADS):
         super().__init__()
@@ -322,7 +331,9 @@ class MultiheadAttention(nn.Module):
         def heads(t):
             return t.reshape(b, nq, nh, c // nh).transpose(1, 2)
 
-        out = F.scaled_dot_product_attention(
-            heads(self.query(x)), heads(self.key(x)), heads(self.value(query)),
-            scale=1.0 / math.sqrt(c // nh))
+        q, k, v = (heads(self.query(x)), heads(self.key(x)),
+                   heads(self.value(query)))
+        scores = at_least_f32(torch.matmul(q, k.transpose(-1, -2)))
+        weights = torch.softmax(scores * (1.0 / math.sqrt(c // nh)), -1)
+        out = torch.matmul(weights.to(v.dtype), v)
         return self.out(out.transpose(1, 2).reshape(b, nq, c)) + query

@@ -22,9 +22,16 @@ and the single-class rotated NMS (``ops/nms.py:nms_rotated``).
   bus and ``lidar2img`` f32, where JAX's ``_to_bf16`` casts every f32
   input); a fresh process loads and runs it with no
   ``omnihd_scenes_tpu_torch.models`` module and no ``jax`` imported, and
-  its outputs, in the live ``serving_model`` forward's dtypes, lie within
-  2e-2 of max|ref| of that forward on the fused checkpoint in bf16 (the
-  exported graph rounds some decomposed operations apart).
+  its outputs, in the live ``serving_model`` forward's dtypes, equal that
+  forward's on the fused checkpoint in bf16, decoder layer by decoder
+  layer (both processes on one thread);
+* ROADMAP queue 3 item 22: a bf16 bundle of the mini model equals the
+  live bf16 forward bit for bit in the BEV and in every decoder layer's
+  scores and boxes, as JAX's bf16 export equals JAX's jitted bf16 forward
+  of the same bridged weights on the same (bf16-cast) request; the port's
+  exported program holds no ``scaled_dot_product_attention``, the
+  operation whose backend the card picks per process and whose bf16
+  results differed between a bundle's process and the live one.
 * ``nms_rotated`` gives JAX's keep mask on seeded rotated boxes (two IoU
   tiles of JAX's, duplicated boxes, tied scores, a ``valid`` mask).
 """
@@ -44,10 +51,11 @@ from omnihd_scenes_tpu.ops.nms import nms_rotated as jax_nms_rotated
 from omnihd_scenes_tpu.models.bevformer.detector import (
     BEVFormerDetector as JaxDetector)
 from omnihd_scenes_tpu.serve.export import (
-    export_model as jax_export_model, load_exported as jax_load_exported)
+    _to_bf16 as jax_to_bf16, export_model as jax_export_model,
+    load_exported as jax_load_exported)
 from omnihd_scenes_tpu_torch.models.bevformer import BEVFormerDetector
 from omnihd_scenes_tpu_torch.ops import nms_rotated
-from omnihd_scenes_tpu_torch.serve.export import (META, WEIGHTS,
+from omnihd_scenes_tpu_torch.serve.export import (META, PROGRAM, WEIGHTS,
                                                   export_model, load_exported)
 from omnihd_scenes_tpu_torch.serve.fuse import K, fuse_model
 from omnihd_scenes_tpu_torch.serve.predictor import serving_model
@@ -70,10 +78,9 @@ MINI_CFG = dataclasses.replace(CFG, img_hw=IMG_HW)
 MINI_JCFG = dataclasses.replace(JCFG, img_hw=IMG_HW)
 DCN_CFG = dataclasses.replace(MINI_CFG, stage_with_dcn=DCN)
 KEYS = ('bev_embed', 'all_cls_scores', 'all_bbox_preds')
-# The bf16 bundle against the live bf16 forward: the exported graph runs
-# some operations decomposed, so their bf16 roundings differ (7.5e-3 of
-# max|ref| at most here).
-BF16_TOL = 2e-2
+# The bf16 bundle against the live bf16 forward: the same operations on
+# the same weights, so the same bits (queue 3 item 22).
+BF16_TOL = 0.0
 
 
 def _requests():
@@ -167,6 +174,7 @@ def test_export_cli_fused_bundle_in_a_fresh_process(tmp_path):
     np.savez(inputs, *request)
     code = (
         'import sys, json, numpy as np, torch\n'
+        'torch.set_num_threads(1)\n'
         'from omnihd_scenes_tpu_torch.serve.export import load_exported\n'
         f'model = load_exported({out!r}, "cpu")\n'
         f'arrays = np.load({str(inputs)!r})\n'
@@ -190,7 +198,63 @@ def test_export_cli_fused_bundle_in_a_fresh_process(tmp_path):
                     *(torch.from_numpy(x) for x in request[1:]))
     for k in KEYS:
         assert got[k].dtype == want[k].dtype, k
-        assert_close(got[k].float(), want[k].float(), BF16_TOL)
+        for g, w in _by_layer(k, got[k][0], want[k][0]):
+            assert_close(g.float(), w.float(), BF16_TOL)
+
+
+def _by_layer(key, got, want):
+    """(got, want) pairs of one output of a request (no batch axis): the
+    BEV whole, the scores and boxes one decoder layer at a time."""
+    if key == 'bev_embed':
+        return [(got, want)]
+    return list(zip(got, want))
+
+
+def test_bf16_bundle_decoder_layers_equal_the_live_forward(tmp_path):
+    """Queue 3 item 22, pinned on both sides at the mini config."""
+    cfg = MINI_CFG
+    variables = bridged_variables(cfg)
+    requests = _requests()
+    port_dir = export_model(BEVFormerDetector(cfg), 'bevformer',
+                            flax_to_torch(variables, cfg),
+                            tuple(x[None] for x in requests[0]),
+                            str(tmp_path / 'port'), bf16=True, device='cpu')
+    program = torch.export.load(os.path.join(port_dir, PROGRAM))
+    ops = {str(n.target) for n in program.graph.nodes
+           if n.op == 'call_function'}
+    assert not [op for op in ops if 'scaled_dot_product' in op], ops
+    port = load_exported(port_dir, 'cpu')
+    model = BEVFormerDetector(cfg)
+    load_state_dict(model, flax_to_torch(variables, cfg))
+    live = serving_model(model, 'cpu', torch.bfloat16, lambda: requests[0])
+
+    jax_dir = jax_export_model(JaxDetector(MINI_JCFG), 'bevformer',
+                               variables, requests[0], str(tmp_path / 'jax'),
+                               bf16=True, platforms=['cpu'])
+    jax_bundle = jax_load_exported(jax_dir)
+    jax_model = JaxDetector(MINI_JCFG)
+    jax_vars = jax_to_bf16({'params': variables['params'],
+                            'batch_stats': variables.get('batch_stats', {})})
+    jax_live = jax.jit(lambda p, s, *a: jax_model.apply(
+        {'params': p, 'batch_stats': s}, *a, train=False))
+    for request in requests:
+        got = port(*(x[None] for x in request))
+        with torch.no_grad():
+            want = live(torch.from_numpy(request[0][None]).bfloat16(),
+                        *(torch.from_numpy(x[None]) for x in request[1:]))
+        cast = tuple(jax_to_bf16(x) for x in request)
+        jax_got = jax_bundle(*cast)
+        jax_want = jax_live(jax_vars['params'], jax_vars['batch_stats'],
+                            *cast)
+        for k in KEYS:
+            assert got[k].dtype == want[k].dtype, k
+            pairs = (_by_layer(k, got[k][0].float(), want[k][0].float())
+                     + _by_layer(k, np.asarray(jax_got[k], np.float32),
+                                 np.asarray(jax_want[k], np.float32)))
+            assert len(pairs) == (2 if k == 'bev_embed'
+                                  else 2 * CFG.decoder_layers)
+            for g, w in pairs:
+                np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 @pytest.mark.parametrize('use_valid', [False, True])
