@@ -1,0 +1,6 @@
+"""Samples of every training step completed in the window over the
+window's seconds."""
+
+
+def read(window):
+    return window.samples / window.window_s
