@@ -39,9 +39,13 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    channels_last with seeded random weights answers one warm-up and 2
    timed batch-4 requests of fresh inputs; outputs must be finite and
    (4, 500, .), ``lss_sample_bev`` must launch once per request and the
-   fields-in entry never; then the last request twice more by stage
-   (``tools/profile_components.py:staged_call``, CUDA events), the second
-   split printed for phase 42;
+   fields-in entry never; then the last request twice more with the
+   program's spans on (``utils/timing.py``: the device ms of each span
+   directly under ``serve.request``, from the spans' CUDA events), the
+   second split printed for phase 42, with the program's counters: the
+   process's kernel builds and library loads, and the second request's
+   requests, samples and upload bytes, which must be 1, the batch and
+   the inputs' bytes;
 6. bf16 vs f32: the last timed request again, through the bf16 network
    and through an f32 Predictor on the same weights: head maps and the
    fused BEV within HEAD_TOL of max|f32|, and at least BOX_MATCH of the
@@ -200,7 +204,8 @@ Runs from the root of a checkout; needs one CUDA device, ``nvcc`` and
    ``random_queue_batch`` queues (40 of 128 GTs): ms per step by CUDA
    events, samples/s, peak GiB, finite losses and parameters; the
    split of one more step (history replay, last-frame forward, matching
-   with its host ms, loss, backward, optimizer); the host syncs of one
+   with its host ms, loss, backward, optimizer; CUDA events and the
+   span ``train.loss``); the host syncs of one
    more step under ``torch.cuda.set_sync_debug_mode('warn')``: exactly
    one, the matcher's copy of the costs;
 26. R101-DCN: (a) the synthetic model with DCNv2 on stages 3-4 and
@@ -769,7 +774,7 @@ def phase_kernel_vs_plain(dev, card):
     geo = (feat, depth, minv, mt, g, sx)
     ms = cuda_ms(lambda: lss_sample_bev(*geo, out_dtype=torch.bfloat16),
                  iters=20, warmup=3)
-    stage_ms = cuda_ms(lambda: lss_sample_bev(
+    geometry_ms = cuda_ms(lambda: lss_sample_bev(
         feat, depth, *(t.contiguous() for t in camera_geometry(rots, trans)),
         g, sx, out_dtype=torch.bfloat16), iters=20, warmup=3)
     f_ms = cuda_ms(lambda: lss_sample(*args, out_dtype=torch.bfloat16, **kw),
@@ -791,7 +796,7 @@ def phase_kernel_vs_plain(dev, card):
           f'{ms:.4f} ms ({bound_ms / ms:.3f} of its {bound_ms:.4f} ms '
           f'{bound_by} bound, {nbytes / 1e9:.4f} GB), plain PyTorch '
           f'{plain_ms:.4f} ms; with camera_geometry (the serving stage) '
-          f'{stage_ms:.4f} ms; the two-step path (sample_fields + the '
+          f'{geometry_ms:.4f} ms; the two-step path (sample_fields + the '
           f'fields-in entry) {old_ms:.4f} ms; the fields-in entry alone '
           f'{f_ms:.4f} ms ({f_bound / f_ms:.3f} of its {f_bound:.4f} ms '
           f'{f_by} bound, {f_bytes / 1e9:.4f} GB), its plain version '
@@ -3451,17 +3456,18 @@ def phase_bevformer_train_small(dev):
     check(not any(_read_launches().values()), 'a hand kernel launched')
 
 
-def _stage_split(marks, backbone_events, probe):
-    """The staged step's split (ms) from its CUDA events."""
-    start, forward, loss, backward, opt = (marks[k] for k in (
-        'start', 'forward', 'loss', 'backward', 'optimizer'))
+def _stage_split(marks, backbone_events, probe, loss_ms):
+    """The staged step's split (ms) from its CUDA events and the device
+    ms of its span ``train.loss``."""
+    start, loss, backward, opt = (marks[k] for k in (
+        'start', 'loss', 'backward', 'optimizer'))
     last = backbone_events[-1]
     match = sum(a.elapsed_time(b) for a, b in probe.events)
     return {'history replay': start.elapsed_time(last),
-            'last-frame forward': last.elapsed_time(forward),
+            'last-frame forward': last.elapsed_time(loss) - loss_ms,
             'matching': match,
             'matching host (scipy)': sum(probe.host_ms),
-            'loss without matching': forward.elapsed_time(loss) - match,
+            'loss without matching': loss_ms - match,
             'backward': loss.elapsed_time(backward),
             'optimizer': backward.elapsed_time(opt),
             'step': start.elapsed_time(opt)}
@@ -3491,7 +3497,7 @@ def phase_bevformer_train(dev, card):
         marks[stage].record()
 
     step = make_train_step(bf16_policy(make_loss_fn_generic(
-        state.model, 'bevformer', None, mark=mark)), mark=mark)
+        state.model, 'bevformer', None)), mark=mark)
     rng = np.random.RandomState(250)
 
     def fresh_batch():
@@ -3520,8 +3526,11 @@ def phase_bevformer_train(dev, card):
               for p in state.model.parameters()), 'non-finite parameters')
     mean = float(np.mean(ms[1:]))
 
-    # One more step with the stage events: the backbone's forward pre-hook
-    # marks each frame's start, so its last call starts the last frame.
+    # One more step with the stage events and the program's spans on (the
+    # span ``train.loss`` times the loss after the forward): the
+    # backbone's forward pre-hook marks each frame's start, so its last
+    # call starts the last frame.
+    from omnihd_scenes_tpu_torch.utils import timing
     backbone_events = []
 
     def frame_start(module, args):
@@ -3532,17 +3541,22 @@ def phase_bevformer_train(dev, card):
     hook = state.model.img_backbone.register_forward_pre_hook(frame_start)
     batch = fresh_batch()
     torch.cuda.synchronize()
+    timing.reset()
+    timing.enable(True)
     mark('start')
     try:
         with _MatchProbe() as probe:
             step(state, batch)
         torch.cuda.synchronize()
+        loss_ms = timing.collect()['spans']['train.loss']['device_ms']
     finally:
         hook.remove()
+        timing.enable(False)
+        timing.reset()
     check(len(backbone_events) == cfg.queue_length,
           f'{len(backbone_events)} backbone calls for a queue of '
           f'{cfg.queue_length}')
-    split = _stage_split(marks, backbone_events, probe)
+    split = _stage_split(marks, backbone_events, probe, loss_ms)
 
     # One more step with PyTorch's synchronisation check warning at each
     # place the host waits for the card.
@@ -7422,19 +7436,43 @@ REQUEST_PROBES = ('resnet', 'fpnc', 'depthnet', 'splat', 'bevencode',
 
 
 def serving_stage_split(predictor, request):
-    """Phase 5's request through ``tools/profile_components.py``'s
-    ``staged_call`` (the ops of ``Predictor.__call__`` in order, a CUDA
-    event between stages), twice -> the second's {stage: ms}."""
-    from omnihd_scenes_tpu_torch.tools.profile_components import (
-        StageMarks, stage_ms, staged_call)
+    """Phase 5's request through ``Predictor.__call__`` with the program's
+    spans on, twice -> the second's {stage: device ms} of the spans
+    directly under ``serve.request`` (``utils/timing.py``).  Also prints
+    the program's counters: the kernel builds and library loads of the
+    process so far, and the second request's requests, samples and
+    upload bytes, which must be 1, the batch and the inputs' bytes."""
+    from omnihd_scenes_tpu_torch.utils import timing
 
-    mark = StageMarks()
-    split = [stage_ms(lambda: staged_call(predictor, request, mark), mark)
-             for _ in range(2)][-1]
+    before = timing.collect()
+    built = before['counters']
+    nvcc_s = before['spans'].get('setup.kernel_build',
+                                 {}).get('host_ms', 0) / 1e3
+    timing.enable(True)
+    try:
+        for _ in range(2):
+            timing.reset()
+            predictor(*request)
+        split = timing.children_ms('serve.request')
+        counters = timing.collect()['counters']
+    finally:
+        timing.enable(False)
+        timing.reset()
+    del split['serve.request']
     print(f'[5 stage split] one more b{BATCH} bf16 request by stage, ms by '
           f'CUDA events: ' + ', '.join(f'{k} {v:.3f}' for k, v in
                                       split.items())
           + f'; sum {sum(split.values()):.3f}')
+    want = {'serve.requests': 1, 'serve.samples': BATCH,
+            'serve.upload_bytes': sum(x.nbytes for x in request
+                                      if x is not None)}
+    print(f'[5 counters] kernels built {built.get("kernels.builds", 0)} '
+          f'(setup.kernel_build {nvcc_s:.1f} host s, summed over parallel '
+          f'builds), libraries loaded {built.get("kernels.loads", 0)} in '
+          f'this process; one request: '
+          + ', '.join(f'{k} {counters.get(k, 0)}' for k in want))
+    check(all(counters.get(k) == v for k, v in want.items()),
+          f'the request\'s counters {counters}, expected {want}')
     return split
 
 

@@ -9,6 +9,9 @@ of the source, the shared headers (``csrc/*.cuh``), the flags, the linked
 libraries and ``nvcc --version``, so an edited source or another toolkit
 rebuilds and an unchanged one is reused.  ``nvcc``'s own output (``-Xptxas -v``: registers, shared
 memory and spills per kernel) is kept beside the library as ``nvcc.log``.
+A build is the span ``setup.kernel_build`` and adds to the counter
+``kernels.builds``; each library loaded adds to ``kernels.loads``
+(``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from omnihd_scenes_tpu_torch.utils.timing import count, span
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
@@ -78,7 +83,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f'{name}-{key.hexdigest()[:16]}' / f'lib{name}.so'
 
 
+@span('setup.kernel_build')
 def compile_library(name: str, out: Path) -> None:
+    count('kernels.builds')
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
     cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(source_path(name)),
@@ -98,6 +105,7 @@ def load_library(name: str) -> ctypes.CDLL:
     out = library_path(name)
     if not out.exists():
         compile_library(name, out)
+    count('kernels.loads')
     return ctypes.CDLL(str(out))
 
 

@@ -32,6 +32,7 @@ from omnihd_scenes_tpu_torch.models.losses import (sigmoid_focal_loss,
 from omnihd_scenes_tpu_torch.models.target_assign import assign_targets
 from omnihd_scenes_tpu_torch.ops.boxes3d import decode_boxes, limit_period
 from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 
 class Anchor3DHead(nn.Module):
@@ -182,8 +183,9 @@ def anchor_head_decode_candidates(cls_score, bbox_pred, dir_pred, anchors,
 def anchor_head_get_bboxes(cls_score, bbox_pred, dir_pred, anchors,
                            cfg: DecodeCfg = DecodeCfg()):
     """Head outputs -> padded (..., max_num, 9) boxes, scores, labels and
-    validity (decode + rotated NMS)."""
-    boxes, scores = anchor_head_decode_candidates(
-        cls_score, bbox_pred, dir_pred, anchors, cfg)
+    validity (decode, the span ``decode.candidates``, + rotated NMS)."""
+    with span('decode.candidates'):
+        boxes, scores = anchor_head_decode_candidates(
+            cls_score, bbox_pred, dir_pred, anchors, cfg)
     return multiclass_nms_rotated(boxes, scores, cfg.score_thr, cfg.nms_thr,
                                   cfg.max_num)

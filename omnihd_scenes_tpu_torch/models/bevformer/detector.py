@@ -40,6 +40,7 @@ from omnihd_scenes_tpu_torch.models.bevformer.encoder import (
 from omnihd_scenes_tpu_torch.models.bevformer.head import BEVFormerHead
 from omnihd_scenes_tpu_torch.models.fpnc import FPN
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 
 class GridMaskDraws(NamedTuple):
@@ -100,11 +101,13 @@ class BEVFormerDetector(nn.Module):
             pc_range=cfg.pc_range, sca_query_cap=cfg.sca_query_cap)
 
     def extract_img_feat(self, imgs):
-        """(B, N, H, W, 3) -> list of (B * N, C, h, w) pyramid levels."""
+        """(B, N, H, W, 3) -> list of (B * N, C, h, w) pyramid levels
+        (the span ``bevformer.backbone``)."""
         b, n = imgs.shape[:2]
         # NHWC images viewed as NCHW: channels_last memory, no copy.
         flat = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)
-        return self.img_neck(self.img_backbone(flat))[:self.cfg.fpn_outs]
+        with span('bevformer.backbone'):
+            return self.img_neck(self.img_backbone(flat))[:self.cfg.fpn_outs]
 
     def forward_stream(self, imgs, can_bus, lidar2img, prev_bev, has_prev):
         """One frame of B streams: imgs (B, N, H, W, 3); can_bus (B, 18)

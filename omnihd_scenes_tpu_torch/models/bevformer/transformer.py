@@ -12,6 +12,9 @@ transformer.py``; reference ``bevformer/modules/transformer.py:26-307``):
 - the decoder's query split (pos, feat) and its linear -> sigmoid 3D
   reference points (``:281-307``).
 
+The encoder and the decoder are the spans ``bevformer.encoder`` and
+``bevformer.decoder`` (``utils/timing.py``).
+
 The jitted JAX package divides by constants as multiplies by their f32
 reciprocals; so does the port.  Like the JAX package (and unlike
 upstream BEVFormer, which converts it with ``/ pi * 180``),
@@ -33,6 +36,7 @@ from omnihd_scenes_tpu_torch.models.bevformer.decoder import (
 from omnihd_scenes_tpu_torch.models.bevformer.encoder import BEVFormerEncoder
 from omnihd_scenes_tpu_torch.ops.ms_deform_attn import (at_least_f32,
                                                     bilinear_sample)
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 
 def compute_bev_shift(can_bus: torch.Tensor,
@@ -140,9 +144,10 @@ class PerceptionTransformer(nn.Module):
             queries = queries + self.can_bus_mlp(
                 can_bus.to(bev_queries.dtype))[:, None, :]
         cam_values, cam_shapes = self._flatten_feats(mlvl_feats, b)
-        return self.encoder(queries, bev_pos, cam_values, lidar2img, img_hw,
-                            cam_shapes, prev_bev=prev_bev, shift=shift,
-                            has_prev=has_prev)
+        with span('bevformer.encoder'):
+            return self.encoder(queries, bev_pos, cam_values, lidar2img,
+                                img_hw, cam_shapes, prev_bev=prev_bev,
+                                shift=shift, has_prev=has_prev)
 
     def forward(self, mlvl_feats, bev_queries, object_query_embed, bev_pos,
                 can_bus, lidar2img, img_hw, reg_branch_fn, prev_bev=None,
@@ -152,11 +157,13 @@ class PerceptionTransformer(nn.Module):
             mlvl_feats, bev_queries, bev_pos, can_bus, lidar2img, img_hw,
             prev_bev=prev_bev, has_prev=has_prev)
         b = bev_embed.shape[0]
-        query_pos, query = object_query_embed.chunk(2, -1)
-        reference_points = torch.sigmoid(
-            at_least_f32(self.reference_points_fc(query_pos)))
-        hs, refs = self.decoder(
-            query.expand(b, *query.shape), query_pos.expand(b, *query.shape),
-            bev_embed, reference_points.expand(b, *reference_points.shape),
-            ((self.bev_h, self.bev_w),), reg_branch_fn)
+        with span('bevformer.decoder'):
+            query_pos, query = object_query_embed.chunk(2, -1)
+            reference_points = torch.sigmoid(
+                at_least_f32(self.reference_points_fc(query_pos)))
+            hs, refs = self.decoder(
+                query.expand(b, *query.shape),
+                query_pos.expand(b, *query.shape), bev_embed,
+                reference_points.expand(b, *reference_points.shape),
+                ((self.bev_h, self.bev_w),), reg_branch_fn)
         return bev_embed, hs, refs

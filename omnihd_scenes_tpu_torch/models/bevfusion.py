@@ -19,6 +19,9 @@ camera BEV directly, as in JAX; without the camera stream
 backbone's.  ``remat`` rematerialises each trunk of ``('second',
 'secondfpn', 'resnet', 'fpnc', 'lss')`` not in ``remat_exclude`` in the
 backward (``models/layers.py:remat``), as JAX's ``nn.remat`` does.
+Each trunk is the span ``bevfusion.<trunk>``, the pillar canvas
+``bevfusion.pillars`` and fusion + SE + head ``bevfusion.fuse_head``
+(``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ from omnihd_scenes_tpu_torch.models.layers import ConvBNReLU, SEBlock, remat
 from omnihd_scenes_tpu_torch.models.lss import LiftSplatShoot
 from omnihd_scenes_tpu_torch.models.resnet import ResNet
 from omnihd_scenes_tpu_torch.parallel import mesh as dp
+from omnihd_scenes_tpu_torch.utils.timing import span
+
+TRUNK_SPANS = {name: span(f'bevfusion.{name}') for name in (
+    'second', 'secondfpn', 'resnet', 'fpnc', 'lss')}
 
 
 def check_supported(cfg: BEVFusionConfig) -> None:
@@ -121,10 +128,11 @@ class BEVFusion(PillarBackbone):
         ``remat`` is on, ``name`` is not in ``remat_exclude`` and a
         gradient is being recorded."""
         cfg = self.cfg
-        if (cfg.remat and name not in cfg.remat_exclude
-                and torch.is_grad_enabled()):
-            return remat(module, *args)
-        return module(*args)
+        with TRUNK_SPANS[name]:
+            if (cfg.remat and name not in cfg.remat_exclude
+                    and torch.is_grad_enabled()):
+                return remat(module, *args)
+            return module(*args)
 
     def forward(self, points, points_mask, imgs, rots, trans):
         cfg = self.cfg
@@ -132,7 +140,8 @@ class BEVFusion(PillarBackbone):
         if cfg.radar_stream:
             if points is None:
                 raise ValueError('the radar stream needs points')
-            canvas = self.pillar_canvas(points, points_mask)
+            with span('bevfusion.pillars'):
+                canvas = self.pillar_canvas(points, points_mask)
             pts_bev = self._trunk('secondfpn', self.second_fpn,
                                   self._trunk('second', self.second, canvas))
 
@@ -145,24 +154,25 @@ class BEVFusion(PillarBackbone):
             feat = self._trunk('fpnc', self.fpnc, stages)
             cam_bev, depth, depth_logits = self._trunk('lss', self.lss, feat,
                                                        rots, trans)
-            if pts_bev is not None:
+
+        with span('bevfusion.fuse_head'):
+            if cam_bev is not None and pts_bev is not None:
                 # The LSS grid is (ny, nx), y-major like the pillar FPN
                 # output; resized when the resolutions differ.
                 cam_bev = resize_bilinear(cam_bev, pts_bev.shape[-2:])
-
-        if isinstance(self.fuse, CrossModalFusion):
-            fused = self.fuse(cam_bev, pts_bev)
-        elif self.fuse is not None:
-            fused = self.fuse(torch.cat([cam_bev, pts_bev], dim=1))
-        else:
-            fused = cam_bev if pts_bev is None else pts_bev
-        if self.se is not None:
-            fused = self.se(fused)
-        if self.head is not None:
-            out = self.head.outputs(fused)
-        else:
-            out = {'cls_score': None, 'bbox_pred': None, 'dir_pred': None,
-                   'bev': fused.permute(0, 2, 3, 1)}
+            if isinstance(self.fuse, CrossModalFusion):
+                fused = self.fuse(cam_bev, pts_bev)
+            elif self.fuse is not None:
+                fused = self.fuse(torch.cat([cam_bev, pts_bev], dim=1))
+            else:
+                fused = cam_bev if pts_bev is None else pts_bev
+            if self.se is not None:
+                fused = self.se(fused)
+            if self.head is not None:
+                out = self.head.outputs(fused)
+            else:
+                out = {'cls_score': None, 'bbox_pred': None,
+                       'dir_pred': None, 'bev': fused.permute(0, 2, 3, 1)}
         out.update(depth=depth, depth_logits=depth_logits)
         return out
 

@@ -9,7 +9,9 @@ channels -> BEV conv stack.  ``splat_mode='sample'`` is the sampling dual
 its voxel (``ops/bev_pool.py``, one sample at a time).  Both give
 (B, nz, ny, nx, C), whose z-collapse to channels_last (B, nz*C, ny, nx)
 is one copy.  ``remat_parts`` rematerialises DepthNet and/or the BEV
-conv stack in training (``models/layers.py:remat``).
+conv stack in training (``models/layers.py:remat``).  Spans
+(``utils/timing.py``): ``lss.depthnet``, ``lss.splat`` (the copies to
+NHWC and the view transform), ``lss.bevencode``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from omnihd_scenes_tpu_torch.models.quant import QConv2d
 from omnihd_scenes_tpu_torch.models.resnet import BasicBlock
 from omnihd_scenes_tpu_torch.ops.bev_pool import frustum_voxel_ids, lss_splat
 from omnihd_scenes_tpu_torch.ops.lss_project import lss_sample_bev
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 
 class CamEncode(nn.Module):
@@ -134,17 +137,22 @@ class LiftSplatShoot(nn.Module):
         """
         b, n_view = rots.shape[:2]
         parts = self.cfg.remat_parts if torch.is_grad_enabled() else ()
-        if self.use_depthnet:
-            feat, depth, logits = (remat(self.depthnet, cam_feats)
-                                   if 'depthnet' in parts
-                                   else self.depthnet(cam_feats))
-            logits = _nhwc(logits, b, n_view)
-        else:
-            (feat, depth), logits = self.cam_encode(cam_feats), None
-        depth = _nhwc(depth, b, n_view)
-        bev = self.view_transform(depth, _nhwc(feat, b, n_view), rots, trans)
-        bev = (remat(self.bev_encoder, bev) if 'bevencode' in parts
-               else self.bev_encoder(bev))
+        with span('lss.depthnet'):
+            if self.use_depthnet:
+                feat, depth, logits = (remat(self.depthnet, cam_feats)
+                                       if 'depthnet' in parts
+                                       else self.depthnet(cam_feats))
+            else:
+                (feat, depth), logits = self.cam_encode(cam_feats), None
+        with span('lss.splat'):
+            if logits is not None:
+                logits = _nhwc(logits, b, n_view)
+            depth = _nhwc(depth, b, n_view)
+            bev = self.view_transform(depth, _nhwc(feat, b, n_view), rots,
+                                      trans)
+        with span('lss.bevencode'):
+            bev = (remat(self.bev_encoder, bev) if 'bevencode' in parts
+                   else self.bev_encoder(bev))
         return bev, depth, logits
 
     def view_transform(self, depth, feat, rots, trans):

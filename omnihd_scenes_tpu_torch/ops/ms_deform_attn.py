@@ -18,7 +18,8 @@ sampling positions keep f32 precision in the bf16 path (a bf16 location
 in [0, 1] is off by up to about one cell of a 240-cell map).  It is not a
 hand kernel: the BEVFormer path runs it as plain PyTorch until a profile
 on the card points at it.  ``multi_scale_deformable_attn.calls`` counts
-its calls (the smoke reads it per frame).
+its calls (the smoke and ``kernels.launch_counts()`` read it); each call
+is the span ``msda`` (``utils/timing.py``).
 
 Every function takes a leading batch dimension where JAX samples one
 sample (and vmaps).  :func:`bilinear_sample` also serves BEVFormer's BEV
@@ -31,6 +32,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 # The f32 tensor of sampled taps (batch, heads, head_dim, queries, points)
 # of one query chunk is kept under this many elements (256 MB), the
@@ -116,6 +119,7 @@ def _sample_chunk(levels, loc, weights):
     return acc
 
 
+@span('msda')
 def multi_scale_deformable_attn(value: torch.Tensor,
                                 spatial_shapes: Sequence[Tuple[int, int]],
                                 sampling_locations: torch.Tensor,

@@ -8,7 +8,8 @@ iterated from ``alive_0 = valid``; its fixpoint is the greedy result.
 The JAX ``while_loop`` stops at convergence or after 48 steps.  A
 converged state is a fixed point, so 48 unconditional steps give the
 same answer with no host sync per step.  Inputs may carry leading batch
-dims; the whole batch is suppressed at once.
+dims; the whole batch is suppressed at once.  :func:`multiclass_nms_rotated`
+is the span ``decode.nms`` (``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from omnihd_scenes_tpu_torch.ops.boxes3d import rotated_iou_bev
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 MAX_FIXPOINT_ITERS = 48
 
@@ -54,6 +56,7 @@ def nms_rotated(boxes, scores, iou_threshold: float, valid=None):
         torch.where(valid, scores, neg_inf)), valid)
 
 
+@span('decode.nms')
 def multiclass_nms_rotated(boxes, scores, score_thr: float,
                            iou_threshold: float, max_num: int):
     """Per-class rotated NMS over (..., N, num_classes) scores.

@@ -10,6 +10,9 @@ frame (item 21; JAX's ``_to_bf16`` casts every f32 input of a bf16
 export).  The camera
 rotations are checked on the host before the upload
 (``ops/lss_project.py:check_rotations``), outside any traced program.
+The upload is the span ``serve.upload`` (the check its child
+``serve.check_rotations``) and counts the bytes it is handed
+(``serve.upload_bytes``, ``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from omnihd_scenes_tpu_torch.ops.lss_project import check_rotations
+from omnihd_scenes_tpu_torch.utils.timing import count, span
 
 # The positional inputs of the radar-only (pillar) families and of the
 # camera families, BEVFusion's order.
@@ -48,11 +52,15 @@ def upload(names: Sequence[str], inputs: Sequence, device,
     ``names``) cast by :func:`input_dtype` and moved to ``device``; None
     stays None and ``rots`` is checked on the host first."""
     out = []
-    for name, x in zip(names, inputs):
-        if x is None:
-            out.append(None)
-            continue
-        if name == 'rots':
-            check_rotations(x)
-        out.append(as_tensor(x, device, input_dtype(name, dtype)))
+    with span('serve.upload'):
+        for name, x in zip(names, inputs):
+            if x is None:
+                out.append(None)
+                continue
+            count('serve.upload_bytes', x.nbytes if torch.is_tensor(x)
+                  else np.asarray(x).nbytes)
+            if name == 'rots':
+                with span('serve.check_rotations'):
+                    check_rotations(x)
+            out.append(as_tensor(x, device, input_dtype(name, dtype)))
     return out

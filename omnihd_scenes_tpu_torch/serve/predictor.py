@@ -24,6 +24,12 @@ streams per call, the previous BEV carried from call to call (the
 counterpart of the JAX package's ``make_predict_fn_generic`` bevformer
 branch and ``make_predict_stream_batched``, ``train/builder.py:252-263,
 332-351``).
+
+Spans (``utils/timing.py``): a served call is the root ``serve.request``
+(``stream.request``) over ``serve.upload`` (``stream.upload``), the
+network's own spans and ``serve.decode`` (``stream.decode``); building a
+predictor records ``setup.build``, ``setup.load_state_dict`` and
+``setup.to_device``.  Counters: ``serve.requests``, ``serve.samples``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from omnihd_scenes_tpu_torch.serve.inputs import (CAMERA_INPUTS, as_tensor,
                                                   upload)
 from omnihd_scenes_tpu_torch.serve.synthetic import (random_request,
                                                      random_stream_frame)
+from omnihd_scenes_tpu_torch.utils.timing import count, span
 from omnihd_scenes_tpu_torch.weights import load_state_dict
 
 
@@ -112,15 +119,18 @@ class Predictor:
         self.device = torch.device(device)
         self.dtype = dtype
         self.decode_cfg = decode_cfg
-        model = (BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig)
-                 else BEVFusion(cfg))
+        with span('setup.build'):
+            model = (BEVFusionMTL(cfg) if isinstance(cfg, MTLConfig)
+                     else BEVFusion(cfg))
         fcfg = cfg.fusion if isinstance(cfg, MTLConfig) else cfg
         self.img_channels = 12 if fcfg.stem_s2d else 3
-        load_state_dict(model, state_dict)
-        self.model = serving_model(
-            model, self.device, dtype,
-            lambda: random_request(np.random.RandomState(0), cfg, batch=1,
-                                   n_points=1024))
+        with span('setup.load_state_dict'):
+            load_state_dict(model, state_dict)
+        with span('setup.to_device'):
+            self.model = serving_model(
+                model, self.device, dtype,
+                lambda: random_request(np.random.RandomState(0), cfg,
+                                       batch=1, n_points=1024))
         if quant_state is not None:
             load_quant_state(self.model, quant_state)
             set_mode(self.model, 'int8')
@@ -141,13 +151,17 @@ class Predictor:
 
     @torch.inference_mode()
     def __call__(self, points, points_mask, imgs, rots, trans):
-        out = self.forward(points, points_mask, imgs, rots, trans)
-        dets = anchor_head_get_bboxes(
-            out['cls_score'].float(), out['bbox_pred'].float(),
-            out['dir_pred'].float(), self.anchors, self.decode_cfg)
-        if 'occ_logits' in out:
-            return (*dets, out['occ_logits'].argmax(-1))
-        return dets
+        with span('serve.request'):
+            count('serve.requests')
+            count('serve.samples', len(rots if points is None else points))
+            out = self.forward(points, points_mask, imgs, rots, trans)
+            with span('serve.decode'):
+                dets = anchor_head_get_bboxes(
+                    out['cls_score'].float(), out['bbox_pred'].float(),
+                    out['dir_pred'].float(), self.anchors, self.decode_cfg)
+                if 'occ_logits' in out:
+                    return (*dets, out['occ_logits'].argmax(-1))
+            return dets
 
 
 def calibrate(cfg: Union[BEVFusionConfig, MTLConfig],
@@ -179,13 +193,17 @@ def predict_stream(model: BEVFormerDetector, imgs, can_bus, lidar2img,
     model.eval()
     p = model.pts_bbox_head.bev_embedding
     dev, dtype = p.device, p.dtype
-    out = model.forward_stream(
-        as_tensor(imgs, dev, dtype), as_tensor(can_bus, dev, torch.float32),
-        as_tensor(lidar2img, dev, torch.float32),
-        as_tensor(prev_bev, dev, dtype), as_tensor(has_prev, dev,
-                                                   torch.bool))
-    dets = nms_free_decode(out['all_cls_scores'][:, -1],
-                           out['all_bbox_preds'][:, -1], coder_cfg)
+    with span('stream.request'):
+        with span('stream.upload'):
+            inputs = (as_tensor(imgs, dev, dtype),
+                      as_tensor(can_bus, dev, torch.float32),
+                      as_tensor(lidar2img, dev, torch.float32),
+                      as_tensor(prev_bev, dev, dtype),
+                      as_tensor(has_prev, dev, torch.bool))
+        out = model.forward_stream(*inputs)
+        with span('stream.decode'):
+            dets = nms_free_decode(out['all_cls_scores'][:, -1],
+                                   out['all_bbox_preds'][:, -1], coder_cfg)
     return dets, out['bev_embed']
 
 
@@ -207,11 +225,14 @@ class StreamPredictor:
                  coder_cfg: NMSFreeCoderCfg = NMSFreeCoderCfg()):
         self.cfg, self.coder_cfg = cfg, coder_cfg
         self.device, self.dtype = torch.device(device), dtype
-        model = BEVFormerDetector(cfg)
-        load_state_dict(model, state_dict)
-        self.model = serving_model(model, self.device, dtype,
-                                   lambda: self._zero_frame(cfg),
-                                   method='forward_stream')
+        with span('setup.build'):
+            model = BEVFormerDetector(cfg)
+        with span('setup.load_state_dict'):
+            load_state_dict(model, state_dict)
+        with span('setup.to_device'):
+            self.model = serving_model(model, self.device, dtype,
+                                       lambda: self._zero_frame(cfg),
+                                       method='forward_stream')
 
     @staticmethod
     def _zero_frame(cfg: BEVFormerConfig):

@@ -10,9 +10,12 @@ on one GPU; or each component of the flagship request timed alone.
 Builds ``Predictor`` at the serving configuration (bf16, channels_last,
 seeded random weights; with ``--int8`` in the int8 PTQ tier, calibrated
 on one more request) and serves one warm-up and ``--requests`` timed
-requests of fresh inputs through :func:`staged_call`, which runs the ops
-of ``Predictor.__call__`` in the same order with a CUDA event between
-stages (a CPU test holds it equal to ``Predictor``).  Then one more
+requests of fresh inputs through ``Predictor.__call__`` itself with the
+program's spans on (``utils/timing.py``): the stage table gives each
+span's calls, device ms and self device ms (its device time less its
+child spans') a request, from the spans' CUDA events, and each of the
+program's counters a request (``serve.samples``, ``serve.upload_bytes``,
+``kernels.builds``).  Then one more
 request runs under ``torch.profiler``: its wall time, device kernel
 time, busy share (kernel time / wall), peak allocated memory and the
 device kernels that took the most time.  With ``--int8`` a last request
@@ -28,17 +31,18 @@ clock below its maximum under the kernel.
 
 With ``--train`` it profiles the training step instead: the shipped
 model (``BEVFusionConfig()``: sorted pillars), or the model that
-``--config`` builds (e.g. ``configs/bevfusion_occ.py``, whose loss stage
-then holds the occupancy losses; ``configs/bevformer_t_r50.py`` with
-``--batch 1``, frame queues of ``random_queue_batch``, whose forward
-stage holds the history replay and whose loss stage the matcher's host
-round trip), with seeded random f32 weights under
-the bf16 policy, one warm-up and ``--requests`` timed steps
-of fresh synthetic batches (on the card before the timing) through
-``make_train_step(bf16_policy(make_loss_fn_generic(...)))`` itself, given
-a ``mark`` that records a CUDA event after the forward, the loss (with
-the target assignment), the backward and the optimizer; then one more
-step, without marks, under ``torch.profiler``.
+``--config`` builds (e.g. ``configs/bevfusion_occ.py``, whose
+``train.loss`` span then holds the occupancy losses;
+``configs/bevformer_t_r50.py`` with ``--batch 1``, frame queues of
+``random_queue_batch``, whose ``train.forward_loss`` holds the history
+replay and whose ``train.loss`` the matcher's host round trip), with
+seeded random f32 weights under the bf16 policy, one warm-up and
+``--requests`` timed steps of fresh synthetic batches (on the card
+before the timing) through
+``make_train_step(bf16_policy(make_loss_fn_generic(...)))`` itself with
+the spans on (``train.step`` over ``train.forward_loss`` (the
+network's own spans, then ``train.loss``), ``train.backward``,
+``train.optimizer``); then one more step under ``torch.profiler``.
 
 The report is printed and written to ``--out``; a relative path is taken
 from the root of the checkout.
@@ -79,12 +83,7 @@ import torch
 from omnihd_scenes_tpu_torch.config import BEVFusionConfig, serving_config
 from omnihd_scenes_tpu_torch.kernels._conv3x3 import block_n, tile_shape
 from omnihd_scenes_tpu_torch.models import quant
-from omnihd_scenes_tpu_torch.models.anchor_head import (
-    anchor_head_decode_candidates)
 from omnihd_scenes_tpu_torch.models.bevfusion import BEVFusion
-from omnihd_scenes_tpu_torch.models.lss import _nhwc
-from omnihd_scenes_tpu_torch.ops.nms import multiclass_nms_rotated
-from omnihd_scenes_tpu_torch.serve.inputs import CAMERA_INPUTS, upload
 from omnihd_scenes_tpu_torch.serve.predictor import Predictor, calibrate
 from omnihd_scenes_tpu_torch.serve.synthetic import (
     random_bevformer_state_dict, random_queue_batch, random_request,
@@ -99,84 +98,45 @@ from omnihd_scenes_tpu_torch.train.loop import (batch_to, create_train_state,
                                                 make_train_step)
 from omnihd_scenes_tpu_torch.train.optim import (make_lr_schedule,
                                                  make_optimizer)
+from omnihd_scenes_tpu_torch.utils import timing
 
 CHECKOUT = Path(__file__).resolve().parents[2]
 N_TOP_KERNELS = 25
 
 
-@torch.inference_mode()
-def staged_call(predictor: Predictor, request, mark):
-    """``predictor(*request)`` with ``mark(stage_name)`` called after each
-    stage; the serving configuration only (DepthNet, concat fusion)."""
-    m, dev = predictor.model, predictor.device
-    if not m.lss.use_depthnet:
-        raise NotImplementedError('staged_call follows the DepthNet path')
-    points, points_mask, imgs, rots, trans = upload(
-        CAMERA_INPUTS, request, dev, predictor.dtype)
-    mark('inputs to the device')
-
-    pts_bev = m.pillar_canvas(points, points_mask)
-    mark('radar: dense pillars')
-    pts_bev = m.second_fpn(m.second(pts_bev))
-    mark('radar: SECOND + FPN')
-
-    b, n = imgs.shape[:2]
-    flat = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)
-    feat = m.resnet(flat.to(m.fuse.conv.weight.dtype))
-    mark('camera: ResNet50')
-    feat = m.fpnc(feat)
-    mark('camera: FPNC')
-    ctx, depth, _ = m.lss.depthnet(feat)
-    mark('camera: DepthNet + ASPP')
-    ctx, depth = _nhwc(ctx, b, n), _nhwc(depth, b, n)
-    mark('LSS: NHWC copies')
-    bev = m.lss.view_transform(depth, ctx, rots, trans)
-    mark('LSS: view transform (lss_sample_bev)')
-    cam_bev = m.lss.bev_encoder(bev)
-    mark('LSS: BEV encoder')
-
-    fused = m.fuse(torch.cat([cam_bev, pts_bev], dim=1))
-    if m.se is not None:
-        fused = m.se(fused)
-    heads = m.head(fused)
-    mark('fusion + SE + head')
-    dc = predictor.decode_cfg
-    boxes, scores = anchor_head_decode_candidates(
-        *(t.permute(0, 2, 3, 1).float() for t in heads), predictor.anchors,
-        dc)
-    mark('decode: top-k + boxes')
-    out = multiclass_nms_rotated(boxes, scores, dc.score_thr, dc.nms_thr,
-                                 dc.max_num)
-    mark('decode: rotated IoU + NMS')
-    return out
-
-
-class StageMarks:
-    """``mark(stage)`` records a CUDA event on the current stream;
-    :meth:`take` returns {stage: device ms since the mark before it} and
-    starts over."""
-
-    def __init__(self):
-        self.events = []
-
-    def __call__(self, name):
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        self.events.append((name, event))
-
-    def take(self):
-        torch.cuda.synchronize()
-        marks, self.events = self.events, []
-        return {name: prev.elapsed_time(event)
-                for (_, prev), (name, event) in zip(marks, marks[1:])}
-
-
-def stage_ms(run, mark: StageMarks):
-    """{stage: device ms} of ``run()``, which calls ``mark`` after each
-    stage."""
-    mark('start')
-    run()
-    return mark.take()
+def span_table(run, n: int, what: str):
+    """Report lines of ``run(i)`` for i in 0..n with the program's spans
+    on, the first call a warm-up: for each span name, in the order the
+    spans first opened, its calls, device ms and self device ms (less its
+    child spans') a timed call, from the spans' CUDA events; then each of
+    the program's counters (``serve.samples``, ``serve.upload_bytes``,
+    ``kernels.builds``...) a timed call."""
+    run(0)
+    torch.cuda.synchronize()
+    was = timing.enabled()
+    timing.enable(True)
+    timing.reset(setup=True)
+    try:
+        for i in range(1, n + 1):
+            run(i)
+        recs = timing.records()
+        got = timing.collect()
+    finally:
+        timing.enable(was)
+    first = {}
+    for r in recs:
+        first[r.name] = min(first.get(r.name, r.t0), r.t0)
+    lines = [f'span | calls | device ms | self device ms (a {what}, '
+             f'{n} after a warm-up, the spans\' CUDA events)']
+    spans = got['spans']
+    for name in sorted(spans, key=first.get):
+        v = spans[name]
+        lines.append(f'{name} | {v["calls"] / n:g} | {v["device_ms"] / n:.3f}'
+                     f' | {v["self_device_ms"] / n:.3f}')
+    lines.append(f'counter | a {what}')
+    for name, v in sorted(got['counters'].items()):
+        lines.append(f'{name} | {v / n:g}')
+    return lines
 
 
 def kernel_profile(run):
@@ -711,30 +671,15 @@ def train_report(card, args):
     model.to('cuda', memory_format=torch.channels_last)
     state = create_train_state(model, lambda p: make_optimizer(
         p, make_lr_schedule(2e-4, 1000, warmup_iters=0)))
-
-    def train_step(mark=None):
-        return make_train_step(bf16_policy(make_loss_fn_generic(
-            model, mtype, mark=mark, **loss_kw)), mark)
-
     rng = np.random.RandomState(args.seed)
     batches = [batch_to(draw(rng, cfg, args.batch), 'cuda')
                for _ in range(args.requests + 2)]
-    mark = StageMarks()
-    marked = train_step(mark)
-    runs = [stage_ms(lambda b=b: marked(state, b), mark)
-            for b in batches[:args.requests + 1]][1:]
-    lines = [card, f'stage | mean ms | per step (b{args.batch} {mtype} train '
-             f'step, bf16 policy, {args.requests} steps after a warm-up, '
-             f'CUDA events)']
-    for name in runs[0]:
-        ms = [r[name] for r in runs]
-        lines.append(f'{name} | {np.mean(ms):.3f} | '
-                     + ', '.join(f'{x:.3f}' for x in ms))
-    total = np.mean([sum(r.values()) for r in runs])
-    lines.append(f'sum of stages | {total:.3f} ({args.batch * 1e3 / total:.3f}'
-                 f' samples/s)')
+    step = make_train_step(bf16_policy(make_loss_fn_generic(
+        model, mtype, **loss_kw)))
+    lines = [card, f'b{args.batch} {mtype} train step, bf16 policy']
+    lines += span_table(lambda i: step(state, batches[i]), args.requests,
+                        'step')
     torch.cuda.reset_peak_memory_stats()
-    step = train_step()
     wall, kernels = kernel_profile(lambda: step(state, batches[-1]))
     return '\n'.join(lines + ['', *kernel_lines('step', wall, kernels)])
 
@@ -831,18 +776,10 @@ def main(argv=None):
     requests = [random_request(rng, cfg, args.batch)
                 for _ in range(args.requests + 3)]
 
-    mark = StageMarks()
-    runs = [stage_ms(lambda r=r: staged_call(predictor, r, mark), mark)
-            for r in requests[:args.requests + 1]][1:]
     tier = 'int8' if args.int8 else 'bf16'
-    lines = [card, f'stage | mean ms | per request (b{args.batch} {tier}, '
-             f'{args.requests} requests after a warm-up, CUDA events)']
-    for name in runs[0]:
-        ms = [r[name] for r in runs]
-        lines.append(f'{name} | {np.mean(ms):.3f} | '
-                     + ', '.join(f'{x:.3f}' for x in ms))
-    lines.append(f'sum of stages | '
-                 f'{np.mean([sum(r.values()) for r in runs]):.3f}')
+    lines = [card, f'b{args.batch} {tier} request']
+    lines += span_table(lambda i: predictor(*requests[i]), args.requests,
+                        'request')
 
     torch.cuda.reset_peak_memory_stats()
     wall, kernels = kernel_profile(lambda: predictor(*requests[-2]))

@@ -57,6 +57,7 @@ from omnihd_scenes_tpu_torch.serve.predictor import predict_stream
 from omnihd_scenes_tpu_torch.serve.synthetic import (random_queue_batch,
                                                      random_request)
 from omnihd_scenes_tpu_torch.train.loop import batch_to
+from omnihd_scenes_tpu_torch.utils.timing import span
 from omnihd_scenes_tpu_torch.weights import init_weights
 
 PILLAR_FAMILIES = ('pointpillars', 'radarpillarnet')
@@ -184,8 +185,7 @@ def forward(model, params: Optional[Mapping[str, torch.Tensor]], batch,
 def make_loss_fn_generic(model, mtype: str, anchors_np: Optional[np.ndarray],
                          depth_loss_weight: float = 1.0,
                          camera_depth_range=(1.0, 60.0, 1.0),
-                         occ_weight: float = 1.0,
-                         mark: Optional[Callable] = None) -> Callable:
+                         occ_weight: float = 1.0) -> Callable:
     """``loss_fn(model, params, batch) -> (loss, aux)``: the anchor head's
     focal + smooth-L1 + direction losses (each sample's normalised by its
     positives, then the batch mean), plus, for the camera families,
@@ -208,38 +208,36 @@ def make_loss_fn_generic(model, mtype: str, anchors_np: Optional[np.ndarray],
     ``params`` maps the model's parameter names to the tensors the forward
     uses (``functional_call``; None: the model's own); the model's
     BatchNorm buffers are updated in place when it is in train mode.
-    ``mark('forward')``, if given, is called between the forward and the
-    loss (see :func:`train.loop.make_train_step`).
+    The loss after the forward is the span ``train.loss``
+    (``utils/timing.py``; for ``bevformer`` it holds the matching).
     """
     check_family(mtype)
     if mtype == 'bevformer':
-        return _bevformer_loss_fn(mark)
+        return _bevformer_loss_fn()
     losses = DetectionLosses(anchors_np, depth_loss_weight,
                              camera_depth_range,
                              occ_weight if mtype == 'bevfusion_mtl' else None)
 
     def loss_fn(model, params: Optional[Mapping[str, torch.Tensor]], batch):
         out = forward(model, params, batch, mtype)
-        if mark is not None:
-            mark('forward')
-        return losses(out, batch)
+        with span('train.loss'):
+            return losses(out, batch)
 
     return loss_fn
 
 
-def _bevformer_loss_fn(mark: Optional[Callable]) -> Callable:
+def _bevformer_loss_fn() -> Callable:
     cfg = DETRLossCfg()
     up = DetectionLosses._upcast
 
     def loss_fn(model, params: Optional[Mapping[str, torch.Tensor]], batch):
         out = forward(model, params, batch, 'bevformer')
-        if mark is not None:
-            mark('forward')
-        losses = bevformer_head_loss(
-            up(out['all_cls_scores']), up(out['all_bbox_preds']),
-            batch['gt_boxes'], batch['gt_labels'], batch['gt_mask'], cfg)
-        aux = {k: losses[k].mean() for k in ('loss_cls', 'loss_bbox')}
-        return losses['total'].mean(), aux
+        with span('train.loss'):
+            losses = bevformer_head_loss(
+                up(out['all_cls_scores']), up(out['all_bbox_preds']),
+                batch['gt_boxes'], batch['gt_labels'], batch['gt_mask'], cfg)
+            aux = {k: losses[k].mean() for k in ('loss_cls', 'loss_bbox')}
+            return losses['total'].mean(), aux
 
     return loss_fn
 

@@ -37,6 +37,7 @@ from torch import nn
 from omnihd_scenes_tpu_torch.parallel import distributed
 from omnihd_scenes_tpu_torch.parallel import mesh as dp
 from omnihd_scenes_tpu_torch.train.optim import AdamW
+from omnihd_scenes_tpu_torch.utils.timing import span
 
 
 @dataclass
@@ -89,9 +90,14 @@ def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None,
     ``GradChecker`` warned on parameters with no gradient; a norm that
     stays 0 says the same; JAX ``train/loop.py:45-78``).  Everything
     returned stays on the device.  ``mark(stage)``, if given, is called
-    after the loss, the backward and the optimizer (the stage profiler
-    records a CUDA event there), and after the gradients' all-reduce
-    (``'all_reduce'``) when there is more than one rank.
+    after the loss, the backward and the optimizer, and after the
+    gradients' all-reduce (``'all_reduce'``) when there is more than one
+    rank.  A step is the span ``train.step`` over ``train.forward_loss``
+    (the batch's upload, the forward and the loss; the loss functions of
+    :mod:`train.builder` open ``train.loss`` after the forward),
+    ``train.backward``,
+    ``train.all_reduce`` (more than one rank) and ``train.optimizer``
+    (the clip and AdamW) (``utils/timing.py``).
 
     Data parallel: the gradients are averaged over the ranks
     (``parallel/mesh.py:all_reduce_gradients``) between ``backward`` and
@@ -106,35 +112,43 @@ def make_train_step(loss_fn: Callable, mark: Optional[Callable] = None,
     """
 
     def train_step(state: TrainState, batch: Mapping):
+        with span('train.step'):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Mapping):
         model = state.model
         model.train()
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         device = next(iter(params.values())).device
-        loss, aux = loss_fn(model, params, batch_to(batch, device))
+        with span('train.forward_loss'):
+            loss, aux = loss_fn(model, params, batch_to(batch, device))
         if mark is not None:
             mark('loss')
-        loss.backward()
+        with span('train.backward'):
+            loss.backward()
         if mark is not None:
             mark('backward')
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params.values()]
         if dp.data_parallel_size() > 1:
-            dp.all_reduce_gradients(grads)
+            with span('train.all_reduce'):
+                dp.all_reduce_gradients(grads)
             if mark is not None:
                 mark('all_reduce')
         aux = {k: v.detach() for k, v in aux.items()}
-        if check_unused_params:
-            groups: Dict[str, list] = {}
-            for name, g in zip(params, grads):
-                groups.setdefault(name.split('.')[0], []).append(g)
-            for top, gs in groups.items():
-                aux[f'gnorm/{top}'] = _global_norm(gs)
-        aux['grad_norm'] = state.optimizer.step(grads)
-        for p in params.values():
-            p.grad = None
-        state.step += 1
+        with span('train.optimizer'):
+            if check_unused_params:
+                groups: Dict[str, list] = {}
+                for name, g in zip(params, grads):
+                    groups.setdefault(name.split('.')[0], []).append(g)
+                for top, gs in groups.items():
+                    aux[f'gnorm/{top}'] = _global_norm(gs)
+            aux['grad_norm'] = state.optimizer.step(grads)
+            for p in params.values():
+                p.grad = None
+            state.step += 1
         if mark is not None:
             mark('optimizer')
         return state, loss.detach(), aux
